@@ -1,4 +1,4 @@
-"""Load the JAX package's parameter pytrees into the port's modules.
+"""Move parameters between the JAX package's pytrees and the port's modules.
 
 The JAX DiffMM keeps ``{"rec": {uEmbeds, iEmbeds, modal_weight,
 image_trans, text_trans}, "denoise_image": {...}, "denoise_text": {...}}``
@@ -7,6 +7,10 @@ stacks as lists. The port's parameter names are the same paths with the
 ``rec`` level dropped, ``w``/``b`` as ``weight``/``bias`` and list indices
 as path parts. The leaves arrive as numpy arrays (``np.asarray`` of the JAX
 arrays), so this module imports nothing of JAX.
+
+``jax_tree_by_name`` and ``params_by_jax_name`` flatten the two sides into
+one naming, ``"rec/uEmbeds"``, ``"denoise_image/in_layers/0/w"``, so that
+parameters can be compared leaf by leaf.
 """
 
 from __future__ import annotations
@@ -16,6 +20,9 @@ import torch
 from torch import nn
 
 _LEAF_NAMES = {"w": "weight", "b": "bias"}
+_JAX_LEAF_NAMES = {v: k for k, v in _LEAF_NAMES.items()}
+# top-level subtrees of the JAX tree; every other parameter sits under "rec"
+_TOP_LEVEL = ("denoise_image", "denoise_text")
 
 
 def _flatten(tree, prefix=()):
@@ -51,3 +58,24 @@ def from_jax_params(model: nn.Module, tree) -> nn.Module:
             raise ValueError(f"{name}: shape {tuple(leaf.shape)} != {tuple(p.shape)}")
         p.copy_(torch.tensor(leaf, dtype=p.dtype))
     return model
+
+
+def jax_tree_by_name(tree) -> dict:
+    """``{"rec/uEmbeds": array, ...}`` from a JAX parameter pytree."""
+    out = {}
+    for path, leaf in _flatten(tree):
+        parts = list(path[:-1]) + [_JAX_LEAF_NAMES.get(path[-1], path[-1])]
+        out["/".join(parts)] = np.asarray(leaf)
+    return out
+
+
+def params_by_jax_name(model: nn.Module) -> dict:
+    """The model's parameters as numpy arrays under the JAX tree's names."""
+    out = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        parts[-1] = _JAX_LEAF_NAMES.get(parts[-1], parts[-1])
+        if parts[0] not in _TOP_LEVEL:
+            parts = ["rec"] + parts
+        out["/".join(parts)] = p.detach().cpu().numpy()
+    return out

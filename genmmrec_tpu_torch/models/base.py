@@ -3,7 +3,8 @@
 A model is an ``nn.Module`` that holds its parameters; the per-epoch
 artifacts (regenerated graphs) live in an explicit ``state`` dict that the
 trainer passes in, as in the JAX package. Tensors the model builds go to
-its training data's device.
+its training data's device. Randomness comes from ``torch.Generator``s the
+trainer passes in.
 """
 
 from __future__ import annotations
@@ -49,6 +50,30 @@ class RecModel(nn.Module):
 
     def init_state(self, generator=None) -> dict:
         return {}
+
+    def param_groups(self) -> dict:
+        """Parameters by optimizer: the main optimizer trains ``rec``; a model
+        with parameters trained in phases of their own adds groups."""
+        return {"rec": list(self.parameters())}
+
+    def loss(self, state, batch, generator=None):
+        """(total loss, tuple of per-part losses) over a batch dict of
+        ``users``/``pos``/``neg`` ids and a ``weight`` vector (0 on padding)."""
+        raise NotImplementedError
+
+    def loss_and_update(self, state, batch, generator=None):
+        """Loss plus the per-batch state update; the default keeps the state.
+        Gradients flow only through the loss."""
+        total, parts = self.loss(state, batch, generator)
+        return total, (parts, state)
+
+    def pre_epoch(self, state, generator, epoch: int) -> dict:
+        """Per-epoch state transform (e.g. edge dropout); identity by default."""
+        return state
+
+    def post_epoch(self, state):
+        """Host-side hook after each epoch; may return a log string."""
+        return None
 
     def full_embeddings(self, state):
         """(user, item) embedding matrices, computed once per evaluation."""

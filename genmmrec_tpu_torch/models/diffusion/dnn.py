@@ -3,14 +3,15 @@
 
 ``nn.Linear`` keeps its weight as (out, in), the layout of the JAX
 package's ``{"w": (d_out, d_in), "b": (d_out,)}`` leaves, so parameters
-copy across by name. The forward is the eval-mode pass (no dropout), as
-the serving path runs it; dropout comes with training.
+copy across by name. The forward is the eval-mode pass unless it is given a
+``dropout`` rate: training then drops input entries, with the keep mask
+passed in or drawn from a generator.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -56,10 +57,24 @@ class Denoise(nn.Module):
             layer.weight.copy_(normal((d_out, d_in), math.sqrt(2.0 / (d_in + d_out)), generator))
             layer.bias.copy_(normal((d_out,), 0.001, generator))
 
-    def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self,
+        x: torch.Tensor,
+        t: torch.Tensor,
+        dropout: float = 0.0,
+        keep: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """``dropout`` > 0 zeroes the input entries where ``keep`` is False
+        and scales the rest by 1/(1 − dropout); ``keep`` is drawn from
+        ``generator`` when not given."""
         emb = self.emb_layer(timestep_embedding(t, self.emb_layer.in_features))
         if self.norm:
             x = F.normalize(x, dim=-1, eps=1e-12)
+        if dropout > 0.0:
+            if keep is None:
+                keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - dropout
+            x = torch.where(keep, x / (1.0 - dropout), torch.zeros_like(x))
         h = torch.cat([x, emb], dim=-1)
         for layer in self.in_layers:
             h = torch.tanh(layer(h))

@@ -101,3 +101,10 @@ def q_posterior_mean(sched: GaussianSchedule, x_start, x_t, t) -> torch.Tensor:
         _bcast(sched.posterior_mean_coef1, t, x_t) * x_start
         + _bcast(sched.posterior_mean_coef2, t, x_t) * x_t
     )
+
+
+def snr(sched: GaussianSchedule, t: torch.Tensor) -> torch.Tensor:
+    """ᾱ_t / (1 − ᾱ_t) in float32, as from the JAX package's float32 table;
+    t = -1 wraps to the last step (the reference's ``SNR(ts - 1)`` at t = 0)."""
+    acp = sched.alphas_cumprod[t].to(torch.float32)
+    return acp / (1.0 - acp)

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Every ``genmmrec_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, at first use,
-and loaded with ``ctypes``. The library lands in ``build/kernels/`` at the
+Every ``genmmrec_tpu_torch/csrc/*.cu`` file is compiled by its own ``nvcc``
+for ``sm_90a``, all of them at once, and the objects are linked into one
+shared library with a plain C interface, at first use, and loaded with
+``ctypes``. The library lands in ``build/kernels/`` at the
 root of the checkout under a name keyed by a hash of the sources and flags,
 so a changed source builds anew and an unchanged one is reused.
 
@@ -24,7 +25,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",  # per-kernel registers, shared memory and spills
 ]
 
@@ -54,20 +55,40 @@ def library_path() -> str:
 
 
 def build() -> tuple[str, float, str]:
-    """Compile the kernels if needed. Returns (path, seconds, compiler output)."""
+    """Compile the kernels if needed: one ``nvcc -c`` per source, started
+    together, then one link. Returns (path, seconds, compiler output)."""
     out = library_path()
     if os.path.isfile(out):
         return out, 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    jobs = []
+    for src in _sources():
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+        jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = "", []
+    for obj, proc in jobs:
+        log += proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(obj)
+    try:
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n{log}")
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", tmp, *(obj for obj, _ in jobs)], capture_output=True, text=True
+        )
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+    finally:
+        for obj, _ in jobs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, out)
-    return out, seconds, proc.stdout + proc.stderr
+    return out, time.perf_counter() - t0, log
 
 
 @functools.cache

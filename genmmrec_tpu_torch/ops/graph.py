@@ -2,7 +2,9 @@
 
 A ``SparseGraph`` holds row-sorted COO edges plus a CSR row pointer built
 once per graph, so the SpMM kernel (K1, ``ops/segment.py``) walks rows
-directly. The JAX package's VMEM span planners (``pallas_span``,
+directly. A value-symmetric graph propagates through ``spmm_symmetric``,
+whose backward is K1 again; any other sorted graph is forward-only on the
+card. The JAX package's VMEM span planners (``pallas_span``,
 ``pallas_plan``) have no counterpart: the row pointer replaces them.
 """
 
@@ -13,7 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from genmmrec_tpu_torch.ops.segment import segment_spmm
+from genmmrec_tpu_torch.ops.segment import segment_spmm, spmm_symmetric
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +33,12 @@ class SparseGraph:
     @property
     def nnz(self) -> int:
         return self.rows.shape[0]
+
+    def to(self, device) -> "SparseGraph":
+        move = lambda t: t.to(device)
+        return dataclasses.replace(
+            self, rows=move(self.rows), cols=move(self.cols), vals=move(self.vals), row_ptr=move(self.row_ptr)
+        )
 
 
 def sorted_graph(rows, cols, vals, n_rows: int, n_cols: int, symmetric: bool = False) -> SparseGraph:
@@ -52,6 +60,8 @@ def sorted_graph(rows, cols, vals, n_rows: int, n_cols: int, symmetric: bool = F
 
 def spmm(g: SparseGraph, x: torch.Tensor) -> torch.Tensor:
     """Sparse @ dense: (n_rows, n_cols) @ (n_cols, d) -> (n_rows, d)."""
+    if g.sorted and g.symmetric:
+        return spmm_symmetric(g.row_ptr, g.rows, g.cols, g.vals, x.contiguous(), g.n_rows)
     if g.sorted:
         return segment_spmm(g.row_ptr, g.cols, g.vals, x.contiguous(), g.n_rows)
     if x.is_cuda:

@@ -7,8 +7,13 @@ hi/lo split bounds its own error near 2e-3. K3 (``grouped_topk``) is held
 against the JAX ``grouped_topk`` on both of its paths and against the
 Pallas candidate gather in interpret mode; indices must be equal (the
 inputs are continuous draws, so there are no ties).
+
+K1's backward (``spmm_symmetric``) is held against the gradients of the JAX
+``spmm_symmetric`` in interpret mode (2e-3, its bf16 split) and of XLA's
+``segment_sum`` (1e-5, float32 summation order).
 """
 
+import dataclasses
 import os
 
 import jax
@@ -18,12 +23,13 @@ import pytest
 import torch
 
 from genmmrec_tpu.ops import graph as jgraph
-from genmmrec_tpu.ops.segment_pallas import CHUNK, dense_rows_span, sorted_segment_sum
+from genmmrec_tpu.ops.segment_pallas import CHUNK, chunk_span, dense_rows_span, sorted_segment_sum
+from genmmrec_tpu.ops.segment_pallas import spmm_symmetric as j_spmm_symmetric
 from genmmrec_tpu.ops.topk import _candidate_gather_pallas, _unpack_bits
 from genmmrec_tpu.ops.topk import grouped_topk as j_topk
 from genmmrec_tpu_torch.ops import _build
 from genmmrec_tpu_torch.ops import graph as tgraph
-from genmmrec_tpu_torch.ops.segment import segment_spmm
+from genmmrec_tpu_torch.ops.segment import segment_spmm, segment_spmm_backward, segment_spmm_plain
 from genmmrec_tpu_torch.ops.topk import grouped_topk, unpack_mask
 
 CPU = torch.device("cpu")
@@ -209,3 +215,103 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
         f.write("\n// changed\n")
     after = _build.library_path()
     assert before != after and os.path.dirname(after) == _build.BUILD_DIR
+
+
+def _symmetric_graph(kind, seed=5):
+    """Row-sorted value-symmetric edges (rows, cols, vals, n): a random
+    graph with random values and self loops, or a regenerated modal graph
+    (top-1 user-item edges both ways plus self loops, sym-normalized)."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        n = 1200
+        a, b = rng.integers(0, n, 6000), rng.integers(0, n, 6000)
+        rows = np.concatenate([a, b, np.arange(n)])
+        cols = np.concatenate([b, a, np.arange(n)])
+        v = rng.random(len(a)).astype(np.float32)
+        vals = np.concatenate([v, v, np.ones(n, np.float32)])
+    else:
+        nu, ni = 600, 1600
+        n = nu + ni
+        top = rng.integers(0, ni, nu)
+        rows = np.concatenate([np.arange(nu), top + nu, np.arange(n)])
+        cols = np.concatenate([top + nu, np.arange(nu), np.arange(n)])
+        deg = np.bincount(rows, minlength=n).astype(np.float32)
+        vals = (deg[rows] ** -0.5 * deg[cols] ** -0.5).astype(np.float32)
+    order = np.argsort(rows, kind="stable")
+    return rows[order].astype(np.int32), cols[order].astype(np.int32), vals[order], n
+
+
+@pytest.mark.parametrize("kind", ["random", "regenerated"])
+@pytest.mark.parametrize("d", [64, 128, 192])
+def test_spmm_grads_match_jax(kind, d):
+    rows, cols, vals, n = _symmetric_graph(kind)
+    span = chunk_span(rows, n) if kind == "random" else dense_rows_span(n)
+    assert span > 0
+    rng = np.random.default_rng(d)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    w = rng.standard_normal((n, d)).astype(np.float32)
+    rj, cj = jnp.asarray(rows), jnp.asarray(cols)
+    pal = lambda v, xx: j_spmm_symmetric(rj, cj, v, xx, n, span, CHUNK, True)
+    xla = lambda v, xx: jax.ops.segment_sum(v[:, None] * xx[cj], rj, num_segments=n, indices_are_sorted=True)
+    grads = lambda f: jax.grad(lambda v, xx: (f(v, xx) * w).sum(), argnums=(0, 1))(jnp.asarray(vals), jnp.asarray(x))
+    (pv, px), (rv, rx) = grads(pal), grads(xla)
+
+    tv = torch.from_numpy(vals).requires_grad_()
+    tx = torch.from_numpy(x).requires_grad_()
+    tg = tgraph.sorted_graph(torch.from_numpy(rows), torch.from_numpy(cols), tv, n, n, symmetric=True)
+    assert tg.vals is tv
+    n1, n2 = segment_spmm.launches, segment_spmm_backward.launches
+    (tgraph.spmm(tg, tx) * torch.from_numpy(w)).sum().backward()
+    assert (segment_spmm.launches, segment_spmm_backward.launches) == (n1, n2)  # plain on the CPU
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(rx), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tv.grad.numpy(), np.asarray(rv), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(px), rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(tv.grad.numpy(), np.asarray(pv), rtol=2e-3, atol=2e-3)
+
+
+def test_spmm_backward_takes_any_cotangent_layout():
+    """A stride-0 cotangent (the backward of a sum) and a slice's zero-padded
+    one give the gradients of the plain version's own autograd."""
+    rows, cols, vals, n = _symmetric_graph("regenerated")
+    tg = tgraph.sorted_graph(torch.from_numpy(rows), torch.from_numpy(cols), torch.from_numpy(vals), n, n, True)
+    x0 = torch.from_numpy(np.random.default_rng(1).standard_normal((n, 64)).astype(np.float32))
+    for reduce in (lambda y: y.sum(), lambda y: y[:, 8:40].sum() + 2 * y[100:].sum()):
+        x, x_ref = x0.clone().requires_grad_(), x0.clone().requires_grad_()
+        reduce(tgraph.spmm(tg, x)).backward()
+        reduce(segment_spmm_plain(tg.row_ptr, tg.cols, tg.vals, x_ref, n)).backward()
+        np.testing.assert_allclose(x.grad.numpy(), x_ref.grad.numpy(), rtol=1e-6, atol=1e-6)
+    stride0 = torch.ones(1, 1).expand(n, 64)
+    assert not stride0.is_contiguous()
+    out = segment_spmm_backward(tg.row_ptr, tg.cols, tg.vals, stride0, n)
+    np.testing.assert_allclose(out.numpy(), segment_spmm_plain(tg.row_ptr, tg.cols, tg.vals, torch.ones(n, 64), n).numpy())
+
+
+def test_non_symmetric_graph_with_grad_raises_off_the_cpu(monkeypatch):
+    """Only a symmetric graph has a backward off the CPU. Meta tensors take
+    the kernel's route without a card, and the check comes before any
+    launch."""
+    meta = torch.device("meta")
+    n, nnz = 50, 200
+    g = tgraph.SparseGraph(
+        rows=torch.zeros(nnz, dtype=torch.int32, device=meta),
+        cols=torch.zeros(nnz, dtype=torch.int32, device=meta),
+        vals=torch.zeros(nnz, device=meta),
+        row_ptr=torch.zeros(n + 1, dtype=torch.int32, device=meta),
+        n_rows=n, n_cols=n, symmetric=False,
+    )
+    x = torch.zeros(n, 64, device=meta, requires_grad=True)
+    with pytest.raises(RuntimeError, match="symmetric"):
+        tgraph.spmm(g, x)
+    # a symmetric graph goes on to the kernel with the same operands
+    def library():
+        raise RuntimeError("kernel library reached")
+
+    monkeypatch.setattr(_build, "library", library)
+    with pytest.raises(RuntimeError, match="kernel library reached"):
+        tgraph.spmm(dataclasses.replace(g, symmetric=True), x)
+    # on the CPU the plain version runs and differentiates
+    rows, cols, vals, n = _symmetric_graph("random")
+    cg = tgraph.sorted_graph(torch.from_numpy(rows), torch.from_numpy(cols), torch.from_numpy(vals), n, n)
+    xc = torch.ones(n, 8, requires_grad=True)
+    tgraph.spmm(cg, xc).sum().backward()
+    assert xc.grad is not None and not cg.symmetric
