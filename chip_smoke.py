@@ -4,26 +4,36 @@
     python3 chip_smoke.py [--profile DIR]
 
 Drives DiffMM on Amazon-baby at full width (19,445 users x 7,050 items, the
-synthetic fallback data, parameters from a seeded generator) through two
+synthetic fallback data, parameters from a seeded generator) through three
 paths of the port:
 
 - serving: regenerate the two modal user-item graphs, then evaluate the
   valid split and the test split with the full metric set;
+- bf16 evaluation: the same parameters with ``eval_dtype: bfloat16``:
+  regenerate, evaluate(valid) and evaluate(test) through the fused
+  score + mask + top-k (K5a, K5b, K3 on bfloat16 rows), then evaluate(valid)
+  with the candidates masked outside the kernel (K5c) and once more with the
+  mask budget lowered, so that the per-chunk scatter route runs;
 - training: two epochs (the first a warm-up), each the denoisers' phase 1,
   the regeneration and the BPR + InfoNCE epoch, then evaluate(valid); one
   batch's loss and ``rec`` gradients are then held against the same batch on
   the CPU.
 
 Before that it builds the CUDA kernels from ``genmmrec_tpu_torch/csrc`` and
-holds each one (K1 forward, K1 backward, K3) against its plain PyTorch
-version, on the card, at the shapes the paths give it, and times both with
-CUDA events. ``--profile DIR`` adds one more epoch under ``torch.profiler``,
-phase by phase, and writes the kernel tables to DIR.
+holds each one (K1 forward, K1 backward, K3, K5a, K5b, K5c) against its
+plain PyTorch version, on the card, at the shapes the paths give it (K5 also
+at the Amazon-elec catalog width, 63,001 items), and times kernel, plain
+version and the one PyTorch call that computes the same function with CUDA
+events. Each kernel's time stands beside its bound: the larger of the bytes
+it must move over the card's memory rate and its operations over the card's
+peak rate. ``--profile DIR`` adds one more bf16 evaluate(valid) and one more epoch,
+phase by phase, under ``torch.profiler`` and writes the kernel tables to DIR.
 
 It fails (non-zero exit, no result line) when no CUDA device is present, a
 kernel does not build, launch or agree, a kernel of a path was not launched
-during that path, a loss or a metric is not finite, or a phase changed
-parameters it does not train. Its last line is one JSON object with
+during that path, a loss or a metric is not finite, a phase changed
+parameters it does not train, the bf16 routes disagree with each other or
+stray from the float32 metrics, or the fused route allocates a score plane. Its last line is one JSON object with
 ``"ok": true`` and the device; the line before it holds the kernels'
 results as JSON.
 """
@@ -50,6 +60,17 @@ K1_RTOL, K1_ATOL = 1e-5, 1e-6
 # plus GRAD_ATOL of its tensor's largest magnitude.
 LOSS_RTOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-4
+# bf16 evaluation against the float32 evaluation of the same parameters:
+# bfloat16 scores reorder near-ties only, so Recall@20 and NDCG@20 stay
+# within the bound the JAX package's own test of its bf16 path uses.
+BF16_METRIC_ATOL = 5e-3
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense rates), for
+# each kernel's bound.
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12  # tensor cores
+F32_FLOPS = 67e12  # outside the tensor cores
+# the Amazon-elec catalog width and positives a row of the kernel roofline
+ELEC_ITEMS, ELEC_POSITIVES = 63001, 30
 
 
 def card_line() -> str:
@@ -84,36 +105,71 @@ def timed_pair(torch, kernel_fn, plain_fn):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+class Bound:
+    """The least time the card could take: each input read once and each
+    output written once at the memory rate, or the operations at the peak
+    rate of their type, whichever is larger. Adds up over cases."""
+
+    def __init__(self):
+        self.bytes_ms = self.ops_ms = 0.0
+
+    def add(self, bytes_moved: float, ops: float, peak: float) -> dict:
+        one = Bound()
+        one.bytes_ms, one.ops_ms = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+        self.bytes_ms += one.bytes_ms
+        self.ops_ms += one.ops_ms
+        return one.keys()
+
+    def keys(self) -> dict:
+        by = "bytes" if self.bytes_ms >= self.ops_ms else "operations"
+        return dict(bound_ms=max(self.bytes_ms, self.ops_ms), bound_by=by)
+
+
 def check_k1(torch, graphs, card):
     """K1 against its plain version on each (name, graph, d) case."""
     from genmmrec_tpu_torch.ops.segment import segment_spmm, segment_spmm_plain
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    cases, err, ms, plain_ms = [], 0.0, 0.0, 0.0
+    cases, err, ms, plain_ms, lib_ms, bound = [], 0.0, 0.0, 0.0, 0.0, Bound()
     for name, g, d in graphs:
         x = torch.randn(g.n_cols, d, generator=gen, device="cuda")
         args = (g.row_ptr, g.cols, g.vals, x, g.n_rows)
         out = segment_spmm(*args)
         ref = segment_spmm_plain(*args)
         magnitude = segment_spmm_plain(g.row_ptr, g.cols, g.vals.abs(), x.abs(), g.n_rows)
+        # the library's yardstick: one sparse product on a CSR tensor
+        csr = torch.sparse_csr_tensor(
+            g.row_ptr, g.cols, g.vals, size=(g.n_rows, g.n_cols), check_invariants=False
+        )
+        lib = torch.sparse.mm(csr, x)
         torch.cuda.synchronize()
         diff = (out - ref).abs()
         e = diff.max().item()
         if not bool((diff <= K1_RTOL * magnitude + K1_ATOL).all()):
             raise AssertionError(f"K1 {name}: kernel and plain version differ by up to {e:.3e}")
+        if not bool(((out - lib).abs() <= K1_RTOL * magnitude + K1_ATOL).all()):
+            raise AssertionError(f"K1 {name}: kernel and torch.sparse.mm differ")
         if not torch.equal(segment_spmm(*args), out):
             raise AssertionError(f"K1 {name}: two launches on the same input differ")
         k_ms, p_ms = timed_pair(torch, lambda: segment_spmm(*args), lambda: segment_spmm_plain(*args))
+        l_ms = cuda_ms(torch, lambda: torch.sparse.mm(csr, x))
+        b = bound.add(nbytes(g.row_ptr, g.cols, g.vals, x, out), 2.0 * g.nnz * d, F32_FLOPS)
         max_row = int((g.row_ptr[1:] - g.row_ptr[:-1]).max())
         print(
             f"K1 {name}: n_rows={g.n_rows} nnz={g.nnz} longest_row={max_row} d={d} max_abs_err={e:.3e} repeatable, "
-            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms [{card}]"
+            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, torch.sparse.mm {l_ms:.4f} ms, "
+            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]"
         )
-        cases.append(
-            dict(case=name, n_rows=g.n_rows, nnz=g.nnz, longest_row=max_row, d=d, max_abs_err=e, ms=k_ms, plain_ms=p_ms)
-        )
-        err, ms, plain_ms = max(err, e), ms + k_ms, plain_ms + p_ms
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, cases=cases)
+        cases.append(dict(
+            case=name, n_rows=g.n_rows, nnz=g.nnz, longest_row=max_row, d=d, max_abs_err=e,
+            ms=k_ms, plain_ms=p_ms, library_ms=l_ms, **b,
+        ))
+        err, ms, plain_ms, lib_ms = max(err, e), ms + k_ms, plain_ms + p_ms, lib_ms + l_ms
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bound.keys(), cases=cases)
 
 
 def check_k1_backward(torch, graphs, card):
@@ -124,7 +180,7 @@ def check_k1_backward(torch, graphs, card):
     from genmmrec_tpu_torch.ops.segment import segment_spmm_plain, spmm_symmetric
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    cases, err, ms, plain_ms = [], 0.0, 0.0, 0.0
+    cases, err, ms, plain_ms, lib_ms, bound = [], 0.0, 0.0, 0.0, 0.0, Bound()
     with torch.enable_grad():
         for name, g, d in graphs:
             x = torch.randn(g.n_cols, d, generator=gen, device="cuda").requires_grad_()
@@ -149,26 +205,36 @@ def check_k1_backward(torch, graphs, card):
                 lambda: torch.autograd.grad(y_k, x, g_bar, retain_graph=True),
                 lambda: torch.autograd.grad(y_p, x, g_bar, retain_graph=True),
             )
+            # the library's yardstick for forward+backward on a symmetric
+            # graph (Aᵀ = A): the sparse product of x, then of the cotangent
+            csr = torch.sparse_csr_tensor(
+                g.row_ptr, g.cols, g.vals, size=(g.n_rows, g.n_cols), check_invariants=False
+            )
+            x_d = x.detach()
+            with torch.no_grad():
+                l_ms = cuda_ms(torch, lambda: (torch.sparse.mm(csr, x_d), torch.sparse.mm(csr, g_bar)))
+            b = bound.add(2 * nbytes(g.row_ptr, g.cols, g.vals, x, g_bar), 4.0 * g.nnz * d, F32_FLOPS)
             max_row = int((g.row_ptr[1:] - g.row_ptr[:-1]).max())
             print(
                 f"K1 backward {name}: n_rows={g.n_rows} nnz={g.nnz} longest_row={max_row} d={d} "
-                f"max_abs_err={e:.3e} repeatable, forward+backward kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; "
+                f"max_abs_err={e:.3e} repeatable, forward+backward kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                f"two torch.sparse.mm {l_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
                 f"backward alone kernel {kb_ms:.4f} ms, plain {pb_ms:.4f} ms [{card}]"
             )
             cases.append(dict(
                 case=name, n_rows=g.n_rows, nnz=g.nnz, longest_row=max_row, d=d, max_abs_err=e,
-                ms=k_ms, plain_ms=p_ms, backward_ms=kb_ms, backward_plain_ms=pb_ms,
+                ms=k_ms, plain_ms=p_ms, backward_ms=kb_ms, backward_plain_ms=pb_ms, library_ms=l_ms, **b,
             ))
-            err, ms, plain_ms = max(err, e), ms + k_ms, plain_ms + p_ms
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, cases=cases)
+            err, ms, plain_ms, lib_ms = max(err, e), ms + k_ms, plain_ms + p_ms, lib_ms + l_ms
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bound.keys(), cases=cases)
 
 
 def check_k3(torch, cases_in, card):
     """K3 against its plain version on each (name, scores, k, mask) case:
     indices equal, values equal where finite."""
-    from genmmrec_tpu_torch.ops.topk import grouped_topk, grouped_topk_plain
+    from genmmrec_tpu_torch.ops.topk import grouped_topk, grouped_topk_plain, unpack_mask
 
-    cases, err, ms, plain_ms = [], 0.0, 0.0, 0.0
+    cases, err, ms, plain_ms, lib_ms, bound = [], 0.0, 0.0, 0.0, 0.0, Bound()
     for name, s, k, m in cases_in:
         v, i = grouped_topk(s, k, packed_mask=m)
         v_ref, i_ref = grouped_topk_plain(s, k, packed_mask=m)
@@ -183,31 +249,334 @@ def check_k3(torch, cases_in, card):
         k_ms, p_ms = timed_pair(
             torch, lambda: grouped_topk(s, k, packed_mask=m), lambda: grouped_topk_plain(s, k, packed_mask=m)
         )
+        # the library's yardstick: masked_fill + torch.topk (the bool mask is
+        # unpacked beforehand; topk's order among equal values is its own)
+        excluded = None if m is None else unpack_mask(m, s.shape[1])
+        lib = lambda: torch.topk(s if excluded is None else s.masked_fill(excluded, float("-inf")), k, dim=1)
+        l_ms = cuda_ms(torch, lib)
+        mask_bytes = 0 if m is None else s.shape[0] * -(-s.shape[1] // 8)
+        b = bound.add(nbytes(s, v, i) + mask_bytes, float(s.numel()), F32_FLOPS)
         print(
-            f"K3 {name}: scores {tuple(s.shape)} k={k} mask={'yes' if m is not None else 'no'} "
-            f"indices equal, max_abs_err={e:.3e} kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms [{card}]"
+            f"K3 {name}: scores {tuple(s.shape)} {str(s.dtype).split('.')[-1]} k={k} "
+            f"mask={'yes' if m is not None else 'no'} indices equal, max_abs_err={e:.3e} kernel {k_ms:.4f} ms, "
+            f"plain {p_ms:.4f} ms, torch.topk {l_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]"
         )
-        cases.append(dict(case=name, shape=list(s.shape), k=k, max_abs_err=e, ms=k_ms, plain_ms=p_ms))
-        err, ms, plain_ms = max(err, e), ms + k_ms, plain_ms + p_ms
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, cases=cases)
+        cases.append(dict(
+            case=name, shape=list(s.shape), dtype=str(s.dtype).split(".")[-1], k=k, max_abs_err=e,
+            ms=k_ms, plain_ms=p_ms, library_ms=l_ms, **b,
+        ))
+        err, ms, plain_ms, lib_ms = max(err, e), ms + k_ms, plain_ms + p_ms, lib_ms + l_ms
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bound.keys(), cases=cases)
 
 
-def launch_counts():
+def bf16_ordinal(torch, x):
+    """bfloat16 values as integers in value order (both zeros at 0), so that
+    two values one unit in the last place apart differ by 1."""
+    bits = x.contiguous().view(torch.int16).to(torch.int32)
+    return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+
+def check_topk_lists(torch, what, masked_plane, idx, idx_ref, n_items, rows=None):
+    """A top-k index list against a reference list of the same masked
+    bfloat16 plane, where the two may have rounded a score to either side of
+    a bfloat16 boundary: no index out of the catalog or repeated within a
+    row, none excluded, and a row's two lists differ only in items whose
+    score in the plane lies within one ulp of that row's k-th. ``rows``
+    selects the rows that count (all by default)."""
+    if rows is not None:
+        masked_plane, idx, idx_ref = masked_plane[rows], idx[rows], idx_ref[rows]
+    if idx.min().item() < 0 or idx.max().item() >= n_items:
+        raise AssertionError(f"{what}: an index lies outside the catalog")
+    ordered = idx.sort(dim=1).values
+    if bool((ordered[:, 1:] == ordered[:, :-1]).any()):
+        raise AssertionError(f"{what}: an item is listed twice in a row")
+    score = bf16_ordinal(torch, masked_plane.gather(1, idx))
+    score_ref = bf16_ordinal(torch, masked_plane.gather(1, idx_ref))
+    kth = score_ref[:, -1:]
+    finite_k = torch.isfinite(masked_plane.gather(1, idx_ref[:, -1:]))
+    if bool((torch.isinf(masked_plane.gather(1, idx)) & finite_k).any()):
+        raise AssertionError(f"{what}: an excluded item is listed in a row that has k others")
+    only_here = ~(idx[:, :, None] == idx_ref[:, None, :]).any(dim=2)
+    only_ref = ~(idx_ref[:, :, None] == idx[:, None, :]).any(dim=2)
+    far = (only_here & ((score - kth).abs() > 1) & finite_k) | (only_ref & ((score_ref - kth).abs() > 1) & finite_k)
+    if bool(far.any()):
+        raise AssertionError(f"{what}: the lists differ in an item more than one ulp from the k-th score")
+    return float(only_here.float().mean())
+
+
+def k5_operands(torch, b, n, d, exact: bool, seed: int, dev, span: int = 2):
+    """(u, table) from numpy: integer entries in [-span, span] when ``exact``
+    (every sum is an integer of magnitude <= span²·d, exact in bfloat16 in
+    any order while that is at most 256), else standard normal."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if exact:
+        u, t = rng.integers(-span, span + 1, (b, d)), rng.integers(-span, span + 1, (n, d))
+    else:
+        u, t = rng.standard_normal((b, d), np.float32), rng.standard_normal((n, d), np.float32)
+    return (torch.as_tensor(np.asarray(a, np.float32), device=dev) for a in (u, t))
+
+
+def elec_mask(torch, b, n, per_row, seed, dev):
+    """(b, n_groups·16) packed mask of ``per_row`` random positives a row,
+    the columns past the catalog set."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_pad = -(-n // 128) * 128
+    packed = np.zeros((b, n_pad // 8), np.uint8)
+    cols = np.concatenate([rng.integers(0, n, (b, per_row)), np.tile(np.arange(n, n_pad), (b, 1))], axis=1)
+    rows = np.repeat(np.arange(b), cols.shape[1])
+    np.bitwise_or.at(packed, (rows, cols.reshape(-1) >> 3), (1 << (cols.reshape(-1) & 7)).astype(np.uint8))
+    return torch.as_tensor(packed, device=dev)
+
+
+def check_k5_widths(torch, k, dev):
+    """The K5 kernels' other embedding widths (32, 128, and 40, which the
+    wrapper pads to 64) on a small ragged shape: 300 rows (not a multiple of
+    the 128-row user tile), 1,000 items (a last group of 104, fewer groups
+    than k), one row fully masked and one nearly. Integer operands in
+    {-1, 0, 1}: everything equal to the plain versions bit for bit."""
+    from genmmrec_tpu_torch.ops import fused_topk as F
+    from genmmrec_tpu_torch.ops.topk import grouped_topk_plain
+
+    b, n = 300, 1000
+    mask = elec_mask(torch, b, n, 20, SEED + 2, dev)
+    mask[0] = 0xFF  # a row with nothing left: all -inf
+    mask[1, 2:] = 0xFF  # a row with fewer items left than k: a -inf tail
+    for d in (32, 40, 128):
+        u32, t32 = k5_operands(torch, b, n, d, True, SEED + d, dev, span=1)
+        u, t = u32.bfloat16(), t32.bfloat16()
+        gmax = F.fused_group_max(u, t, mask)
+        gidx = torch.sort(gmax, dim=1, descending=True, stable=True).indices[:, :5].to(torch.int32).contiguous()
+        pairs = {
+            "K5a": (gmax, F.fused_group_max_plain(u, t, mask)),
+            "K5b": (F.fused_candidates(u, t, gidx, mask), F.fused_candidates_plain(u, t, gidx, mask)),
+            "K5c": (F.fused_candidates_unmasked(u, t, gidx), F.fused_candidates_unmasked_plain(u, t, gidx)),
+        }
+        v, i = F.fused_grouped_topk(u32, t32, k, mask)
+        v_ref, i_ref = grouped_topk_plain(F.score_plane(u, t), k, packed_mask=mask)
+        torch.cuda.synchronize()
+        for what, (out, ref) in pairs.items():
+            if not torch.equal(out, ref):
+                raise AssertionError(f"{what} at d={d}, {b} x {n}: kernel and plain version differ")
+        if not (torch.equal(v, v_ref) and torch.equal(i, i_ref)):
+            raise AssertionError(f"fused top-k at d={d}, {b} x {n} differs from the plane's top-k")
+    print(f"K5 widths 32, 40 (padded to 64), 128 on {b} x {n}: K5a, K5b, K5c and the fused top-k bit-equal to plain")
+
+
+def check_k5(torch, shapes, k, card):
+    """K5a, K5b, K5c and K3 on bfloat16 rows, each against its plain version
+    on the card, on each (name, n_items, d, mask) shape and in two kinds of
+    case: integer-valued operands, where everything must be equal bit for
+    bit, ties included; and Gaussian operands, where the kernel's float32
+    sums run in another order than the plain version's and a score may round
+    to the other side of a bfloat16 boundary: values within one ulp, the
+    share that differs printed, the index lists held by
+    ``check_topk_lists``. The whole fused function is also timed against the
+    library's way to the same result (a bfloat16 matmul, masked_fill,
+    torch.topk), which writes the score plane. Returns the per-kernel
+    results; their top-level times are the first shape's Gaussian case."""
+    from genmmrec_tpu_torch.ops import fused_topk as F
+    from genmmrec_tpu_torch.ops.topk import grouped_topk, grouped_topk_plain, unpack_mask
+
+    names = ("fused_group_max", "fused_candidates", "fused_candidates_unmasked", "grouped_topk_bf16")
+    res = {name: dict(max_abs_err=0.0, cases=[]) for name in names}
+    fused_cases = []
+    for shape_name, n, d, mask in shapes:
+        b, dev = mask.shape[0], mask.device
+        ng = F.n_groups_for(n)
+        kp = min(k, ng)
+        excluded = unpack_mask(mask, n)
+        for exact in (True, False):
+            kind = "integer" if exact else "gaussian"
+            case = f"{shape_name}_{kind}"
+            u32, t32 = k5_operands(torch, b, n, d, exact, SEED + (0 if exact else 1), dev)
+            u, t = u32.bfloat16(), t32.bfloat16()
+
+            def compare(what, out, ref, magnitude=None):
+                """(largest finite difference, share of entries that differ).
+                Where ``magnitude`` (Σ|u·t| of each entry) is given, an entry
+                may also differ by K1_RTOL of it: two float32 sums of terms
+                that cancel differ by a share of the terms' size, which near
+                a zero score is many ulps of the score."""
+                if exact:
+                    if not torch.equal(out, ref):
+                        raise AssertionError(f"{what} {case}: kernel and plain version differ on integer operands")
+                    return 0.0, 0.0
+                apart = (bf16_ordinal(torch, out) - bf16_ordinal(torch, ref)).abs()
+                diff = (out.float() - ref.float()).abs().nan_to_num(nan=0.0)  # -inf against -inf
+                ok = apart <= 1
+                if magnitude is not None:
+                    ok |= diff <= K1_RTOL * magnitude.float()
+                if not bool(ok.all()):
+                    raise AssertionError(f"{what} {case}: kernel and plain version differ by more than one ulp")
+                return diff[torch.isfinite(diff)].max().item(), float((apart != 0).float().mean())
+
+            # K5a
+            gmax = F.fused_group_max(u, t, mask)
+            err_a, share_a = compare("K5a", gmax, F.fused_group_max_plain(u, t, mask))
+            # the groups as fused_grouped_topk hands them on; a second set
+            # ends in a pad slot and holds an id below 0
+            ranked = torch.sort(gmax, dim=1, descending=True, stable=True).indices[:, :kp]
+            gidx = torch.sort(ranked, dim=1).values.to(torch.int32)
+            gidx_pad = torch.cat([gidx[:256, : kp - 1], torch.full_like(gidx[:256, :1], ng)], dim=1).contiguous()
+            gidx_pad[::2, 0] = -1
+            # K5b, K5c
+            cand = F.fused_candidates(u, t, gidx, mask)
+            raw = F.fused_candidates_unmasked(u, t, gidx)
+            magnitude = F.fused_candidates_unmasked_plain(u.abs(), t.abs(), gidx)
+            err_b, share_b = compare("K5b", cand, F.fused_candidates_plain(u, t, gidx, mask), magnitude)
+            err_c, share_c = compare("K5c", raw, F.fused_candidates_unmasked_plain(u, t, gidx), magnitude)
+            del magnitude
+            magnitude = F.fused_candidates_unmasked_plain(u[:256].abs(), t.abs(), gidx_pad).clamp(min=0)
+            compare("K5b pad slots", F.fused_candidates(u[:256], t, gidx_pad, mask[:256]),
+                    F.fused_candidates_plain(u[:256], t, gidx_pad, mask[:256]), magnitude)
+            compare("K5c pad slots", F.fused_candidates_unmasked(u[:256], t, gidx_pad),
+                    F.fused_candidates_unmasked_plain(u[:256], t, gidx_pad), magnitude)
+            if not torch.equal(F.external_mask(raw, gidx, mask), cand):
+                raise AssertionError(f"K5 {case}: K5c + external_mask differs from K5b")
+            # a candidate is the score K5a folded: same instruction, same order
+            refold = cand.view(b, kp, 128).float().amax(dim=2).bfloat16()
+            if not torch.equal(refold, gmax.gather(1, gidx.long())):
+                raise AssertionError(f"K5 {case}: the candidates' maxima differ from the maxima K5a folded")
+            # K3 on the bfloat16 candidate plane
+            v3, i3 = grouped_topk(cand, k)
+            v3_ref, i3_ref = grouped_topk_plain(cand, k)
+            if not (torch.equal(i3, i3_ref) and torch.equal(v3, v3_ref)):
+                raise AssertionError(f"K3 bf16 {case}: kernel and plain version differ")
+            # the whole function, both ways to mask, against the plane's top-k
+            plane = F.score_plane(u, t).masked_fill(excluded, float("-inf"))
+            v_ref, i_ref = grouped_topk_plain(plane, k)
+            v, i = F.fused_grouped_topk(u32, t32, k, mask)
+            v_e, i_e = F.fused_grouped_topk(u32, t32, k, mask, cand_mask="external")
+            torch.cuda.synchronize()
+            if not (torch.equal(v, v_e) and torch.equal(i, i_e)):
+                raise AssertionError(f"K5 {case}: cand_mask 'kernel' and 'external' differ")
+            err_f, share_f = compare("fused top-k values", v, v_ref)
+            if exact:
+                if not torch.equal(i, i_ref):
+                    raise AssertionError(f"K5 {case}: fused indices differ from the plane's top-k on integer operands")
+                idx_share = 0.0
+            else:
+                idx_share = check_topk_lists(torch, f"K5 {case}", plane, i, i_ref, n)
+            del plane
+
+            # times: kernel and plain in turns, then the library's way
+            a_ms, a_plain = timed_pair(torch, lambda: F.fused_group_max(u, t, mask),
+                                       lambda: F.fused_group_max_plain(u, t, mask))
+            b_ms, b_plain = timed_pair(torch, lambda: F.fused_candidates(u, t, gidx, mask),
+                                       lambda: F.fused_candidates_plain(u, t, gidx, mask))
+            c_ms, c_plain = timed_pair(torch, lambda: F.fused_candidates_unmasked(u, t, gidx),
+                                       lambda: F.fused_candidates_unmasked_plain(u, t, gidx))
+            k3_ms, k3_plain = timed_pair(torch, lambda: grouped_topk(cand, k), lambda: grouped_topk_plain(cand, k))
+            k3_lib = cuda_ms(torch, lambda: torch.topk(cand, k, dim=1))
+            library = lambda: torch.topk((u @ t.T).masked_fill(excluded, float("-inf")), k, dim=1)
+            f_ms, lib_ms = timed_pair(torch, lambda: F.fused_grouped_topk(u, t, k, mask), library)
+            fe_ms = cuda_ms(torch, lambda: F.fused_grouped_topk(u, t, k, mask, cand_mask="external"))
+            f_plain = cuda_ms(torch, lambda: grouped_topk_plain(
+                F.score_plane(u, t).masked_fill(excluded, float("-inf")), k))
+
+            table_rows = nbytes(t)  # each table row read once, whatever the rows' choices
+            bounds = {
+                "fused_group_max": Bound().add(nbytes(u, t, mask, gmax), 2.0 * b * n * d, BF16_FLOPS),
+                "fused_candidates": Bound().add(
+                    nbytes(u, gidx, cand) + table_rows + b * kp * 16, 2.0 * b * kp * 128 * d, BF16_FLOPS),
+                "fused_candidates_unmasked": Bound().add(
+                    nbytes(u, gidx, raw) + table_rows, 2.0 * b * kp * 128 * d, BF16_FLOPS),
+                "grouped_topk_bf16": Bound().add(nbytes(cand, v3, i3), float(cand.numel()), F32_FLOPS),
+            }
+            fused_bound = Bound().add(nbytes(u, t, mask, v, i), 2.0 * b * n * d, BF16_FLOPS)
+            # no one PyTorch call computes a K5 stage alone: their library_ms
+            # is the library's way to the whole function, to hold against fused_ms
+            rows = {
+                "fused_group_max": (err_a, share_a, a_ms, a_plain, lib_ms),
+                "fused_candidates": (err_b, share_b, b_ms, b_plain, lib_ms),
+                "fused_candidates_unmasked": (err_c, share_c, c_ms, c_plain, lib_ms),
+                "grouped_topk_bf16": (0.0, 0.0, k3_ms, k3_plain, k3_lib),
+            }
+            for name, (e, share, ms, plain_ms, l_ms) in rows.items():
+                entry = dict(case=case, b=b, n_items=n, d=d, k=k, kp=kp, max_abs_err=e, differing_share=share,
+                             ms=ms, plain_ms=plain_ms, library_ms=l_ms, **bounds[name])
+                if name.startswith("fused_"):
+                    entry.update(
+                        fused_ms=fe_ms if name == "fused_candidates_unmasked" else f_ms,
+                        library_of="fused_grouped_topk whole: bfloat16 matmul + masked_fill + torch.topk",
+                    )
+                res[name]["cases"].append(entry)
+                res[name]["max_abs_err"] = max(res[name]["max_abs_err"], e)
+                note = "bit-equal" if exact else f"{share:.2e} of entries differ, none beyond its bound"
+                print(
+                    f"K5 {case} {name}: b={b} n={n} d={d} kp={kp} max_abs_err={e:.3e} ({note}), "
+                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bounds[name]['bound_ms']:.4f} ms "
+                    f"({bounds[name]['bound_by']}) [{card}]"
+                )
+            fused_cases.append(dict(
+                case=case, b=b, n_items=n, d=d, k=k, max_abs_err=err_f, differing_value_share=share_f,
+                differing_index_share=idx_share, ms=f_ms, external_ms=fe_ms, plain_ms=f_plain,
+                library_ms=lib_ms, **fused_bound,
+            ))
+            note = "and indices bit-equal" if exact else (
+                f"within one ulp ({share_f:.2e} differ), {idx_share:.2e} of indices differ, all near-ties")
+            print(
+                f"K5 {case} fused_grouped_topk: values {note}; 'kernel' and 'external' bit-equal; "
+                f"fused {f_ms:.4f} ms (external {fe_ms:.4f} ms), plain plane "
+                f"route {f_plain:.4f} ms, library (bf16 matmul + masked_fill + torch.topk) {lib_ms:.4f} ms, "
+                f"bound {fused_bound['bound_ms']:.4f} ms ({fused_bound['bound_by']}) [{card}]"
+            )
+            del u32, t32, u, t, cand, raw
+        # peak memory of one fused call at this shape, beside the plane it avoids
+        u32, t32 = k5_operands(torch, b, n, d, False, SEED + 1, dev)
+        u, t = u32.bfloat16(), t32.bfloat16()
+        del u32, t32
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        F.fused_grouped_topk(u, t, k, mask)
+        torch.cuda.synchronize()
+        rise = torch.cuda.max_memory_allocated() - before
+        plane_bytes = b * n * 2
+        print(
+            f"K5 {shape_name}: peak memory rise of one fused_grouped_topk call {rise / 1e6:.1f} MB; "
+            f"the bfloat16 score plane it does not write is {plane_bytes / 1e6:.1f} MB"
+        )
+        fused_cases.append(dict(case=f"{shape_name}_memory", peak_rise_bytes=rise, plane_bytes=plane_bytes))
+        if n >= ELEC_ITEMS and rise >= plane_bytes:
+            raise AssertionError(f"K5 {shape_name}: the fused route allocated {rise} bytes, a score plane's worth")
+        del u, t
+    check_k5_widths(torch, k, shapes[0][3].device)
+    for name in names:
+        first = next(c for c in res[name]["cases"] if c["case"].endswith("gaussian"))
+        keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "fused_ms", "library_of")
+        res[name].update({key: first[key] for key in keys if key in first})
+    res["fused_grouped_topk"] = fused_cases
+    return res
+
+
+def counted_wrappers():
+    """name -> the wrapper whose ``launches`` counts that kernel's launches."""
+    from genmmrec_tpu_torch.ops.fused_topk import fused_candidates, fused_candidates_unmasked, fused_group_max
     from genmmrec_tpu_torch.ops.segment import segment_spmm, segment_spmm_backward
     from genmmrec_tpu_torch.ops.topk import grouped_topk
 
     return {
-        "segment_spmm": segment_spmm.launches,
-        "segment_spmm_backward": segment_spmm_backward.launches,
-        "grouped_topk": grouped_topk.launches,
+        "segment_spmm": segment_spmm,
+        "segment_spmm_backward": segment_spmm_backward,
+        "grouped_topk": grouped_topk,
+        "fused_group_max": fused_group_max,
+        "fused_candidates": fused_candidates,
+        "fused_candidates_unmasked": fused_candidates_unmasked,
     }
 
 
-def reset_counts():
-    from genmmrec_tpu_torch.ops.segment import segment_spmm, segment_spmm_backward
-    from genmmrec_tpu_torch.ops.topk import grouped_topk
+def launch_counts():
+    return {name: fn.launches for name, fn in counted_wrappers().items()}
 
-    segment_spmm.launches = segment_spmm_backward.launches = grouped_topk.launches = 0
+
+def reset_counts():
+    for fn in counted_wrappers().values():
+        fn.launches = 0
 
 
 def train_epoch(torch, trainer, epoch: int, card, profile_dir=None):
@@ -371,6 +740,135 @@ def check_batch_against_cpu(torch, trainer, td, train_ds, config, card):
     return dict(loss_rel_err=rel, grad_bound_share=max(worst.values()))
 
 
+def bf16_evaluation_path(torch, config, td, vd, ted, model, valid_f32, test_f32, card, profile_dir=None):
+    """The bf16 evaluation through the trainer's entry points, on the
+    float32 model's parameters: regenerate, evaluate(valid), evaluate(test)
+    by the fused route; evaluate(valid) with the candidates masked outside
+    the kernel; evaluate(valid) by the scatter route. Checks the launches of
+    each, the three routes' top-50 against each other, that no train
+    positive is listed, and the metrics against the float32 evaluation's.
+    ``profile_dir`` adds one evaluate(valid) by the fused route under
+    ``torch.profiler``."""
+    from genmmrec_tpu_torch.config import Config
+    from genmmrec_tpu_torch.engine.diffusion_trainers import DiffMMTrainer
+    from genmmrec_tpu_torch.models.diffmm import DiffMM
+    from genmmrec_tpu_torch.ops.topk import unpack_mask
+
+    cfg = Config("DiffMM", "baby", {"save_recommended_topk": False, "eval_dtype": "bfloat16"})
+    cfg["pop_mask"], cfg["warm_mask"] = config["pop_mask"], config["warm_mask"]
+    bf_model = DiffMM(cfg, td)
+    bf_model.load_state_dict(model.state_dict())
+    bf_model.eval()
+    tr = DiffMMTrainer(cfg, bf_model)
+    for ed in (vd, ted):  # the packed masks are set-up, built once per eval set
+        tr._dense_mask(ed)
+    res, launches = {}, {}
+
+    def run(label, fn):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        res[f"{label}_s"] = time.perf_counter() - t0
+        launches[label] = launch_counts()
+        return out
+
+    run("regenerate", tr.regenerate)
+    valid = run("eval_valid", lambda: tr.evaluate(vd))
+    test = run("eval_test", lambda: tr.evaluate(ted, is_test=True))
+    top_kernel = run("topk_valid_kernel", lambda: tr.eval_topk(vd))
+    tr._FUSED_CAND_MASK = "external"
+    valid_external = run("eval_valid_external", lambda: tr.evaluate(vd))
+    top_external = run("topk_valid_external", lambda: tr.eval_topk(vd))
+    del tr._FUSED_CAND_MASK
+    tr._DENSE_MASK_BUDGET = 0
+    valid_scatter = run("eval_valid_scatter", lambda: tr.evaluate(vd))
+    top_scatter = run("topk_valid_scatter", lambda: tr.eval_topk(vd))
+    del tr._DENSE_MASK_BUDGET
+    top_test = tr.eval_topk(ted)
+
+    def need(label, *names):
+        missing = [n for n in names if launches[label][n] <= 0]
+        if missing:
+            raise AssertionError(f"bf16 {label}: {missing} not launched: {launches[label]}")
+
+    for label in ("eval_valid", "eval_test"):
+        need(label, "segment_spmm", "fused_group_max", "fused_candidates", "grouped_topk")
+    need("eval_valid_external", "fused_group_max", "fused_candidates_unmasked", "grouped_topk")
+    need("eval_valid_scatter", "grouped_topk")
+    for label, names in (
+        ("eval_valid", ("fused_candidates_unmasked",)),
+        ("eval_valid_external", ("fused_candidates",)),
+        ("eval_valid_scatter", ("fused_group_max", "fused_candidates", "fused_candidates_unmasked")),
+    ):
+        stray = [n for n in names if launches[label][n] > 0]
+        if stray:
+            raise AssertionError(f"bf16 {label}: {stray} launched on a route that does not use them")
+
+    # the three routes' lists
+    if not torch.equal(top_kernel, top_external):
+        raise AssertionError("bf16 evaluation: cand_mask 'kernel' and 'external' give different top-50 lists")
+    mask = tr._dense_mask(vd)
+    arts = bf_model.eval_artifacts(tr.state)
+    plane = bf_model.scores_cached(tr.state, vd.users, arts).masked_fill(unpack_mask(mask, td.n_items), float("-inf"))
+    differing = check_topk_lists(
+        torch, "bf16 evaluation, fused against scatter route", plane, top_kernel, top_scatter, td.n_items, rows=vd.valid
+    )
+    del plane
+    for name, ed, top in (("valid", vd, top_kernel), ("test", ted, top_test)):
+        m = tr._dense_mask(ed)
+        listed = (m.gather(1, top >> 3) >> (top & 7).to(torch.uint8)) & 1
+        if top.min().item() < 0 or listed[ed.valid].any():
+            raise AssertionError(f"bf16 evaluation ({name}): a pad entry or a train positive is in the top-50")
+
+    results = {"valid": valid, "test": test, "valid external": valid_external, "valid scatter": valid_scatter}
+    for name, got in results.items():
+        bad = [k for k, v in got.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"bf16 {name}: non-finite metrics {bad}")
+    if valid_external != valid:
+        raise AssertionError("bf16 evaluation: 'kernel' and 'external' metrics differ")
+    drift = {}
+    pairs = (("valid", valid, valid_f32), ("test", test, test_f32), ("valid_scatter", valid_scatter, valid_f32))
+    for name, got, ref in pairs:
+        for key in ("recall@20", "ndcg@20"):
+            drift[f"{name}_{key}"] = got[key] - ref[key]
+    off = {k: v for k, v in drift.items() if abs(v) > BF16_METRIC_ATOL}
+    if off:
+        raise AssertionError(f"bf16 metrics stray from the float32 evaluation's by more than {BF16_METRIC_ATOL}: {off}")
+    print(
+        f"bf16 evaluation: regenerate {res['regenerate_s']:.3f} s; evaluate(valid) fused {res['eval_valid_s']:.3f} s, "
+        f"evaluate(test) fused {res['eval_test_s']:.3f} s, "
+        f"evaluate(valid) external {res['eval_valid_external_s']:.3f} s, "
+        f"evaluate(valid) scatter {res['eval_valid_scatter_s']:.3f} s; eval_topk(valid) alone: fused "
+        f"{res['topk_valid_kernel_s']:.3f} s, external {res['topk_valid_external_s']:.3f} s, scatter "
+        f"{res['topk_valid_scatter_s']:.3f} s [{card}]"
+    )
+    print(f"bf16 launches: {json.dumps(launches)}")
+    print(f"bf16 valid: {json.dumps(valid)}")
+    print(f"bf16 test: {json.dumps(test)}")
+    print(
+        f"bf16 checks: 'kernel' and 'external' top-50 bit-equal; fused and scatter lists differ in {differing:.2e} of "
+        f"entries, all within one ulp of the k-th score; no train positive listed; metrics finite; Recall@20 and "
+        f"NDCG@20 against float32: {json.dumps({k: round(v, 6) for k, v in drift.items()})} (bound {BF16_METRIC_ATOL})"
+    )
+    if profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.evaluate(vd)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        write_profile(torch, prof, profile_dir, "bf16_eval_valid", wall, card)
+    # the evaluate calls are the path; the eval_topk calls beside them only fetch the lists to compare
+    path_calls = [l for name, l in launches.items() if not name.startswith("topk_")]
+    total = {k: sum(l[k] for l in path_calls) for k in launches["eval_valid"]}
+    return dict(**res, valid=valid, test=test, metric_drift=drift, fused_vs_scatter_differing=differing,
+                launches_by_call=launches, launches=total)
+
+
 def main() -> int:
     import torch
 
@@ -381,7 +879,9 @@ def main() -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--profile", metavar="DIR", help="profile one more epoch, phase by phase, into DIR")
+    parser.add_argument(
+        "--profile", metavar="DIR", help="profile one more bf16 evaluation and one more epoch, phase by phase, into DIR"
+    )
     args = parser.parse_args()
 
     from genmmrec_tpu_torch.config import Config
@@ -463,6 +963,17 @@ def main() -> int:
         ],
         card,
     )
+    k5 = check_k5(
+        torch,
+        [
+            ("baby", td.n_items, model.latdim, eval_mask),
+            ("elec", ELEC_ITEMS, model.latdim, elec_mask(torch, eval_bs, ELEC_ITEMS, ELEC_POSITIVES, SEED, dev)),
+        ],
+        trainer.evaluator.max_k,
+        card,
+    )
+    k3["cases"] += k5["grouped_topk_bf16"]["cases"]
+    torch.cuda.empty_cache()
 
     # -- phase 3: the serving path ----------------------------------------
     reset_counts()
@@ -534,7 +1045,11 @@ def main() -> int:
         "graph rebuild and test metrics equal the CPU's"
     )
 
-    # -- phase 4: the training path ---------------------------------------
+    # -- phase 4: the bf16 evaluation path --------------------------------
+    bf16_eval = bf16_evaluation_path(torch, config, td, vd, ted, model, valid_res, test_res, card, args.profile)
+    bf16_launches = bf16_eval.pop("launches")
+
+    # -- phase 5: the training path ---------------------------------------
     # two epochs as fit runs them, from the weights above: epoch 0 warms up,
     # epoch 1 is the measured one; then evaluate(valid)
     train_t0 = time.perf_counter()
@@ -560,7 +1075,8 @@ def main() -> int:
     if args.profile:
         train_epoch(torch, trainer, 2, card, profile_dir=args.profile)
 
-    launches = {k: serving_launches[k] + training_launches[k] for k in serving_launches}
+    launches = {k: serving_launches[k] + bf16_launches[k] + training_launches[k] for k in serving_launches}
+    fused_src = "genmmrec_tpu_torch/csrc/fused_topk.cu"
     kernels = [
         dict(
             name="segment_spmm", route="cuda", source="genmmrec_tpu_torch/csrc/segment_sum.cu",
@@ -575,13 +1091,29 @@ def main() -> int:
             name="grouped_topk", route="cuda", source="genmmrec_tpu_torch/csrc/topk.cu",
             replaces="genmmrec_tpu/ops/topk.py:135", launches=launches["grouped_topk"], **k3,
         ),
+        dict(
+            name="fused_group_max", route="cuda", source=fused_src,
+            replaces="genmmrec_tpu/ops/fused_topk.py:293", launches=launches["fused_group_max"],
+            **k5["fused_group_max"],
+        ),
+        dict(
+            name="fused_candidates", route="cuda", source=fused_src,
+            replaces="genmmrec_tpu/ops/fused_topk.py:329", launches=launches["fused_candidates"],
+            **k5["fused_candidates"],
+        ),
+        dict(
+            name="fused_candidates_unmasked", route="cuda", source=fused_src,
+            replaces="genmmrec_tpu/ops/fused_topk.py:312", launches=launches["fused_candidates_unmasked"],
+            **k5["fused_candidates_unmasked"],
+        ),
     ]
     strip = lambda e: {k: v for k, v in e.items() if not k.endswith("_launches")}
     summary = dict(
         regenerate_s=t_regen, eval_valid_s=t_valid, eval_test_s=t_test,
         train_epochs=[strip(e) for e in epochs], train_eval_valid_s=t_train_valid,
-        launches_serving=serving_launches, launches_training=training_launches,
-        batch_vs_cpu=batch_check, card=card,
+        launches_serving=serving_launches, launches_bf16_eval=bf16_launches,
+        launches_training=training_launches, bf16_eval=bf16_eval,
+        fused_grouped_topk=k5["fused_grouped_topk"], batch_vs_cpu=batch_check, card=card,
     )
     print(json.dumps({"slice": summary}))
     print(json.dumps({"kernels": kernels}))

@@ -16,9 +16,21 @@ folds its keys. Torch's draws differ from JAX's; the tests inject the JAX
 package's draws as tensors.
 
 Evaluation: the model's full user and item embeddings are computed once
-per evaluation, then users go in chunks of ``eval_batch_size`` through
-scoring (``u @ iᵀ`` in float32), the masked top-k (K3, ``ops/topk.py``)
-over the bit-packed train-positive mask, and the metric suite.
+per evaluation, then users go in chunks of ``eval_batch_size`` to a top-k
+that excludes their train positives, and on to the metric suite. The
+scores are ``u @ iᵀ`` in the model's ``eval_dtype``, float32 or bfloat16
+(bfloat16 operands, float32 sums, one rounding). A chunk takes one of
+three routes:
+
+- plane: ``scores_cached`` writes the chunk's (B, n_items) scores in
+  either type and K3 (``ops/topk.py``) takes the masked top-k over the
+  bit-packed mask;
+- fused: bfloat16 with the base ``scores_cached`` and ``(u_emb, i_emb)``
+  artifacts goes through K5 (``ops/fused_topk.py``), which writes no score
+  plane;
+- scatter: a packed mask over ``_DENSE_MASK_BUDGET`` is not built; each
+  chunk's plane gets ``-1e10`` scattered over its users' train positives
+  and K3 takes the unmasked top-k.
 """
 
 from __future__ import annotations
@@ -34,7 +46,8 @@ import torch
 from genmmrec_tpu_torch.data.arrays import EvalData, TrainData, sample_negatives
 from genmmrec_tpu_torch.engine.checkpoint import load_checkpoint, save_checkpoint
 from genmmrec_tpu_torch.engine.evaluator import TopKEvaluator
-from genmmrec_tpu_torch.models.base import scalar
+from genmmrec_tpu_torch.models.base import RecModel, scalar
+from genmmrec_tpu_torch.ops.fused_topk import fused_grouped_topk
 from genmmrec_tpu_torch.ops.topk import grouped_topk
 from genmmrec_tpu_torch.utils.misc import dict2str, early_stopping
 
@@ -46,9 +59,12 @@ MASK_GROUP = 128
 def full_precision_matmuls() -> None:
     """Keep float32 products in full float32: TF32 would keep about three
     decimal digits, and the scores only feed a top-k whose order must match
-    the float32 reference. Set explicitly for both cuBLAS and cuDNN."""
+    the float32 reference. Set explicitly for both cuBLAS and cuDNN. A
+    bfloat16 product likewise keeps its sums in float32 to the end (no
+    split reduction in bfloat16), so that a score is rounded once."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 class ChainOptimizer(torch.optim.Optimizer):
@@ -149,9 +165,12 @@ def seeded_generator(device, seed: int, *path) -> torch.Generator:
 
 
 class Trainer:
-    # packed (uint8) mask budget; a larger mask raises (the per-chunk
-    # scatter path the JAX package takes past it is not ported yet)
+    # packed (uint8) mask budget in bytes; past it no mask is built and the
+    # evaluation takes the per-chunk scatter route
     _DENSE_MASK_BUDGET = 2 * 1024 * 1024 * 1024
+    # where the fused route applies the mask to the candidates: in K5b
+    # ("kernel") or after K5c in plain PyTorch ("external"); same result
+    _FUSED_CAND_MASK = "kernel"
 
     def __init__(self, config, model):
         self.config = config
@@ -349,21 +368,19 @@ class Trainer:
             "Resumed from %s at epoch %d (best valid %.4f)", path, self.start_epoch, self.best_valid_score
         )
 
-    def _dense_mask(self, eval_data: EvalData) -> torch.Tensor:
+    def _dense_mask(self, eval_data: EvalData) -> Optional[torch.Tensor]:
         """(U_pad, n_pad/8) uint8 little-endian bit matrix of each user's
         train positives, n_pad the MASK_GROUP multiple above n_items, pad
-        columns set. Built once per eval set on the host, in user slabs."""
-        cached = self._mask_cache.get(id(eval_data))
-        if cached is not None:
-            return cached[1]
+        columns set. Built once per eval set on the host, in user slabs.
+        None when it would exceed ``_DENSE_MASK_BUDGET``."""
         U_pad = eval_data.users.shape[0]
         n_items = eval_data.n_items
         n_pad = -(-n_items // MASK_GROUP) * MASK_GROUP
         if U_pad * (n_pad // 8) > self._DENSE_MASK_BUDGET:
-            raise NotImplementedError(
-                f"packed mask of {U_pad} x {n_pad // 8} bytes exceeds the budget; "
-                "the per-chunk scatter mask is not ported yet"
-            )
+            return None
+        cached = self._mask_cache.get(id(eval_data))
+        if cached is not None:
+            return cached[1]
         m = eval_data.mask_items.cpu().numpy()
         packed_np = np.empty((U_pad, n_pad // 8), np.uint8)
         slab = max(1, (256 << 20) // n_pad)  # ≤256 MB bool slab
@@ -389,14 +406,49 @@ class Trainer:
         full_precision_matmuls()
         model = self.model
         max_k = self.evaluator.max_k
-        k_eff = min(max_k, model.n_items)
+        n_items = model.n_items
+        k_eff = min(max_k, n_items)
         B = self.eval_batch_size
         mask = self._dense_mask(eval_data)
         arts = model.eval_artifacts(self.state)
+        # bfloat16 scores that are the base class's u @ iᵀ can be computed
+        # inside the top-k (K5); a model with scores of its own writes its plane
+        fused = (
+            mask is not None
+            and model.eval_dtype == torch.bfloat16
+            and type(model).scores_cached is RecModel.scores_cached
+        )
+        if fused:
+            if not (
+                isinstance(arts, tuple)
+                and len(arts) == 2
+                and all(torch.is_tensor(a) and a.dim() == 2 for a in arts)
+                and arts[1].shape[0] == n_items
+            ):
+                raise RuntimeError(
+                    "bfloat16 evaluation with the base scores_cached needs (u_emb, i_emb) artifacts "
+                    "with one i_emb row per item"
+                )
+            u_emb, table = arts[0], arts[1].bfloat16()
         out = []
         for lo in range(0, eval_data.users.shape[0], B):
-            scores = model.scores_cached(self.state, eval_data.users[lo : lo + B], arts)
-            _, top = grouped_topk(scores, k_eff, packed_mask=mask[lo : lo + B])
+            users = eval_data.users[lo : lo + B]
+            if fused:
+                _, top = fused_grouped_topk(
+                    u_emb[users], table, k_eff, mask[lo : lo + B], cand_mask=self._FUSED_CAND_MASK
+                )
+            else:
+                scores = model.scores_cached(self.state, users, arts)
+                if mask is not None:
+                    _, top = grouped_topk(scores, k_eff, packed_mask=mask[lo : lo + B])
+                else:
+                    # -1e10 over each row's train positives; the pad entries
+                    # (n_items) of mask_items are dropped
+                    m = eval_data.mask_items[lo : lo + B]
+                    real = m < n_items
+                    rows = torch.arange(m.shape[0], device=m.device)[:, None].expand_as(m)
+                    scores[rows[real], m[real]] = -1e10
+                    _, top = grouped_topk(scores, k_eff)
             if k_eff < max_k:
                 top = torch.nn.functional.pad(top, (0, max_k - k_eff), value=-1)
             out.append(top)

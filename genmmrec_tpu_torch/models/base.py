@@ -16,6 +16,9 @@ from genmmrec_tpu_torch.data.arrays import TrainData
 from genmmrec_tpu_torch.data.features import load_modal_features
 
 
+EVAL_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def scalar(value, cast=float, default=None):
     """A config value that may still be a hyper-grid list takes its first
     entry; ``default`` applies only when the value is absent."""
@@ -36,10 +39,15 @@ class RecModel(nn.Module):
         self.device = data.device
         self.n_users = data.n_users
         self.n_items = data.n_items
+        # scoring type of the full-catalog evaluation. float32 is the
+        # reference's. bfloat16 scores only feed the top-k, so it moves the
+        # metrics through near-ties alone; with the base scores_cached the
+        # trainer then takes the fused route (ops/fused_topk.py), which
+        # writes no score plane, and otherwise hands K3 a bfloat16 plane.
         eval_dtype = str(config["eval_dtype"] or "float32")
-        if eval_dtype != "float32":
-            # the bf16 scoring path goes with the fused score+mask+top-k kernel
-            raise NotImplementedError(f"eval_dtype {eval_dtype} is not ported yet")
+        if eval_dtype not in EVAL_DTYPES:
+            raise ValueError(f"eval_dtype must be one of {sorted(EVAL_DTYPES)}, not {eval_dtype!r}")
+        self.eval_dtype = EVAL_DTYPES[eval_dtype]
         self.v_feat = self.t_feat = None
         if config["is_multimodal_model"] and self.is_multimodal:
             v, t = load_modal_features(config, self.n_items)
@@ -83,6 +91,9 @@ class RecModel(nn.Module):
         return self.full_embeddings(state)
 
     def scores_cached(self, state, users, artifacts) -> torch.Tensor:
-        """(len(users), n_items) float32 scores ``u[users] @ iᵀ``."""
+        """(len(users), n_items) scores ``u[users] @ iᵀ`` in ``eval_dtype``:
+        bfloat16 takes bfloat16 operands, sums in float32 and rounds once."""
         u, i = artifacts
+        if self.eval_dtype == torch.bfloat16:
+            return u[users].bfloat16() @ i.bfloat16().T
         return u[users] @ i.T

@@ -101,8 +101,14 @@ def library():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.segment_spmm_f32.argtypes = [p, p, p, p, p, i, i, p]
     lib.segment_spmm_f32.restype = i
-    lib.masked_topk_f32.argtypes = [p, p, i, p, p, i, i, i, p]
-    lib.masked_topk_f32.restype = i
+    for fn in (lib.masked_topk_f32, lib.masked_topk_bf16):
+        fn.argtypes = [p, p, i, p, p, i, i, i, p]
+        fn.restype = i
+    lib.fused_group_max_bf16.argtypes = [p, p, p, p, i, i, i, p]
+    lib.fused_group_max_bf16.restype = i
+    for fn in (lib.fused_candidates_bf16, lib.fused_candidates_unmasked_bf16):
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        fn.restype = i
     lib.kernel_error_string.argtypes = [i]
     lib.kernel_error_string.restype = ctypes.c_char_p
     return lib

@@ -3,14 +3,16 @@
 Counterpart of ``genmmrec_tpu/ops/topk.py`` ``grouped_topk`` (whose Pallas
 kernel is ``_gather_kernel``, the candidate gather of the two-stage
 selection). On the card one kernel, ``genmmrec_tpu_torch/csrc/topk.cu``,
-serves every width and every ``k <= 64``; its source says what bounds it
-and how it is laid out.
+serves every width and every ``k <= 64``, over float32 or bfloat16 rows (the
+bf16 evaluation's score and candidate planes); its source says what bounds
+it and how it is laid out.
 
 Contract: values in descending order, ties broken by the lower index first
 (``lax.top_k``'s rule). ``packed_mask`` is an optional (b, >= ceil(n/8))
 uint8 bit matrix, little-endian (numpy ``packbits(axis=1,
 bitorder="little")``), marking columns to exclude; excluded columns take
-part with the value ``-inf``. Indices are int64.
+part with the value ``-inf``. Values keep the scores' type; indices are
+int64.
 
 ``grouped_topk`` takes the plain PyTorch version for tensors on the CPU and
 launches the kernel for CUDA tensors, or raises.
@@ -23,6 +25,8 @@ import torch
 from genmmrec_tpu_torch.ops import _build
 
 MAX_K = 64
+# the kernel's C entry point for each score type it takes
+_ENTRY = {torch.float32: "masked_topk_f32", torch.bfloat16: "masked_topk_bf16"}
 
 
 def unpack_mask(packed_mask: torch.Tensor, n: int) -> torch.Tensor:
@@ -43,11 +47,12 @@ def grouped_topk_plain(scores, k: int, packed_mask=None):
 
 
 def grouped_topk(scores, k: int, packed_mask=None):
-    """Exact masked top-k of a 2-D float32 score matrix → (values, indices)."""
-    if not scores.is_cuda:
+    """Exact masked top-k of a 2-D float32 or bfloat16 score matrix →
+    (values, indices)."""
+    if scores.is_cpu:
         return grouped_topk_plain(scores, k, packed_mask)
-    if scores.dtype != torch.float32 or scores.dim() != 2 or not scores.is_contiguous():
-        raise ValueError("scores must be a contiguous 2-D float32 tensor")
+    if scores.dtype not in _ENTRY or scores.dim() != 2 or not scores.is_contiguous():
+        raise ValueError("scores must be a contiguous 2-D float32 or bfloat16 tensor")
     b, n = scores.shape
     if not 1 <= k <= min(n, MAX_K):
         raise ValueError(f"k={k} must be in [1, {min(n, MAX_K)}]")
@@ -63,11 +68,11 @@ def grouped_topk(scores, k: int, packed_mask=None):
         ):
             raise ValueError(f"packed_mask must be a contiguous uint8 ({b}, >= {-(-n // 8)}) tensor")
         mask_ptr, mask_stride = packed_mask.data_ptr(), packed_mask.shape[1]
-    vals = torch.empty(b, k, dtype=torch.float32, device=scores.device)
+    vals = torch.empty(b, k, dtype=scores.dtype, device=scores.device)
     idx = torch.empty(b, k, dtype=torch.int64, device=scores.device)
     lib = _build.library()
     with torch.cuda.device(scores.device):
-        rc = lib.masked_topk_f32(
+        rc = getattr(lib, _ENTRY[scores.dtype])(
             scores.data_ptr(), mask_ptr, mask_stride, vals.data_ptr(), idx.data_ptr(),
             b, n, k, torch.cuda.current_stream().cuda_stream,
         )

@@ -237,3 +237,143 @@ def test_evaluator_matches_on_a_tiny_catalog(tmp_path):
         assert abs(t_res[k] - j_res[k]) <= 1e-4 + 1e-9, (k, t_res[k], j_res[k])
     (j_csv,), (t_csv,) = (tmp_path / "jax").iterdir(), (tmp_path / "torch").iterdir()
     assert t_csv.read_text() == j_csv.read_text()
+
+
+# -- the bf16 evaluation ------------------------------------------------
+
+
+def _bf16_ordinal(x):
+    """bfloat16-valued float32 array → integers in value order, one apart
+    for neighbouring bfloat16 values."""
+    bits = (np.asarray(x, np.float32).view(np.uint32) >> 16).astype(np.int64)
+    return np.where(bits & 0x8000, -(bits & 0x7FFF), bits)
+
+
+@pytest.fixture(scope="module")
+def bf16_pair(pair):
+    """Both packages' DiffMM with ``eval_dtype: bfloat16`` on the parameters
+    and data of ``pair``, each under its trainer, graphs regenerated."""
+    over = {**SLICE, "eval_dtype": "bfloat16"}
+    jc, tc = JConfig("DiffMM", "tiny", dict(over)), TConfig("DiffMM", "tiny", dict(over))
+    (j_tr, j_va, _), (t_tr, t_va, _) = pair["j_splits"], pair["t_splits"]
+    jm, tm = JDiffMM(jc, j_train(j_tr)), TDiffMM(tc, t_train(t_tr, CPU))
+    tm.load_state_dict(pair["tm"].state_dict())
+    pop, warm = group_masks(t_tr, CPU)
+    jc["pop_mask"], jc["warm_mask"] = jnp.asarray(pop.numpy()), jnp.asarray(warm.numpy())
+    tc["pop_mask"], tc["warm_mask"] = pop, warm
+    jtr, ttr = JTrainer(jc, jm), TTrainer(tc, tm)
+    key = jax.random.PRNGKey(0)
+    jtr._state = jm.init_state(key)
+    jtr._build_diffusion_phase()
+    jtr._state = {**jtr._state, **jtr._regenerate(pair["params"], key)}
+    ttr.regenerate()
+    bs = int(jc["eval_batch_size"])
+    return dict(jtr=jtr, ttr=ttr, jed=j_eval(j_va, j_tr, bs), ted=t_eval(t_va, t_tr, bs, CPU), bs=bs)
+
+
+def test_bf16_evaluation_matches_jax(pair, bf16_pair):
+    """evaluate(valid) with bfloat16 scores: the port's fused route against
+    the JAX trainer, which takes its unfused bfloat16 route on the CPU. The
+    two float32 sums behind a score run in different orders, so a score may
+    round to either neighbour: top-k values within one bfloat16 ulp, lists
+    equal except across ties and one-ulp neighbours, and every metric within
+    5e-3, the bound of the JAX package's own bf16 test."""
+    from genmmrec_tpu_torch.ops.fused_topk import fused_grouped_topk, score_plane
+
+    jtr, ttr, jed, ted, bs = (bf16_pair[k] for k in ("jtr", "ttr", "jed", "ted", "bs"))
+    tm = ttr.model
+    assert tm.eval_dtype == torch.bfloat16
+    j_res, t_res = jtr.evaluate(pair["params"], jed), ttr.evaluate(ted)
+    assert not jtr._fused_eval
+    assert t_res.keys() == j_res.keys()
+    for k in j_res:
+        assert abs(t_res[k] - j_res[k]) <= 5e-3, (k, t_res[k], j_res[k])
+
+    j_top = _jax_eval_topk(jtr, pair["params"], jed)
+    t_top = ttr.eval_topk(ted).numpy()
+    with torch.no_grad():
+        u, i = tm.eval_artifacts(ttr.state)
+        plane = score_plane(u[ted.users], i).float().numpy()
+        vals, idx = fused_grouped_topk(u[ted.users[:bs]], i, 50, ttr._dense_mask(ted)[:bs])
+    np.testing.assert_array_equal(idx.numpy(), t_top[:bs])
+    rows = np.arange(len(plane))[:, None]
+    apart = np.abs(_bf16_ordinal(plane[rows, t_top]) - _bf16_ordinal(plane[rows, j_top]))
+    assert apart.max() <= 1 and (t_top != j_top).mean() < 0.05
+    # the JAX scores of its own list, from its own bfloat16 product
+    ju, ji = jtr.model.eval_artifacts(pair["params"], jtr._state)
+    j_scores = jtr.model.scores_cached(pair["params"], jtr._state, jed.users[:bs], (ju, ji))
+    j_vals = np.take_along_axis(np.asarray(j_scores.astype(jnp.float32)), j_top[:bs], axis=1)
+    assert np.abs(_bf16_ordinal(vals.float().numpy()) - _bf16_ordinal(j_vals)).max() <= 1
+
+
+@pytest.mark.parametrize("route", ["external", "plane", "scatter", "scatter_f32"])
+def test_bf16_evaluation_routes_agree(pair, bf16_pair, route):
+    """The fused route against the port's other ways to the same lists, on
+    one model: 'external' masks the candidates outside the kernel and is
+    equal bit for bit; a model with a ``scores_cached`` of its own takes the
+    plane route; a mask over the budget takes the per-chunk scatter route,
+    in bfloat16 and (on the float32 model) in float32, where it must equal
+    the dense-mask route as in the JAX package. The bfloat16 planes come
+    from one product on the CPU, so their lists differ only where values
+    tie: there the routes may order equal scores differently."""
+    ttr, ted = bf16_pair["ttr"], bf16_pair["ted"]
+    if route == "scatter_f32":
+        ttr = TTrainer(pair["tc"], pair["tm"])
+        ttr.state = bf16_pair["ttr"].state
+    tm = ttr.model
+    fused = ttr.eval_topk(ted)
+
+    class OwnScores(type(tm)):
+        def scores_cached(self, state, users, artifacts):
+            return super().scores_cached(state, users, artifacts)
+
+    saved = tm.__class__
+    try:
+        if route == "external":
+            ttr._FUSED_CAND_MASK = "external"
+        elif route == "plane":
+            tm.__class__ = OwnScores
+        else:
+            ttr._DENSE_MASK_BUDGET = 0
+            assert ttr._dense_mask(ted) is None
+        other = ttr.eval_topk(ted)
+    finally:
+        tm.__class__ = saved
+        ttr.__dict__.pop("_FUSED_CAND_MASK", None)
+        ttr.__dict__.pop("_DENSE_MASK_BUDGET", None)
+    if route in ("external", "scatter_f32"):
+        assert torch.equal(other, fused)
+        return
+    with torch.no_grad():
+        u, i = tm.eval_artifacts(ttr.state)
+        plane = tm.scores_cached(ttr.state, ted.users, (u, i)).float().numpy()
+    rows = np.arange(len(plane))[:, None]
+    a, b = fused.numpy(), other.numpy()
+    np.testing.assert_array_equal(plane[rows, a], plane[rows, b])
+    np.testing.assert_array_equal(np.sort(a, axis=1)[ted.valid.numpy()], np.sort(b, axis=1)[ted.valid.numpy()])
+
+
+def test_bf16_evaluation_needs_embedding_artifacts(bf16_pair):
+    """bfloat16 with the base ``scores_cached`` but artifacts of another form
+    fails loudly, as the JAX trainer does."""
+    ttr, ted = bf16_pair["ttr"], bf16_pair["ted"]
+    tm = ttr.model
+
+    class OddArtifacts(type(tm)):
+        def eval_artifacts(self, state):
+            u, i = super().eval_artifacts(state)
+            return u, i[:-1]
+
+    saved = tm.__class__
+    tm.__class__ = OddArtifacts
+    try:
+        with pytest.raises(RuntimeError, match="artifacts"):
+            ttr.eval_topk(ted)
+    finally:
+        tm.__class__ = saved
+
+
+def test_eval_dtype_float16_raises(pair):
+    tc = TConfig("DiffMM", "tiny", {**SLICE, "eval_dtype": "float16"})
+    with pytest.raises(ValueError, match="eval_dtype"):
+        TDiffMM(tc, t_train(pair["t_splits"][0], CPU))
