@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py [--profile DIR]
 
-Drives DiffMM on Amazon-baby at full width (19,445 users x 7,050 items, the
-synthetic fallback data, parameters from a seeded generator) through three
-paths of the port:
+Drives two models at full width, parameters from a seeded generator.
+
+DiffMM on Amazon-baby (19,445 users x 7,050 items, the synthetic fallback
+data), through three paths of the port:
 
 - serving: regenerate the two modal user-item graphs, then evaluate the
   valid split and the test split with the full metric set;
@@ -19,29 +20,43 @@ paths of the port:
   batch's loss and ``rec`` gradients are then held against the same batch on
   the CPU.
 
-Before that it builds the CUDA kernels from ``genmmrec_tpu_torch/csrc`` and
-holds each one (K1 forward, K1 backward, K3, K5a, K5b, K5c) against its
-plain PyTorch version, on the card, at the shapes the paths give it (K5 also
-at the Amazon-elec catalog width, 63,001 items), and times kernel, plain
-version and the one PyTorch call that computes the same function with CUDA
-events. Each kernel's time stands beside its bound: the larger of the bytes
-it must move over the card's memory rate and its operations over the card's
-peak rate. ``--profile DIR`` adds one more bf16 evaluate(valid) and one more epoch,
-phase by phase, under ``torch.profiler`` and writes the kernel tables to DIR.
+LightGCN at the Amazon-elec geometry (192,403 users x 63,001 items,
+embedding 64, two layers; interactions drawn in bulk from the dataset
+generator's distributions at the sizes of the elec dataset tier), through
+``get_model`` and ``Trainer``: 40 training batches of 2,048, whose
+propagations run K2 forward and backward on the 255,404-row adjacency, then
+evaluate(valid) three ways: float32 (K3), float32 with
+``GENMMREC_PALLAS_TOPK`` set (the two-stage route, K4) and bfloat16 (the
+fused route, K5); one batch against the CPU.
+
+Before the paths it builds the CUDA kernels from ``genmmrec_tpu_torch/csrc``
+and holds each one (K1 forward and backward, K2 forward and backward, K3,
+K4, K5a, K5b, K5c) against its plain PyTorch version, on the card, at the
+shapes the paths give it, and times kernel, plain version and the one
+PyTorch call that computes the same function with CUDA events. K2 is also
+held against K1 on the same graph, and ``spmm`` on a graph that is not
+symmetric is differentiated on the card against the plain version. Each
+kernel's time stands beside its bound: the larger of the bytes it must move
+over the card's memory rate and its operations over the card's peak rate.
+``--profile DIR`` adds one more bf16 evaluate(valid) and one more DiffMM
+epoch, phase by phase, under ``torch.profiler`` and writes the kernel tables
+to DIR.
 
 It fails (non-zero exit, no result line) when no CUDA device is present, a
 kernel does not build, launch or agree, a kernel of a path was not launched
 during that path, a loss or a metric is not finite, a phase changed
-parameters it does not train, the bf16 routes disagree with each other or
-stray from the float32 metrics, or the fused route allocates a score plane. Its last line is one JSON object with
-``"ok": true`` and the device; the line before it holds the kernels'
-results as JSON.
+parameters it does not train, the evaluation routes disagree with each other
+or stray from the float32 metrics, or the fused route allocates a score
+plane. Its last line is one JSON object with ``"ok": true`` and the device;
+the line before it holds the kernels' results as JSON, nine entries.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -129,18 +144,42 @@ class Bound:
         return dict(bound_ms=max(self.bytes_ms, self.ops_ms), bound_by=by)
 
 
-def check_k1(torch, graphs, card):
-    """K1 against its plain version on each (name, graph, d) case."""
-    from genmmrec_tpu_torch.ops.segment import segment_spmm, segment_spmm_plain
+def spmm_wrappers(blocked: bool):
+    """(kernel name, forward wrapper, plain version, differentiable product)
+    of K1 or, with ``blocked``, K2, each taking (graph, x)."""
+    from genmmrec_tpu_torch.ops import segment as S
+
+    if blocked:
+        return (
+            "K2",
+            lambda g, x: S.segment_spmm_blocked(g.row_ptr, g.rows, g.cols, g.vals, x, g.n_rows),
+            lambda g, x: S.segment_spmm_blocked_plain(g.rows, g.cols, g.vals, x, g.n_rows),
+            lambda g, x: S.spmm_symmetric(g.row_ptr, g.rows, g.cols, g.vals, x, g.n_rows, blocked=True),
+        )
+    return (
+        "K1",
+        lambda g, x: S.segment_spmm(g.row_ptr, g.cols, g.vals, x, g.n_rows),
+        lambda g, x: S.segment_spmm_plain(g.row_ptr, g.cols, g.vals, x, g.n_rows),
+        lambda g, x: S.spmm_symmetric(g.row_ptr, g.rows, g.cols, g.vals, x, g.n_rows),
+    )
+
+
+def check_spmm(torch, graphs, card, blocked: bool = False):
+    """K1 or, with ``blocked``, K2 against its plain version on each (name,
+    graph, d) case, and against the other kernel on the same graph: both are
+    deterministic sums of the same terms in another order, so their largest
+    difference and the other kernel's time there are reported (the times
+    show what the long rows cost a kernel that gives a row to one warp)."""
+    kname, kernel, plain, _ = spmm_wrappers(blocked)
+    other_name, other_kernel, _, _ = spmm_wrappers(not blocked)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases, err, ms, plain_ms, lib_ms, bound = [], 0.0, 0.0, 0.0, 0.0, Bound()
     for name, g, d in graphs:
         x = torch.randn(g.n_cols, d, generator=gen, device="cuda")
-        args = (g.row_ptr, g.cols, g.vals, x, g.n_rows)
-        out = segment_spmm(*args)
-        ref = segment_spmm_plain(*args)
-        magnitude = segment_spmm_plain(g.row_ptr, g.cols, g.vals.abs(), x.abs(), g.n_rows)
+        out = kernel(g, x)
+        ref = plain(g, x)
+        magnitude = plain(dataclasses.replace(g, vals=g.vals.abs()), x.abs())
         # the library's yardstick: one sparse product on a CSR tensor
         csr = torch.sparse_csr_tensor(
             g.row_ptr, g.cols, g.vals, size=(g.n_rows, g.n_cols), check_invariants=False
@@ -150,34 +189,82 @@ def check_k1(torch, graphs, card):
         diff = (out - ref).abs()
         e = diff.max().item()
         if not bool((diff <= K1_RTOL * magnitude + K1_ATOL).all()):
-            raise AssertionError(f"K1 {name}: kernel and plain version differ by up to {e:.3e}")
+            raise AssertionError(f"{kname} {name}: kernel and plain version differ by up to {e:.3e}")
         if not bool(((out - lib).abs() <= K1_RTOL * magnitude + K1_ATOL).all()):
-            raise AssertionError(f"K1 {name}: kernel and torch.sparse.mm differ")
-        if not torch.equal(segment_spmm(*args), out):
-            raise AssertionError(f"K1 {name}: two launches on the same input differ")
-        k_ms, p_ms = timed_pair(torch, lambda: segment_spmm(*args), lambda: segment_spmm_plain(*args))
+            raise AssertionError(f"{kname} {name}: kernel and torch.sparse.mm differ")
+        if not torch.equal(kernel(g, x), out):
+            raise AssertionError(f"{kname} {name}: two launches on the same input differ")
+        del ref, lib, diff
+        apart = (out - other_kernel(g, x)).abs()
+        if not bool((apart <= K1_RTOL * magnitude + K1_ATOL).all()):
+            raise AssertionError(f"{kname} {name}: K1 and K2 differ by up to {apart.max().item():.3e}")
+        other_diff, other_ms = apart.max().item(), cuda_ms(torch, lambda: other_kernel(g, x))
+        del magnitude, apart
+        k_ms, p_ms = timed_pair(torch, lambda: kernel(g, x), lambda: plain(g, x))
         l_ms = cuda_ms(torch, lambda: torch.sparse.mm(csr, x))
         b = bound.add(nbytes(g.row_ptr, g.cols, g.vals, x, out), 2.0 * g.nnz * d, F32_FLOPS)
         max_row = int((g.row_ptr[1:] - g.row_ptr[:-1]).max())
         print(
-            f"K1 {name}: n_rows={g.n_rows} nnz={g.nnz} longest_row={max_row} d={d} max_abs_err={e:.3e} repeatable, "
-            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, torch.sparse.mm {l_ms:.4f} ms, "
-            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]"
+            f"{kname} {name}: n_rows={g.n_rows} nnz={g.nnz} longest_row={max_row} d={d} max_abs_err={e:.3e} repeatable, "
+            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, torch.sparse.mm {l_ms:.4f} ms, {other_name} on the same "
+            f"graph {other_ms:.4f} ms (largest difference {other_diff:.3e}), bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]"
         )
         cases.append(dict(
             case=name, n_rows=g.n_rows, nnz=g.nnz, longest_row=max_row, d=d, max_abs_err=e,
-            ms=k_ms, plain_ms=p_ms, library_ms=l_ms, **b,
+            ms=k_ms, plain_ms=p_ms, library_ms=l_ms, other_kernel=other_name, other_kernel_ms=other_ms,
+            max_abs_diff_other_kernel=other_diff, **b,
         ))
         err, ms, plain_ms, lib_ms = max(err, e), ms + k_ms, plain_ms + p_ms, lib_ms + l_ms
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bound.keys(), cases=cases)
 
 
-def check_k1_backward(torch, graphs, card):
-    """K1's backward (the x-gradient of ``spmm_symmetric``: K1 on the output
-    cotangent, as Aᵀ = A) against the gradient through the plain version's
-    autograd, on each (name, graph, d) case. Each element is held to
+def check_k2_widths(torch, dev):
+    """K2's other team shapes (8, 16 and 32 lanes; 1, 2 and 4 vectors a
+    lane) on a small ragged graph: 3,000 rows with bands of empty rows at
+    the start, in the middle and at the end, one row of 5,000 edges that
+    spans forty chunks, an edge count that is no multiple of the chunk.
+    Integer-valued operands, so every order of summation gives the same
+    float32: forward and x-gradient equal to the plain version bit for bit."""
+    import numpy as np
+
+    from genmmrec_tpu_torch.ops.graph import sorted_graph
+
+    _, kernel, plain, product = spmm_wrappers(True)
+    rng = np.random.default_rng(SEED + 6)
+    n_rows, n_cols = 3000, 700
+    live = np.concatenate([np.arange(40, 1200), np.arange(1500, 2900)])
+    rows = np.sort(np.concatenate([rng.choice(live, 20001), np.full(5000, 1777)]))
+    cols = rng.integers(0, n_cols, rows.shape[0])
+    vals = rng.integers(-2, 3, rows.shape[0]).astype(np.float32)
+    to = lambda a: torch.as_tensor(a, device=dev)
+    g = sorted_graph(to(rows), to(cols), to(vals), n_rows, n_cols)
+    # the same edges as a square graph flagged symmetric: the backward is
+    # then K2 on the cotangent over these edges, whatever their values
+    sym = sorted_graph(g.rows, g.cols, g.vals, n_rows, n_rows, symmetric=True)
+    widths = (4, 32, 36, 64, 128, 192, 512)
+    for d in widths:
+        x = to(rng.integers(-3, 4, (n_cols, d)).astype(np.float32))
+        if not torch.equal(kernel(g, x), plain(g, x)):
+            raise AssertionError(f"K2 at d={d} on the ragged graph differs from the plain version")
+        with torch.enable_grad():
+            xs = to(rng.integers(-3, 4, (n_rows, d)).astype(np.float32)).requires_grad_()
+            g_bar = to(rng.integers(-3, 4, (n_rows, d)).astype(np.float32))
+            got = torch.autograd.grad(product(sym, xs), xs, g_bar)[0]
+        if not torch.equal(got, plain(sym, g_bar)):
+            raise AssertionError(f"K2 backward at d={d} on the ragged graph differs from the plain version")
+    print(
+        f"K2 widths {', '.join(map(str, widths))} on a ragged graph ({n_rows} rows, nnz={g.nnz}, a row of 5000 "
+        f"edges, bands of empty rows): forward and backward bit-equal to plain"
+    )
+
+
+def check_spmm_backward(torch, graphs, card, blocked: bool = False):
+    """The backward of K1 or, with ``blocked``, K2 (the x-gradient of
+    ``spmm_symmetric``: the kernel on the output cotangent, as Aᵀ = A)
+    against the gradient through the plain version's autograd, on each
+    (name, graph, d) case. Each element is held to
     K1_RTOL · Σ|vals|·|ḡ[cols]| + K1_ATOL."""
-    from genmmrec_tpu_torch.ops.segment import segment_spmm_plain, spmm_symmetric
+    kname, _, plain_fn, product = spmm_wrappers(blocked)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     cases, err, ms, plain_ms, lib_ms, bound = [], 0.0, 0.0, 0.0, 0.0, Bound()
@@ -185,18 +272,18 @@ def check_k1_backward(torch, graphs, card):
         for name, g, d in graphs:
             x = torch.randn(g.n_cols, d, generator=gen, device="cuda").requires_grad_()
             g_bar = torch.randn(g.n_rows, d, generator=gen, device="cuda")
-            kernel = lambda: spmm_symmetric(g.row_ptr, g.rows, g.cols, g.vals, x, g.n_rows)
-            plain = lambda: segment_spmm_plain(g.row_ptr, g.cols, g.vals, x, g.n_rows)
+            kernel = lambda: product(g, x)
+            plain = lambda: plain_fn(g, x)
             grad = lambda fwd: torch.autograd.grad(fwd(), x, g_bar)[0]
             out, ref = grad(kernel), grad(plain)
-            magnitude = segment_spmm_plain(g.row_ptr, g.cols, g.vals.abs(), g_bar.abs(), g.n_rows)
+            magnitude = plain_fn(dataclasses.replace(g, vals=g.vals.abs()), g_bar.abs())
             torch.cuda.synchronize()
             diff = (out - ref).abs()
             e = diff.max().item()
             if not bool((diff <= K1_RTOL * magnitude + K1_ATOL).all()):
-                raise AssertionError(f"K1 backward {name}: kernel and plain gradients differ by up to {e:.3e}")
+                raise AssertionError(f"{kname} backward {name}: kernel and plain gradients differ by up to {e:.3e}")
             if not torch.equal(grad(kernel), out):
-                raise AssertionError(f"K1 backward {name}: two backward launches on the same input differ")
+                raise AssertionError(f"{kname} backward {name}: two backward launches on the same input differ")
             k_ms, p_ms = timed_pair(torch, lambda: grad(kernel), lambda: grad(plain))
             # the backward alone, on a kept graph
             y_k, y_p = kernel(), plain()
@@ -216,7 +303,7 @@ def check_k1_backward(torch, graphs, card):
             b = bound.add(2 * nbytes(g.row_ptr, g.cols, g.vals, x, g_bar), 4.0 * g.nnz * d, F32_FLOPS)
             max_row = int((g.row_ptr[1:] - g.row_ptr[:-1]).max())
             print(
-                f"K1 backward {name}: n_rows={g.n_rows} nnz={g.nnz} longest_row={max_row} d={d} "
+                f"{kname} backward {name}: n_rows={g.n_rows} nnz={g.nnz} longest_row={max_row} d={d} "
                 f"max_abs_err={e:.3e} repeatable, forward+backward kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
                 f"two torch.sparse.mm {l_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
                 f"backward alone kernel {kb_ms:.4f} ms, plain {pb_ms:.4f} ms [{card}]"
@@ -267,6 +354,119 @@ def check_k3(torch, cases_in, card):
         ))
         err, ms, plain_ms, lib_ms = max(err, e), ms + k_ms, plain_ms + p_ms, lib_ms + l_ms
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bound.keys(), cases=cases)
+
+
+def check_k4(torch, b, n, k, per_row, card):
+    """K4 at the evaluation's shape: (b, n) float32 and bfloat16 scores, with
+    and without a packed mask of ``per_row`` positives a row, the groups
+    chosen as the switched ``grouped_topk`` chooses them. Indices equal to
+    the plain version's and to K3's on the same rows, values equal; the
+    switched route equal to K3 too; then pad slots and a nearly empty row
+    against the plain version."""
+    from genmmrec_tpu_torch.ops import topk as T
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    packed = elec_mask(torch, b, n, per_row, SEED + 4, dev)
+    ng = -(-n // 128)
+    kp = min(k, ng)
+    cases, ms, plain_ms, lib_ms, bound = [], 0.0, 0.0, 0.0, Bound()
+    for dtype in (torch.float32, torch.bfloat16):
+        s = torch.randn(b, n, generator=gen, device=dev).to(dtype)
+        for m in (None, packed):
+            name = f"eval_top{k}_{str(dtype).split('.')[-1]}_{'masked' if m is not None else 'unmasked'}"
+            gidx = T.choose_groups(T.masked_group_max(s, m), kp)
+            v, i = T.candidate_extract(s, gidx, k, m)
+            v_ref, i_ref = T.candidate_extract_plain(s, gidx, k, m)
+            v3, i3 = T.grouped_topk(s, k, m)
+            os.environ["GENMMREC_PALLAS_TOPK"] = "1"
+            try:
+                v_sw, i_sw = T.grouped_topk(s, k, m)
+            finally:
+                del os.environ["GENMMREC_PALLAS_TOPK"]
+            torch.cuda.synchronize()
+            for what, (vv, ii) in {"the plain version": (v_ref, i_ref), "K3": (v3, i3), "the switched route": (v_sw, i_sw)}.items():
+                if not torch.equal(i, ii):
+                    bad = (i != ii).any(dim=1).sum().item()
+                    raise AssertionError(f"K4 {name}: indices differ from {what} in {bad} rows")
+                if not torch.equal(v, vv):
+                    raise AssertionError(f"K4 {name}: values differ from {what}")
+            if not torch.equal(T.candidate_extract(s, gidx, k, m)[1], i):
+                raise AssertionError(f"K4 {name}: two launches on the same input differ")
+            # pad slots (a group id of n_groups and one below 0), a row with
+            # two live items, and a row whose only real group is the ragged
+            # last one: its list ends in (-inf, -1)
+            rows = slice(0, 256)
+            g_pad = gidx[rows].clone()
+            g_pad[:, -1] = ng
+            g_pad[::2, 0] = -1
+            m_few = (packed if m is None else m)[rows].clone()
+            m_few[0] = 0xFF
+            m_few[0, 0] = 0xFC
+            g_pad[0, 0] = 0
+            g_pad[1] = ng
+            g_pad[1, 0] = ng - 1
+            got = T.candidate_extract(s[rows].contiguous(), g_pad, k, m_few)
+            want = T.candidate_extract_plain(s[rows].contiguous(), g_pad, k, m_few)
+            if not (torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])):
+                raise AssertionError(f"K4 {name}: pad slots or a nearly empty row differ from the plain version")
+            if n - (ng - 1) * 128 < k and got[1][1, -1].item() != -1:
+                raise AssertionError(f"K4 {name}: a row that ran out of real candidates lists a pad entry")
+            k_ms, p_ms = timed_pair(
+                torch, lambda: T.candidate_extract(s, gidx, k, m), lambda: T.candidate_extract_plain(s, gidx, k, m)
+            )
+            excluded = None if m is None else T.unpack_mask(m, n)
+            lib = lambda: torch.topk(s if excluded is None else s.masked_fill(excluded, float("-inf")), k, dim=1)
+            l_ms = cuda_ms(torch, lib)
+            k3_ms = cuda_ms(torch, lambda: T.grouped_topk(s, k, m))
+            # the chosen groups' scores and mask bytes, the group ids, the outputs
+            moved = b * kp * 128 * s.element_size() + (0 if m is None else b * kp * 16) + nbytes(gidx, v, i)
+            bnd = bound.add(moved, float(b * kp * 128), F32_FLOPS)
+            print(
+                f"K4 {name}: scores {tuple(s.shape)} kp={kp} k={k} indices and values equal to plain, K3 and the "
+                f"switched route; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, masked_fill + torch.topk of the whole "
+                f"row {l_ms:.4f} ms, K3 on the whole row {k3_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+                f"({bnd['bound_by']}) [{card}]"
+            )
+            cases.append(dict(
+                case=name, shape=list(s.shape), dtype=str(dtype).split(".")[-1], k=k, kp=kp, max_abs_err=0.0,
+                ms=k_ms, plain_ms=p_ms, library_ms=l_ms, k3_ms=k3_ms, **bnd,
+            ))
+            ms, plain_ms, lib_ms = ms + k_ms, plain_ms + p_ms, lib_ms + l_ms
+        del s
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bound.keys(), cases=cases)
+
+
+def check_nonsymmetric_grad(torch, g, d, card):
+    """``spmm`` of a sorted graph that is not symmetric, differentiated on
+    the card: the x-gradient (K1 over the graph's transposed CSR) against the
+    plain version's autograd, within K1_RTOL · Σ|vals|·|ḡ| + K1_ATOL, and
+    bit-equal on a second run."""
+    from genmmrec_tpu_torch.ops.graph import spmm
+    from genmmrec_tpu_torch.ops.segment import segment_spmm_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    with torch.enable_grad():
+        x = torch.randn(g.n_cols, d, generator=gen, device="cuda").requires_grad_()
+        g_bar = torch.randn(g.n_rows, d, generator=gen, device="cuda")
+        grad = lambda fwd: torch.autograd.grad(fwd(), x, g_bar)[0]
+        kernel = lambda: spmm(g, x)
+        out = grad(kernel)
+        ref = grad(lambda: segment_spmm_plain(g.row_ptr, g.cols, g.vals, x, g.n_rows))
+        t = g.transposed()
+        magnitude = segment_spmm_plain(t.row_ptr, t.cols, t.vals.abs(), g_bar.abs(), t.n_rows)
+        torch.cuda.synchronize()
+        e = (out - ref).abs().max().item()
+        if not bool(((out - ref).abs() <= K1_RTOL * magnitude + K1_ATOL).all()):
+            raise AssertionError(f"non-symmetric spmm: x-gradient differs from the plain version's by up to {e:.3e}")
+        if not torch.equal(grad(kernel), out):
+            raise AssertionError("non-symmetric spmm: two backward runs differ")
+        ms = cuda_ms(torch, lambda: grad(kernel))
+    print(
+        f"non-symmetric spmm ({g.n_rows} x {g.n_cols}, nnz={g.nnz}, d={d}): x-gradient over the transposed CSR "
+        f"max_abs_err={e:.3e} repeatable, forward+backward {ms:.4f} ms [{card}]"
+    )
+    return dict(max_abs_err=e, ms=ms)
 
 
 def bf16_ordinal(torch, x):
@@ -557,13 +757,16 @@ def check_k5(torch, shapes, k, card):
 def counted_wrappers():
     """name -> the wrapper whose ``launches`` counts that kernel's launches."""
     from genmmrec_tpu_torch.ops.fused_topk import fused_candidates, fused_candidates_unmasked, fused_group_max
-    from genmmrec_tpu_torch.ops.segment import segment_spmm, segment_spmm_backward
-    from genmmrec_tpu_torch.ops.topk import grouped_topk
+    from genmmrec_tpu_torch.ops import segment as S
+    from genmmrec_tpu_torch.ops.topk import candidate_extract, grouped_topk
 
     return {
-        "segment_spmm": segment_spmm,
-        "segment_spmm_backward": segment_spmm_backward,
+        "segment_spmm": S.segment_spmm,
+        "segment_spmm_backward": S.segment_spmm_backward,
+        "segment_spmm_blocked": S.segment_spmm_blocked,
+        "segment_spmm_blocked_backward": S.segment_spmm_blocked_backward,
         "grouped_topk": grouped_topk,
+        "candidate_extract": candidate_extract,
         "fused_group_max": fused_group_max,
         "fused_candidates": fused_candidates,
         "fused_candidates_unmasked": fused_candidates_unmasked,
@@ -689,10 +892,9 @@ def write_profile(torch, prof, out_dir, label, wall_s, card):
 
 
 def check_batch_against_cpu(torch, trainer, td, train_ds, config, card):
-    """One BPR + InfoNCE batch on the card and on the CPU, from the same
-    parameters, graphs and batch: the loss and every ``rec`` gradient."""
+    """One training batch on the card and on the CPU, from the same
+    parameters, state and batch: the loss and every ``rec`` gradient."""
     from genmmrec_tpu_torch.data.arrays import build_train_data, sample_negatives
-    from genmmrec_tpu_torch.models.diffmm import DiffMM
 
     model, dev, cpu = trainer.model, td.device, torch.device("cpu")
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -703,7 +905,7 @@ def check_batch_against_cpu(torch, trainer, td, train_ds, config, card):
     weight = torch.ones(B, device=dev)
     weight[-B // 8 :] = 0.0  # a padded tail, as the epoch's last batch has
     batch = {"users": users, "pos": pos, "neg": neg, "weight": weight}
-    cpu_model = DiffMM(config, build_train_data(train_ds, cpu))
+    cpu_model = type(model)(config, build_train_data(train_ds, cpu))
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     cpu_state = {k: g.to(cpu) for k, g in trainer.state.items()}
     rec_names = {id(p) for p in model.param_groups()["rec"]}
@@ -728,7 +930,7 @@ def check_batch_against_cpu(torch, trainer, td, train_ds, config, card):
         bound = GRAD_RTOL * ref.abs() + GRAD_ATOL * ref.abs().max()
         worst[n] = float((diff / bound.clamp(min=1e-30)).max())
     print(
-        f"card vs CPU, one batch of {B}: loss {loss_gpu:.7f} vs {loss_cpu:.7f} (rel {rel:.2e}, "
+        f"card vs CPU, {type(model).__name__}, one batch of {B}: loss {loss_gpu:.7f} vs {loss_cpu:.7f} (rel {rel:.2e}, "
         f"bound {LOSS_RTOL:.0e}); rec gradients, largest share of the bound per tensor "
         f"{json.dumps({k: round(v, 4) for k, v in worst.items()})} in {time.perf_counter() - t0:.1f} s [{card}]"
     )
@@ -869,6 +1071,228 @@ def bf16_evaluation_path(torch, config, td, vd, ted, model, valid_f32, test_f32,
                 launches_by_call=launches, launches=total)
 
 
+def synthetic_tables(config, seed: int):
+    """(train, valid, test) interaction tables at the sizes of the config's
+    dataset tier (``synthetic_n_users``/``_items``/``_inters``), with the
+    dataset generator's distributions: log-normal user activity, Zipf-0.8
+    item popularity under a random item permutation, and the last two of a
+    user's items held out (valid, then test) when it has three or more.
+    Drawn in bulk: a user's items come with replacement and repeats are
+    dropped, where the dataset generator loops over the users drawing
+    without replacement, which takes minutes at 192,403 users."""
+    import numpy as np
+
+    from genmmrec_tpu_torch.data.dataset import InterTable
+
+    n_users, n_items, n_inters = (int(config[f"synthetic_n_{k}"]) for k in ("users", "items", "inters"))
+    rng = np.random.default_rng(seed)
+    act = rng.lognormal(0.0, 1.0, n_users)
+    counts = np.maximum(3, (act / act.sum() * n_inters).astype(np.int64))
+    counts = np.minimum(counts, min(n_items, 1000))
+    pop = 1.0 / np.arange(1, n_items + 1) ** 0.8
+    cdf = np.cumsum(pop / pop.sum())
+    item_perm = rng.permutation(n_items)
+    users = np.repeat(np.arange(n_users), counts)
+    items = item_perm[np.minimum(np.searchsorted(cdf, rng.random(len(users))), n_items - 1)]
+    first = np.sort(np.unique(users * n_items + items, return_index=True)[1])
+    users, items = users[first], items[first]
+    counts = np.bincount(users, minlength=n_users)
+    from_end = np.cumsum(counts)[users] - 1 - np.arange(len(users))
+    labels = np.where(counts[users] >= 3, np.select([from_end == 0, from_end == 1], [2, 1], 0), 0)
+    return [
+        InterTable(users[labels == lab].astype(np.int32), items[labels == lab].astype(np.int32), n_users, n_items)
+        for lab in range(3)
+    ]
+
+
+def graph_cf_setup(torch, dev, model_name="LightGCN", dataset="elec", overrides=None):
+    """A graph-CF model at a dataset tier's full width: synthetic tables of
+    the tier's sizes, ``get_model``, parameters from the seeded generator,
+    the trainer with its batch plan, and the valid split's packed mask.
+    ``overrides`` change the config, for a dry run of the control flow at
+    small sizes; on a CPU device such a run skips the launch checks."""
+    from types import SimpleNamespace
+
+    from genmmrec_tpu_torch.config import Config
+    from genmmrec_tpu_torch.data.arrays import build_eval_data, build_train_data
+    from genmmrec_tpu_torch.data.dataset import RecDataset
+    from genmmrec_tpu_torch.engine.trainer import Trainer
+    from genmmrec_tpu_torch.models import get_model
+
+    t0 = time.perf_counter()
+    over = {"save_recommended_topk": False, "n_layers": 2, **(overrides or {})}
+    config = Config(model_name, dataset, over)
+    train_ds, valid_ds, _ = (RecDataset(config, t) for t in synthetic_tables(config, SEED))
+    eval_bs = int(config["eval_batch_size"])
+    td = build_train_data(train_ds, dev)
+    vd = build_eval_data(valid_ds, train_ds, eval_bs, dev)
+    model = get_model(model_name)(config, td)
+    model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    trainer = Trainer(config, model)
+    trainer._build_train_step(td)
+    mask = trainer._dense_mask(vd)  # built once per eval set
+    g = model.norm_adj
+    longest = int((g.row_ptr[1:] - g.row_ptr[:-1]).max())
+    empty = int((g.row_ptr[1:] == g.row_ptr[:-1]).sum())
+    print(
+        f"set-up: {model_name}/{dataset} users={td.n_users} items={td.n_items} train_inters={td.n_inter} "
+        f"valid_users={vd.n_users_eval} embedding={model.latent_dim} layers={model.n_layers}; adjacency "
+        f"n_rows={g.n_rows} nnz={g.nnz} longest_row={longest} empty_rows={empty} kernel={'K2' if g.blocked else 'K1'}; "
+        f"operand at d=64 {g.n_rows * 64 * 4} bytes, packed mask {mask.numel()} bytes, in "
+        f"{time.perf_counter() - t0:.1f} s (host)"
+    )
+    facts = dict(n_users=td.n_users, n_items=td.n_items, n_inter=td.n_inter, adjacency_rows=g.n_rows,
+                 adjacency_nnz=g.nnz, longest_row=longest, empty_rows=empty, blocked=g.blocked)
+    return SimpleNamespace(name=f"{model_name}/{dataset}", model_name=model_name, dataset=dataset, over=over,
+                           config=config, train_ds=train_ds, td=td, vd=vd, model=model, trainer=trainer, mask=mask,
+                           eval_bs=eval_bs, facts=facts)
+
+
+def graph_cf_path(torch, setup, card, steps=40, profile_dir=None):
+    """The graph-CF path through the trainer's entry points: ``steps``
+    training batches through ``Trainer._train_epoch``, then
+    ``evaluate(valid)`` three ways: float32 (K3), float32 with
+    ``GENMMREC_PALLAS_TOPK`` set around the call (the two-stage route, K4),
+    and ``eval_dtype: bfloat16`` (the fused route, K5). Checks the losses,
+    that the steps changed the parameters, the launches of each call, the
+    routes' lists and metrics against each other, and one batch against the
+    CPU. ``profile_dir`` adds ten more training batches and one more
+    evaluation by each of the two-stage and fused routes under
+    ``torch.profiler``. Returns (results, launches by call, launches of the
+    whole path)."""
+    from genmmrec_tpu_torch.config import Config
+    from genmmrec_tpu_torch.engine.trainer import Trainer
+    from genmmrec_tpu_torch.models import get_model
+
+    name, config, td, vd, model, trainer, mask = (
+        setup.name, setup.config, setup.td, setup.vd, setup.model, setup.trainer, setup.mask)
+    dev, eval_bs, g = td.device, setup.eval_bs, model.norm_adj
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    res, launches = dict(setup.facts), {}
+
+    def run(label, fn):
+        reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        res[f"{label}_s"] = time.perf_counter() - t0
+        launches[label] = launch_counts()
+        return out
+
+    # -- training: the first rows of one epoch's permutation ---------------
+    gen = trainer.split("epoch", 0, "train")
+    B = trainer.train_batch_size
+    perm = torch.randperm(trainer._num_batches * B, generator=gen, device=dev).reshape(-1, B)
+    before = [p.detach().clone() for p in model.parameters()]
+    run("warmup_step", lambda: trainer._train_epoch(gen, plan={"idx": perm[:1]}))
+    losses = run("train", lambda: trainer._train_epoch(gen, plan={"idx": perm[1 : 1 + steps]}).cpu())
+    if losses.shape != (steps, 1) or not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"{name}: training losses {tuple(losses.shape)} are not all finite")
+    if any(torch.equal(a, p.detach()) for a, p in zip(before, model.parameters())):
+        raise AssertionError(f"{name}: a parameter did not change in {steps} steps")
+    fwd, bwd = ("segment_spmm_blocked", "segment_spmm_blocked_backward") if g.blocked else ("segment_spmm", "segment_spmm_backward")
+    other = ("segment_spmm", "segment_spmm_backward") if g.blocked else ("segment_spmm_blocked", "segment_spmm_blocked_backward")
+    tl = launches["train"]
+    if dev.type == "cuda" and (tl[fwd] <= 0 or tl[bwd] <= 0 or tl[other[0]] or tl[other[1]]):
+        raise AssertionError(f"{name}: training launched {tl}; expected only {fwd} and {bwd}")
+    res["step_ms"] = res["train_s"] / steps * 1e3
+    print(
+        f"{name} training: {steps} batches of {B} in {res['train_s']:.3f} s ({res['step_ms']:.2f} ms a "
+        f"step; a first step {res['warmup_step_s']:.3f} s), loss first {float(losses[0, 0]):.5f} last "
+        f"{float(losses[-1, 0]):.5f}; launches {tl} [{card}]"
+    )
+
+    # -- evaluation, three routes -------------------------------------------
+    valid_k3 = run("eval_valid_f32_k3", lambda: trainer.evaluate(vd))
+    top_k3 = trainer.eval_topk(vd)
+    os.environ["GENMMREC_PALLAS_TOPK"] = "1"
+    try:
+        valid_k4 = run("eval_valid_f32_k4", lambda: trainer.evaluate(vd))
+        top_k4 = trainer.eval_topk(vd)
+    finally:
+        del os.environ["GENMMREC_PALLAS_TOPK"]
+    bf_config = Config(setup.model_name, setup.dataset, {**setup.over, "eval_dtype": "bfloat16"})
+    bf_model = get_model(setup.model_name)(bf_config, td)
+    bf_model.load_state_dict(model.state_dict())
+    bf_trainer = Trainer(bf_config, bf_model)
+    bf_trainer._mask_cache = trainer._mask_cache  # the same eval set's mask, built above
+    valid_bf = run("eval_valid_bf16_k5", lambda: bf_trainer.evaluate(vd))
+    top_bf = bf_trainer.eval_topk(vd)
+
+    if dev.type == "cuda":
+        need = {
+            "eval_valid_f32_k3": ([fwd, "grouped_topk"], ["candidate_extract", "fused_group_max"]),
+            "eval_valid_f32_k4": ([fwd, "candidate_extract"], ["grouped_topk", "fused_group_max"]),
+            "eval_valid_bf16_k5": ([fwd, "fused_group_max", "fused_candidates", "grouped_topk"], ["candidate_extract"]),
+        }
+        for label, (wanted, unwanted) in need.items():
+            missing = [n for n in wanted if launches[label][n] <= 0]
+            stray = [n for n in unwanted if launches[label][n] > 0]
+            if missing or stray:
+                raise AssertionError(f"{name} {label}: not launched {missing}, stray {stray}: {launches[label]}")
+    if not torch.equal(top_k3, top_k4):
+        bad = (top_k3 != top_k4).any(dim=1).sum().item()
+        raise AssertionError(f"{name}: the K3 and K4 routes' top-{top_k3.shape[1]} lists differ in {bad} rows")
+    if valid_k3 != valid_k4:
+        raise AssertionError(f"{name}: the K3 and K4 routes' metrics differ")
+    for kind, top in (("float32", top_k3), ("bfloat16", top_bf)):
+        listed = (mask.gather(1, top >> 3) >> (top & 7).to(torch.uint8)) & 1
+        if top.min().item() < 0 or listed[vd.valid].any():
+            raise AssertionError(f"{name} {kind}: a pad entry or a train positive is in the top-k")
+    for kind, got in (("float32", valid_k3), ("bfloat16", valid_bf)):
+        bad = [k for k, v in got.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{name} {kind}: non-finite metrics {bad}")
+    drift = {key: valid_bf[key] - valid_k3[key] for key in ("recall@20", "ndcg@20")}
+    off = {k: v for k, v in drift.items() if abs(v) > BF16_METRIC_ATOL}
+    if off:
+        raise AssertionError(f"{name}: bf16 metrics stray from float32's by more than {BF16_METRIC_ATOL}: {off}")
+    agree = float((top_bf == top_k3)[vd.valid].float().mean())
+    chunks = vd.users.shape[0] // eval_bs
+    print(
+        f"{name} evaluate(valid), {vd.n_users_eval} users in {chunks} chunks of {eval_bs}: float32 K3 "
+        f"route {res['eval_valid_f32_k3_s']:.3f} s; float32 two-stage K4 route {res['eval_valid_f32_k4_s']:.3f} s; "
+        f"bfloat16 fused K5 route {res['eval_valid_bf16_k5_s']:.3f} s [{card}]"
+    )
+    print(f"{name} evaluation launches: {json.dumps({k: v for k, v in launches.items() if k.startswith('eval')})}")
+    print(
+        f"{name} checks: K3 and K4 routes' top-{top_k3.shape[1]} lists and metrics equal; no train "
+        f"positive listed; bfloat16 lists equal float32's in {agree:.4f} of entries, Recall@20 and NDCG@20 drift "
+        f"{json.dumps({k: round(v, 6) for k, v in drift.items()})} (bound {BF16_METRIC_ATOL}); valid {json.dumps(valid_k3)}"
+    )
+    if profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        def profiled(label, fn):
+            sync()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                wall = time.perf_counter() - t0
+            write_profile(torch, prof, profile_dir, f"{setup.model_name}_{setup.dataset}_{label}", wall, card)
+
+        def switched_eval():
+            os.environ["GENMMREC_PALLAS_TOPK"] = "1"
+            try:
+                trainer.evaluate(vd)
+            finally:
+                del os.environ["GENMMREC_PALLAS_TOPK"]
+
+        profiled("train_10_steps", lambda: trainer._train_epoch(gen, plan={"idx": perm[1 + steps : 11 + steps]}))
+        profiled("eval_valid_f32_k4", switched_eval)
+        profiled("eval_valid_bf16_k5", lambda: bf_trainer.evaluate(vd))
+    del top_k3, top_k4, top_bf, bf_model, bf_trainer
+    res["batch_vs_cpu"] = (
+        check_batch_against_cpu(torch, trainer, td, setup.train_ds, config, card) if dev.type == "cuda" else None
+    )
+    res.update(valid=valid_k3, valid_bf16=valid_bf, metric_drift=drift, bf16_equal_share=agree)
+    path_calls = [l for name, l in launches.items() if name != "warmup_step"]
+    total = {k: sum(l[k] for l in path_calls) for k in launches["train"]}
+    return res, launches, total
+
+
 def main() -> int:
     import torch
 
@@ -880,7 +1304,9 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
-        "--profile", metavar="DIR", help="profile one more bf16 evaluation and one more epoch, phase by phase, into DIR"
+        "--profile", metavar="DIR",
+        help="profile one more bf16 evaluation and one more epoch of DiffMM, phase by phase, and ten more "
+        "training batches and two more evaluations of LightGCN, into DIR",
     )
     args = parser.parse_args()
 
@@ -934,7 +1360,7 @@ def main() -> int:
     # the path up); the slice below regenerates again from the same weights
     modal = trainer.regenerate()["image_ui"]
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    k1 = check_k1(
+    k1 = check_spmm(
         torch,
         [
             ("adjacency_d64", model.norm_adj, model.latdim),
@@ -943,7 +1369,7 @@ def main() -> int:
         ],
         card,
     )
-    k1_bwd = check_k1_backward(
+    k1_bwd = check_spmm_backward(
         torch,
         [
             ("adjacency_d128", model.norm_adj, 2 * model.latdim),
@@ -1075,8 +1501,40 @@ def main() -> int:
     if args.profile:
         train_epoch(torch, trainer, 2, card, profile_dir=args.profile)
 
-    launches = {k: serving_launches[k] + bf16_launches[k] + training_launches[k] for k in serving_launches}
+    # -- phase 6: the gradient of a graph that is not symmetric ------------
+    from genmmrec_tpu_torch.ops.graph import ui_norm_adj
+
+    ui = ui_norm_adj(train_ds.table.users, train_ds.table.items, td.n_users, td.n_items, dev)
+    nonsymmetric = check_nonsymmetric_grad(torch, ui, model.latdim, card)
+    del trainer, model, ui
+    torch.cuda.empty_cache()
+
+    # -- phase 7: LightGCN at the Amazon-elec geometry ----------------------
+    # the adjacency there takes K2, and the catalog is wide enough for the
+    # two-stage top-k (K4): both kernels against their plain versions at the
+    # path's shapes first, then the path
+    elec_t0 = time.perf_counter()
+    elec = graph_cf_setup(torch, dev)
+    adj = elec.model.norm_adj
+    if not adj.blocked or elec.td.n_items != ELEC_ITEMS:
+        raise AssertionError(f"the elec adjacency ({adj.n_rows} rows) must take K2 over a catalog of {ELEC_ITEMS}")
+    d = elec.model.latent_dim
+    k2 = check_spmm(torch, [("elec_adjacency_d64", adj, d), ("elec_adjacency_d128", adj, 2 * d)], card, blocked=True)
+    k2_bwd = check_spmm_backward(torch, [("elec_adjacency_d128", adj, 2 * d)], card, blocked=True)
+    check_k2_widths(torch, dev)
+    k4 = check_k4(torch, elec.eval_bs, ELEC_ITEMS, elec.trainer.evaluator.max_k, ELEC_POSITIVES, card)
+    torch.cuda.empty_cache()
+    elec_res, elec_calls, elec_launches = graph_cf_path(torch, elec, card, profile_dir=args.profile)
+    print(f"LightGCN/elec phase done in {time.perf_counter() - elec_t0:.1f} s")
+
+    launches = {
+        k: serving_launches[k] + bf16_launches[k] + training_launches[k] + elec_launches[k] for k in serving_launches
+    }
+    never = [k for k, v in launches.items() if v <= 0]
+    if never:
+        raise AssertionError(f"kernels launched on no path: {never}")
     fused_src = "genmmrec_tpu_torch/csrc/fused_topk.cu"
+    blocked_src = "genmmrec_tpu_torch/csrc/segment_blocked.cu"
     kernels = [
         dict(
             name="segment_spmm", route="cuda", source="genmmrec_tpu_torch/csrc/segment_sum.cu",
@@ -1084,12 +1542,25 @@ def main() -> int:
         ),
         dict(
             name="segment_spmm_backward", route="cuda", source="genmmrec_tpu_torch/csrc/segment_sum.cu",
-            replaces="genmmrec_tpu/ops/segment_pallas.py:395 (from _sym_bwd :442)",
+            replaces="genmmrec_tpu/ops/segment_pallas.py:395 (from _sym_bwd :442 and _bwd :418)",
             launches=launches["segment_spmm_backward"], **k1_bwd,
+        ),
+        dict(
+            name="segment_spmm_blocked", route="cuda", source=blocked_src,
+            replaces="genmmrec_tpu/ops/segment_pallas.py:247", launches=launches["segment_spmm_blocked"], **k2,
+        ),
+        dict(
+            name="segment_spmm_blocked_backward", route="cuda", source=blocked_src,
+            replaces="genmmrec_tpu/ops/segment_pallas.py:247 (from _sym_blk_bwd :296)",
+            launches=launches["segment_spmm_blocked_backward"], **k2_bwd,
         ),
         dict(
             name="grouped_topk", route="cuda", source="genmmrec_tpu_torch/csrc/topk.cu",
             replaces="genmmrec_tpu/ops/topk.py:135", launches=launches["grouped_topk"], **k3,
+        ),
+        dict(
+            name="candidate_extract", route="cuda", source="genmmrec_tpu_torch/csrc/topk_extract.cu",
+            replaces="genmmrec_tpu/ops/topk.py:168", launches=launches["candidate_extract"], **k4,
         ),
         dict(
             name="fused_group_max", route="cuda", source=fused_src,
@@ -1113,7 +1584,8 @@ def main() -> int:
         train_epochs=[strip(e) for e in epochs], train_eval_valid_s=t_train_valid,
         launches_serving=serving_launches, launches_bf16_eval=bf16_launches,
         launches_training=training_launches, bf16_eval=bf16_eval,
-        fused_grouped_topk=k5["fused_grouped_topk"], batch_vs_cpu=batch_check, card=card,
+        fused_grouped_topk=k5["fused_grouped_topk"], batch_vs_cpu=batch_check,
+        nonsymmetric_grad=nonsymmetric, lightgcn_elec=elec_res, launches_lightgcn_elec=elec_calls, card=card,
     )
     print(json.dumps({"slice": summary}))
     print(json.dumps({"kernels": kernels}))

@@ -24,7 +24,8 @@ three routes:
 
 - plane: ``scores_cached`` writes the chunk's (B, n_items) scores in
   either type and K3 (``ops/topk.py``) takes the masked top-k over the
-  bit-packed mask;
+  bit-packed mask, or, with ``GENMMREC_PALLAS_TOPK`` set and a catalog of
+  more than 2k groups of 128 items, the two-stage route over K4 does;
 - fused: bfloat16 with the base ``scores_cached`` and ``(u_emb, i_emb)``
   artifacts goes through K5 (``ops/fused_topk.py``), which writes no score
   plane;
@@ -226,8 +227,9 @@ class Trainer:
 
         The batches are rows of a permutation of ``n_pad = n_batches · B``
         slots; slot ``raw`` reads interaction ``raw % n_inter`` with weight
-        ``raw < n_inter``. ``plan`` may give the slots (``idx``, (n_batches,
-        B)) and the negatives (``neg``, same shape) in place of the draws.
+        ``raw < n_inter``. ``plan`` may give the slots (``idx``, (any number
+        of batches, B)) and the negatives (``neg``, same shape) in place of
+        the draws; the epoch then runs the plan's batches.
         """
         model, td, opt = self.model, self._td, self.optimizers["main"]
         B, nb, n_inter = self.train_batch_size, self._num_batches, td.n_inter
@@ -237,12 +239,12 @@ class Trainer:
         else:
             idxs = torch.randperm(nb * B, generator=generator, device=dev).reshape(nb, B)
         parts_all = []
-        for b in range(nb):
+        for b in range(idxs.shape[0]):
             raw = idxs[b]
             weight = (raw < n_inter).to(torch.float32)
             idx = raw % n_inter
             users, pos = td.users[idx], td.items[idx]
-            if plan is not None:
+            if plan is not None and "neg" in plan:
                 neg = plan["neg"][b].to(dev)
             elif self.use_neg:
                 neg = sample_negatives(users, td.hist, td.item_pool, td.n_pool, self.neg_rounds, generator)

@@ -1,6 +1,10 @@
 """Move parameters between the JAX package's pytrees and the port's modules.
 
-The JAX DiffMM keeps ``{"rec": {uEmbeds, iEmbeds, modal_weight,
+The graph-CF models keep a flat or lightly nested tree, ``{user_emb,
+item_emb}`` (BPR, LightGCN), ``{user_embeddings, item_embeddings}``
+(LayerGCN), ``{"encoder": {user_emb, item_emb}, "predictor": {w, b}}``
+(SELFCFED_LGN), and the port's parameters carry the same paths. The JAX
+DiffMM keeps ``{"rec": {uEmbeds, iEmbeds, modal_weight,
 image_trans, text_trans}, "denoise_image": {...}, "denoise_text": {...}}``
 with linear layers as ``{"w": (d_out, d_in), "b": (d_out,)}`` and layer
 stacks as lists. The port's parameter names are the same paths with the
@@ -21,7 +25,8 @@ from torch import nn
 
 _LEAF_NAMES = {"w": "weight", "b": "bias"}
 _JAX_LEAF_NAMES = {v: k for k, v in _LEAF_NAMES.items()}
-# top-level subtrees of the JAX tree; every other parameter sits under "rec"
+# top-level subtrees of a JAX tree that has them; every other parameter of
+# such a model sits under "rec"
 _TOP_LEVEL = ("denoise_image", "denoise_text")
 
 
@@ -71,11 +76,13 @@ def jax_tree_by_name(tree) -> dict:
 
 def params_by_jax_name(model: nn.Module) -> dict:
     """The model's parameters as numpy arrays under the JAX tree's names."""
+    named = dict(model.named_parameters())
+    has_rec_level = any(name.split(".")[0] in _TOP_LEVEL for name in named)
     out = {}
-    for name, p in model.named_parameters():
+    for name, p in named.items():
         parts = name.split(".")
         parts[-1] = _JAX_LEAF_NAMES.get(parts[-1], parts[-1])
-        if parts[0] not in _TOP_LEVEL:
+        if has_rec_level and parts[0] not in _TOP_LEVEL:
             parts = ["rec"] + parts
         out["/".join(parts)] = p.detach().cpu().numpy()
     return out

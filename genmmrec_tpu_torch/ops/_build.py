@@ -101,8 +101,15 @@ def library():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.segment_spmm_f32.argtypes = [p, p, p, p, p, i, i, p]
     lib.segment_spmm_f32.restype = i
+    lib.segment_spmm_blocked_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+    lib.segment_spmm_blocked_f32.restype = i
+    lib.segment_spmm_blocked_chunk.argtypes = []
+    lib.segment_spmm_blocked_chunk.restype = i
     for fn in (lib.masked_topk_f32, lib.masked_topk_bf16):
         fn.argtypes = [p, p, i, p, p, i, i, i, p]
+        fn.restype = i
+    for fn in (lib.candidate_extract_f32, lib.candidate_extract_bf16):
+        fn.argtypes = [p, p, p, i, p, p, i, i, i, i, p]
         fn.restype = i
     lib.fused_group_max_bf16.argtypes = [p, p, p, p, i, i, i, p]
     lib.fused_group_max_bf16.restype = i

@@ -41,9 +41,8 @@ from __future__ import annotations
 import torch
 
 from genmmrec_tpu_torch.ops import _build
-from genmmrec_tpu_torch.ops.topk import MAX_K, grouped_topk, unpack_mask
+from genmmrec_tpu_torch.ops.topk import GROUP, MAX_K, choose_groups, grouped_topk, unpack_mask
 
-GROUP = 128
 # embedding widths the kernels are built for; a narrower one is padded with
 # zero columns up to the next of these, which leaves every score unchanged
 KERNEL_WIDTHS = (32, 64, 128)
@@ -223,9 +222,7 @@ def fused_grouped_topk(u_emb, item_emb, k: int, packed_mask, *, cand_mask: str =
     u, table = u_emb.bfloat16(), item_emb.bfloat16()
     gmax = fused_group_max(u, table, packed_mask)
     # a catalog of fewer than k groups hands all of them on
-    kp = min(k, gmax.shape[1])
-    ranked = torch.sort(gmax, dim=1, descending=True, stable=True).indices[:, :kp]
-    gidx = torch.sort(ranked, dim=1).values.to(torch.int32)
+    gidx = choose_groups(gmax, min(k, gmax.shape[1]))
     if cand_mask == "external":
         cand = external_mask(fused_candidates_unmasked(u, table, gidx), gidx, packed_mask)
     else:

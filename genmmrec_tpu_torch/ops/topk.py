@@ -1,11 +1,14 @@
-"""K3: exact masked top-k over the rows of a score matrix.
+"""K3 and K4: exact masked top-k over the rows of a score matrix.
 
-Counterpart of ``genmmrec_tpu/ops/topk.py`` ``grouped_topk`` (whose Pallas
-kernel is ``_gather_kernel``, the candidate gather of the two-stage
-selection). On the card one kernel, ``genmmrec_tpu_torch/csrc/topk.cu``,
+Counterpart of ``genmmrec_tpu/ops/topk.py`` ``grouped_topk``, whose Pallas
+kernels are ``_gather_kernel``, the candidate gather of the two-stage
+selection (K3), and ``_extract_kernel``, the opt-in candidate extraction
+(K4). On the card K3, ``genmmrec_tpu_torch/csrc/topk.cu``, is one kernel that
 serves every width and every ``k <= 64``, over float32 or bfloat16 rows (the
-bf16 evaluation's score and candidate planes); its source says what bounds
-it and how it is laid out.
+bf16 evaluation's score and candidate planes). K4,
+``genmmrec_tpu_torch/csrc/topk_extract.cu``, is the second stage of the
+two-stage selection: the top-k of the 128-wide groups that the group maxima
+picked. Their sources say what bounds them and how they are laid out.
 
 Contract: values in descending order, ties broken by the lower index first
 (``lax.top_k``'s rule). ``packed_mask`` is an optional (b, >= ceil(n/8))
@@ -14,19 +17,33 @@ bitorder="little")``), marking columns to exclude; excluded columns take
 part with the value ``-inf``. Values keep the scores' type; indices are
 int64.
 
-``grouped_topk`` takes the plain PyTorch version for tensors on the CPU and
-launches the kernel for CUDA tensors, or raises.
+``grouped_topk`` takes K3. With ``GENMMREC_PALLAS_TOPK`` set in the
+environment (the reference's own switch, read at each call) and more than
+``2k`` groups in a row (the reference's narrow-row rule), it takes the
+two-stage route instead: masked group maxima and the choice of
+``min(k, n_groups)`` groups in plain PyTorch (XLA ops outside the kernel in
+the reference), then K4, ``candidate_extract``. The groups are ranked by
+(maximum descending, id ascending) and handed on sorted by id, so that a
+lower position among the candidates is a lower item index and both routes
+give the same lists bit for bit.
+
+Each wrapper takes its plain PyTorch version for tensors on the CPU and
+launches its kernel for CUDA tensors, or raises.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
 from genmmrec_tpu_torch.ops import _build
 
 MAX_K = 64
-# the kernel's C entry point for each score type it takes
+GROUP = 128
+# the kernels' C entry points for each score type they take
 _ENTRY = {torch.float32: "masked_topk_f32", torch.bfloat16: "masked_topk_bf16"}
+_EXTRACT_ENTRY = {torch.float32: "candidate_extract_f32", torch.bfloat16: "candidate_extract_bf16"}
 
 
 def unpack_mask(packed_mask: torch.Tensor, n: int) -> torch.Tensor:
@@ -46,28 +63,34 @@ def grouped_topk_plain(scores, k: int, packed_mask=None):
     return vals[:, :k], idx[:, :k]
 
 
-def grouped_topk(scores, k: int, packed_mask=None):
-    """Exact masked top-k of a 2-D float32 or bfloat16 score matrix →
-    (values, indices)."""
-    if scores.is_cpu:
-        return grouped_topk_plain(scores, k, packed_mask)
+def _mask_args(packed_mask, b: int, n: int, device):
+    """(pointer, row stride) of a checked packed mask, or (None, 0)."""
+    if packed_mask is None:
+        return None, 0
+    if (
+        packed_mask.device != device
+        or packed_mask.dtype != torch.uint8
+        or not packed_mask.is_contiguous()
+        or packed_mask.dim() != 2
+        or packed_mask.shape[0] != b
+        or packed_mask.shape[1] < -(-n // 8)
+    ):
+        raise ValueError(f"packed_mask must be a contiguous uint8 ({b}, >= {-(-n // 8)}) tensor")
+    return packed_mask.data_ptr(), packed_mask.shape[1]
+
+
+def _check_scores(scores, k: int, widest: int):
     if scores.dtype not in _ENTRY or scores.dim() != 2 or not scores.is_contiguous():
         raise ValueError("scores must be a contiguous 2-D float32 or bfloat16 tensor")
+    if not 1 <= k <= min(widest, MAX_K):
+        raise ValueError(f"k={k} must be in [1, {min(widest, MAX_K)}]")
+
+
+def _masked_topk(scores, k: int, packed_mask=None):
+    """K3 on CUDA scores."""
+    _check_scores(scores, k, scores.shape[1])
     b, n = scores.shape
-    if not 1 <= k <= min(n, MAX_K):
-        raise ValueError(f"k={k} must be in [1, {min(n, MAX_K)}]")
-    mask_ptr, mask_stride = None, 0
-    if packed_mask is not None:
-        if (
-            packed_mask.device != scores.device
-            or packed_mask.dtype != torch.uint8
-            or not packed_mask.is_contiguous()
-            or packed_mask.dim() != 2
-            or packed_mask.shape[0] != b
-            or packed_mask.shape[1] < -(-n // 8)
-        ):
-            raise ValueError(f"packed_mask must be a contiguous uint8 ({b}, >= {-(-n // 8)}) tensor")
-        mask_ptr, mask_stride = packed_mask.data_ptr(), packed_mask.shape[1]
+    mask_ptr, mask_stride = _mask_args(packed_mask, b, n, scores.device)
     vals = torch.empty(b, k, dtype=scores.dtype, device=scores.device)
     idx = torch.empty(b, k, dtype=torch.int64, device=scores.device)
     lib = _build.library()
@@ -81,4 +104,95 @@ def grouped_topk(scores, k: int, packed_mask=None):
     return vals, idx
 
 
+def candidate_extract_plain(scores, gidx, k: int, packed_mask=None):
+    """The candidates in flat position order with the pad entries moved
+    behind every real one, then a stable descending sort."""
+    b, n = scores.shape
+    ng, kp = -(-n // GROUP), gidx.shape[1]
+    neg = float("-inf")
+    if packed_mask is not None:
+        scores = scores.masked_fill(unpack_mask(packed_mask, n), neg)
+    # the catalog's tail and one more group, the pad slot, at -inf
+    plane = torch.nn.functional.pad(scores, (0, (ng + 1) * GROUP - n), value=neg).view(b, ng + 1, GROUP)
+    slot = torch.where((gidx < 0) | (gidx >= ng), ng, gidx).long()
+    cand = plane.gather(1, slot[:, :, None].expand(b, kp, GROUP)).reshape(b, -1)
+    item = (slot[:, :, None] * GROUP + torch.arange(GROUP, device=scores.device)).reshape(b, -1)
+    real_first = torch.sort((item >= n).to(torch.uint8), dim=1, stable=True).indices
+    vals, order = torch.sort(cand.gather(1, real_first), dim=1, descending=True, stable=True)
+    idx = item.gather(1, real_first.gather(1, order[:, :k]))
+    return vals[:, :k], torch.where(idx < n, idx, -1)
+
+
+def candidate_extract(scores, gidx, k: int, packed_mask=None):
+    """K4: the exact top-k among each row's groups ``gidx`` ((b, kp) int32,
+    kp <= 64) of 128 consecutive columns of ``scores`` ((b, n) float32 or
+    bfloat16) → (values (b, k), item indices (b, k) int64).
+
+    Equal values come lower flat position first; with ``gidx`` ascending in
+    a row that is the lower item index. A group id outside [0, n_groups) is
+    a pad slot; a pad slot and the columns past ``n`` in the last group are
+    never listed: where a row has fewer than ``k`` real candidates its list
+    ends in (-inf, -1)."""
+    if gidx.dim() != 2 or gidx.shape[0] != scores.shape[0] or gidx.dtype != torch.int32 or gidx.device != scores.device:
+        raise ValueError(f"gidx must be an int32 ({scores.shape[0]}, kp) tensor on the scores' device")
+    kp = gidx.shape[1]
+    if not 1 <= kp <= MAX_K:
+        raise ValueError(f"gidx has {kp} groups a row; the kernel takes 1 to {MAX_K}")
+    _check_scores(scores, k, kp * GROUP)
+    if scores.is_cpu:
+        return candidate_extract_plain(scores, gidx, k, packed_mask)
+    if not gidx.is_contiguous():
+        raise ValueError("gidx must be contiguous")
+    b, n = scores.shape
+    mask_ptr, mask_stride = _mask_args(packed_mask, b, n, scores.device)
+    vals = torch.empty(b, k, dtype=scores.dtype, device=scores.device)
+    idx = torch.empty(b, k, dtype=torch.int64, device=scores.device)
+    lib = _build.library()
+    with torch.cuda.device(scores.device):
+        rc = getattr(lib, _EXTRACT_ENTRY[scores.dtype])(
+            scores.data_ptr(), gidx.data_ptr(), mask_ptr, mask_stride, vals.data_ptr(), idx.data_ptr(),
+            b, n, kp, k, torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, rc, "candidate_extract")
+    candidate_extract.launches += 1
+    return vals, idx
+
+
+def choose_groups(gmax, kp: int) -> torch.Tensor:
+    """Each row's ``kp`` best groups of ``gmax`` ((b, n_groups) maxima),
+    ranked by (maximum descending, group id ascending), as ascending int32
+    ids: a superset of the groups that hold the row's top-k."""
+    ranked = torch.sort(gmax, dim=1, descending=True, stable=True).indices[:, :kp]
+    return torch.sort(ranked, dim=1).values.to(torch.int32)
+
+
+def masked_group_max(scores, packed_mask=None) -> torch.Tensor:
+    """(b, n_groups) float32 maxima of each 128-column group, excluded
+    columns and the columns past the row's end at ``-inf``. The maximum is
+    taken in float32, which every bfloat16 fits exactly."""
+    b, n = scores.shape
+    ng = -(-n // GROUP)
+    masked = scores if packed_mask is None else scores.masked_fill(unpack_mask(packed_mask, n), float("-inf"))
+    masked = torch.nn.functional.pad(masked, (0, ng * GROUP - n), value=float("-inf"))
+    return masked.view(b, ng, GROUP).float().amax(dim=2)
+
+
+def _two_stage_topk(scores, k: int, packed_mask=None):
+    """Masked group maxima and the choice of groups in plain PyTorch, then K4."""
+    gmax = masked_group_max(scores, packed_mask)
+    return candidate_extract(scores, choose_groups(gmax, min(k, gmax.shape[1])), k, packed_mask)
+
+
+def grouped_topk(scores, k: int, packed_mask=None):
+    """Exact masked top-k of a 2-D float32 or bfloat16 score matrix →
+    (values, indices)."""
+    if os.environ.get("GENMMREC_PALLAS_TOPK") and scores.dim() == 2 and -(-scores.shape[1] // GROUP) > 2 * k:
+        _check_scores(scores, k, scores.shape[1])
+        return _two_stage_topk(scores, k, packed_mask)
+    if scores.is_cpu:
+        return grouped_topk_plain(scores, k, packed_mask)
+    return _masked_topk(scores, k, packed_mask)
+
+
 grouped_topk.launches = 0
+candidate_extract.launches = 0

@@ -287,9 +287,10 @@ def test_spmm_backward_takes_any_cotangent_layout():
 
 
 def test_non_symmetric_graph_with_grad_raises_off_the_cpu(monkeypatch):
-    """Only a symmetric graph has a backward off the CPU. Meta tensors take
-    the kernel's route without a card, and the check comes before any
-    launch."""
+    """Off the CPU a graph reaches the kernel or raises, with or without
+    grad: meta tensors take the kernel's route without a card, where the
+    missing library raises. Only the bare forward wrapper refuses operands
+    that need grad, as it records no backward."""
     meta = torch.device("meta")
     n, nnz = 50, 200
     g = tgraph.SparseGraph(
@@ -301,14 +302,16 @@ def test_non_symmetric_graph_with_grad_raises_off_the_cpu(monkeypatch):
     )
     x = torch.zeros(n, 64, device=meta, requires_grad=True)
     with pytest.raises(RuntimeError, match="symmetric"):
-        tgraph.spmm(g, x)
-    # a symmetric graph goes on to the kernel with the same operands
+        segment_spmm(g.row_ptr, g.cols, g.vals, x, n)
+
     def library():
         raise RuntimeError("kernel library reached")
 
     monkeypatch.setattr(_build, "library", library)
-    with pytest.raises(RuntimeError, match="kernel library reached"):
-        tgraph.spmm(dataclasses.replace(g, symmetric=True), x)
+    # through spmm both kinds of graph go on to the kernel with these operands
+    for graph in (g, dataclasses.replace(g, symmetric=True), dataclasses.replace(g, blocked=True)):
+        with pytest.raises(RuntimeError, match="kernel library reached"):
+            tgraph.spmm(graph, x)
     # on the CPU the plain version runs and differentiates
     rows, cols, vals, n = _symmetric_graph("random")
     cg = tgraph.sorted_graph(torch.from_numpy(rows), torch.from_numpy(cols), torch.from_numpy(vals), n, n)
