@@ -33,9 +33,13 @@ Before the paths it builds the CUDA kernels from ``genmmrec_tpu_torch/csrc``
 and holds each one (K1 forward and backward, K2 forward and backward, K3,
 K4, K5a, K5b, K5c) against its plain PyTorch version, on the card, at the
 shapes the paths give it, and times kernel, plain version and the one
-PyTorch call that computes the same function with CUDA events. K2 is also
-held against K1 on the same graph, and ``spmm`` on a graph that is not
-symmetric is differentiated on the card against the plain version. Each
+PyTorch call that computes the same function with CUDA events. K1 and K2
+are also held against each other on the same graphs and, bit for bit,
+against the plain version on integer operands at every team shape; K3 also
+runs the Amazon-elec catalog width in float32 and bfloat16 and a block of
+adversarial rows (constant, tied at the threshold, fewer finite scores
+than k); and ``spmm`` on a graph that is not symmetric is differentiated
+on the card against the plain version. Each
 kernel's time stands beside its bound: the larger of the bytes it must move
 over the card's memory rate and its operations over the card's peak rate.
 ``--profile DIR`` adds one more bf16 evaluate(valid) and one more DiffMM
@@ -145,8 +149,8 @@ class Bound:
 
 
 def spmm_wrappers(blocked: bool):
-    """(kernel name, forward wrapper, plain version, differentiable product)
-    of K1 or, with ``blocked``, K2, each taking (graph, x)."""
+    """(kernel name, forward wrapper, plain version, differentiable product,
+    backward wrapper) of K1 or, with ``blocked``, K2, each taking (graph, x)."""
     from genmmrec_tpu_torch.ops import segment as S
 
     if blocked:
@@ -155,12 +159,14 @@ def spmm_wrappers(blocked: bool):
             lambda g, x: S.segment_spmm_blocked(g.row_ptr, g.rows, g.cols, g.vals, x, g.n_rows),
             lambda g, x: S.segment_spmm_blocked_plain(g.rows, g.cols, g.vals, x, g.n_rows),
             lambda g, x: S.spmm_symmetric(g.row_ptr, g.rows, g.cols, g.vals, x, g.n_rows, blocked=True),
+            lambda g, x: S.segment_spmm_blocked_backward(g.row_ptr, g.rows, g.cols, g.vals, x, g.n_rows),
         )
     return (
         "K1",
-        lambda g, x: S.segment_spmm(g.row_ptr, g.cols, g.vals, x, g.n_rows),
+        lambda g, x: S.segment_spmm(g.row_ptr, g.cols, g.vals, x, g.n_rows, g.long_rows),
         lambda g, x: S.segment_spmm_plain(g.row_ptr, g.cols, g.vals, x, g.n_rows),
-        lambda g, x: S.spmm_symmetric(g.row_ptr, g.rows, g.cols, g.vals, x, g.n_rows),
+        lambda g, x: S.spmm_symmetric(g.row_ptr, g.rows, g.cols, g.vals, x, g.n_rows, long_rows=g.long_rows),
+        lambda g, x: S.segment_spmm_backward(g.row_ptr, g.cols, g.vals, x, g.n_rows, g.long_rows),
     )
 
 
@@ -168,10 +174,11 @@ def check_spmm(torch, graphs, card, blocked: bool = False):
     """K1 or, with ``blocked``, K2 against its plain version on each (name,
     graph, d) case, and against the other kernel on the same graph: both are
     deterministic sums of the same terms in another order, so their largest
-    difference and the other kernel's time there are reported (the times
-    show what the long rows cost a kernel that gives a row to one warp)."""
-    kname, kernel, plain, _ = spmm_wrappers(blocked)
-    other_name, other_kernel, _, _ = spmm_wrappers(not blocked)
+    difference and the other kernel's time there are reported (both
+    kernels' times on both kinds of graph, for the choice of a graph's
+    kernel)."""
+    kname, kernel, plain, _, _ = spmm_wrappers(blocked)
+    other_name, other_kernel, _, _, _ = spmm_wrappers(not blocked)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases, err, ms, plain_ms, lib_ms, bound = [], 0.0, 0.0, 0.0, 0.0, Bound()
@@ -218,22 +225,27 @@ def check_spmm(torch, graphs, card, blocked: bool = False):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bound.keys(), cases=cases)
 
 
-def check_k2_widths(torch, dev):
-    """K2's other team shapes (8, 16 and 32 lanes; 1, 2 and 4 vectors a
-    lane) on a small ragged graph: 3,000 rows with bands of empty rows at
-    the start, in the middle and at the end, one row of 5,000 edges that
-    spans forty chunks, an edge count that is no multiple of the chunk.
+def check_spmm_widths(torch, dev):
+    """Both SpMM kernels' other team shapes (8, 16 and 32 lanes; 1, 2 and 4
+    vectors a lane) on a small ragged graph: 3,000 rows with bands of empty
+    rows at the start, in the middle and at the end, one row of 5,000 edges
+    (forty of K2's chunks, a cluster's row in K1, beside rows of a few
+    hundred edges that one block of K1 sums; two rows sit at the threshold of
+    K1's list of long rows and one edge over it), an edge count that is no multiple of the chunk.
     Integer-valued operands, so every order of summation gives the same
     float32: forward and x-gradient equal to the plain version bit for bit."""
     import numpy as np
 
     from genmmrec_tpu_torch.ops.graph import sorted_graph
+    from genmmrec_tpu_torch.ops.segment import LONG_ROW
 
-    _, kernel, plain, product = spmm_wrappers(True)
     rng = np.random.default_rng(SEED + 6)
     n_rows, n_cols = 3000, 700
     live = np.concatenate([np.arange(40, 1200), np.arange(1500, 2900)])
-    rows = np.sort(np.concatenate([rng.choice(live, 20001), np.full(5000, 1777)]))
+    rows = np.sort(np.concatenate([
+        rng.choice(live[live > 60], 20001), np.full(5000, 1777), np.full(300, 1778), np.full(777, 2899),
+        np.full(LONG_ROW, 50), np.full(LONG_ROW + 1, 51),
+    ]))
     cols = rng.integers(0, n_cols, rows.shape[0])
     vals = rng.integers(-2, 3, rows.shape[0]).astype(np.float32)
     to = lambda a: torch.as_tensor(a, device=dev)
@@ -241,20 +253,25 @@ def check_k2_widths(torch, dev):
     # the same edges as a square graph flagged symmetric: the backward is
     # then K2 on the cotangent over these edges, whatever their values
     sym = sorted_graph(g.rows, g.cols, g.vals, n_rows, n_rows, symmetric=True)
-    widths = (4, 32, 36, 64, 128, 192, 512)
-    for d in widths:
-        x = to(rng.integers(-3, 4, (n_cols, d)).astype(np.float32))
-        if not torch.equal(kernel(g, x), plain(g, x)):
-            raise AssertionError(f"K2 at d={d} on the ragged graph differs from the plain version")
-        with torch.enable_grad():
-            xs = to(rng.integers(-3, 4, (n_rows, d)).astype(np.float32)).requires_grad_()
-            g_bar = to(rng.integers(-3, 4, (n_rows, d)).astype(np.float32))
-            got = torch.autograd.grad(product(sym, xs), xs, g_bar)[0]
-        if not torch.equal(got, plain(sym, g_bar)):
-            raise AssertionError(f"K2 backward at d={d} on the ragged graph differs from the plain version")
+    n_long = int((g.long_rows >= 0).sum())
+    if n_long < 4:
+        raise AssertionError(f"the ragged graph has {n_long} long rows; the check needs the 5000-edge row and others")
+    widths = (4, 32, 36, 64, 128, 192, 256, 384, 512)
+    for blocked in (False, True):
+        kname, kernel, plain, product, _ = spmm_wrappers(blocked)
+        for d in widths:
+            x = to(rng.integers(-3, 4, (n_cols, d)).astype(np.float32))
+            if not torch.equal(kernel(g, x), plain(g, x)):
+                raise AssertionError(f"{kname} at d={d} on the ragged graph differs from the plain version")
+            with torch.enable_grad():
+                xs = to(rng.integers(-3, 4, (n_rows, d)).astype(np.float32)).requires_grad_()
+                g_bar = to(rng.integers(-3, 4, (n_rows, d)).astype(np.float32))
+                got = torch.autograd.grad(product(sym, xs), xs, g_bar)[0]
+            if not torch.equal(got, plain(sym, g_bar)):
+                raise AssertionError(f"{kname} backward at d={d} on the ragged graph differs from the plain version")
     print(
-        f"K2 widths {', '.join(map(str, widths))} on a ragged graph ({n_rows} rows, nnz={g.nnz}, a row of 5000 "
-        f"edges, bands of empty rows): forward and backward bit-equal to plain"
+        f"K1 and K2 widths {', '.join(map(str, widths))} on a ragged graph ({n_rows} rows, nnz={g.nnz}, a row of 5000 "
+        f"edges, {n_long} rows of more than {LONG_ROW}, bands of empty rows): forward and backward bit-equal to plain"
     )
 
 
@@ -263,8 +280,10 @@ def check_spmm_backward(torch, graphs, card, blocked: bool = False):
     ``spmm_symmetric``: the kernel on the output cotangent, as Aᵀ = A)
     against the gradient through the plain version's autograd, on each
     (name, graph, d) case. Each element is held to
-    K1_RTOL · Σ|vals|·|ḡ[cols]| + K1_ATOL."""
-    kname, _, plain_fn, product = spmm_wrappers(blocked)
+    K1_RTOL · Σ|vals|·|ḡ[cols]| + K1_ATOL. Forward+backward is timed through
+    autograd, as the trainer runs it, and as the two launches alone, which
+    is what the library's two products are."""
+    kname, forward, plain_fn, product, backward = spmm_wrappers(blocked)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     cases, err, ms, plain_ms, lib_ms, bound = [], 0.0, 0.0, 0.0, 0.0, Bound()
@@ -300,17 +319,20 @@ def check_spmm_backward(torch, graphs, card, blocked: bool = False):
             x_d = x.detach()
             with torch.no_grad():
                 l_ms = cuda_ms(torch, lambda: (torch.sparse.mm(csr, x_d), torch.sparse.mm(csr, g_bar)))
+                pair_ms = cuda_ms(torch, lambda: (forward(g, x_d), backward(g, g_bar)))
             b = bound.add(2 * nbytes(g.row_ptr, g.cols, g.vals, x, g_bar), 4.0 * g.nnz * d, F32_FLOPS)
             max_row = int((g.row_ptr[1:] - g.row_ptr[:-1]).max())
             print(
                 f"{kname} backward {name}: n_rows={g.n_rows} nnz={g.nnz} longest_row={max_row} d={d} "
                 f"max_abs_err={e:.3e} repeatable, forward+backward kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
                 f"two torch.sparse.mm {l_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
+                f"the two launches without autograd {pair_ms:.4f} ms; "
                 f"backward alone kernel {kb_ms:.4f} ms, plain {pb_ms:.4f} ms [{card}]"
             )
             cases.append(dict(
                 case=name, n_rows=g.n_rows, nnz=g.nnz, longest_row=max_row, d=d, max_abs_err=e,
-                ms=k_ms, plain_ms=p_ms, backward_ms=kb_ms, backward_plain_ms=pb_ms, library_ms=l_ms, **b,
+                ms=k_ms, plain_ms=p_ms, backward_ms=kb_ms, backward_plain_ms=pb_ms, library_ms=l_ms,
+                launch_pair_ms=pair_ms, **b,
             ))
             err, ms, plain_ms, lib_ms = max(err, e), ms + k_ms, plain_ms + p_ms, lib_ms + l_ms
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bound.keys(), cases=cases)
@@ -354,6 +376,67 @@ def check_k3(torch, cases_in, card):
         ))
         err, ms, plain_ms, lib_ms = max(err, e), ms + k_ms, plain_ms + p_ms, lib_ms + l_ms
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bound.keys(), cases=cases)
+
+
+def check_k3_adversarial(torch, dev):
+    """Rows that defeat K3's threshold, through the kernel: constant rows,
+    ties at the threshold, more columns at the threshold than the
+    candidate buffer holds, fewer than k finite scores, nothing finite, a
+    mask that leaves fewer than k columns; at n = 100 (fewer columns than
+    threads), 7,049 (rows on every alignment) and 63,001, float32 and
+    bfloat16, k = 2, 50 and 64. Indices equal to the plain version's,
+    values equal where finite."""
+    import numpy as np
+
+    from genmmrec_tpu_torch.ops.topk import grouped_topk, grouped_topk_plain
+
+    rng = np.random.default_rng(SEED + 7)
+    kinds = ("constant", "rounded", "half_tied_at_top", "seven_finite", "nothing_finite", "zeros_of_both_signs",
+             "finite_at_the_end", "period_three", "masked_but_few", "gaussian")
+    checked = 0
+    for n in (100, 7049, ELEC_ITEMS):
+        s = rng.standard_normal((3 * len(kinds), n)).astype(np.float32)
+        dense = np.zeros(s.shape, bool)
+        for r in range(s.shape[0]):
+            kind = kinds[r % len(kinds)]
+            if kind == "constant":
+                s[r] = s[r, 0]
+            elif kind == "rounded":
+                s[r] = np.round(s[r])
+            elif kind == "half_tied_at_top":
+                s[r, rng.permutation(n)[: n // 2]] = 6.0
+            elif kind == "seven_finite":
+                s[r, rng.permutation(n)[7:]] = -np.inf
+            elif kind == "nothing_finite":
+                s[r] = -np.inf
+            elif kind == "zeros_of_both_signs":
+                s[r] = -np.abs(s[r])
+                s[r, n // 10 : n // 2] = 0.0
+                s[r, n // 10 : n // 2 : 2] = -0.0
+            elif kind == "finite_at_the_end":
+                s[r, : n - 3] = -np.inf
+            elif kind == "period_three":
+                s[r] = np.arange(n) % 3
+            elif kind == "masked_but_few":
+                dense[r, rng.permutation(n)[r % 60 :]] = True
+        mask = torch.as_tensor(np.packbits(dense, axis=1, bitorder="little"), device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            scores = torch.as_tensor(s, device=dev).to(dtype)
+            for k in (2, 50, 64):
+                v, i = grouped_topk(scores, k, packed_mask=mask)
+                v_ref, i_ref = grouped_topk_plain(scores, k, packed_mask=mask)
+                torch.cuda.synchronize()
+                if not torch.equal(i, i_ref):
+                    bad = [kinds[r % len(kinds)] for r in (i != i_ref).any(dim=1).nonzero().flatten().tolist()]
+                    raise AssertionError(f"K3 adversarial rows, n={n} {dtype} k={k}: indices differ on {bad}")
+                fin = torch.isfinite(v_ref)
+                if not (torch.equal(v[fin], v_ref[fin]) and torch.equal(torch.isfinite(v), fin)):
+                    raise AssertionError(f"K3 adversarial rows, n={n} {dtype} k={k}: values differ")
+                checked += scores.shape[0]
+    print(
+        f"K3 adversarial rows ({', '.join(kinds)}) at n = 100, 7049 and {ELEC_ITEMS}, float32 and bfloat16, "
+        f"k = 2, 50, 64: {checked} rows, indices equal to plain, values equal where finite"
+    )
 
 
 def check_k4(torch, b, n, k, per_row, card):
@@ -443,7 +526,7 @@ def check_nonsymmetric_grad(torch, g, d, card):
     plain version's autograd, within K1_RTOL · Σ|vals|·|ḡ| + K1_ATOL, and
     bit-equal on a second run."""
     from genmmrec_tpu_torch.ops.graph import spmm
-    from genmmrec_tpu_torch.ops.segment import segment_spmm_plain
+    from genmmrec_tpu_torch.ops.segment import segment_spmm, segment_spmm_backward, segment_spmm_plain
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     with torch.enable_grad():
@@ -461,12 +544,33 @@ def check_nonsymmetric_grad(torch, g, d, card):
             raise AssertionError(f"non-symmetric spmm: x-gradient differs from the plain version's by up to {e:.3e}")
         if not torch.equal(grad(kernel), out):
             raise AssertionError("non-symmetric spmm: two backward runs differ")
-        ms = cuda_ms(torch, lambda: grad(kernel))
-    print(
-        f"non-symmetric spmm ({g.n_rows} x {g.n_cols}, nnz={g.nnz}, d={d}): x-gradient over the transposed CSR "
-        f"max_abs_err={e:.3e} repeatable, forward+backward {ms:.4f} ms [{card}]"
+        plain = lambda: segment_spmm_plain(g.row_ptr, g.cols, g.vals, x, g.n_rows)
+        ms, plain_ms = timed_pair(torch, lambda: grad(kernel), lambda: grad(plain))
+    # the library's yardstick: the sparse product of x, then of the cotangent
+    # on the transposed CSR
+    csr = torch.sparse_csr_tensor(g.row_ptr, g.cols, g.vals, size=(g.n_rows, g.n_cols), check_invariants=False)
+    csr_t = torch.sparse_csr_tensor(t.row_ptr, t.cols, t.vals, size=(t.n_rows, t.n_cols), check_invariants=False)
+    x_d = x.detach()
+    lib_ms = cuda_ms(torch, lambda: (torch.sparse.mm(csr, x_d), torch.sparse.mm(csr_t, g_bar)))
+    # and the same two products as K1's two launches alone
+    with torch.no_grad():
+        pair_ms = cuda_ms(torch, lambda: (
+            segment_spmm(g.row_ptr, g.cols, g.vals, x_d, g.n_rows, g.long_rows),
+            segment_spmm_backward(t.row_ptr, t.cols, t.vals, g_bar, t.n_rows, t.long_rows),
+        ))
+    b = Bound().add(
+        nbytes(g.row_ptr, g.cols, g.vals, x, g_bar) + nbytes(t.row_ptr, t.cols, t.vals, g_bar, x),
+        4.0 * g.nnz * d, F32_FLOPS,
     )
-    return dict(max_abs_err=e, ms=ms)
+    longest = max(int((p.row_ptr[1:] - p.row_ptr[:-1]).max()) for p in (g, t))
+    print(
+        f"K1 backward nonsymmetric_ui_d{d} ({g.n_rows} x {g.n_cols}, nnz={g.nnz}, longest row {longest}): x-gradient "
+        f"over the transposed CSR max_abs_err={e:.3e} repeatable, forward+backward kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, two torch.sparse.mm {lib_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
+        f"the two launches without autograd {pair_ms:.4f} ms [{card}]"
+    )
+    return dict(case=f"nonsymmetric_ui_d{d}", n_rows=g.n_rows, nnz=g.nnz, longest_row=longest, d=d, max_abs_err=e,
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, launch_pair_ms=pair_ms, **b)
 
 
 def bf16_ordinal(torch, x):
@@ -1389,6 +1493,16 @@ def main() -> int:
         ],
         card,
     )
+    # the same at the Amazon-elec catalog width, the float32 evaluation's
+    # plane there and the same in bfloat16
+    wide_mask = elec_mask(torch, eval_bs, ELEC_ITEMS, ELEC_POSITIVES, SEED, dev)
+    wide = torch.randn(eval_bs, ELEC_ITEMS, generator=gen, device=dev)
+    k3_wide = check_k3(torch, [("elec_top50_masked", wide, 50, wide_mask)], card)
+    wide = wide.bfloat16()
+    k3_wide["cases"] += check_k3(torch, [("elec_top50_masked_bf16", wide, 50, wide_mask)], card)["cases"]
+    del wide
+    k3["cases"] += k3_wide["cases"]
+    check_k3_adversarial(torch, dev)
     k5 = check_k5(
         torch,
         [
@@ -1506,6 +1620,7 @@ def main() -> int:
 
     ui = ui_norm_adj(train_ds.table.users, train_ds.table.items, td.n_users, td.n_items, dev)
     nonsymmetric = check_nonsymmetric_grad(torch, ui, model.latdim, card)
+    k1_bwd["cases"].append(nonsymmetric)
     del trainer, model, ui
     torch.cuda.empty_cache()
 
@@ -1521,7 +1636,7 @@ def main() -> int:
     d = elec.model.latent_dim
     k2 = check_spmm(torch, [("elec_adjacency_d64", adj, d), ("elec_adjacency_d128", adj, 2 * d)], card, blocked=True)
     k2_bwd = check_spmm_backward(torch, [("elec_adjacency_d128", adj, 2 * d)], card, blocked=True)
-    check_k2_widths(torch, dev)
+    check_spmm_widths(torch, dev)
     k4 = check_k4(torch, elec.eval_bs, ELEC_ITEMS, elec.trainer.evaluator.max_k, ELEC_POSITIVES, card)
     torch.cuda.empty_cache()
     elec_res, elec_calls, elec_launches = graph_cf_path(torch, elec, card, profile_dir=args.profile)

@@ -11,11 +11,11 @@
 // What is kept is the idea: work is cut by EDGES, not by rows, and a row cut
 // by a boundary is put together afterwards.
 //
-// Why K1 (one warp a row) does not serve this geometry: an item-popularity
-// row of tens of thousands of edges is walked by a single warp while the
-// rest of the card idles, and x (255,404 x 64 x 4 B = 65 MB) no longer
-// stays in the 50 MB L2, so every gather of a long row is a trip to HBM that
-// one warp cannot overlap.
+// Why K1 (which owns rows) does not serve this geometry as well: it gives an
+// item-popularity row of tens of thousands of edges to one cluster of eight
+// thread blocks, and x (255,404 x 64 x 4 B = 65 MB) no longer stays in the
+// 50 MB L2, so the gathers of such a row are trips to HBM through eight SMs,
+// where cutting by edges spreads them over the whole card.
 //
 // What bounds it on the H100: bytes. Each edge gathers one d-wide row of x
 // at a random position (256 B at d = 64) and does one FMA a float.

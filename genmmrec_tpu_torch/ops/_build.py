@@ -20,6 +20,8 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
@@ -99,7 +101,7 @@ def library():
     path, _, _ = build()
     lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.segment_spmm_f32.argtypes = [p, p, p, p, p, i, i, p]
+    lib.segment_spmm_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
     lib.segment_spmm_f32.restype = i
     lib.segment_spmm_blocked_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
     lib.segment_spmm_blocked_f32.restype = i
@@ -121,8 +123,19 @@ def library():
     return lib
 
 
-def check(lib, rc: int, what: str) -> None:
-    """Raise if a C entry point reported a CUDA error."""
+def launch(entry: str, what: str, device, *args) -> None:
+    """Call the C entry point ``entry`` of the kernel library on ``args`` and,
+    as its last argument, ``device``'s current stream, with ``device``
+    current; raise if it reports a CUDA error. The raw stream handle and the
+    skipped device switch keep a launch's host time at a few microseconds."""
+    lib = library()
+    fn = getattr(lib, entry)
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, stream)
     if rc != 0:
         msg = lib.kernel_error_string(rc).decode()
         raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")

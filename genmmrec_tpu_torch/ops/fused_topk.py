@@ -143,13 +143,10 @@ def fused_group_max(u_emb, item_emb, packed_mask) -> torch.Tensor:
         raise ValueError("fused_group_max needs the packed mask (its pad columns exclude the catalog's tail)")
     u, table, b, n, d = _check_operands(u_emb, item_emb, packed_mask)
     gmax = torch.empty(b, n_groups_for(n), dtype=torch.bfloat16, device=u.device)
-    lib = _build.library()
-    with torch.cuda.device(u.device):
-        rc = lib.fused_group_max_bf16(
-            u.data_ptr(), table.data_ptr(), packed_mask.data_ptr(), gmax.data_ptr(),
-            b, n, d, torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(lib, rc, "fused_group_max")
+    _build.launch(
+        "fused_group_max_bf16", "fused_group_max", u.device,
+        u.data_ptr(), table.data_ptr(), packed_mask.data_ptr(), gmax.data_ptr(), b, n, d,
+    )
     fused_group_max.launches += 1
     return gmax
 
@@ -166,14 +163,11 @@ def _launch_candidates(entry: str, u_emb, item_emb, gidx, packed_mask):
         raise ValueError(f"gidx must be a contiguous int32 ({b}, kp) tensor on the operands' device")
     kp = gidx.shape[1]
     cand = torch.empty(b, kp * GROUP, dtype=torch.bfloat16, device=u.device)
-    lib = _build.library()
-    with torch.cuda.device(u.device):
-        rc = getattr(lib, entry)(
-            u.data_ptr(), table.data_ptr(), gidx.data_ptr(),
-            None if packed_mask is None else packed_mask.data_ptr(), cand.data_ptr(),
-            b, n, d, kp, torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(lib, rc, entry)
+    _build.launch(
+        entry, entry, u.device,
+        u.data_ptr(), table.data_ptr(), gidx.data_ptr(),
+        None if packed_mask is None else packed_mask.data_ptr(), cand.data_ptr(), b, n, d, kp,
+    )
     return cand
 
 

@@ -2,14 +2,15 @@
 
 A ``SparseGraph`` holds row-sorted COO edges plus a CSR row pointer built
 once per graph. ``spmm`` of a sorted graph runs one of the two SpMM kernels
-of ``ops/segment.py``: K1 (a warp a row) or, for a graph flagged
-``blocked`` when it was built, K2 (edge-balanced chunks). Both are
+of ``ops/segment.py``: K1 (the kernel owns rows; the graph carries the list
+of its long rows, which a cluster of thread blocks sums) or, for a graph
+flagged ``blocked`` when it was built, K2 (edge-balanced chunks). Both are
 differentiable on the card: a value-symmetric graph's x-gradient is the same
 kernel on the same edges, any other sorted graph's the same kernel on its
 transposed CSR, which is built at the first backward and kept with the
 graph. The JAX package's VMEM span planners (``pallas_span``,
-``pallas_plan``) have no counterpart: the row pointer and the ``blocked``
-flag replace them.
+``pallas_plan``) have no counterpart: the row pointer, the ``blocked`` flag
+and the list of long rows replace them.
 """
 
 from __future__ import annotations
@@ -38,6 +39,10 @@ class SparseGraph:
     # static choice of the SpMM kernel, made when the graph is built
     # (``segment.takes_blocked``): K2 instead of K1
     blocked: bool = False
+    # K1's list of this graph's long rows (``segment.long_row_plan``), built
+    # with the row pointer; None where the graph was not built by
+    # ``sorted_graph``, and K1 then builds it at each launch
+    long_rows: Optional[torch.Tensor] = None
     # the structure of Aᵀ (edge order, row pointer, rows, columns), filled at
     # first need by ``transposed``. It holds no values, so a copy that
     # replaces only ``vals`` may share it.
@@ -51,14 +56,16 @@ class SparseGraph:
         move = lambda t: t.to(device)
         return dataclasses.replace(
             self, rows=move(self.rows), cols=move(self.cols), vals=move(self.vals), row_ptr=move(self.row_ptr),
+            long_rows=None if self.long_rows is None else move(self.long_rows),
             _transpose={k: move(v) for k, v in self._transpose.items()},
         )
 
-    def transposed(self) -> "SparseGraph":
-        """Aᵀ as a row-sorted graph with this graph's values, its edges in
-        the order of a stable sort by column. The structure is computed once
-        and kept; the values are gathered at each call, so they follow
-        ``vals`` (and its autograd history)."""
+    def transposed(self, vals: Optional[torch.Tensor] = None) -> "SparseGraph":
+        """Aᵀ as a row-sorted graph with this graph's values (or ``vals``, in
+        this graph's edge order), its edges in the order of a stable sort by
+        column. The structure is computed once and kept; the values are
+        gathered at each call, so they follow ``vals`` (and its autograd
+        history)."""
         if not self.sorted:
             raise ValueError("transposed needs a row-sorted graph")
         t = self._transpose
@@ -68,10 +75,12 @@ class SparseGraph:
             t["rows"] = t_rows.contiguous()
             t["cols"] = self.rows[perm].contiguous()
             t["row_ptr"] = _row_pointer(t["rows"], self.n_cols)
+            t["long_rows"] = segment.long_row_plan(t["row_ptr"], self.nnz)
         return SparseGraph(
-            rows=t["rows"], cols=t["cols"], vals=self.vals[t["perm"]], row_ptr=t["row_ptr"],
+            rows=t["rows"], cols=t["cols"], vals=(self.vals if vals is None else vals)[t["perm"]],
+            row_ptr=t["row_ptr"],
             n_rows=self.n_cols, n_cols=self.n_rows, symmetric=self.symmetric,
-            blocked=segment.takes_blocked(self.n_cols),
+            blocked=segment.takes_blocked(self.n_cols), long_rows=t.get("long_rows"),
         )
 
 
@@ -82,34 +91,39 @@ def _row_pointer(rows: torch.Tensor, n_rows: int) -> torch.Tensor:
 
 
 def sorted_graph(rows, cols, vals, n_rows: int, n_cols: int, symmetric: bool = False) -> SparseGraph:
-    """SparseGraph from row-sorted edge tensors; builds the row pointer on
-    the edges' device and decides the graph's SpMM kernel."""
+    """SparseGraph from row-sorted edge tensors; builds the row pointer and
+    the list of long rows on the edges' device and decides the graph's SpMM
+    kernel."""
     rows = rows.to(torch.int32).contiguous()
+    row_ptr = _row_pointer(rows, n_rows)
     return SparseGraph(
         rows=rows,
         cols=cols.to(torch.int32).contiguous(),
         vals=vals.to(torch.float32).contiguous(),
-        row_ptr=_row_pointer(rows, n_rows),
+        row_ptr=row_ptr,
         n_rows=n_rows,
         n_cols=n_cols,
         symmetric=symmetric,
         blocked=segment.takes_blocked(n_rows),
+        long_rows=segment.long_row_plan(row_ptr, rows.shape[0]),
     )
 
 
 def _as_operands(g: SparseGraph):
-    return g.row_ptr, g.rows, g.cols, g.vals, g.n_rows, g.blocked
+    return g.row_ptr, g.rows, g.cols, g.vals, g.n_rows, g.blocked, g.long_rows
 
 
 def spmm(g: SparseGraph, x: torch.Tensor) -> torch.Tensor:
     """Sparse @ dense: (n_rows, n_cols) @ (n_cols, d) -> (n_rows, d)."""
     if g.sorted and g.symmetric:
-        return spmm_symmetric(g.row_ptr, g.rows, g.cols, g.vals, x.contiguous(), g.n_rows, g.blocked)
+        return spmm_symmetric(g.row_ptr, g.rows, g.cols, g.vals, x.contiguous(), g.n_rows, g.blocked, g.long_rows)
     if g.sorted:
         # the backward's values carry no history: the vals-gradient is the
         # Function's own
-        transpose = lambda: _as_operands(dataclasses.replace(g, vals=g.vals.detach()).transposed())
-        return spmm_sorted(g.row_ptr, g.rows, g.cols, g.vals, x.contiguous(), g.n_rows, transpose, g.blocked)
+        transpose = lambda: _as_operands(g.transposed(g.vals.detach()))
+        return spmm_sorted(
+            g.row_ptr, g.rows, g.cols, g.vals, x.contiguous(), g.n_rows, transpose, g.blocked, g.long_rows
+        )
     if x.is_cuda:
         raise ValueError("spmm on CUDA needs a row-sorted graph")
     out = torch.zeros(g.n_rows, x.shape[1], dtype=x.dtype, device=x.device)
@@ -123,7 +137,7 @@ def spmm_t(g: SparseGraph, x: torch.Tensor) -> torch.Tensor:
     if g.sorted:
         t = g.transposed()
         own = lambda: _as_operands(dataclasses.replace(g, vals=g.vals.detach()))
-        return spmm_sorted(t.row_ptr, t.rows, t.cols, t.vals, x.contiguous(), t.n_rows, own, t.blocked)
+        return spmm_sorted(t.row_ptr, t.rows, t.cols, t.vals, x.contiguous(), t.n_rows, own, t.blocked, t.long_rows)
     if x.is_cuda:
         raise ValueError("spmm_t on CUDA needs a row-sorted graph")
     out = torch.zeros(g.n_cols, x.shape[1], dtype=x.dtype, device=x.device)

@@ -3,9 +3,17 @@
 Counterpart of ``genmmrec_tpu/ops/topk.py`` ``grouped_topk``, whose Pallas
 kernels are ``_gather_kernel``, the candidate gather of the two-stage
 selection (K3), and ``_extract_kernel``, the opt-in candidate extraction
-(K4). On the card K3, ``genmmrec_tpu_torch/csrc/topk.cu``, is one kernel that
-serves every width and every ``k <= 64``, over float32 or bfloat16 rows (the
-bf16 evaluation's score and candidate planes). K4,
+(K4). On the card K3, ``genmmrec_tpu_torch/csrc/topk.cu``, serves every
+width and every ``k <= 64``, over float32 or bfloat16 rows (the bf16
+evaluation's score and candidate planes): one block a row reads the row in
+16-byte vectors, takes the k-th largest of its 256 threads' maxima as the
+row's threshold, collects the columns at or above it in shared memory and
+ranks them by one 64-bit compare (an order-preserving key above the
+complemented index); a row that passes more columns than the buffer holds
+(constant, mostly ``-inf``, tied at the threshold) is finished exactly by
+a radix select in the same kernel; ``k = 1`` has a one-pass kernel of its
+own. ``grouped_topk_selection_plain`` mirrors that selection step by step
+in PyTorch, for the tests. K4,
 ``genmmrec_tpu_torch/csrc/topk_extract.cu``, is the second stage of the
 two-stage selection: the top-k of the 128-wide groups that the group maxima
 picked. Their sources say what bounds them and how they are laid out.
@@ -14,8 +22,10 @@ Contract: values in descending order, ties broken by the lower index first
 (``lax.top_k``'s rule). ``packed_mask`` is an optional (b, >= ceil(n/8))
 uint8 bit matrix, little-endian (numpy ``packbits(axis=1,
 bitorder="little")``), marking columns to exclude; excluded columns take
-part with the value ``-inf``. Values keep the scores' type; indices are
-int64.
+part with the value ``-inf``, and are listed in index order when a row runs
+out of finite values. ``-0`` ranks as ``+0``; a NaN ranks above ``+inf``,
+as in ``torch.sort`` and ``lax.top_k``. Values keep the scores' type;
+indices are int64.
 
 ``grouped_topk`` takes K3. With ``GENMMREC_PALLAS_TOPK`` set in the
 environment (the reference's own switch, read at each call) and more than
@@ -63,6 +73,81 @@ def grouped_topk_plain(scores, k: int, packed_mask=None):
     return vals[:, :k], idx[:, :k]
 
 
+# K3's selection, mirrored for the tests: the constants of csrc/topk.cu
+_K3_THREADS = 256
+_K3_CAP = 512
+
+
+def order_key(scores: torch.Tensor) -> torch.Tensor:
+    """K3's and K4's order-preserving key of float32 or bfloat16 scores, as
+    int64 in [1, 2**32): a larger score has a larger key, ``-0`` and ``+0``
+    share one, every NaN has the largest. A bfloat16's key is that of the
+    float32 it widens to, without the lower 16 bits."""
+    if scores.dtype == torch.bfloat16:
+        bits = (scores.contiguous().view(torch.int16).to(torch.int64) & 0xFFFF) << 16
+    else:
+        bits = scores.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = torch.where(bits == 0x80000000, 0, bits)
+    key = torch.where(bits >= 0x80000000, ~bits & 0xFFFFFFFF, bits | 0x80000000)
+    key = torch.where((bits & 0x7FFFFFFF) > 0x7F800000, 0xFFFFFFFF, key)
+    return key & 0xFFFF0000 if scores.dtype == torch.bfloat16 else key
+
+
+def grouped_topk_selection_plain(scores, k: int, packed_mask=None, head: int = 0, with_counts: bool = False):
+    """K3's selection, step by step, in plain PyTorch; the tests hold it
+    against ``grouped_topk_plain``. ``head`` is the number of columns before
+    a row's first 16-byte vector (the kernel derives it from the row's
+    address). Thread maxima over the kernel's interleaved columns, their
+    k-th largest as the threshold, the columns at or above it ranked by
+    (key, lower index); a row that passes more than the buffer's
+    ``_K3_CAP`` columns goes through the radix select of the key's bytes,
+    then takes the columns above the k-th key and the lowest-indexed of those
+    equal to it. With ``with_counts`` also returns how many columns passed
+    each row's threshold."""
+    b, n = scores.shape
+    if not 1 <= k <= min(n, MAX_K):
+        raise ValueError(f"k={k} must be in [1, {min(n, MAX_K)}]")
+    dev = scores.device
+    if packed_mask is not None:
+        scores = scores.masked_fill(unpack_mask(packed_mask, n), float("-inf"))
+    key = order_key(scores)
+    v = 8 if scores.dtype == torch.bfloat16 else 4
+    key_bytes = 2 if scores.dtype == torch.bfloat16 else 4
+    col = torch.arange(n, device=dev)
+    # which thread visits a column: the vectors interleave, the unaligned
+    # ends go one a thread
+    head = min(head, n)
+    tail = head + (n - head) // v * v
+    owner = torch.where(col < head, col, torch.where(col >= tail, head + col - tail, (col - head) // v % _K3_THREADS))
+    tmax = torch.zeros(b, _K3_THREADS, dtype=torch.int64, device=dev)
+    tmax.scatter_reduce_(1, owner.expand(b, n), key, "amax")
+    t = torch.sort(tmax, dim=1, descending=True).values[:, k - 1 : k]
+    passed = key >= t
+    counts = passed.sum(dim=1)
+    if bool((counts < k).any()):
+        raise AssertionError("fewer than k columns at or above the threshold")
+    # the overflow path: the k-th largest key, a byte at a time from the top
+    prefix = torch.zeros(b, 1, dtype=torch.int64, device=dev)
+    known = 0
+    want = torch.full((b, 1), k, dtype=torch.int64, device=dev)
+    for shift in (24, 16, 8, 0)[:key_bytes]:
+        live = (key & known) == prefix
+        hist = torch.zeros(b, 256, dtype=torch.int64, device=dev).scatter_add_(1, (key >> shift) & 255, live.long())
+        above = hist.flip(1).cumsum(1).flip(1) - hist  # keys in the bins above each bin
+        chosen = ((above < want) & (want <= above + hist)).long().argmax(dim=1, keepdim=True)
+        want = want - above.gather(1, chosen)
+        prefix = prefix | (chosen << shift)
+        known |= 255 << shift
+    ties = key == prefix
+    exact = (key > prefix) | (ties & (ties.cumsum(1) - 1 < want))
+    taken = torch.where((counts > _K3_CAP)[:, None], exact, passed)
+    # one word a candidate: the key above the complemented index
+    word = torch.where(taken, (key << 31) | (0x7FFFFFFF - col), -1)
+    idx = 0x7FFFFFFF - (torch.sort(word, dim=1, descending=True).values[:, :k] & 0x7FFFFFFF)
+    out = scores.gather(1, idx), idx
+    return (*out, counts) if with_counts else out
+
+
 def _mask_args(packed_mask, b: int, n: int, device):
     """(pointer, row stride) of a checked packed mask, or (None, 0)."""
     if packed_mask is None:
@@ -93,13 +178,10 @@ def _masked_topk(scores, k: int, packed_mask=None):
     mask_ptr, mask_stride = _mask_args(packed_mask, b, n, scores.device)
     vals = torch.empty(b, k, dtype=scores.dtype, device=scores.device)
     idx = torch.empty(b, k, dtype=torch.int64, device=scores.device)
-    lib = _build.library()
-    with torch.cuda.device(scores.device):
-        rc = getattr(lib, _ENTRY[scores.dtype])(
-            scores.data_ptr(), mask_ptr, mask_stride, vals.data_ptr(), idx.data_ptr(),
-            b, n, k, torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(lib, rc, "grouped_topk")
+    _build.launch(
+        _ENTRY[scores.dtype], "grouped_topk", scores.device,
+        scores.data_ptr(), mask_ptr, mask_stride, vals.data_ptr(), idx.data_ptr(), b, n, k,
+    )
     grouped_topk.launches += 1
     return vals, idx
 
@@ -147,13 +229,10 @@ def candidate_extract(scores, gidx, k: int, packed_mask=None):
     mask_ptr, mask_stride = _mask_args(packed_mask, b, n, scores.device)
     vals = torch.empty(b, k, dtype=scores.dtype, device=scores.device)
     idx = torch.empty(b, k, dtype=torch.int64, device=scores.device)
-    lib = _build.library()
-    with torch.cuda.device(scores.device):
-        rc = getattr(lib, _EXTRACT_ENTRY[scores.dtype])(
-            scores.data_ptr(), gidx.data_ptr(), mask_ptr, mask_stride, vals.data_ptr(), idx.data_ptr(),
-            b, n, kp, k, torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(lib, rc, "candidate_extract")
+    _build.launch(
+        _EXTRACT_ENTRY[scores.dtype], "candidate_extract", scores.device,
+        scores.data_ptr(), gidx.data_ptr(), mask_ptr, mask_stride, vals.data_ptr(), idx.data_ptr(), b, n, kp, k,
+    )
     candidate_extract.launches += 1
     return vals, idx
 

@@ -163,7 +163,7 @@ def test_ui_norm_adj_and_its_spmm_gradient_match_jax(monkeypatch, blocked):
     np.testing.assert_allclose(tx.grad.numpy(), np.asarray(rx), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(tv.grad.numpy(), np.asarray(rv), rtol=1e-5, atol=1e-5)
     # the transpose's structure now sits with the graph, and with its copies
-    assert set(tg._transpose) == {"perm", "rows", "cols", "row_ptr"} and g._transpose is tg._transpose
+    assert set(tg._transpose) == {"perm", "rows", "cols", "row_ptr", "long_rows"} and g._transpose is tg._transpose
     t = tg.transposed()
     assert (t.n_rows, t.n_cols) == (ni, nu) and bool((t.rows[1:] >= t.rows[:-1]).all())
     dense = torch.zeros(nu, ni).index_put_((tg.rows.long(), tg.cols.long()), tg.vals)
