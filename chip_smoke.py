@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile DIR]
 
-Drives two models at full width, parameters from a seeded generator.
+Drives DiffMM and LightGCN at full width, parameters from a seeded generator.
 
 DiffMM on Amazon-baby (19,445 users x 7,050 items, the synthetic fallback
 data), through three paths of the port:
@@ -29,6 +29,11 @@ evaluate(valid) three ways: float32 (K3), float32 with
 ``GENMMREC_PALLAS_TOPK`` set (the two-stage route, K4) and bfloat16 (the
 fused route, K5); one batch against the CPU.
 
+LightGCN at embedding width 192 on the DiffMM paths' baby data, wider than
+the fused kernels: evaluate(valid) in float32 and in bfloat16, which takes
+the plane route (bfloat16 scores, K3 with the packed mask), and a
+scores-only view of the float32 model, scored chunk by chunk.
+
 Before the paths it builds the CUDA kernels from ``genmmrec_tpu_torch/csrc``
 and holds each one (K1 forward and backward, K2 forward and backward, K3,
 K4, K5a, K5b, K5c) against its plain PyTorch version, on the card, at the
@@ -36,10 +41,16 @@ shapes the paths give it, and times kernel, plain version and the one
 PyTorch call that computes the same function with CUDA events. K1 and K2
 are also held against each other on the same graphs and, bit for bit,
 against the plain version on integer operands at every team shape; K3 also
-runs the Amazon-elec catalog width in float32 and bfloat16 and a block of
-adversarial rows (constant, tied at the threshold, fewer finite scores
-than k); and ``spmm`` on a graph that is not symmetric is differentiated
-on the card against the plain version. Each
+runs the Amazon-elec catalog width in float32 and bfloat16, k = 65, 100,
+256, 257 and 1,000 (its radix path) and a block of adversarial rows
+(constant, tied at the threshold, fewer finite scores than k); K4 also runs
+k = 100; K5b and K5c also run adversarial choices of groups (every row the
+same groups, all pad slots, one group chosen by every row) and their plan
+against its plain version; the fused top-k also runs k = 100 against the
+plane route; ``spmm`` on a graph that is not symmetric is differentiated
+on the card against the plain version, and ``spmm`` and ``spmm_t`` of the
+baby adjacency with its edges shuffled (not row-sorted) against the plain
+scatter. Each
 kernel's time stands beside its bound: the larger of the bytes it must move
 over the card's memory rate and its operations over the card's peak rate.
 ``--profile DIR`` adds one more bf16 evaluate(valid) and one more DiffMM
@@ -90,6 +101,8 @@ BF16_FLOPS = 989e12  # tensor cores
 F32_FLOPS = 67e12  # outside the tensor cores
 # the Amazon-elec catalog width and positives a row of the kernel roofline
 ELEC_ITEMS, ELEC_POSITIVES = 63001, 30
+# a k past K3's threshold path (k <= 64): a configured top-100
+WIDE_K = 100
 
 
 def card_line() -> str:
@@ -384,8 +397,9 @@ def check_k3_adversarial(torch, dev):
     candidate buffer holds, fewer than k finite scores, nothing finite, a
     mask that leaves fewer than k columns; at n = 100 (fewer columns than
     threads), 7,049 (rows on every alignment) and 63,001, float32 and
-    bfloat16, k = 2, 50 and 64. Indices equal to the plain version's,
-    values equal where finite."""
+    bfloat16, k = 2, 50 and 64 (the threshold path) and 100 and 600 (the
+    radix path, 600 in no order out of the kernel) where k <= n. Indices
+    equal to the plain version's, values equal where finite."""
     import numpy as np
 
     from genmmrec_tpu_torch.ops.topk import grouped_topk, grouped_topk_plain
@@ -422,7 +436,7 @@ def check_k3_adversarial(torch, dev):
         mask = torch.as_tensor(np.packbits(dense, axis=1, bitorder="little"), device=dev)
         for dtype in (torch.float32, torch.bfloat16):
             scores = torch.as_tensor(s, device=dev).to(dtype)
-            for k in (2, 50, 64):
+            for k in (k for k in (2, 50, 64, 100, 600) if k <= n):
                 v, i = grouped_topk(scores, k, packed_mask=mask)
                 v_ref, i_ref = grouped_topk_plain(scores, k, packed_mask=mask)
                 torch.cuda.synchronize()
@@ -435,7 +449,7 @@ def check_k3_adversarial(torch, dev):
                 checked += scores.shape[0]
     print(
         f"K3 adversarial rows ({', '.join(kinds)}) at n = 100, 7049 and {ELEC_ITEMS}, float32 and bfloat16, "
-        f"k = 2, 50, 64: {checked} rows, indices equal to plain, values equal where finite"
+        f"k = 2, 50, 64, 100, 600: {checked} rows, indices equal to plain, values equal where finite"
     )
 
 
@@ -573,6 +587,136 @@ def check_nonsymmetric_grad(torch, g, d, card):
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms, launch_pair_ms=pair_ms, **b)
 
 
+def check_unsorted_spmm(torch, g, d, card):
+    """``spmm`` and ``spmm_t`` of a graph whose edges are not row-sorted (the
+    baby adjacency's edges in a seeded random order, ``sorted=False``), on
+    the card, through the graph's row-sorted view: forward and x-gradient
+    against the plain scatter (``index_add_``, the reference's
+    ``segment_sum(indices_are_sorted=False)``) within K1_RTOL · Σ|terms| +
+    K1_ATOL; the view's order is kept with the graph."""
+    from genmmrec_tpu_torch.ops.graph import spmm, spmm_t
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    perm = torch.randperm(g.nnz, generator=gen, device="cuda")
+    shuffled = dataclasses.replace(
+        g, rows=g.rows[perm], cols=g.cols[perm], vals=g.vals[perm], sorted=False, long_rows=None,
+        _transpose={}, _row_sort={},
+    )
+    scatter = lambda rows, cols, vals, x, n: torch.zeros(n, x.shape[1], device="cuda").index_add_(
+        0, rows.long(), vals[:, None] * x[cols.long()])
+    plain = lambda x: scatter(shuffled.rows, shuffled.cols, shuffled.vals, x, g.n_rows)
+    plain_t = lambda x: scatter(shuffled.cols, shuffled.rows, shuffled.vals, x, g.n_cols)
+    err = 0.0
+    with torch.enable_grad():
+        for what, fwd, ref_fn, n_in, n_out, mag_graph in (
+            ("spmm", spmm, plain, g.n_cols, g.n_rows, (shuffled.rows, shuffled.cols)),
+            ("spmm_t", spmm_t, plain_t, g.n_rows, g.n_cols, (shuffled.cols, shuffled.rows)),
+        ):
+            x = torch.randn(n_in, d, generator=gen, device="cuda").requires_grad_()
+            g_bar = torch.randn(n_out, d, generator=gen, device="cuda")
+            out = fwd(shuffled, x)
+            ref = ref_fn(x)
+            (x_bar,) = torch.autograd.grad(out, x, g_bar)
+            (x_bar_ref,) = torch.autograd.grad(ref, x, g_bar)
+            r, c = mag_graph
+            magnitude = scatter(r, c, shuffled.vals.abs(), x.detach().abs(), n_out)
+            magnitude_t = scatter(c, r, shuffled.vals.abs(), g_bar.abs(), n_in)
+            torch.cuda.synchronize()
+            for part, got, want, mag in (("forward", out, ref, magnitude), ("x-gradient", x_bar, x_bar_ref, magnitude_t)):
+                diff = (got.detach() - want.detach()).abs()
+                if not bool((diff <= K1_RTOL * mag + K1_ATOL).all()):
+                    raise AssertionError(f"{what} of a shuffled graph: {part} differs from the plain scatter by up to "
+                                         f"{diff.max().item():.3e}")
+                err = max(err, diff.max().item())
+    if not shuffled._row_sort or shuffled._transpose.get("perm") is None:
+        raise AssertionError("the shuffled graph keeps no row-sorted view or transposed structure")
+    x = torch.randn(g.n_cols, d, generator=gen, device="cuda")
+    ms, plain_ms = timed_pair(torch, lambda: spmm(shuffled, x), lambda: plain(x))
+    print(
+        f"spmm and spmm_t of the shuffled baby adjacency ({g.n_rows} rows, nnz={g.nnz}, sorted=False) d={d}: "
+        f"forward and x-gradient within the bound of the plain scatter, max_abs_err={err:.3e}; spmm {ms:.4f} ms "
+        f"(the row-sorted view's gather and K1), plain scatter {plain_ms:.4f} ms [{card}]"
+    )
+    return dict(case=f"shuffled_adjacency_d{d}", n_rows=g.n_rows, nnz=g.nnz, d=d, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms)
+
+
+def wide_embedding_path(torch, td, vd, config, card):
+    """LightGCN at embedding width 192 on the baby data that the DiffMM paths
+    load: ``evaluate(valid)`` in float32 (K3 on the plane) and in bfloat16,
+    which takes the plane route (bfloat16 scores, K3 with the packed mask)
+    because 192 is wider than the fused kernels' widest; its Recall@20 and
+    NDCG@20 within BF16_METRIC_ATOL of float32's. Then a scores-only view of
+    the float32 model (``scores`` alone, no ``full_embeddings``): the
+    trainer scores it chunk by chunk, and its lists equal the cached
+    route's. Returns (results, launches by call)."""
+    from genmmrec_tpu_torch.config import Config
+    from genmmrec_tpu_torch.engine.trainer import Trainer
+    from genmmrec_tpu_torch.models import get_model
+    from genmmrec_tpu_torch.models.base import RecModel
+
+    over = {"save_recommended_topk": False, "embedding_size": 192, "n_layers": 2}
+    res, launches, trainers = {}, {}, {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = Config("LightGCN", "baby", {**over, "eval_dtype": dtype})
+        cfg["pop_mask"], cfg["warm_mask"] = config["pop_mask"], config["warm_mask"]
+        model = get_model("LightGCN")(cfg, td)
+        model.init_params(torch.Generator(device=td.device).manual_seed(SEED))
+        trainers[dtype] = Trainer(cfg, model)
+        trainers[dtype]._dense_mask(vd)  # set-up, once per eval set
+    if trainers["float32"].model.latent_dim != 192:
+        raise AssertionError("the wide LightGCN is not 192 wide")
+
+    def run(label, fn):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        res[f"{label}_s"] = time.perf_counter() - t0
+        launches[label] = launch_counts()
+        return out
+
+    valid = {dtype: run(f"eval_valid_{dtype}", lambda tr=tr: tr.evaluate(vd)) for dtype, tr in trainers.items()}
+    for label in ("eval_valid_float32", "eval_valid_bfloat16"):
+        got = launches[label]
+        if got["grouped_topk"] <= 0 or got["fused_group_max"] or got["fused_candidates"]:
+            raise AssertionError(f"LightGCN/baby d=192 {label}: expected K3 on the plane and no K5: {got}")
+    drift = {key: valid["bfloat16"][key] - valid["float32"][key] for key in ("recall@20", "ndcg@20")}
+    off = {k: v for k, v in drift.items() if not abs(v) <= BF16_METRIC_ATOL}
+    bad = [k for r in valid.values() for k, v in r.items() if not math.isfinite(v)]
+    if off or bad:
+        raise AssertionError(f"LightGCN/baby d=192: bf16 drift {off} or non-finite metrics {bad}")
+
+    tr = trainers["float32"]
+    model = tr.model
+    base = type(model)
+
+    class ScoresOnly(base):
+        eval_artifacts = RecModel.eval_artifacts
+        full_embeddings = RecModel.full_embeddings
+
+        def scores(self, state, users):
+            return base.scores_cached(self, state, users, base.full_embeddings(self, state))
+
+    cached = tr.eval_topk(vd)
+    model.__class__ = ScoresOnly
+    try:
+        scored = run("eval_topk_scores_only", lambda: tr.eval_topk(vd))
+    finally:
+        model.__class__ = base
+    if not torch.equal(scored, cached):
+        raise AssertionError("a scores-only view of LightGCN/baby gives other lists than the cached route")
+    print(
+        f"LightGCN/baby d=192 evaluate(valid): float32 {res['eval_valid_float32_s']:.3f} s, bfloat16 (plane route, "
+        f"wider than the fused kernels) {res['eval_valid_bfloat16_s']:.3f} s, Recall@20 and NDCG@20 drift "
+        f"{json.dumps({k: round(v, 6) for k, v in drift.items()})} (bound {BF16_METRIC_ATOL}); a scores-only view "
+        f"scored chunk by chunk in {res['eval_topk_scores_only_s']:.3f} s, lists equal to the cached route's [{card}]"
+    )
+    print(f"LightGCN/baby d=192 launches: {json.dumps(launches)}")
+    return dict(**res, valid_float32=valid["float32"], valid_bfloat16=valid["bfloat16"], metric_drift=drift), launches
+
+
 def bf16_ordinal(torch, x):
     """bfloat16 values as integers in value order (both zeros at 0), so that
     two values one unit in the last place apart differ by 1."""
@@ -670,6 +814,55 @@ def check_k5_widths(torch, k, dev):
     print(f"K5 widths 32, 40 (padded to 64), 128 on {b} x {n}: K5a, K5b, K5c and the fused top-k bit-equal to plain")
 
 
+def check_plan(torch, F, gidx, ng, what):
+    """The plan the kernels build for ``gidx`` against ``candidate_plan_plain``:
+    the same group for every work item, real slots at the same places, and
+    the same slots in each work item once each is sorted (the kernel's order
+    within a list is its own). Returns the number of real slots."""
+    item_group, slots = F.candidate_plan(gidx, ng)
+    item_group_ref, slots_ref = F.candidate_plan_plain(gidx, ng)
+    if not torch.equal(item_group, item_group_ref) or not torch.equal(slots >= 0, slots_ref >= 0):
+        raise AssertionError(f"{what}: the plan's work items differ from the plain version's")
+    # a group's slots may sit in any of its work items: sort by (group, slot)
+    group = item_group.long().repeat_interleave(F.PLAN_ROWS)
+    key = lambda s: torch.sort(group * gidx.numel() + s.long()).values
+    if not torch.equal(key(slots), key(slots_ref)):
+        raise AssertionError(f"{what}: the plan's lists differ from the plain version's")
+    return int((slots_ref >= 0).sum())
+
+
+def check_k5_plans(torch, F, u, t, mask, gmax, gidx, case):
+    """K5b and K5c on adversarial choices of groups, bit-equal to their plain
+    versions on integer operands, their plans equal to the plain plan's, and
+    the candidates' maxima equal to K5a's where the groups are real: every
+    row choosing the same groups; every slot a pad slot (ids n_groups and
+    -1); one group chosen by every row, as the only slot."""
+    b, ng = u.shape[0], gmax.shape[1]
+    kp = gidx.shape[1]
+    choices = {
+        "every_row_the_same_groups": gidx[:1].expand(b, kp).contiguous(),
+        "all_pad_slots": torch.where(torch.arange(kp, device=u.device) % 2 == 0, ng, -1)
+        .to(torch.int32).expand(b, kp).contiguous(),
+        "one_group_chosen_by_every_row": torch.full((b, 1), ng // 2, dtype=torch.int32, device=u.device),
+    }
+    for name, g in choices.items():
+        what = f"K5 {case} {name}"
+        cand = F.fused_candidates(u, t, g, mask)
+        raw = F.fused_candidates_unmasked(u, t, g)
+        if not torch.equal(cand, F.fused_candidates_plain(u, t, g, mask)):
+            raise AssertionError(f"{what}: K5b differs from the plain version")
+        if not torch.equal(raw, F.fused_candidates_unmasked_plain(u, t, g)):
+            raise AssertionError(f"{what}: K5c differs from the plain version")
+        listed = check_plan(torch, F, g, ng, what)
+        real = (g >= 0) & (g < ng)
+        refold = cand.view(b, g.shape[1], 128).float().amax(dim=2).bfloat16()
+        folded = gmax.gather(1, torch.where(real, g, 0).long())
+        if not torch.equal(refold[real], folded[real]) or not bool(torch.isinf(cand.view(b, -1, 128)[~real]).all()):
+            raise AssertionError(f"{what}: the candidates' maxima differ from K5a's, or a pad slot is not -inf")
+        print(f"{what}: b={b} kp={g.shape[1]} listed slots {listed}: K5b and K5c bit-equal to plain, plan equal, "
+              f"candidates' maxima equal K5a's")
+
+
 def check_k5(torch, shapes, k, card):
     """K5a, K5b, K5c and K3 on bfloat16 rows, each against its plain version
     on the card, on each (name, n_items, d, mask) shape and in two kinds of
@@ -745,6 +938,9 @@ def check_k5(torch, shapes, k, card):
             refold = cand.view(b, kp, 128).float().amax(dim=2).bfloat16()
             if not torch.equal(refold, gmax.gather(1, gidx.long())):
                 raise AssertionError(f"K5 {case}: the candidates' maxima differ from the maxima K5a folded")
+            check_plan(torch, F, gidx, ng, f"K5 {case}")
+            if exact:
+                check_k5_plans(torch, F, u, t, mask, gmax, gidx, case)
             # K3 on the bfloat16 candidate plane
             v3, i3 = grouped_topk(cand, k)
             v3_ref, i3_ref = grouped_topk_plain(cand, k)
@@ -765,6 +961,17 @@ def check_k5(torch, shapes, k, card):
                 idx_share = 0.0
             else:
                 idx_share = check_topk_lists(torch, f"K5 {case}", plane, i, i_ref, n)
+            # a k past the threshold path's 64, fused against the plane route (K3 on the plane)
+            v_w, i_w = F.fused_grouped_topk(u32, t32, WIDE_K, mask)
+            v_wr, i_wr = grouped_topk(plane, WIDE_K)
+            torch.cuda.synchronize()
+            if exact and not (torch.equal(v_w, v_wr) and torch.equal(i_w, i_wr)):
+                raise AssertionError(f"K5 {case}: fused top-{WIDE_K} differs from the plane route's")
+            if not exact:
+                compare(f"fused top-{WIDE_K} values", v_w, v_wr)
+                check_topk_lists(torch, f"K5 {case} top-{WIDE_K}", plane, i_w, i_wr, n)
+            print(f"K5 {case} fused_grouped_topk at k={WIDE_K}: "
+                  f"{'bit-equal to' if exact else 'within one ulp of'} the plane route (K3 on the masked plane)")
             del plane
 
             # times: kernel and plain in turns, then the library's way
@@ -774,6 +981,7 @@ def check_k5(torch, shapes, k, card):
                                        lambda: F.fused_candidates_plain(u, t, gidx, mask))
             c_ms, c_plain = timed_pair(torch, lambda: F.fused_candidates_unmasked(u, t, gidx),
                                        lambda: F.fused_candidates_unmasked_plain(u, t, gidx))
+            plan_ms = cuda_ms(torch, lambda: F.candidate_plan(gidx, ng))  # inside b_ms and c_ms
             k3_ms, k3_plain = timed_pair(torch, lambda: grouped_topk(cand, k), lambda: grouped_topk_plain(cand, k))
             k3_lib = cuda_ms(torch, lambda: torch.topk(cand, k, dim=1))
             library = lambda: torch.topk((u @ t.T).masked_fill(excluded, float("-inf")), k, dim=1)
@@ -808,12 +1016,15 @@ def check_k5(torch, shapes, k, card):
                         fused_ms=fe_ms if name == "fused_candidates_unmasked" else f_ms,
                         library_of="fused_grouped_topk whole: bfloat16 matmul + masked_fill + torch.topk",
                     )
+                if name.startswith("fused_candidates"):
+                    entry["plan_ms"] = plan_ms
                 res[name]["cases"].append(entry)
                 res[name]["max_abs_err"] = max(res[name]["max_abs_err"], e)
                 note = "bit-equal" if exact else f"{share:.2e} of entries differ, none beyond its bound"
+                plan = f" (its plan {plan_ms:.4f} ms)" if "plan_ms" in entry else ""
                 print(
                     f"K5 {case} {name}: b={b} n={n} d={d} kp={kp} max_abs_err={e:.3e} ({note}), "
-                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bounds[name]['bound_ms']:.4f} ms "
+                    f"kernel {ms:.4f} ms{plan}, plain {plain_ms:.4f} ms, bound {bounds[name]['bound_ms']:.4f} ms "
                     f"({bounds[name]['bound_by']}) [{card}]"
                 )
             fused_cases.append(dict(
@@ -852,7 +1063,7 @@ def check_k5(torch, shapes, k, card):
     check_k5_widths(torch, k, shapes[0][3].device)
     for name in names:
         first = next(c for c in res[name]["cases"] if c["case"].endswith("gaussian"))
-        keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "fused_ms", "library_of")
+        keys = ("ms", "plan_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "fused_ms", "library_of")
         res[name].update({key: first[key] for key in keys if key in first})
     res["fused_grouped_topk"] = fused_cases
     return res
@@ -1502,6 +1713,18 @@ def main() -> int:
     k3_wide["cases"] += check_k3(torch, [("elec_top50_masked_bf16", wide, 50, wide_mask)], card)["cases"]
     del wide
     k3["cases"] += k3_wide["cases"]
+    # k past the threshold path: the radix path, ranked in the kernel up to
+    # 512 and sorted by the wrapper past it
+    plane = torch.randn(eval_bs, td.n_items, generator=gen, device=dev)
+    k3["cases"] += check_k3(
+        torch,
+        [
+            (f"eval_top{kk}_masked{'' if dtype == torch.float32 else '_bf16'}", plane.to(dtype), kk, eval_mask)
+            for dtype in (torch.float32, torch.bfloat16) for kk in (65, WIDE_K, 256, 257, 1000)
+        ],
+        card,
+    )["cases"]
+    del plane
     check_k3_adversarial(torch, dev)
     k5 = check_k5(
         torch,
@@ -1621,7 +1844,14 @@ def main() -> int:
     ui = ui_norm_adj(train_ds.table.users, train_ds.table.items, td.n_users, td.n_items, dev)
     nonsymmetric = check_nonsymmetric_grad(torch, ui, model.latdim, card)
     k1_bwd["cases"].append(nonsymmetric)
+    unsorted = check_unsorted_spmm(torch, model.norm_adj, model.latdim, card)
     del trainer, model, ui
+    torch.cuda.empty_cache()
+
+    # -- phase 6b: an embedding wider than the fused kernels', and a model
+    # with scores alone, on the baby data ------------------------------------
+    wide_res, wide_calls = wide_embedding_path(torch, td, vd, config, card)
+    wide_launches = {k: sum(l[k] for l in wide_calls.values()) for k in serving_launches}
     torch.cuda.empty_cache()
 
     # -- phase 7: LightGCN at the Amazon-elec geometry ----------------------
@@ -1638,12 +1868,14 @@ def main() -> int:
     k2_bwd = check_spmm_backward(torch, [("elec_adjacency_d128", adj, 2 * d)], card, blocked=True)
     check_spmm_widths(torch, dev)
     k4 = check_k4(torch, elec.eval_bs, ELEC_ITEMS, elec.trainer.evaluator.max_k, ELEC_POSITIVES, card)
+    k4["cases"] += check_k4(torch, elec.eval_bs, ELEC_ITEMS, WIDE_K, ELEC_POSITIVES, card)["cases"]
     torch.cuda.empty_cache()
     elec_res, elec_calls, elec_launches = graph_cf_path(torch, elec, card, profile_dir=args.profile)
     print(f"LightGCN/elec phase done in {time.perf_counter() - elec_t0:.1f} s")
 
     launches = {
-        k: serving_launches[k] + bf16_launches[k] + training_launches[k] + elec_launches[k] for k in serving_launches
+        k: serving_launches[k] + bf16_launches[k] + training_launches[k] + wide_launches[k] + elec_launches[k]
+        for k in serving_launches
     }
     never = [k for k, v in launches.items() if v <= 0]
     if never:
@@ -1700,7 +1932,8 @@ def main() -> int:
         launches_serving=serving_launches, launches_bf16_eval=bf16_launches,
         launches_training=training_launches, bf16_eval=bf16_eval,
         fused_grouped_topk=k5["fused_grouped_topk"], batch_vs_cpu=batch_check,
-        nonsymmetric_grad=nonsymmetric, lightgcn_elec=elec_res, launches_lightgcn_elec=elec_calls, card=card,
+        nonsymmetric_grad=nonsymmetric, unsorted_spmm=unsorted, lightgcn_baby_d192=wide_res,
+        launches_lightgcn_baby_d192=wide_calls, lightgcn_elec=elec_res, launches_lightgcn_elec=elec_calls, card=card,
     )
     print(json.dumps({"slice": summary}))
     print(json.dumps({"kernels": kernels}))

@@ -6,8 +6,9 @@
 // gathered their k*128 candidates in this kernel by a one-hot MXU contraction,
 // and sorted the candidates. That split, and the 16-wide recursion on top of
 // it, were cost trade-offs of the TPU's lanes and sort network. Here one
-// kernel serves every width and every k <= 64: the regeneration top-1 and the
-// evaluation top-50.
+// source serves every width and every k in [1, n], as the reference does: the
+// regeneration top-1 and the evaluation top-50 by the threshold path (k <=
+// 64), a configured top-100 or the candidates of a wider k by the radix path.
 //
 // What it computes: the values in descending order, ties broken by the lower
 // index first (lax.top_k's rule). Bit (j & 7) of byte (j >> 3) of a row's
@@ -59,6 +60,16 @@
 //   prefix counts over 256 columns at a time, until k are in the buffer.
 // - k = 1 (the regeneration) has a kernel of its own: one maximum a thread,
 //   one block-wide maximum, no second pass.
+// - k > 64 (masked_topk_wide_kernel): the threshold from the 256 thread
+//   maxima exists only for k <= 256 and passes more columns than the buffer
+//   holds long before that, so the wide path goes straight to the radix
+//   select, exact for any k: the first byte's pass reads the row (staging it
+//   as pass 1 does), each further byte's pass reads it again (from shared
+//   memory or the L2), and one more pass emits the k columns as the overflow
+//   path does. For k <= kCap they are ranked in the buffer; a wider k is
+//   written to the output in no order, the columns above the k-th key first
+//   and the ties at it after, and the wrapper orders the (b, k) result by a
+//   stable sort on (value descending, index ascending).
 
 #include <cuda_runtime.h>
 
@@ -67,6 +78,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kCap = 512;             // candidate buffer, 64-bit words
+constexpr int kNarrowK = 64;          // widest k of the threshold path
 constexpr int kInFlight = 4;          // 16-byte loads a thread starts together
 constexpr int kStageBytes = 40 * 1024;  // widest row kept in shared memory
 constexpr unsigned kFull = 0xffffffffu;
@@ -289,6 +301,99 @@ __device__ __forceinline__ u64 warp_max(u64 w) {
   return w;
 }
 
+// One byte of the radix select: narrows `prefix` (the bits `known` of the
+// want-th largest key, among the keys that match the prefix) by the byte at
+// `shift`, from a 256-bin histogram of the matching keys. The block is in
+// step before and after.
+template <typename T, Source SRC>
+__device__ __forceinline__ void radix_byte(const Row<T>& r, uint4* stage, int tid, int shift,
+                                           unsigned& prefix, unsigned& known, int& want,
+                                           unsigned* hist, unsigned& chosen, int& chosen_want) {
+  using S = Score<T>;
+  const int lane = tid & 31;
+  hist[tid] = 0;
+  __syncthreads();
+  visit<T, SRC>(r, stage, tid, [&](const unsigned(&key)[S::V], int, int cnt) {
+#pragma unroll
+    for (int i = 0; i < S::V; ++i) {
+      if (i >= cnt) break;
+      const bool in = (key[i] & known) == prefix;
+      const unsigned bin = (key[i] >> shift) & 255u;
+      // lanes with the same bin add once
+      const unsigned act = __activemask();
+      const unsigned peers = __match_any_sync(act, in ? bin : 256u);
+      if (in && lane == __ffs(peers) - 1) atomicAdd(&hist[bin], __popc(peers));
+    }
+  });
+  __syncthreads();
+  int above = 0;  // keys in the bins above this thread's
+  for (int b = tid + 1; b < 256; ++b) above += hist[b];
+  if (above < want && want <= above + static_cast<int>(hist[tid])) {
+    chosen = static_cast<unsigned>(tid);
+    chosen_want = want - above;
+  }
+  __syncthreads();
+  prefix |= chosen << shift;
+  known |= 255u << shift;
+  want = chosen_want;
+}
+
+// The top-k of a row whose k-th largest key is `kth`, `want` of the columns
+// equal to it belonging to the top-k: emit(slot, key, column) once for each,
+// the columns above kth in slots [0, k - want) in no order (count_above
+// starts at 0), then those equal to it, the lowest indices first, by
+// block-wide prefix counts over 256 columns at a time. The block is in step
+// after.
+template <typename T, Source SRC, typename Emit>
+__device__ __forceinline__ void emit_topk(const Row<T>& r, uint4* stage, int tid, int k,
+                                          unsigned kth, int want, int& count_above,
+                                          int (*warp_count)[kWarps], Emit&& emit) {
+  using S = Score<T>;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int n_above = k - want;
+  visit<T, SRC>(r, stage, tid, [&](const unsigned(&key)[S::V], int col, int cnt) {
+#pragma unroll
+    for (int i = 0; i < S::V; ++i)
+      if (i < cnt && key[i] > kth) emit(atomicAdd(&count_above, 1), key[i], col + i);
+  });
+  int taken = 0;
+  for (int base = 0, it = 0; base < r.n && taken < want; base += kThreads, ++it) {
+    const int j = base + tid;
+    const bool tie = j < r.n && r.key_at(j) == kth;
+    const unsigned votes = __ballot_sync(kFull, tie);
+    if (lane == 0) warp_count[it & 1][warp] = __popc(votes);
+    __syncthreads();
+    int before = 0, total = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      const int cw = warp_count[it & 1][w];
+      before += w < warp ? cw : 0;
+      total += cw;
+    }
+    const int rank = taken + before + __popc(votes & ((1u << lane) - 1u));
+    if (tie && rank < want) emit(n_above + rank, kth, j);
+    taken += total;
+  }
+  __syncthreads();
+}
+
+// c candidate words in shared memory; each one's rank among them (the
+// number above it) is its place in the row's output, for the first k.
+template <typename T>
+__device__ __forceinline__ void store_ranked(const u64* cand, int c, int k, int tid,
+                                             T* __restrict__ out_v, long long* __restrict__ out_i) {
+  using S = Score<T>;
+  for (int i = tid; i < c; i += kThreads) {
+    const u64 w = cand[i];
+    int rank = 0;
+    for (int j = 0; j < c; ++j) rank += cand[j] > w;
+    if (rank < k) {
+      const long long o = static_cast<long long>(blockIdx.x) * k + rank;
+      S::store(out_v + o, static_cast<unsigned>(w >> 32));
+      out_i[o] = static_cast<long long>(~static_cast<unsigned>(w));
+    }
+  }
+}
+
 // k = 1: the largest word of the row.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -315,7 +420,7 @@ masked_top1_kernel(const T* __restrict__ scores, const unsigned char* __restrict
   }
 }
 
-// 1 < k <= 64. STAGE: the row's keys fit the dynamic shared memory.
+// 1 < k <= kNarrowK. STAGE: the row's keys fit the dynamic shared memory.
 template <typename T, bool STAGE>
 __global__ void __launch_bounds__(kThreads)
 masked_topk_kernel(const T* __restrict__ scores, const unsigned char* __restrict__ mask,
@@ -398,72 +503,59 @@ masked_topk_kernel(const T* __restrict__ scores, const unsigned char* __restrict
     // ---- overflow: the exact k-th largest key by radix select ----
     unsigned prefix = 0, known = 0;
     int want = k;  // the want-th largest of the keys that match the prefix
-    for (int shift = 24; shift >= 32 - S::kKeyBits; shift -= 8) {
-      hist[tid] = 0;
-      __syncthreads();
-      visit<T, kAgain>(r, stage, tid, [&](const unsigned(&key)[S::V], int, int cnt) {
-#pragma unroll
-        for (int i = 0; i < S::V; ++i) {
-          if (i >= cnt) break;
-          const bool in = (key[i] & known) == prefix;
-          const unsigned bin = (key[i] >> shift) & 255u;
-          // lanes with the same bin add once
-          const unsigned act = __activemask();
-          const unsigned peers = __match_any_sync(act, in ? bin : 256u);
-          if (in && lane == __ffs(peers) - 1) atomicAdd(&hist[bin], __popc(peers));
-        }
-      });
-      __syncthreads();
-      int above = 0;  // keys in the bins above this thread's
-      for (int b = tid + 1; b < 256; ++b) above += hist[b];
-      if (above < want && want <= above + static_cast<int>(hist[tid])) {
-        chosen = static_cast<unsigned>(tid);
-        chosen_want = want - above;
-      }
-      __syncthreads();
-      prefix |= chosen << shift;
-      known |= 255u << shift;
-      want = chosen_want;
-    }
+    for (int shift = 24; shift >= 32 - S::kKeyBits; shift -= 8)
+      radix_byte<T, kAgain>(r, stage, tid, shift, prefix, known, want, hist, chosen, chosen_want);
     // prefix is the k-th largest key; `want` of the columns equal to it belong
     // to the top-k, the lowest indices first
-    const int n_above = k - want;
-    visit<T, kAgain>(r, stage, tid, [&](const unsigned(&key)[S::V], int col, int cnt) {
-#pragma unroll
-      for (int i = 0; i < S::V; ++i)
-        if (i < cnt && key[i] > prefix) cand[atomicAdd(&count_above, 1)] = pack(key[i], col + i);
-    });
-    int taken = 0;
-    for (int base = 0, it = 0; base < n && taken < want; base += kThreads, ++it) {
-      const int j = base + tid;
-      const bool tie = j < n && r.key_at(j) == prefix;
-      const unsigned votes = __ballot_sync(kFull, tie);
-      if (lane == 0) warp_count[it & 1][warp] = __popc(votes);
-      __syncthreads();
-      int before = 0, total = 0;
-      for (int w = 0; w < kWarps; ++w) {
-        const int cw = warp_count[it & 1][w];
-        before += w < warp ? cw : 0;
-        total += cw;
-      }
-      const int rank = taken + before + __popc(votes & ((1u << lane) - 1u));
-      if (tie && rank < want) cand[n_above + rank] = pack(prefix, j);
-      taken += total;
-    }
-    __syncthreads();
+    emit_topk<T, kAgain>(r, stage, tid, k, prefix, want, count_above, warp_count,
+                         [&](int slot, unsigned key, int col) { cand[slot] = pack(key, col); });
     c = k;
   }
 
   // ---- finish: a candidate's rank among the candidates is its place ----
-  for (int i = tid; i < c; i += kThreads) {
-    const u64 w = cand[i];
-    int rank = 0;
-    for (int j = 0; j < c; ++j) rank += cand[j] > w;
-    if (rank < k) {
-      const long long o = static_cast<long long>(blockIdx.x) * k + rank;
-      S::store(out_v + o, static_cast<unsigned>(w >> 32));
-      out_i[o] = static_cast<long long>(~static_cast<unsigned>(w));
-    }
+  store_ranked<T>(cand, c, k, tid, out_v, out_i);
+}
+
+// 64 < k <= n: the k-th largest key by radix select, the first byte's pass
+// reading the row (and staging it where STAGE) and the others reading it
+// again; then the k columns: for k <= kCap into the candidate buffer and
+// ranked there, for a wider k straight to the output, in no order (the
+// wrapper sorts them).
+template <typename T, bool STAGE>
+__global__ void __launch_bounds__(kThreads)
+masked_topk_wide_kernel(const T* __restrict__ scores, const unsigned char* __restrict__ mask,
+                        int mask_stride, T* __restrict__ out_v, long long* __restrict__ out_i,
+                        int n, int k) {
+  using S = Score<T>;
+  extern __shared__ uint4 stage[];
+  __shared__ u64 cand[kCap];
+  __shared__ unsigned hist[256];
+  __shared__ int warp_count[2][kWarps];
+  __shared__ int count_above;
+  __shared__ unsigned chosen;
+  __shared__ int chosen_want;
+  constexpr Source kAgain = STAGE ? kStaged : kGlobal;
+
+  const int tid = threadIdx.x;
+  const Row<T> r(scores, mask, mask_stride, blockIdx.x, n);
+  if (tid == 0) count_above = 0;
+  unsigned prefix = 0, known = 0;
+  int want = k;
+  radix_byte<T, STAGE ? kGlobalAndStage : kGlobal>(r, stage, tid, 24, prefix, known, want, hist,
+                                                   chosen, chosen_want);
+  for (int shift = 16; shift >= 32 - S::kKeyBits; shift -= 8)
+    radix_byte<T, kAgain>(r, stage, tid, shift, prefix, known, want, hist, chosen, chosen_want);
+  const long long row = static_cast<long long>(blockIdx.x) * k;
+  if (k <= kCap) {
+    emit_topk<T, kAgain>(r, stage, tid, k, prefix, want, count_above, warp_count,
+                         [&](int slot, unsigned key, int col) { cand[slot] = pack(key, col); });
+    store_ranked<T>(cand, k, k, tid, out_v, out_i);
+  } else {
+    emit_topk<T, kAgain>(r, stage, tid, k, prefix, want, count_above, warp_count,
+                         [&](int slot, unsigned key, int col) {
+                           S::store(out_v + row + slot, key);
+                           out_i[row + slot] = col;
+                         });
   }
 }
 
@@ -471,7 +563,7 @@ template <typename T>
 int masked_topk(const void* scores, const void* mask, int mask_stride, void* out_v, void* out_i,
                 int b, int n, int k, void* stream) {
   if (b <= 0) return 0;
-  if (k < 1 || k > 64 || k > n) return static_cast<int>(cudaErrorInvalidValue);
+  if (k < 1 || k > n) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<const T*>(scores);
   auto m = static_cast<const unsigned char*>(mask);
   auto v = static_cast<T*>(out_v);
@@ -483,7 +575,13 @@ int masked_topk(const void* scores, const void* mask, int mask_stride, void* out
   }
   // the vectors' keys and the ends', 16 bytes a vector of V columns
   const size_t stage_bytes = (static_cast<size_t>(n) / Score<T>::V + 2) * 16;
-  if (stage_bytes <= kStageBytes) {
+  const bool staged = stage_bytes <= kStageBytes;
+  if (k > kNarrowK) {
+    if (staged)
+      masked_topk_wide_kernel<T, true><<<b, kThreads, stage_bytes, st>>>(s, m, mask_stride, v, i, n, k);
+    else
+      masked_topk_wide_kernel<T, false><<<b, kThreads, 0, st>>>(s, m, mask_stride, v, i, n, k);
+  } else if (staged) {
     // as many blocks an SM as the staged rows leave room for
     const cudaError_t err = cudaFuncSetAttribute(masked_topk_kernel<T, true>,
                                                  cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -499,7 +597,8 @@ int masked_topk(const void* scores, const void* mask, int mask_stride, void* out
 
 // scores: (b, n) float32; mask: null or (b, mask_stride) uint8 with
 // mask_stride >= ceil(n / 8); out_v: (b, k) float32; out_i: (b, k) int64.
-// Requires 1 <= k <= min(n, 64). Returns a cudaError_t (0 on success).
+// Requires 1 <= k <= n. For k > kCap (512) a row's k entries come out in no
+// order. Returns a cudaError_t (0 on success).
 extern "C" int masked_topk_f32(const void* scores, const void* mask, int mask_stride,
                                void* out_v, void* out_i, int b, int n, int k, void* stream) {
   return masked_topk<float>(scores, mask, mask_stride, out_v, out_i, b, n, k, stream);

@@ -30,11 +30,14 @@
 // Design: one 256-thread block a row. A candidate becomes a 32-bit key that
 // orders as its float does (sign bit flipped for positives, all bits for
 // negatives; -inf maps above 0), pad entries get key 0. Thread t stages and
-// owns positions t, t + 256, ... of the candidate plane in shared memory
-// (at most 64 * 128 keys, 32 KB), so neighbouring threads load neighbouring
-// scores and no barrier guards the plane. Each thread keeps the best of its
-// positions as one 64-bit word, key above the complemented position, so a
-// plain maximum is the argmax with the lower position winning ties. A round
+// owns positions t, t + 256, ... of the candidate plane in dynamic shared
+// memory (kp * 128 keys and the kp group ids: 25,800 bytes at kp = 50; kp up
+// to kMaxGroups = 448, 231,168 of the 232,448 bytes a block may opt in to), so
+// neighbouring threads load neighbouring scores and no barrier guards the
+// plane. A wider kp is the wrapper's to refuse: ops/topk.py sends such rows
+// to K3. Each thread keeps the best of its positions as one 64-bit word, key
+// above the complemented position, so a plain maximum is the argmax with the
+// lower position winning ties. A round
 // is a warp-shuffle maximum, one barrier over the eight warp winners (the
 // buffer alternates, so one barrier a round is enough), then the owner of the
 // winning position zeroes its key and rescans its own positions.
@@ -46,7 +49,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kGroup = 128;
-constexpr int kMaxGroups = 64;
+constexpr int kMaxGroups = 448;  // kp * (128 + 1) * 4 B, with 128 B of static shared memory, fits
 
 using bf16_bits = unsigned short;
 using u64 = unsigned long long;
@@ -82,8 +85,8 @@ candidate_extract_kernel(const T* __restrict__ scores, const int* __restrict__ g
                          const unsigned char* __restrict__ mask, int mask_stride,
                          T* __restrict__ out_v, long long* __restrict__ out_i, int n, int kp,
                          int k) {
-  __shared__ unsigned keys[kMaxGroups * kGroup];
-  __shared__ int groups[kMaxGroups];
+  extern __shared__ unsigned keys[];  // kp * kGroup keys, then the kp group ids
+  int* groups = reinterpret_cast<int*>(keys + kp * kGroup);
   __shared__ u64 warp_win[2][kWarps];
   const int row = blockIdx.x;
   const int tid = threadIdx.x;
@@ -91,7 +94,7 @@ candidate_extract_kernel(const T* __restrict__ scores, const int* __restrict__ g
   const T* s = scores + static_cast<long long>(row) * n;
   const unsigned char* m = mask ? mask + static_cast<long long>(row) * mask_stride : nullptr;
 
-  if (tid < kp) groups[tid] = __ldg(gidx + static_cast<long long>(row) * kp + tid);
+  for (int i = tid; i < kp; i += kThreads) groups[i] = __ldg(gidx + static_cast<long long>(row) * kp + i);
   __syncthreads();
 
   const int kc = kp * kGroup;
@@ -139,7 +142,11 @@ int candidate_extract(const void* scores, const void* gidx, const void* mask, in
   if (b <= 0) return 0;
   if (n < 1 || kp < 1 || kp > kMaxGroups || k < 1 || k > kp * kGroup)
     return static_cast<int>(cudaErrorInvalidValue);
-  candidate_extract_kernel<T><<<b, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int smem = kp * (kGroup + 1) * static_cast<int>(sizeof(unsigned));
+  const cudaError_t err =
+      cudaFuncSetAttribute(candidate_extract_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  candidate_extract_kernel<T><<<b, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(scores), static_cast<const int*>(gidx),
       static_cast<const unsigned char*>(mask), mask_stride, static_cast<T*>(out_v),
       static_cast<long long*>(out_i), n, kp, k);
@@ -148,7 +155,7 @@ int candidate_extract(const void* scores, const void* gidx, const void* mask, in
 
 }  // namespace
 
-// scores: (b, n) float32; gidx: (b, kp) int32 group ids, kp <= 64; mask: null
+// scores: (b, n) float32; gidx: (b, kp) int32 group ids, kp <= 448; mask: null
 // or (b, mask_stride) uint8 with mask_stride >= ceil(n / 8); out_v: (b, k)
 // float32; out_i: (b, k) int64 item indices. Returns a cudaError_t (0 on success).
 extern "C" int candidate_extract_f32(const void* scores, const void* gidx, const void* mask,

@@ -15,20 +15,22 @@ draws) from the seed and the use's name, as the JAX package splits and
 folds its keys. Torch's draws differ from JAX's; the tests inject the JAX
 package's draws as tensors.
 
-Evaluation: the model's full user and item embeddings are computed once
-per evaluation, then users go in chunks of ``eval_batch_size`` to a top-k
-that excludes their train positives, and on to the metric suite. The
-scores are ``u @ iᵀ`` in the model's ``eval_dtype``, float32 or bfloat16
-(bfloat16 operands, float32 sums, one rounding). A chunk takes one of
-three routes:
+Evaluation: a model with ``full_embeddings`` or ``eval_artifacts`` has
+its artifacts (the full user and item embeddings) computed once per
+evaluation and scores ``u @ iᵀ`` in its ``eval_dtype``, float32 or bfloat16
+(bfloat16 operands, float32 sums, one rounding); a model with ``scores``
+alone is scored chunk by chunk. Users go in chunks of ``eval_batch_size``
+to a top-k that excludes their train positives, and on to the metric
+suite. A chunk takes one of three routes:
 
 - plane: ``scores_cached`` writes the chunk's (B, n_items) scores in
   either type and K3 (``ops/topk.py``) takes the masked top-k over the
   bit-packed mask, or, with ``GENMMREC_PALLAS_TOPK`` set and a catalog of
   more than 2k groups of 128 items, the two-stage route over K4 does;
 - fused: bfloat16 with the base ``scores_cached`` and ``(u_emb, i_emb)``
-  artifacts goes through K5 (``ops/fused_topk.py``), which writes no score
-  plane;
+  artifacts of a width the K5 kernels take (``KERNEL_WIDTHS``, at most 128)
+  goes through K5 (``ops/fused_topk.py``), which writes no score plane; a
+  wider embedding takes the plane route in bfloat16, on every device;
 - scatter: a packed mask over ``_DENSE_MASK_BUDGET`` is not built; each
   chunk's plane gets ``-1e10`` scattered over its users' train positives
   and K3 takes the unmasked top-k.
@@ -48,7 +50,7 @@ from genmmrec_tpu_torch.data.arrays import EvalData, TrainData, sample_negatives
 from genmmrec_tpu_torch.engine.checkpoint import load_checkpoint, save_checkpoint
 from genmmrec_tpu_torch.engine.evaluator import TopKEvaluator
 from genmmrec_tpu_torch.models.base import RecModel, scalar
-from genmmrec_tpu_torch.ops.fused_topk import fused_grouped_topk
+from genmmrec_tpu_torch.ops.fused_topk import KERNEL_WIDTHS, fused_grouped_topk
 from genmmrec_tpu_torch.ops.topk import grouped_topk
 from genmmrec_tpu_torch.utils.misc import dict2str, early_stopping
 
@@ -412,13 +414,26 @@ class Trainer:
         k_eff = min(max_k, n_items)
         B = self.eval_batch_size
         mask = self._dense_mask(eval_data)
-        arts = model.eval_artifacts(self.state)
+        # as the reference: artifacts once per evaluation where the model
+        # defines them, else ``scores`` chunk by chunk
+        mtype = type(model)
+        has_cache = (
+            mtype.eval_artifacts is not RecModel.eval_artifacts
+            or mtype.full_embeddings is not RecModel.full_embeddings
+        )
+        if not has_cache and mtype.scores is RecModel.scores:
+            raise NotImplementedError(
+                f"{mtype.__name__} defines neither full_embeddings (or eval_artifacts) nor scores: "
+                "it cannot be evaluated"
+            )
+        arts = model.eval_artifacts(self.state) if has_cache else None
         # bfloat16 scores that are the base class's u @ iᵀ can be computed
         # inside the top-k (K5); a model with scores of its own writes its plane
         fused = (
-            mask is not None
+            has_cache
+            and mask is not None
             and model.eval_dtype == torch.bfloat16
-            and type(model).scores_cached is RecModel.scores_cached
+            and mtype.scores_cached is RecModel.scores_cached
         )
         if fused:
             if not (
@@ -431,6 +446,12 @@ class Trainer:
                     "bfloat16 evaluation with the base scores_cached needs (u_emb, i_emb) artifacts "
                     "with one i_emb row per item"
                 )
+            # the route rule of the width, the same on every device: K5's
+            # kernels are built up to KERNEL_WIDTHS[-1]; a wider embedding
+            # takes the plane route, bfloat16 scores and K3 with the packed
+            # mask, which gives the same exact top-k of the bf16 scores
+            fused = arts[1].shape[1] <= KERNEL_WIDTHS[-1]
+        if fused:
             u_emb, table = arts[0], arts[1].bfloat16()
         out = []
         for lo in range(0, eval_data.users.shape[0], B):
@@ -440,7 +461,10 @@ class Trainer:
                     u_emb[users], table, k_eff, mask[lo : lo + B], cand_mask=self._FUSED_CAND_MASK
                 )
             else:
-                scores = model.scores_cached(self.state, users, arts)
+                if has_cache:
+                    scores = model.scores_cached(self.state, users, arts)
+                else:
+                    scores = model.scores(self.state, users)
                 if mask is not None:
                     _, top = grouped_topk(scores, k_eff, packed_mask=mask[lo : lo + B])
                 else:

@@ -83,6 +83,12 @@ class RecModel(nn.Module):
         """Host-side hook after each epoch; may return a log string."""
         return None
 
+    def scores(self, state, users) -> torch.Tensor:
+        """(len(users), n_items) full-catalog scores of ``users``; the
+        trainer calls it chunk by chunk for a model with no
+        ``full_embeddings`` or ``eval_artifacts`` of its own."""
+        raise NotImplementedError
+
     def full_embeddings(self, state):
         """(user, item) embedding matrices, computed once per evaluation."""
         raise NotImplementedError

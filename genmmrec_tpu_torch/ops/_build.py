@@ -115,8 +115,10 @@ def library():
         fn.restype = i
     lib.fused_group_max_bf16.argtypes = [p, p, p, p, i, i, i, p]
     lib.fused_group_max_bf16.restype = i
+    lib.fused_candidate_plan.argtypes = [p, p, i, i, i, i, p]
+    lib.fused_candidate_plan.restype = i
     for fn in (lib.fused_candidates_bf16, lib.fused_candidates_unmasked_bf16):
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
         fn.restype = i
     lib.kernel_error_string.argtypes = [i]
     lib.kernel_error_string.restype = ctypes.c_char_p

@@ -11,7 +11,10 @@ the (B, n_items) score plane. The catalog is cut into groups of 128 items:
 3. K5b ``fused_candidates`` computes those groups' scores again with the
    mask applied → (B, kp·128) bfloat16. With ``cand_mask="external"`` K5c
    ``fused_candidates_unmasked`` leaves the mask out and ``external_mask``
-   applies it in plain PyTorch;
+   applies it in plain PyTorch. On the card both go group by group: a plan
+   (``candidate_plan``; plain version ``candidate_plan_plain``) lists for
+   each group the (row, slot) pairs that chose it, and a block multiplies one
+   group's table tile by up to 128 of those rows;
 4. K3 (``ops/topk.py``) takes the exact top-k of the candidates.
 
 The three kernels are ``genmmrec_tpu_torch/csrc/fused_topk.cu``; its source
@@ -41,7 +44,7 @@ from __future__ import annotations
 import torch
 
 from genmmrec_tpu_torch.ops import _build
-from genmmrec_tpu_torch.ops.topk import GROUP, MAX_K, choose_groups, grouped_topk, unpack_mask
+from genmmrec_tpu_torch.ops.topk import GROUP, choose_groups, grouped_topk, unpack_mask
 
 # embedding widths the kernels are built for; a narrower one is padded with
 # zero columns up to the next of these, which leaves every score unchanged
@@ -89,6 +92,77 @@ def fused_candidates_plain(u_emb, item_emb, gidx, packed_mask) -> torch.Tensor:
 
 def fused_candidates_unmasked_plain(u_emb, item_emb, gidx) -> torch.Tensor:
     return _gather_groups(_grouped_plane(u_emb, item_emb), gidx)
+
+
+# slots of a work item of K5b and K5c: a group and up to this many of the
+# slots that chose it
+PLAN_ROWS = 128
+
+
+def _max_items(b: int, kp: int, n_groups: int) -> int:
+    """Work items the plan can make at most (the kernels' fixed grid)."""
+    return -(-b * kp // PLAN_ROWS) + n_groups
+
+
+def candidate_plan_plain(gidx, n_groups: int):
+    """The plan of K5b and K5c: the flat slots ``r·kp + j`` of ``gidx``
+    ((B, kp) group ids) inverted into one list a group by a stable counting
+    sort, each list padded to whole work items of ``PLAN_ROWS`` slots →
+    (item_group (max_items,) int32, slots (max_items·PLAN_ROWS,) int32).
+    Work item w holds group ``item_group[w]``'s slots ``slots[w·PLAN_ROWS
+    ...]``, a prefix of them real, the rest -1; the groups' items come in
+    group order and past the last item ``item_group`` is -1. Pad slots (an
+    id outside [0, n_groups)) join no list. The kernels' plan holds the same
+    lists, each in an order of its own."""
+    b, kp = gidx.shape
+    dev = gidx.device
+    flat = gidx.reshape(-1).long()
+    real = (flat >= 0) & (flat < n_groups)
+    counts = torch.bincount(flat[real], minlength=n_groups)
+    items = -(-counts // PLAN_ROWS)
+    first_item = torch.cumsum(items, 0) - items
+    max_items = _max_items(b, kp, n_groups)
+    item_group = torch.full((max_items,), -1, dtype=torch.int32, device=dev)
+    item_group[: int(items.sum())] = torch.repeat_interleave(torch.arange(n_groups, device=dev), items).int()
+    order = torch.sort(torch.where(real, flat, n_groups), stable=True).indices[: int(counts.sum())]
+    group = flat[order]
+    rank = torch.arange(len(order), device=dev) - (torch.cumsum(counts, 0) - counts)[group]
+    slots = torch.full((max_items * PLAN_ROWS,), -1, dtype=torch.int32, device=dev)
+    slots[first_item[group] * PLAN_ROWS + rank] = order.int()
+    return item_group, slots
+
+
+def _plan_layout(b: int, kp: int, n_groups: int) -> tuple[int, int]:
+    """(int32 words of the plan's scratch, where its item_group starts), as
+    ``struct Plan`` of the source lays it out: counters and each group's
+    first work item, then item_group and the padded list."""
+    at = 3 * n_groups + 2
+    return at + _max_items(b, kp, n_groups) * (1 + PLAN_ROWS), at
+
+
+def _check_gidx(gidx, b: int, device):
+    if gidx.dim() != 2 or gidx.shape[0] != b or gidx.dtype != torch.int32 or gidx.device != device or not gidx.is_contiguous():
+        raise ValueError(f"gidx must be a contiguous int32 ({b}, kp) tensor on the operands' device")
+
+
+def candidate_plan(gidx, n_groups: int):
+    """The plan as the kernels build it (the stage that K5b and K5c run
+    first, alone, for its checks and its time): (item_group, slots) in
+    ``candidate_plan_plain``'s layout, each list's slots in an order of the
+    kernel's own. The plain version for a tensor on the CPU."""
+    if gidx.is_cpu:
+        return candidate_plan_plain(gidx, n_groups)
+    b = gidx.shape[0]
+    _check_gidx(gidx, b, gidx.device)
+    kp = gidx.shape[1]
+    words, at = _plan_layout(b, kp, n_groups)
+    scratch = torch.empty(words, dtype=torch.int32, device=gidx.device)
+    _build.launch(
+        "fused_candidate_plan", "candidate_plan", gidx.device,
+        gidx.data_ptr(), scratch.data_ptr(), scratch.numel(), b, n_groups, kp,
+    )
+    items = _max_items(b, kp, n_groups)
+    return scratch[at : at + items], scratch[at + items :]
 
 
 def external_mask(cand, gidx, packed_mask) -> torch.Tensor:
@@ -153,20 +227,15 @@ def fused_group_max(u_emb, item_emb, packed_mask) -> torch.Tensor:
 
 def _launch_candidates(entry: str, u_emb, item_emb, gidx, packed_mask):
     u, table, b, n, d = _check_operands(u_emb, item_emb, packed_mask)
-    if (
-        gidx.dim() != 2
-        or gidx.shape[0] != b
-        or gidx.dtype != torch.int32
-        or gidx.device != u.device
-        or not gidx.is_contiguous()
-    ):
-        raise ValueError(f"gidx must be a contiguous int32 ({b}, kp) tensor on the operands' device")
+    _check_gidx(gidx, b, u.device)
     kp = gidx.shape[1]
     cand = torch.empty(b, kp * GROUP, dtype=torch.bfloat16, device=u.device)
+    scratch = torch.empty(_plan_layout(b, kp, n_groups_for(n))[0], dtype=torch.int32, device=u.device)
     _build.launch(
         entry, entry, u.device,
         u.data_ptr(), table.data_ptr(), gidx.data_ptr(),
-        None if packed_mask is None else packed_mask.data_ptr(), cand.data_ptr(), b, n, d, kp,
+        None if packed_mask is None else packed_mask.data_ptr(), cand.data_ptr(),
+        scratch.data_ptr(), scratch.numel(), b, n, d, kp,
     )
     return cand
 
@@ -211,8 +280,8 @@ def fused_grouped_topk(u_emb, item_emb, k: int, packed_mask, *, cand_mask: str =
     if cand_mask not in ("kernel", "external"):
         raise ValueError(f"cand_mask must be 'kernel' or 'external', not {cand_mask!r}")
     n = item_emb.shape[0]
-    if not 1 <= k <= min(n, MAX_K):
-        raise ValueError(f"k={k} must be in [1, {min(n, MAX_K)}]")
+    if not 1 <= k <= n:
+        raise ValueError(f"k={k} must be in [1, {n}]")
     u, table = u_emb.bfloat16(), item_emb.bfloat16()
     gmax = fused_group_max(u, table, packed_mask)
     # a catalog of fewer than k groups hands all of them on

@@ -1,14 +1,18 @@
 """Sparse graph operators (counterpart of ``genmmrec_tpu/ops/graph.py``).
 
 A ``SparseGraph`` holds row-sorted COO edges plus a CSR row pointer built
-once per graph. ``spmm`` of a sorted graph runs one of the two SpMM kernels
-of ``ops/segment.py``: K1 (the kernel owns rows; the graph carries the list
-of its long rows, which a cluster of thread blocks sums) or, for a graph
-flagged ``blocked`` when it was built, K2 (edge-balanced chunks). Both are
-differentiable on the card: a value-symmetric graph's x-gradient is the same
-kernel on the same edges, any other sorted graph's the same kernel on its
-transposed CSR, which is built at the first backward and kept with the
-graph. The JAX package's VMEM span planners (``pallas_span``,
+once per graph. A graph built with ``sorted=False`` (edges in any order,
+as the reference's ``segment_sum(indices_are_sorted=False)`` takes them)
+multiplies through its stably row-sorted view (``row_sorted``), whose
+order is computed once and kept with the graph, on every device; the sort
+being stable fixes the sum's order. ``spmm`` of a sorted graph runs one of
+the two SpMM kernels of ``ops/segment.py``: K1 (the kernel owns rows; the
+graph carries the list of its long rows, which a cluster of thread blocks
+sums) or, for a graph flagged ``blocked`` when it was built, K2
+(edge-balanced chunks). Both are differentiable on the card: a
+value-symmetric graph's x-gradient is the same kernel on the same edges,
+any other sorted graph's the same kernel on its transposed CSR, which is
+built at the first backward and kept with the graph. The JAX package's VMEM span planners (``pallas_span``,
 ``pallas_plan``) have no counterpart: the row pointer, the ``blocked`` flag
 and the list of long rows replace them.
 """
@@ -47,6 +51,11 @@ class SparseGraph:
     # first need by ``transposed``. It holds no values, so a copy that
     # replaces only ``vals`` may share it.
     _transpose: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+    # of a graph that is not row-sorted: the structure of its stably
+    # row-sorted view (edge order, rows, columns, row pointer, long rows),
+    # filled at first need by ``row_sorted`` and, like ``_transpose``, free
+    # of values
+    _row_sort: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     @property
     def nnz(self) -> int:
@@ -58,6 +67,31 @@ class SparseGraph:
             self, rows=move(self.rows), cols=move(self.cols), vals=move(self.vals), row_ptr=move(self.row_ptr),
             long_rows=None if self.long_rows is None else move(self.long_rows),
             _transpose={k: move(v) for k, v in self._transpose.items()},
+            _row_sort={k: move(v) for k, v in self._row_sort.items()},
+        )
+
+    def row_sorted(self) -> "SparseGraph":
+        """This graph, if row-sorted; else the same edges as a row-sorted
+        graph, in the order of a stable sort by row. The order is computed
+        once and kept; the values are gathered through it at each call, so
+        they follow ``vals`` (and its autograd history)."""
+        if self.sorted:
+            return self
+        s = self._row_sort
+        if not s:
+            rows, perm = torch.sort(self.rows, stable=True)
+            s["perm"] = perm
+            s["rows"] = rows.to(torch.int32).contiguous()
+            s["cols"] = self.cols[perm].to(torch.int32).contiguous()
+            s["row_ptr"] = _row_pointer(s["rows"], self.n_rows)
+            s["long_rows"] = segment.long_row_plan(s["row_ptr"], self.nnz)
+        # the view shares this graph's ``_transpose``, which a graph that is
+        # not row-sorted leaves empty: the view's transposed structure is
+        # then kept too
+        return SparseGraph(
+            rows=s["rows"], cols=s["cols"], vals=self.vals[s["perm"]], row_ptr=s["row_ptr"],
+            n_rows=self.n_rows, n_cols=self.n_cols, symmetric=self.symmetric,
+            blocked=segment.takes_blocked(self.n_rows), long_rows=s["long_rows"], _transpose=self._transpose,
         )
 
     def transposed(self, vals: Optional[torch.Tensor] = None) -> "SparseGraph":
@@ -115,33 +149,25 @@ def _as_operands(g: SparseGraph):
 
 def spmm(g: SparseGraph, x: torch.Tensor) -> torch.Tensor:
     """Sparse @ dense: (n_rows, n_cols) @ (n_cols, d) -> (n_rows, d)."""
-    if g.sorted and g.symmetric:
+    g = g.row_sorted()
+    if g.symmetric:
         return spmm_symmetric(g.row_ptr, g.rows, g.cols, g.vals, x.contiguous(), g.n_rows, g.blocked, g.long_rows)
-    if g.sorted:
-        # the backward's values carry no history: the vals-gradient is the
-        # Function's own
-        transpose = lambda: _as_operands(g.transposed(g.vals.detach()))
-        return spmm_sorted(
-            g.row_ptr, g.rows, g.cols, g.vals, x.contiguous(), g.n_rows, transpose, g.blocked, g.long_rows
-        )
-    if x.is_cuda:
-        raise ValueError("spmm on CUDA needs a row-sorted graph")
-    out = torch.zeros(g.n_rows, x.shape[1], dtype=x.dtype, device=x.device)
-    return out.index_add_(0, g.rows.long(), g.vals[:, None] * x[g.cols.long()])
+    # the backward's values carry no history: the vals-gradient is the
+    # Function's own
+    transpose = lambda: _as_operands(g.transposed(g.vals.detach()))
+    return spmm_sorted(
+        g.row_ptr, g.rows, g.cols, g.vals, x.contiguous(), g.n_rows, transpose, g.blocked, g.long_rows
+    )
 
 
 def spmm_t(g: SparseGraph, x: torch.Tensor) -> torch.Tensor:
-    """Transpose SpMM: (n_cols, n_rows) @ (n_rows, d) -> (n_cols, d). A
-    sorted graph multiplies through its transposed CSR (the kernels need
-    row-sorted edges); the x-gradient is then the graph's own product."""
-    if g.sorted:
-        t = g.transposed()
-        own = lambda: _as_operands(dataclasses.replace(g, vals=g.vals.detach()))
-        return spmm_sorted(t.row_ptr, t.rows, t.cols, t.vals, x.contiguous(), t.n_rows, own, t.blocked, t.long_rows)
-    if x.is_cuda:
-        raise ValueError("spmm_t on CUDA needs a row-sorted graph")
-    out = torch.zeros(g.n_cols, x.shape[1], dtype=x.dtype, device=x.device)
-    return out.index_add_(0, g.cols.long(), g.vals[:, None] * x[g.rows.long()])
+    """Transpose SpMM: (n_cols, n_rows) @ (n_rows, d) -> (n_cols, d),
+    through the transposed CSR of the graph's row-sorted view (the kernels
+    need row-sorted edges); the x-gradient is then the view's own product."""
+    g = g.row_sorted()
+    t = g.transposed()
+    own = lambda: _as_operands(dataclasses.replace(g, vals=g.vals.detach()))
+    return spmm_sorted(t.row_ptr, t.rows, t.cols, t.vals, x.contiguous(), t.n_rows, own, t.blocked, t.long_rows)
 
 
 def spmm_multi(g: SparseGraph, xs):

@@ -4,19 +4,23 @@ Counterpart of ``genmmrec_tpu/ops/topk.py`` ``grouped_topk``, whose Pallas
 kernels are ``_gather_kernel``, the candidate gather of the two-stage
 selection (K3), and ``_extract_kernel``, the opt-in candidate extraction
 (K4). On the card K3, ``genmmrec_tpu_torch/csrc/topk.cu``, serves every
-width and every ``k <= 64``, over float32 or bfloat16 rows (the bf16
-evaluation's score and candidate planes): one block a row reads the row in
-16-byte vectors, takes the k-th largest of its 256 threads' maxima as the
-row's threshold, collects the columns at or above it in shared memory and
-ranks them by one 64-bit compare (an order-preserving key above the
-complemented index); a row that passes more columns than the buffer holds
-(constant, mostly ``-inf``, tied at the threshold) is finished exactly by
-a radix select in the same kernel; ``k = 1`` has a one-pass kernel of its
-own. ``grouped_topk_selection_plain`` mirrors that selection step by step
-in PyTorch, for the tests. K4,
+width and every ``1 <= k <= n``, as the reference does, over float32 or
+bfloat16 rows (the bf16 evaluation's score and candidate planes). For
+``k <= NARROW_K`` one block a row reads the row in 16-byte vectors, takes
+the k-th largest of its 256 threads' maxima as the row's threshold,
+collects the columns at or above it in shared memory and ranks them by one
+64-bit compare (an order-preserving key above the complemented index); a
+row that passes more columns than the buffer holds (constant, mostly
+``-inf``, tied at the threshold) is finished exactly by a radix select in
+the same kernel; ``k = 1`` has a one-pass kernel of its own. A wider k goes
+straight to the radix select; its k columns are ranked in the buffer up to
+``_K3_CAP`` and written in no order past it, and ``_masked_topk`` orders
+them by a stable sort of the (b, k) result. ``grouped_topk_selection_plain``
+mirrors that selection step by step in PyTorch, for the tests. K4,
 ``genmmrec_tpu_torch/csrc/topk_extract.cu``, is the second stage of the
 two-stage selection: the top-k of the 128-wide groups that the group maxima
-picked. Their sources say what bounds them and how they are laid out.
+picked, up to ``MAX_EXTRACT_GROUPS`` of them (what its shared memory
+holds). Their sources say what bounds them and how they are laid out.
 
 Contract: values in descending order, ties broken by the lower index first
 (``lax.top_k``'s rule). ``packed_mask`` is an optional (b, >= ceil(n/8))
@@ -32,7 +36,9 @@ environment (the reference's own switch, read at each call) and more than
 ``2k`` groups in a row (the reference's narrow-row rule), it takes the
 two-stage route instead: masked group maxima and the choice of
 ``min(k, n_groups)`` groups in plain PyTorch (XLA ops outside the kernel in
-the reference), then K4, ``candidate_extract``. The groups are ranked by
+the reference), then K4, ``candidate_extract``. A k above
+``MAX_EXTRACT_GROUPS`` needs more groups than K4 holds, and such a call
+takes K3 on the whole row (``takes_two_stage``). The groups are ranked by
 (maximum descending, id ascending) and handed on sorted by id, so that a
 lower position among the candidates is a lower item index and both routes
 give the same lists bit for bit.
@@ -49,7 +55,10 @@ import torch
 
 from genmmrec_tpu_torch.ops import _build
 
-MAX_K = 64
+# the widest k of K3's threshold path; a wider k takes its radix path
+NARROW_K = 64
+# the most groups a row that K4 takes (its shared memory: kp * 129 words)
+MAX_EXTRACT_GROUPS = 448
 GROUP = 128
 # the kernels' C entry points for each score type they take
 _ENTRY = {torch.float32: "masked_topk_f32", torch.bfloat16: "masked_topk_bf16"}
@@ -97,36 +106,24 @@ def grouped_topk_selection_plain(scores, k: int, packed_mask=None, head: int = 0
     """K3's selection, step by step, in plain PyTorch; the tests hold it
     against ``grouped_topk_plain``. ``head`` is the number of columns before
     a row's first 16-byte vector (the kernel derives it from the row's
-    address). Thread maxima over the kernel's interleaved columns, their
-    k-th largest as the threshold, the columns at or above it ranked by
-    (key, lower index); a row that passes more than the buffer's
-    ``_K3_CAP`` columns goes through the radix select of the key's bytes,
-    then takes the columns above the k-th key and the lowest-indexed of those
-    equal to it. With ``with_counts`` also returns how many columns passed
-    each row's threshold."""
+    address). For ``k <= NARROW_K``: thread maxima over the kernel's
+    interleaved columns, their k-th largest as the threshold, the columns at
+    or above it ranked by (key, lower index); a row that passes more than the
+    buffer's ``_K3_CAP`` columns goes through the radix select of the key's
+    bytes, then takes the columns above the k-th key and the lowest-indexed
+    of those equal to it. A wider k takes the radix select for every row.
+    With ``with_counts`` also returns how many columns passed each row's
+    threshold (for a wider k: how many are at or above the k-th key)."""
     b, n = scores.shape
-    if not 1 <= k <= min(n, MAX_K):
-        raise ValueError(f"k={k} must be in [1, {min(n, MAX_K)}]")
+    if not 1 <= k <= n:
+        raise ValueError(f"k={k} must be in [1, {n}]")
     dev = scores.device
     if packed_mask is not None:
         scores = scores.masked_fill(unpack_mask(packed_mask, n), float("-inf"))
     key = order_key(scores)
-    v = 8 if scores.dtype == torch.bfloat16 else 4
     key_bytes = 2 if scores.dtype == torch.bfloat16 else 4
     col = torch.arange(n, device=dev)
-    # which thread visits a column: the vectors interleave, the unaligned
-    # ends go one a thread
-    head = min(head, n)
-    tail = head + (n - head) // v * v
-    owner = torch.where(col < head, col, torch.where(col >= tail, head + col - tail, (col - head) // v % _K3_THREADS))
-    tmax = torch.zeros(b, _K3_THREADS, dtype=torch.int64, device=dev)
-    tmax.scatter_reduce_(1, owner.expand(b, n), key, "amax")
-    t = torch.sort(tmax, dim=1, descending=True).values[:, k - 1 : k]
-    passed = key >= t
-    counts = passed.sum(dim=1)
-    if bool((counts < k).any()):
-        raise AssertionError("fewer than k columns at or above the threshold")
-    # the overflow path: the k-th largest key, a byte at a time from the top
+    # the radix select: the k-th largest key, a byte at a time from the top
     prefix = torch.zeros(b, 1, dtype=torch.int64, device=dev)
     known = 0
     want = torch.full((b, 1), k, dtype=torch.int64, device=dev)
@@ -140,12 +137,37 @@ def grouped_topk_selection_plain(scores, k: int, packed_mask=None, head: int = 0
         known |= 255 << shift
     ties = key == prefix
     exact = (key > prefix) | (ties & (ties.cumsum(1) - 1 < want))
-    taken = torch.where((counts > _K3_CAP)[:, None], exact, passed)
+    if k > NARROW_K:
+        taken, counts = exact, (key >= prefix).sum(dim=1)
+    else:
+        # which thread visits a column: the vectors interleave, the
+        # unaligned ends go one a thread
+        v = 8 if scores.dtype == torch.bfloat16 else 4
+        head = min(head, n)
+        tail = head + (n - head) // v * v
+        owner = torch.where(col < head, col, torch.where(col >= tail, head + col - tail, (col - head) // v % _K3_THREADS))
+        tmax = torch.zeros(b, _K3_THREADS, dtype=torch.int64, device=dev)
+        tmax.scatter_reduce_(1, owner.expand(b, n), key, "amax")
+        t = torch.sort(tmax, dim=1, descending=True).values[:, k - 1 : k]
+        passed = key >= t
+        counts = passed.sum(dim=1)
+        if bool((counts < k).any()):
+            raise AssertionError("fewer than k columns at or above the threshold")
+        taken = torch.where((counts > _K3_CAP)[:, None], exact, passed)
     # one word a candidate: the key above the complemented index
     word = torch.where(taken, (key << 31) | (0x7FFFFFFF - col), -1)
     idx = 0x7FFFFFFF - (torch.sort(word, dim=1, descending=True).values[:, :k] & 0x7FFFFFFF)
     out = scores.gather(1, idx), idx
     return (*out, counts) if with_counts else out
+
+
+def order_rows(vals, idx):
+    """Each row's (value, index) pairs in the top-k contract's order: by
+    index, then stably by value descending (a NaN first, as K3 ranks it;
+    -0 and +0 equal)."""
+    idx, by_index = torch.sort(idx, dim=1)
+    vals, by_value = torch.sort(vals.gather(1, by_index), dim=1, descending=True, stable=True)
+    return vals, idx.gather(1, by_value)
 
 
 def _mask_args(packed_mask, b: int, n: int, device):
@@ -167,8 +189,8 @@ def _mask_args(packed_mask, b: int, n: int, device):
 def _check_scores(scores, k: int, widest: int):
     if scores.dtype not in _ENTRY or scores.dim() != 2 or not scores.is_contiguous():
         raise ValueError("scores must be a contiguous 2-D float32 or bfloat16 tensor")
-    if not 1 <= k <= min(widest, MAX_K):
-        raise ValueError(f"k={k} must be in [1, {min(widest, MAX_K)}]")
+    if not 1 <= k <= widest:
+        raise ValueError(f"k={k} must be in [1, {widest}]")
 
 
 def _masked_topk(scores, k: int, packed_mask=None):
@@ -183,7 +205,8 @@ def _masked_topk(scores, k: int, packed_mask=None):
         scores.data_ptr(), mask_ptr, mask_stride, vals.data_ptr(), idx.data_ptr(), b, n, k,
     )
     grouped_topk.launches += 1
-    return vals, idx
+    # past the buffer the kernel writes a row's k columns in no order
+    return order_rows(vals, idx) if k > _K3_CAP else (vals, idx)
 
 
 def candidate_extract_plain(scores, gidx, k: int, packed_mask=None):
@@ -207,7 +230,7 @@ def candidate_extract_plain(scores, gidx, k: int, packed_mask=None):
 
 def candidate_extract(scores, gidx, k: int, packed_mask=None):
     """K4: the exact top-k among each row's groups ``gidx`` ((b, kp) int32,
-    kp <= 64) of 128 consecutive columns of ``scores`` ((b, n) float32 or
+    kp <= MAX_EXTRACT_GROUPS) of 128 consecutive columns of ``scores`` ((b, n) float32 or
     bfloat16) → (values (b, k), item indices (b, k) int64).
 
     Equal values come lower flat position first; with ``gidx`` ascending in
@@ -218,8 +241,8 @@ def candidate_extract(scores, gidx, k: int, packed_mask=None):
     if gidx.dim() != 2 or gidx.shape[0] != scores.shape[0] or gidx.dtype != torch.int32 or gidx.device != scores.device:
         raise ValueError(f"gidx must be an int32 ({scores.shape[0]}, kp) tensor on the scores' device")
     kp = gidx.shape[1]
-    if not 1 <= kp <= MAX_K:
-        raise ValueError(f"gidx has {kp} groups a row; the kernel takes 1 to {MAX_K}")
+    if not 1 <= kp <= MAX_EXTRACT_GROUPS:
+        raise ValueError(f"gidx has {kp} groups a row; the kernel takes 1 to {MAX_EXTRACT_GROUPS}")
     _check_scores(scores, k, kp * GROUP)
     if scores.is_cpu:
         return candidate_extract_plain(scores, gidx, k, packed_mask)
@@ -262,10 +285,18 @@ def _two_stage_topk(scores, k: int, packed_mask=None):
     return candidate_extract(scores, choose_groups(gmax, min(k, gmax.shape[1])), k, packed_mask)
 
 
+def takes_two_stage(n: int, k: int) -> bool:
+    """The route rule of ``grouped_topk`` for a row of ``n`` columns: the
+    two-stage route (K4) where ``GENMMREC_PALLAS_TOPK`` is set, the row has
+    more than ``2k`` groups (the reference's narrow-row rule) and K4 holds
+    the ``k`` groups it then takes; else K3 on the whole row."""
+    return bool(os.environ.get("GENMMREC_PALLAS_TOPK")) and -(-n // GROUP) > 2 * k and k <= MAX_EXTRACT_GROUPS
+
+
 def grouped_topk(scores, k: int, packed_mask=None):
     """Exact masked top-k of a 2-D float32 or bfloat16 score matrix →
     (values, indices)."""
-    if os.environ.get("GENMMREC_PALLAS_TOPK") and scores.dim() == 2 and -(-scores.shape[1] // GROUP) > 2 * k:
+    if scores.dim() == 2 and takes_two_stage(scores.shape[1], k):
         _check_scores(scores, k, scores.shape[1])
         return _two_stage_topk(scores, k, packed_mask)
     if scores.is_cpu:

@@ -255,7 +255,7 @@ def test_fused_rejects_bad_arguments():
         F.fused_grouped_topk(u, t, 5, packed, cand_mask="mxu")
     wide = torch.zeros(200, 16)
     wide_packed = torch.from_numpy(_plain_pack(np.zeros((4, 200), bool)))
-    for table, mask, k in ((t, packed, 0), (t, packed, 49), (wide, wide_packed, 65)):
+    for table, mask, k in ((t, packed, 0), (t, packed, 49), (wide, wide_packed, 201)):
         with pytest.raises(ValueError, match="k="):
             F.fused_grouped_topk(u, table, k, mask)
 
