@@ -9,7 +9,10 @@ DiffMM on Amazon-baby (19,445 users x 7,050 items, the synthetic fallback
 data), through three paths of the port:
 
 - serving: regenerate the two modal user-item graphs, then evaluate the
-  valid split and the test split with the full metric set;
+  valid split and the test split with the full metric set; then regenerate
+  once more with ``GENMMREC_PALLAS_TOPK`` set, so that the top-1 of each
+  user takes the two-stage route (K4 at kp = k = 1), and hold its graphs
+  equal to the first ones;
 - bf16 evaluation: the same parameters with ``eval_dtype: bfloat16``:
   regenerate, evaluate(valid) and evaluate(test) through the fused
   score + mask + top-k (K5a, K5b, K3 on bfloat16 rows), then evaluate(valid)
@@ -40,11 +43,18 @@ K4, K5a, K5b, K5c) against its plain PyTorch version, on the card, at the
 shapes the paths give it, and times kernel, plain version and the one
 PyTorch call that computes the same function with CUDA events. K1 and K2
 are also held against each other on the same graphs and, bit for bit,
-against the plain version on integer operands at every team shape; K3 also
+against the plain version on integer operands at every team shape; K2's
+backward runs at d = 64 (the path's width) and 128; K3 also
 runs the Amazon-elec catalog width in float32 and bfloat16, k = 65, 100,
 256, 257 and 1,000 (its radix path) and a block of adversarial rows
 (constant, tied at the threshold, fewer finite scores than k); K4 also runs
-k = 100; K5b and K5c also run adversarial choices of groups (every row the
+k = 100 and 200 (more groups than it keeps in shared memory), each case with the masked group maxima kernel and K3's choice of
+groups against their plain versions and the fold's and the switched
+route's times, and a block of adversarial rows at the elec width (every
+candidate masked, constant, integer-valued ties, NaNs and zeros of both
+signs, fewer finite scores than k; kp = k (odd kp too), kp > k (up to 448), kp < k, k past the
+candidate buffer; pad slots and the ragged last group), the fold checked on
+the same rows; K5b and K5c also run adversarial choices of groups (every row the
 same groups, all pad slots, one group chosen by every row) and their plan
 against its plain version; the fused top-k also runs k = 100 against the
 plane route; ``spmm`` on a graph that is not symmetric is differentiated
@@ -103,6 +113,16 @@ F32_FLOPS = 67e12  # outside the tensor cores
 ELEC_ITEMS, ELEC_POSITIVES = 63001, 30
 # a k past K3's threshold path (k <= 64): a configured top-100
 WIDE_K = 100
+# K4's adversarial (k, kp): kp = k as the route chooses (odd kp too, which
+# moves the candidate buffer's offset in shared memory; DiffMM's top-1),
+# kp > k, kp past the 128 groups whose keys K4 keeps in shared memory,
+# kp < k, k past the candidate buffer
+K4_ADVERSARIAL_CASES = (
+    (1, 1), (2, 2), (7, 7), (25, 25), (50, 50), (100, 100), (7, 25), (50, 80), (100, 40), (600, 10), (50, 200),
+    (300, 448),
+)
+# a k whose kp = k groups are more than K4 keeps in shared memory (128)
+UNSTAGED_K = 200
 
 
 def card_line() -> str:
@@ -224,15 +244,18 @@ def check_spmm(torch, graphs, card, blocked: bool = False):
         l_ms = cuda_ms(torch, lambda: torch.sparse.mm(csr, x))
         b = bound.add(nbytes(g.row_ptr, g.cols, g.vals, x, out), 2.0 * g.nnz * d, F32_FLOPS)
         max_row = int((g.row_ptr[1:] - g.row_ptr[:-1]).max())
+        # every edge gathers its own row of x: what the kernel really moves
+        gather_tb_s = g.nnz * d * 4 / (k_ms * 1e-3) / 1e12
         print(
             f"{kname} {name}: n_rows={g.n_rows} nnz={g.nnz} longest_row={max_row} d={d} max_abs_err={e:.3e} repeatable, "
             f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, torch.sparse.mm {l_ms:.4f} ms, {other_name} on the same "
-            f"graph {other_ms:.4f} ms (largest difference {other_diff:.3e}), bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]"
+            f"graph {other_ms:.4f} ms (largest difference {other_diff:.3e}), bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
+            f"the gathered rows at {gather_tb_s:.2f} TB/s [{card}]"
         )
         cases.append(dict(
             case=name, n_rows=g.n_rows, nnz=g.nnz, longest_row=max_row, d=d, max_abs_err=e,
             ms=k_ms, plain_ms=p_ms, library_ms=l_ms, other_kernel=other_name, other_kernel_ms=other_ms,
-            max_abs_diff_other_kernel=other_diff, **b,
+            max_abs_diff_other_kernel=other_diff, gather_tb_s=gather_tb_s, **b,
         ))
         err, ms, plain_ms, lib_ms = max(err, e), ms + k_ms, plain_ms + p_ms, lib_ms + l_ms
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bound.keys(), cases=cases)
@@ -453,13 +476,33 @@ def check_k3_adversarial(torch, dev):
     )
 
 
+def same_values(a, b) -> bool:
+    """Equal element by element, a NaN equal to a NaN (-0 equals +0)."""
+    return a.shape == b.shape and bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def check_fold(torch, s, m, what):
+    """The masked group maxima kernel against its plain version, after
+    ``+ 0.0`` (a zero maximum may come out as -0 from the plain version), a
+    NaN equal to a NaN. Returns the maxima."""
+    from genmmrec_tpu_torch.ops import topk as T
+
+    gmax = T.masked_group_max(s, m)
+    ref = T.masked_group_max_plain(s, m)
+    if not same_values(gmax + 0.0, ref + 0.0) or gmax.dtype != torch.float32:
+        raise AssertionError(f"{what}: the masked group maxima differ from the plain version")
+    return gmax
+
+
 def check_k4(torch, b, n, k, per_row, card):
     """K4 at the evaluation's shape: (b, n) float32 and bfloat16 scores, with
     and without a packed mask of ``per_row`` positives a row, the groups
-    chosen as the switched ``grouped_topk`` chooses them. Indices equal to
-    the plain version's and to K3's on the same rows, values equal; the
-    switched route equal to K3 too; then pad slots and a nearly empty row
-    against the plain version."""
+    chosen as the switched ``grouped_topk`` chooses them (the masked group
+    maxima kernel, then K3 on the maxima), each step against its plain
+    version. Indices equal to the plain version's and to K3's on the same
+    rows, values equal; the switched route equal to K3 too; then pad slots
+    and a nearly empty row against the plain version. Times K4, the fold
+    (``fold_ms``) and the switched route whole (``route_ms``)."""
     from genmmrec_tpu_torch.ops import topk as T
 
     dev = torch.device("cuda")
@@ -467,20 +510,27 @@ def check_k4(torch, b, n, k, per_row, card):
     packed = elec_mask(torch, b, n, per_row, SEED + 4, dev)
     ng = -(-n // 128)
     kp = min(k, ng)
-    cases, ms, plain_ms, lib_ms, bound = [], 0.0, 0.0, 0.0, Bound()
+    cases, ms, plain_ms, lib_ms, fold_ms, route_ms, bound = [], 0.0, 0.0, 0.0, 0.0, 0.0, Bound()
+
+    def switched():
+        os.environ["GENMMREC_PALLAS_TOPK"] = "1"
+        try:
+            return T.grouped_topk(s, k, m)
+        finally:
+            del os.environ["GENMMREC_PALLAS_TOPK"]
+
     for dtype in (torch.float32, torch.bfloat16):
         s = torch.randn(b, n, generator=gen, device=dev).to(dtype)
         for m in (None, packed):
             name = f"eval_top{k}_{str(dtype).split('.')[-1]}_{'masked' if m is not None else 'unmasked'}"
-            gidx = T.choose_groups(T.masked_group_max(s, m), kp)
+            gmax = check_fold(torch, s, m, f"K4 {name}")
+            gidx = T.choose_groups(gmax, kp)
+            if not torch.equal(gidx, T.choose_groups_by_sort(gmax, kp)):
+                raise AssertionError(f"K4 {name}: K3's choice of groups differs from the plain sort")
             v, i = T.candidate_extract(s, gidx, k, m)
             v_ref, i_ref = T.candidate_extract_plain(s, gidx, k, m)
             v3, i3 = T.grouped_topk(s, k, m)
-            os.environ["GENMMREC_PALLAS_TOPK"] = "1"
-            try:
-                v_sw, i_sw = T.grouped_topk(s, k, m)
-            finally:
-                del os.environ["GENMMREC_PALLAS_TOPK"]
+            v_sw, i_sw = switched()
             torch.cuda.synchronize()
             for what, (vv, ii) in {"the plain version": (v_ref, i_ref), "K3": (v3, i3), "the switched route": (v_sw, i_sw)}.items():
                 if not torch.equal(i, ii):
@@ -512,6 +562,8 @@ def check_k4(torch, b, n, k, per_row, card):
             k_ms, p_ms = timed_pair(
                 torch, lambda: T.candidate_extract(s, gidx, k, m), lambda: T.candidate_extract_plain(s, gidx, k, m)
             )
+            f_ms, fp_ms = timed_pair(torch, lambda: T.masked_group_max(s, m), lambda: T.masked_group_max_plain(s, m))
+            r_ms = cuda_ms(torch, switched)
             excluded = None if m is None else T.unpack_mask(m, n)
             lib = lambda: torch.topk(s if excluded is None else s.masked_fill(excluded, float("-inf")), k, dim=1)
             l_ms = cuda_ms(torch, lib)
@@ -519,19 +571,110 @@ def check_k4(torch, b, n, k, per_row, card):
             # the chosen groups' scores and mask bytes, the group ids, the outputs
             moved = b * kp * 128 * s.element_size() + (0 if m is None else b * kp * 16) + nbytes(gidx, v, i)
             bnd = bound.add(moved, float(b * kp * 128), F32_FLOPS)
+            # the fold: the whole plane and its mask once, the maxima written
+            fold_bnd = Bound().add(nbytes(s, gmax) + (0 if m is None else b * -(-n // 8)), float(b * n), F32_FLOPS)
             print(
                 f"K4 {name}: scores {tuple(s.shape)} kp={kp} k={k} indices and values equal to plain, K3 and the "
-                f"switched route; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, masked_fill + torch.topk of the whole "
-                f"row {l_ms:.4f} ms, K3 on the whole row {k3_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
-                f"({bnd['bound_by']}) [{card}]"
+                f"switched route; group maxima and K3's choice of groups equal to plain; kernel {k_ms:.4f} ms, "
+                f"plain {p_ms:.4f} ms, masked_fill + torch.topk of the whole row {l_ms:.4f} ms, K3 on the whole row "
+                f"{k3_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); the fold {f_ms:.4f} ms, plain "
+                f"{fp_ms:.4f} ms, bound {fold_bnd['bound_ms']:.4f} ms; the switched route whole {r_ms:.4f} ms [{card}]"
             )
             cases.append(dict(
                 case=name, shape=list(s.shape), dtype=str(dtype).split(".")[-1], k=k, kp=kp, max_abs_err=0.0,
-                ms=k_ms, plain_ms=p_ms, library_ms=l_ms, k3_ms=k3_ms, **bnd,
+                ms=k_ms, plain_ms=p_ms, library_ms=l_ms, k3_ms=k3_ms, fold_ms=f_ms, fold_plain_ms=fp_ms,
+                fold_bound_ms=fold_bnd["bound_ms"], route_ms=r_ms, **bnd,
             ))
             ms, plain_ms, lib_ms = ms + k_ms, plain_ms + p_ms, lib_ms + l_ms
+            fold_ms, route_ms = fold_ms + f_ms, route_ms + r_ms
         del s
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bound.keys(), cases=cases)
+    return dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, fold_ms=fold_ms, route_ms=route_ms,
+        **bound.keys(), cases=cases,
+    )
+
+
+def check_k4_adversarial(torch, dev):
+    """Rows that defeat K4's threshold, through the kernel, at the elec
+    width: every candidate masked, constant rows, integer-valued rows tied
+    at the threshold, NaNs and zeros of both signs, fewer than k finite
+    scores, Gaussian rows; float32 and bfloat16; groups as the route
+    chooses them (kp = k = 1, 2, 7, 25, 50, 100, odd kp among them; kp > k up to 448 groups, past the 128
+    whose keys K4 keeps in shared memory), fewer groups than k
+    (kp < k: the radix select), k past the candidate buffer (ordered by the
+    wrapper), and the same groups with pad slots and the ragged last group
+    put in. The fold against its plain version on the same rows; K4's
+    indices equal to the plain version's, values equal (a NaN to a NaN);
+    where the route's groups hold the top-k, equal to K3 on the whole row
+    and, for kp = k, to the switched route."""
+    import numpy as np
+
+    from genmmrec_tpu_torch.ops import topk as T
+
+    rng = np.random.default_rng(SEED + 8)
+    n = ELEC_ITEMS
+    ng = -(-n // 128)
+    kinds = ("all_masked", "constant", "integer_tied", "nan_and_zeros", "seven_finite", "gaussian")
+    s = rng.standard_normal((4 * len(kinds), n)).astype(np.float32)
+    dense = np.zeros(s.shape, bool)
+    for r in range(s.shape[0]):
+        kind = kinds[r % len(kinds)]
+        dense[r, rng.permutation(n)[:30]] = True
+        if kind == "all_masked":
+            dense[r] = True
+        elif kind == "constant":
+            s[r] = 0.5
+        elif kind == "integer_tied":
+            s[r] = np.round(s[r] * 2)
+        elif kind == "nan_and_zeros":
+            s[r] = -np.abs(s[r])
+            s[r, rng.permutation(n)[:3]] = np.nan
+            s[r, n // 3 : n // 2] = 0.0
+            s[r, n // 3 : n // 2 : 2] = -0.0
+        elif kind == "seven_finite":
+            s[r, rng.permutation(n)[7:]] = -np.inf
+    mask = torch.as_tensor(np.packbits(dense, axis=1, bitorder="little"), device=dev)
+    checked = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        scores = torch.as_tensor(s, device=dev).to(dtype)
+        for m in (None, mask):
+            gmax = check_fold(torch, scores, m, f"K4 adversarial rows {dtype}")
+            for k, kp in K4_ADVERSARIAL_CASES:
+                gidx = T.choose_groups(gmax, kp)
+                padded = gidx.clone()
+                padded[:, -1] = ng - 1 if kp > 1 else ng
+                padded[::2, 0] = -1
+                padded[1::4, kp // 2] = ng
+                for label, g in (("route's groups", gidx), ("pad slots", padded.sort(dim=1).values)):
+                    v, i = T.candidate_extract(scores, g, k, m)
+                    v_ref, i_ref = T.candidate_extract_plain(scores, g, k, m)
+                    torch.cuda.synchronize()
+                    if not torch.equal(i, i_ref):
+                        bad = [kinds[r % len(kinds)] for r in (i != i_ref).any(dim=1).nonzero().flatten().tolist()]
+                        raise AssertionError(f"K4 adversarial rows, {dtype} k={k} kp={kp} {label}: indices differ on {bad}")
+                    if not same_values(v, v_ref):
+                        raise AssertionError(f"K4 adversarial rows, {dtype} k={k} kp={kp} {label}: values differ")
+                    checked += scores.shape[0]
+                if kp >= k:
+                    v3, i3 = T.grouped_topk(scores, k, m)
+                    v, i = T.candidate_extract(scores, gidx, k, m)
+                    if not (torch.equal(i, i3) and same_values(v, v3)):
+                        raise AssertionError(f"K4 adversarial rows, {dtype} k={k} kp={kp}: differs from K3 on the whole row")
+                if kp == k:
+                    os.environ["GENMMREC_PALLAS_TOPK"] = "1"
+                    try:
+                        v_sw, i_sw = T.grouped_topk(scores, k, m)
+                    finally:
+                        del os.environ["GENMMREC_PALLAS_TOPK"]
+                    if not (torch.equal(i, i_sw) and same_values(v, v_sw)):
+                        raise AssertionError(f"K4 adversarial rows, {dtype} k={k}: differs from the switched route")
+    print(
+        f"K4 adversarial rows ({', '.join(kinds)}) at n = {n}, float32 and bfloat16, masked and not, (k, kp) = "
+        f"{', '.join(map(str, K4_ADVERSARIAL_CASES))} (past 128 groups the keys are not kept in shared memory), "
+        f"with and without pad slots: {checked} rows, "
+        f"indices equal to plain, values equal; equal to K3 on the whole row for kp >= k and to the switched route; "
+        f"the fold (NaN, all-masked groups) equal to plain"
+    )
 
 
 def check_nonsymmetric_grad(torch, g, d, card):
@@ -1073,7 +1216,7 @@ def counted_wrappers():
     """name -> the wrapper whose ``launches`` counts that kernel's launches."""
     from genmmrec_tpu_torch.ops.fused_topk import fused_candidates, fused_candidates_unmasked, fused_group_max
     from genmmrec_tpu_torch.ops import segment as S
-    from genmmrec_tpu_torch.ops.topk import candidate_extract, grouped_topk
+    from genmmrec_tpu_torch.ops.topk import candidate_extract, grouped_topk, masked_group_max
 
     return {
         "segment_spmm": S.segment_spmm,
@@ -1082,6 +1225,7 @@ def counted_wrappers():
         "segment_spmm_blocked_backward": S.segment_spmm_blocked_backward,
         "grouped_topk": grouped_topk,
         "candidate_extract": candidate_extract,
+        "masked_group_max": masked_group_max,
         "fused_group_max": fused_group_max,
         "fused_candidates": fused_candidates,
         "fused_candidates_unmasked": fused_candidates_unmasked,
@@ -1537,9 +1681,12 @@ def graph_cf_path(torch, setup, card, steps=40, profile_dir=None):
 
     if dev.type == "cuda":
         need = {
-            "eval_valid_f32_k3": ([fwd, "grouped_topk"], ["candidate_extract", "fused_group_max"]),
-            "eval_valid_f32_k4": ([fwd, "candidate_extract"], ["grouped_topk", "fused_group_max"]),
-            "eval_valid_bf16_k5": ([fwd, "fused_group_max", "fused_candidates", "grouped_topk"], ["candidate_extract"]),
+            "eval_valid_f32_k3": ([fwd, "grouped_topk"], ["candidate_extract", "masked_group_max", "fused_group_max"]),
+            # K3 chooses the groups on the two-stage route
+            "eval_valid_f32_k4": ([fwd, "masked_group_max", "grouped_topk", "candidate_extract"], ["fused_group_max"]),
+            "eval_valid_bf16_k5": (
+                [fwd, "fused_group_max", "fused_candidates", "grouped_topk"], ["candidate_extract", "masked_group_max"]
+            ),
         }
         for label, (wanted, unwanted) in need.items():
             missing = [n for n in wanted if launches[label][n] <= 0]
@@ -1808,6 +1955,32 @@ def main() -> int:
         "graph rebuild and test metrics equal the CPU's"
     )
 
+    # the regeneration again with GENMMREC_PALLAS_TOPK set: its top-rebuild_k
+    # (top-1) takes the two-stage route, K4 at kp = k = 1; the graphs must be
+    # the ones K3's top-1 built
+    built = {name: trainer.state[name] for name in ("image_ui", "text_ui")}
+    reset_counts()
+    os.environ["GENMMREC_PALLAS_TOPK"] = "1"
+    try:
+        t0 = time.perf_counter()
+        trainer.regenerate()
+        torch.cuda.synchronize()
+        t_regen_switched = time.perf_counter() - t0
+    finally:
+        del os.environ["GENMMREC_PALLAS_TOPK"]
+    switched_launches = launch_counts()
+    for name in ("masked_group_max", "grouped_topk", "candidate_extract"):
+        if switched_launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched during the switched regeneration")
+    for name, g in built.items():
+        sw = trainer.state[name]
+        if not all(torch.equal(getattr(g, f), getattr(sw, f)) for f in ("row_ptr", "rows", "cols", "vals")):
+            raise AssertionError(f"{name}: the switched regeneration built another graph than K3's top-1")
+    print(
+        f"regenerate with GENMMREC_PALLAS_TOPK set (K4 at kp = k = {model.rebuild_k}): {t_regen_switched:.3f} s, "
+        f"both modal graphs equal to K3's; launches {json.dumps(switched_launches)} [{card}]"
+    )
+
     # -- phase 4: the bf16 evaluation path --------------------------------
     bf16_eval = bf16_evaluation_path(torch, config, td, vd, ted, model, valid_res, test_res, card, args.profile)
     bf16_launches = bf16_eval.pop("launches")
@@ -1865,16 +2038,21 @@ def main() -> int:
         raise AssertionError(f"the elec adjacency ({adj.n_rows} rows) must take K2 over a catalog of {ELEC_ITEMS}")
     d = elec.model.latent_dim
     k2 = check_spmm(torch, [("elec_adjacency_d64", adj, d), ("elec_adjacency_d128", adj, 2 * d)], card, blocked=True)
-    k2_bwd = check_spmm_backward(torch, [("elec_adjacency_d128", adj, 2 * d)], card, blocked=True)
+    k2_bwd = check_spmm_backward(
+        torch, [("elec_adjacency_d64", adj, d), ("elec_adjacency_d128", adj, 2 * d)], card, blocked=True
+    )
     check_spmm_widths(torch, dev)
     k4 = check_k4(torch, elec.eval_bs, ELEC_ITEMS, elec.trainer.evaluator.max_k, ELEC_POSITIVES, card)
-    k4["cases"] += check_k4(torch, elec.eval_bs, ELEC_ITEMS, WIDE_K, ELEC_POSITIVES, card)["cases"]
+    for kk in (WIDE_K, UNSTAGED_K):
+        k4["cases"] += check_k4(torch, elec.eval_bs, ELEC_ITEMS, kk, ELEC_POSITIVES, card)["cases"]
+    check_k4_adversarial(torch, dev)
     torch.cuda.empty_cache()
     elec_res, elec_calls, elec_launches = graph_cf_path(torch, elec, card, profile_dir=args.profile)
     print(f"LightGCN/elec phase done in {time.perf_counter() - elec_t0:.1f} s")
 
     launches = {
-        k: serving_launches[k] + bf16_launches[k] + training_launches[k] + wide_launches[k] + elec_launches[k]
+        k: serving_launches[k] + switched_launches[k] + bf16_launches[k] + training_launches[k] + wide_launches[k]
+        + elec_launches[k]
         for k in serving_launches
     }
     never = [k for k, v in launches.items() if v <= 0]
@@ -1907,7 +2085,8 @@ def main() -> int:
         ),
         dict(
             name="candidate_extract", route="cuda", source="genmmrec_tpu_torch/csrc/topk_extract.cu",
-            replaces="genmmrec_tpu/ops/topk.py:168", launches=launches["candidate_extract"], **k4,
+            replaces="genmmrec_tpu/ops/topk.py:168", launches=launches["candidate_extract"],
+            fold_launches=launches["masked_group_max"], **k4,
         ),
         dict(
             name="fused_group_max", route="cuda", source=fused_src,
@@ -1927,7 +2106,8 @@ def main() -> int:
     ]
     strip = lambda e: {k: v for k, v in e.items() if not k.endswith("_launches")}
     summary = dict(
-        regenerate_s=t_regen, eval_valid_s=t_valid, eval_test_s=t_test,
+        regenerate_s=t_regen, eval_valid_s=t_valid, eval_test_s=t_test, regenerate_switched_s=t_regen_switched,
+        launches_regenerate_switched=switched_launches,
         train_epochs=[strip(e) for e in epochs], train_eval_valid_s=t_train_valid,
         launches_serving=serving_launches, launches_bf16_eval=bf16_launches,
         launches_training=training_launches, bf16_eval=bf16_eval,

@@ -13,12 +13,30 @@
 //
 // Why K1 (which owns rows) does not serve this geometry as well: it gives an
 // item-popularity row of tens of thousands of edges to one cluster of eight
-// thread blocks, and x (255,404 x 64 x 4 B = 65 MB) no longer stays in the
-// 50 MB L2, so the gathers of such a row are trips to HBM through eight SMs,
-// where cutting by edges spreads them over the whole card.
+// thread blocks, where cutting by edges spreads its gathers over the card.
 //
-// What bounds it on the H100: bytes. Each edge gathers one d-wide row of x
-// at a random position (256 B at d = 64) and does one FMA a float.
+// What bounds it on the H100. Counted as each input read once, bytes: 152 MB
+// at the Amazon-elec adjacency (255,404 rows, 2.57 M edges) and d = 64,
+// 0.0455 ms. What the card really has to move is more: every edge gathers its
+// own d-wide row of x at a random place, 2.57 M x 256 B = 657 MB at d = 64,
+// and every design tried ran those gathers at 4.5-5.2 TB/s on this card,
+// which puts the kernel near 0.13 ms; the time tracked the gathers in
+// flight, warps an SM times gathers a warp. Three suspected limits were each
+// answered and timed on the elec adjacency (PERF.md §6), and none paid at
+// d = 64, so the design below stands:
+// - Ids loaded just before their gathers, four edges in flight a team. Ids
+//   staged in shared memory by cp.async a work item ahead, or handed round a
+//   team by shuffles a batch ahead, with 8 or 16 gathers in flight a lane:
+//   no faster (0.13-0.17 ms at d = 64). Their registers and shared memory
+//   cost as many warps as the depth bought. Kept: four edges a batch, at
+//   most 48 registers a thread at one vector a lane, so five blocks fit an SM.
+// - The 65 MB operand over the 50 MB L2. Cutting the features into slices
+//   that the L2 holds, the work ordered slice by slice: slower at d = 64
+//   (each slice reads the ids again), 3-4% faster at d = 128 only, which no
+//   configuration runs on a graph this large. Not kept.
+// - The grid's 1.19 waves at d = 64. A persistent grid walking work items,
+//   and chunks of 64 to 512 edges: no steady gain. The wave's tail is short
+//   against the gathers' time.
 //
 // Design. The edges are cut into chunks of kChunk consecutive edges. A team
 // of G lanes (G * VPL float4 vectors cover a row of x) owns one chunk and
@@ -83,9 +101,10 @@ __device__ __forceinline__ void zero_rows(float4* out, int lo, int hi, int sub, 
   for (int r = lo; r < hi; ++r) z.store(out + static_cast<long long>(r) * nv, sub, nv);
 }
 
-// G: lanes a team (8, 16 or 32); VPL: float4 vectors a lane.
+// G: lanes a team (8, 16 or 32); VPL: float4 vectors a lane. At one vector
+// a lane the registers are held for five blocks an SM.
 template <int G, int VPL>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, VPL == 1 ? 5 : 1)
 segment_blocked_kernel(const int* __restrict__ row_ptr, const int* __restrict__ rows,
                        const int* __restrict__ cols, const float* __restrict__ vals,
                        const float4* __restrict__ x, float4* __restrict__ out,

@@ -113,6 +113,9 @@ def library():
     for fn in (lib.candidate_extract_f32, lib.candidate_extract_bf16):
         fn.argtypes = [p, p, p, i, p, p, i, i, i, i, p]
         fn.restype = i
+    for fn in (lib.masked_group_max_f32, lib.masked_group_max_bf16):
+        fn.argtypes = [p, p, i, p, i, i, p]
+        fn.restype = i
     lib.fused_group_max_bf16.argtypes = [p, p, p, p, i, i, i, p]
     lib.fused_group_max_bf16.restype = i
     lib.fused_candidate_plan.argtypes = [p, p, i, i, i, i, p]

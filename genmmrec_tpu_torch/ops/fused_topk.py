@@ -44,7 +44,7 @@ from __future__ import annotations
 import torch
 
 from genmmrec_tpu_torch.ops import _build
-from genmmrec_tpu_torch.ops.topk import GROUP, choose_groups, grouped_topk, unpack_mask
+from genmmrec_tpu_torch.ops.topk import GROUP, choose_groups_by_sort, grouped_topk, unpack_mask
 
 # embedding widths the kernels are built for; a narrower one is padded with
 # zero columns up to the next of these, which leaves every score unchanged
@@ -284,8 +284,9 @@ def fused_grouped_topk(u_emb, item_emb, k: int, packed_mask, *, cand_mask: str =
         raise ValueError(f"k={k} must be in [1, {n}]")
     u, table = u_emb.bfloat16(), item_emb.bfloat16()
     gmax = fused_group_max(u, table, packed_mask)
-    # a catalog of fewer than k groups hands all of them on
-    gidx = choose_groups(gmax, min(k, gmax.shape[1]))
+    # a catalog of fewer than k groups hands all of them on; the choice by K3
+    # that the two-stage route makes is not yet timed on this route
+    gidx = choose_groups_by_sort(gmax, min(k, gmax.shape[1]))
     if cand_mask == "external":
         cand = external_mask(fused_candidates_unmasked(u, table, gidx), gidx, packed_mask)
     else:

@@ -19,8 +19,13 @@ them by a stable sort of the (b, k) result. ``grouped_topk_selection_plain``
 mirrors that selection step by step in PyTorch, for the tests. K4,
 ``genmmrec_tpu_torch/csrc/topk_extract.cu``, is the second stage of the
 two-stage selection: the top-k of the 128-wide groups that the group maxima
-picked, up to ``MAX_EXTRACT_GROUPS`` of them (what its shared memory
-holds). Their sources say what bounds them and how they are laid out.
+picked, up to ``MAX_EXTRACT_GROUPS`` of them. It ranks like K3 without
+rounds: the k-th largest of the chosen groups' maxima is the threshold, the
+keys at or above it are ranked once, an overflowing row goes through the
+radix select; ``candidate_extract_selection_plain`` mirrors it. The same
+source folds a row's scores and mask bits into its group maxima
+(``masked_group_max``). Their sources say what bounds them and how they are
+laid out.
 
 Contract: values in descending order, ties broken by the lower index first
 (``lax.top_k``'s rule). ``packed_mask`` is an optional (b, >= ceil(n/8))
@@ -34,9 +39,10 @@ indices are int64.
 ``grouped_topk`` takes K3. With ``GENMMREC_PALLAS_TOPK`` set in the
 environment (the reference's own switch, read at each call) and more than
 ``2k`` groups in a row (the reference's narrow-row rule), it takes the
-two-stage route instead: masked group maxima and the choice of
-``min(k, n_groups)`` groups in plain PyTorch (XLA ops outside the kernel in
-the reference), then K4, ``candidate_extract``. A k above
+two-stage route instead: the masked group maxima (a kernel of K4's source;
+XLA ops outside the kernel in the reference), the choice of
+``min(k, n_groups)`` groups by K3 on the maxima, then K4,
+``candidate_extract``. A k above
 ``MAX_EXTRACT_GROUPS`` needs more groups than K4 holds, and such a call
 takes K3 on the whole row (``takes_two_stage``). The groups are ranked by
 (maximum descending, id ascending) and handed on sorted by id, so that a
@@ -57,12 +63,13 @@ from genmmrec_tpu_torch.ops import _build
 
 # the widest k of K3's threshold path; a wider k takes its radix path
 NARROW_K = 64
-# the most groups a row that K4 takes (its shared memory: kp * 129 words)
+# the most groups a row that K4 takes
 MAX_EXTRACT_GROUPS = 448
 GROUP = 128
 # the kernels' C entry points for each score type they take
 _ENTRY = {torch.float32: "masked_topk_f32", torch.bfloat16: "masked_topk_bf16"}
 _EXTRACT_ENTRY = {torch.float32: "candidate_extract_f32", torch.bfloat16: "candidate_extract_bf16"}
+_FOLD_ENTRY = {torch.float32: "masked_group_max_f32", torch.bfloat16: "masked_group_max_bf16"}
 
 
 def unpack_mask(packed_mask: torch.Tensor, n: int) -> torch.Tensor:
@@ -102,6 +109,28 @@ def order_key(scores: torch.Tensor) -> torch.Tensor:
     return key & 0xFFFF0000 if scores.dtype == torch.bfloat16 else key
 
 
+def _radix_topk(key, k: int, key_bytes: int):
+    """The radix select of K3 and K4 over (b, m) int64 keys: the k-th largest
+    key of each row, a byte at a time from the top (a 256-bin histogram of
+    the keys that match the bytes found so far), then the top-k as a mask:
+    the keys above it and the first of those equal to it. Returns (mask,
+    k-th key (b, 1))."""
+    b, dev = key.shape[0], key.device
+    prefix = torch.zeros(b, 1, dtype=torch.int64, device=dev)
+    known = 0
+    want = torch.full((b, 1), k, dtype=torch.int64, device=dev)
+    for shift in (24, 16, 8, 0)[:key_bytes]:
+        live = (key & known) == prefix
+        hist = torch.zeros(b, 256, dtype=torch.int64, device=dev).scatter_add_(1, (key >> shift) & 255, live.long())
+        above = hist.flip(1).cumsum(1).flip(1) - hist  # keys in the bins above each bin
+        chosen = ((above < want) & (want <= above + hist)).long().argmax(dim=1, keepdim=True)
+        want = want - above.gather(1, chosen)
+        prefix = prefix | (chosen << shift)
+        known |= 255 << shift
+    ties = key == prefix
+    return (key > prefix) | (ties & (ties.cumsum(1) - 1 < want)), prefix
+
+
 def grouped_topk_selection_plain(scores, k: int, packed_mask=None, head: int = 0, with_counts: bool = False):
     """K3's selection, step by step, in plain PyTorch; the tests hold it
     against ``grouped_topk_plain``. ``head`` is the number of columns before
@@ -121,22 +150,8 @@ def grouped_topk_selection_plain(scores, k: int, packed_mask=None, head: int = 0
     if packed_mask is not None:
         scores = scores.masked_fill(unpack_mask(packed_mask, n), float("-inf"))
     key = order_key(scores)
-    key_bytes = 2 if scores.dtype == torch.bfloat16 else 4
     col = torch.arange(n, device=dev)
-    # the radix select: the k-th largest key, a byte at a time from the top
-    prefix = torch.zeros(b, 1, dtype=torch.int64, device=dev)
-    known = 0
-    want = torch.full((b, 1), k, dtype=torch.int64, device=dev)
-    for shift in (24, 16, 8, 0)[:key_bytes]:
-        live = (key & known) == prefix
-        hist = torch.zeros(b, 256, dtype=torch.int64, device=dev).scatter_add_(1, (key >> shift) & 255, live.long())
-        above = hist.flip(1).cumsum(1).flip(1) - hist  # keys in the bins above each bin
-        chosen = ((above < want) & (want <= above + hist)).long().argmax(dim=1, keepdim=True)
-        want = want - above.gather(1, chosen)
-        prefix = prefix | (chosen << shift)
-        known |= 255 << shift
-    ties = key == prefix
-    exact = (key > prefix) | (ties & (ties.cumsum(1) - 1 < want))
+    exact, prefix = _radix_topk(key, k, 2 if scores.dtype == torch.bfloat16 else 4)
     if k > NARROW_K:
         taken, counts = exact, (key >= prefix).sum(dim=1)
     else:
@@ -209,9 +224,10 @@ def _masked_topk(scores, k: int, packed_mask=None):
     return order_rows(vals, idx) if k > _K3_CAP else (vals, idx)
 
 
-def candidate_extract_plain(scores, gidx, k: int, packed_mask=None):
-    """The candidates in flat position order with the pad entries moved
-    behind every real one, then a stable descending sort."""
+def _candidate_plane(scores, gidx, packed_mask=None):
+    """The (b, kp * 128) candidates of the groups ``gidx`` in flat position
+    order, masked at ``-inf``, with their items; a pad entry (a pad slot, or
+    a column past the row's end) is ``-inf`` with an item >= n."""
     b, n = scores.shape
     ng, kp = -(-n // GROUP), gidx.shape[1]
     neg = float("-inf")
@@ -222,10 +238,63 @@ def candidate_extract_plain(scores, gidx, k: int, packed_mask=None):
     slot = torch.where((gidx < 0) | (gidx >= ng), ng, gidx).long()
     cand = plane.gather(1, slot[:, :, None].expand(b, kp, GROUP)).reshape(b, -1)
     item = (slot[:, :, None] * GROUP + torch.arange(GROUP, device=scores.device)).reshape(b, -1)
+    return cand, item
+
+
+def candidate_extract_plain(scores, gidx, k: int, packed_mask=None):
+    """The candidates in flat position order with the pad entries moved
+    behind every real one, then a stable descending sort."""
+    n = scores.shape[1]
+    cand, item = _candidate_plane(scores, gidx, packed_mask)
     real_first = torch.sort((item >= n).to(torch.uint8), dim=1, stable=True).indices
     vals, order = torch.sort(cand.gather(1, real_first), dim=1, descending=True, stable=True)
     idx = item.gather(1, real_first.gather(1, order[:, :k]))
     return vals[:, :k], torch.where(idx < n, idx, -1)
+
+
+# K4's candidate buffer (csrc/topk_extract.cu), 64-bit words: twice k, at
+# least 128 and at most _K4_CAP; past _K4_CAP the kernel lists a row's k
+# entries in no order and the wrapper orders them
+_K4_CAP = 512
+
+
+def _k4_cap(k: int) -> int:
+    return min(_K4_CAP, max(128, 2 * k))
+
+
+def candidate_extract_selection_plain(scores, gidx, k: int, packed_mask=None, with_counts: bool = False):
+    """K4's selection, step by step, in plain PyTorch; the tests hold it
+    against ``candidate_extract_plain``. The candidates' order keys (0 for a
+    pad entry), each chosen group's maximum key, the k-th largest of those as
+    the threshold (0, where every candidate passes, if kp < k), the keys at or
+    above it ranked by (key, lower flat position); a row that passes more
+    keys than the buffer holds (``_k4_cap(k)``) goes through the radix select
+    of the key's bytes instead. With ``with_counts`` also returns how many keys
+    passed each row's threshold."""
+    b, n = scores.shape
+    kp = gidx.shape[1]
+    if not 1 <= k <= kp * GROUP:
+        raise ValueError(f"k={k} must be in [1, {kp * GROUP}]")
+    cand, item = _candidate_plane(scores, gidx, packed_mask)
+    pad = item >= n
+    key = torch.where(pad, 0, order_key(cand))
+    if kp >= k:
+        gmax = key.view(b, kp, GROUP).amax(dim=2)
+        t = torch.sort(gmax, dim=1, descending=True).values[:, k - 1 : k]
+    else:
+        t = torch.zeros(b, 1, dtype=torch.int64, device=key.device)
+    passed = key >= t
+    counts = passed.sum(dim=1)
+    if bool((counts < k).any()):
+        raise AssertionError("fewer than k keys at or above the threshold")
+    exact, _ = _radix_topk(key, k, 2 if scores.dtype == torch.bfloat16 else 4)
+    taken = torch.where((counts > _k4_cap(k))[:, None], exact, passed)
+    pos = torch.arange(kp * GROUP, device=key.device)
+    word = torch.where(taken, (key << 31) | (0x7FFFFFFF - pos), -1)
+    top = 0x7FFFFFFF - (torch.sort(word, dim=1, descending=True).values[:, :k] & 0x7FFFFFFF)
+    idx = item.gather(1, top)
+    out = cand.gather(1, top), torch.where(idx < n, idx, -1)
+    return (*out, counts) if with_counts else out
 
 
 def candidate_extract(scores, gidx, k: int, packed_mask=None):
@@ -257,21 +326,37 @@ def candidate_extract(scores, gidx, k: int, packed_mask=None):
         scores.data_ptr(), gidx.data_ptr(), mask_ptr, mask_stride, vals.data_ptr(), idx.data_ptr(), b, n, kp, k,
     )
     candidate_extract.launches += 1
-    return vals, idx
+    if k <= _K4_CAP:
+        return vals, idx
+    # past the buffer the kernel writes a row's k entries in no order, with
+    # flat positions (a pad entry's past kp * 128): order them, then map
+    # positions to items
+    vals, pos = order_rows(vals, idx)
+    kc = kp * GROUP
+    item = gidx.long().gather(1, pos.clamp(max=kc - 1) // GROUP) * GROUP + pos % GROUP
+    return vals, torch.where(pos < kc, item, -1)
 
 
 def choose_groups(gmax, kp: int) -> torch.Tensor:
     """Each row's ``kp`` best groups of ``gmax`` ((b, n_groups) maxima),
     ranked by (maximum descending, group id ascending), as ascending int32
-    ids: a superset of the groups that hold the row's top-k."""
+    ids: a superset of the groups that hold the row's top-k. On the card the
+    ranking is K3's top-kp of the maxima, which orders by the same rule."""
+    if gmax.is_cpu:
+        return choose_groups_by_sort(gmax, kp)
+    return torch.sort(_masked_topk(gmax.contiguous(), kp)[1].to(torch.int32), dim=1).values
+
+
+def choose_groups_by_sort(gmax, kp: int) -> torch.Tensor:
+    """The same by a full stable descending sort of the maxima, its first
+    ``kp`` ids sorted ascending: ``choose_groups``' CPU body, and the fused
+    route's choice on any device."""
     ranked = torch.sort(gmax, dim=1, descending=True, stable=True).indices[:, :kp]
     return torch.sort(ranked, dim=1).values.to(torch.int32)
 
 
-def masked_group_max(scores, packed_mask=None) -> torch.Tensor:
-    """(b, n_groups) float32 maxima of each 128-column group, excluded
-    columns and the columns past the row's end at ``-inf``. The maximum is
-    taken in float32, which every bfloat16 fits exactly."""
+def masked_group_max_plain(scores, packed_mask=None) -> torch.Tensor:
+    """A masked copy, a padded copy and ``amax`` over (b, n_groups, 128)."""
     b, n = scores.shape
     ng = -(-n // GROUP)
     masked = scores if packed_mask is None else scores.masked_fill(unpack_mask(packed_mask, n), float("-inf"))
@@ -279,8 +364,28 @@ def masked_group_max(scores, packed_mask=None) -> torch.Tensor:
     return masked.view(b, ng, GROUP).float().amax(dim=2)
 
 
+def masked_group_max(scores, packed_mask=None) -> torch.Tensor:
+    """(b, n_groups) float32 maxima of each 128-column group, excluded
+    columns and the columns past the row's end at ``-inf``. The maximum is
+    taken in float32, which every bfloat16 fits exactly; a NaN is the
+    maximum of its group, and a zero maximum may come out as ``-0`` (the
+    plain version) or ``+0`` (the kernel)."""
+    if scores.is_cpu:
+        return masked_group_max_plain(scores, packed_mask)
+    _check_scores(scores, 1, scores.shape[1])
+    b, n = scores.shape
+    mask_ptr, mask_stride = _mask_args(packed_mask, b, n, scores.device)
+    out = torch.empty(b, -(-n // GROUP), dtype=torch.float32, device=scores.device)
+    _build.launch(
+        _FOLD_ENTRY[scores.dtype], "masked_group_max", scores.device,
+        scores.data_ptr(), mask_ptr, mask_stride, out.data_ptr(), b, n,
+    )
+    masked_group_max.launches += 1
+    return out
+
+
 def _two_stage_topk(scores, k: int, packed_mask=None):
-    """Masked group maxima and the choice of groups in plain PyTorch, then K4."""
+    """The masked group maxima, the choice of groups, then K4."""
     gmax = masked_group_max(scores, packed_mask)
     return candidate_extract(scores, choose_groups(gmax, min(k, gmax.shape[1])), k, packed_mask)
 
@@ -306,3 +411,4 @@ def grouped_topk(scores, k: int, packed_mask=None):
 
 grouped_topk.launches = 0
 candidate_extract.launches = 0
+masked_group_max.launches = 0
