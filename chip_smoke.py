@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (genmmrec_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py --k5a-against DIR [DIR ...]
 
 Drives DiffMM and LightGCN at full width, parameters from a seeded generator.
 
@@ -65,7 +66,10 @@ kernel's time stands beside its bound: the larger of the bytes it must move
 over the card's memory rate and its operations over the card's peak rate.
 ``--profile DIR`` adds one more bf16 evaluate(valid) and one more DiffMM
 epoch, phase by phase, under ``torch.profiler`` and writes the kernel tables
-to DIR.
+to DIR. ``--k5a-against DIR ...`` does none of the above: it times this
+checkout's K5a against the K5a of each other checkout (say an earlier
+commit from ``git archive``), built from its own sources, in turns on the
+same inputs.
 
 It fails (non-zero exit, no result line) when no CUDA device is present, a
 kernel does not build, launch or agree, a kernel of a path was not launched
@@ -146,6 +150,29 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters: int = 20, replays: int = 5) -> float:
+    """Mean milliseconds per call with the host out of the way: ``iters``
+    calls captured into one CUDA graph, replayed ``replays`` times between
+    two events (a kernel shorter than the host's time per call reads as the
+    host's time by ``cuda_ms``)."""
+    fn()  # first launches set up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
 
 
 def timed_pair(torch, kernel_fn, plain_fn):
@@ -502,7 +529,8 @@ def check_k4(torch, b, n, k, per_row, card):
     version. Indices equal to the plain version's and to K3's on the same
     rows, values equal; the switched route equal to K3 too; then pad slots
     and a nearly empty row against the plain version. Times K4, the fold
-    (``fold_ms``) and the switched route whole (``route_ms``)."""
+    (``fold_ms``; its yardstick ``fold_library_ms``: masked_fill, pad, amax)
+    and the switched route whole (``route_ms``)."""
     from genmmrec_tpu_torch.ops import topk as T
 
     dev = torch.device("cuda")
@@ -563,8 +591,13 @@ def check_k4(torch, b, n, k, per_row, card):
                 torch, lambda: T.candidate_extract(s, gidx, k, m), lambda: T.candidate_extract_plain(s, gidx, k, m)
             )
             f_ms, fp_ms = timed_pair(torch, lambda: T.masked_group_max(s, m), lambda: T.masked_group_max_plain(s, m))
-            r_ms = cuda_ms(torch, switched)
+            # the fold's yardstick: masked_fill (with a mask), the pad to whole
+            # groups, amax over the (b, n_groups, 128) view
             excluded = None if m is None else T.unpack_mask(m, n)
+            fl_ms = cuda_ms(torch, lambda: torch.nn.functional.pad(
+                s if excluded is None else s.masked_fill(excluded, float("-inf")), (0, ng * 128 - n),
+                value=float("-inf")).view(b, ng, 128).amax(dim=2))
+            r_ms = cuda_ms(torch, switched)
             lib = lambda: torch.topk(s if excluded is None else s.masked_fill(excluded, float("-inf")), k, dim=1)
             l_ms = cuda_ms(torch, lib)
             k3_ms = cuda_ms(torch, lambda: T.grouped_topk(s, k, m))
@@ -578,11 +611,12 @@ def check_k4(torch, b, n, k, per_row, card):
                 f"switched route; group maxima and K3's choice of groups equal to plain; kernel {k_ms:.4f} ms, "
                 f"plain {p_ms:.4f} ms, masked_fill + torch.topk of the whole row {l_ms:.4f} ms, K3 on the whole row "
                 f"{k3_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); the fold {f_ms:.4f} ms, plain "
-                f"{fp_ms:.4f} ms, bound {fold_bnd['bound_ms']:.4f} ms; the switched route whole {r_ms:.4f} ms [{card}]"
+                f"{fp_ms:.4f} ms, masked_fill + pad + amax {fl_ms:.4f} ms, bound {fold_bnd['bound_ms']:.4f} ms; the switched "
+                f"route whole {r_ms:.4f} ms [{card}]"
             )
             cases.append(dict(
                 case=name, shape=list(s.shape), dtype=str(dtype).split(".")[-1], k=k, kp=kp, max_abs_err=0.0,
-                ms=k_ms, plain_ms=p_ms, library_ms=l_ms, k3_ms=k3_ms, fold_ms=f_ms, fold_plain_ms=fp_ms,
+                ms=k_ms, plain_ms=p_ms, library_ms=l_ms, k3_ms=k3_ms, fold_ms=f_ms, fold_plain_ms=fp_ms, fold_library_ms=fl_ms,
                 fold_bound_ms=fold_bnd["bound_ms"], route_ms=r_ms, **bnd,
             ))
             ms, plain_ms, lib_ms = ms + k_ms, plain_ms + p_ms, lib_ms + l_ms
@@ -927,8 +961,9 @@ def check_k5_widths(torch, k, dev):
     """The K5 kernels' other embedding widths (32, 128, and 40, which the
     wrapper pads to 64) on a small ragged shape: 300 rows (not a multiple of
     the 128-row user tile), 1,000 items (a last group of 104, fewer groups
-    than k), one row fully masked and one nearly. Integer operands in
-    {-1, 0, 1}: everything equal to the plain versions bit for bit."""
+    than k), one row fully masked and one nearly, one group fully masked in
+    every row. Integer operands in {-1, 0, 1}: everything equal to the plain
+    versions bit for bit."""
     from genmmrec_tpu_torch.ops import fused_topk as F
     from genmmrec_tpu_torch.ops.topk import grouped_topk_plain
 
@@ -936,6 +971,7 @@ def check_k5_widths(torch, k, dev):
     mask = elec_mask(torch, b, n, 20, SEED + 2, dev)
     mask[0] = 0xFF  # a row with nothing left: all -inf
     mask[1, 2:] = 0xFF  # a row with fewer items left than k: a -inf tail
+    mask[:, 16 * 3 : 16 * 4] = 0xFF  # a group with nothing left in any row
     for d in (32, 40, 128):
         u32, t32 = k5_operands(torch, b, n, d, True, SEED + d, dev, span=1)
         u, t = u32.bfloat16(), t32.bfloat16()
@@ -954,7 +990,38 @@ def check_k5_widths(torch, k, dev):
                 raise AssertionError(f"{what} at d={d}, {b} x {n}: kernel and plain version differ")
         if not (torch.equal(v, v_ref) and torch.equal(i, i_ref)):
             raise AssertionError(f"fused top-k at d={d}, {b} x {n} differs from the plane's top-k")
-    print(f"K5 widths 32, 40 (padded to 64), 128 on {b} x {n}: K5a, K5b, K5c and the fused top-k bit-equal to plain")
+    print(f"K5 widths 32, 40 (padded to 64), 128 on {b} x {n} (a row and a group fully masked): K5a, K5b, K5c and "
+          f"the fused top-k bit-equal to plain")
+
+
+def check_k5a_edges(torch, F, n, d, mask):
+    """K5a at the row counts the paths give it besides a full chunk (1, 63,
+    and LightGCN/elec's last chunk of 3,708), then a row with every item
+    excluded, a group with every item excluded and the catalog's ragged last
+    group (63,001 = 492·128 + 25 items): every score negative there, so a
+    pad column that scored its zero instead of being excluded by its mask
+    bit would win its group. Integer operands: bit-equal to plain."""
+    dev = mask.device
+    for b in (1, 63, 3708):
+        u, t = (x.bfloat16() for x in k5_operands(torch, b, n, d, True, SEED + b, dev))
+        if not torch.equal(F.fused_group_max(u, t, mask[:b]), F.fused_group_max_plain(u, t, mask[:b])):
+            raise AssertionError(f"K5a at b={b}, n={n}: kernel and plain version differ")
+    b, ng = 256, F.n_groups_for(n)
+    edge = mask[:b].clone()
+    edge[0] = 0xFF  # a row with every item excluded
+    edge[:, 16 * 7 : 16 * 8] = 0xFF  # group 7 excluded in every row
+    u, t = (x.bfloat16() for x in k5_operands(torch, b, n, d, True, SEED + 7, dev, span=1))
+    u, t = u.abs() + 1, -(t.abs() + 1)  # every score negative
+    gmax = F.fused_group_max(u, t, edge)
+    if not torch.equal(gmax, F.fused_group_max_plain(u, t, edge)):
+        raise AssertionError(f"K5a edges at n={n}: kernel and plain version differ")
+    if not (torch.isneginf(gmax[0]).all() and torch.isneginf(gmax[:, 7]).all()):
+        raise AssertionError("K5a edges: a fully excluded row or group is not -inf")
+    tail = gmax[1:, ng - 1].float()
+    if n % 128 and not bool(((tail < 0) | torch.isneginf(tail)).all()):
+        raise AssertionError("K5a edges: a pad column of the last group scored its zero")
+    print(f"K5a b=1, 63, 3708 at n={n}, a fully excluded row and group, the last group of {n - (ng - 1) * 128} "
+          f"items with every score negative: bit-equal to plain")
 
 
 def check_plan(torch, F, gidx, ng, what):
@@ -1016,10 +1083,16 @@ def check_k5(torch, shapes, k, card):
     share that differs printed, the index lists held by
     ``check_topk_lists``. The whole fused function is also timed against the
     library's way to the same result (a bfloat16 matmul, masked_fill,
-    torch.topk), which writes the score plane. Returns the per-kernel
-    results; their top-level times are the first shape's Gaussian case."""
+    torch.topk), which writes the score plane; K5a against the library's
+    three calls for its own function (the bfloat16 matmul, masked_fill, amax
+    over (b, n_groups, 128)) and the matmul alone; the route's choice of
+    groups by its sort against K3's. On the elec-width shape K5a also runs
+    ``check_k5a_edges``. Returns the per-kernel results; their top-level
+    times are the first shape's Gaussian case."""
     from genmmrec_tpu_torch.ops import fused_topk as F
-    from genmmrec_tpu_torch.ops.topk import grouped_topk, grouped_topk_plain, unpack_mask
+    from genmmrec_tpu_torch.ops.topk import (
+        choose_groups, choose_groups_by_sort, grouped_topk, grouped_topk_plain, unpack_mask,
+    )
 
     names = ("fused_group_max", "fused_candidates", "fused_candidates_unmasked", "grouped_topk_bf16")
     res = {name: dict(max_abs_err=0.0, cases=[]) for name in names}
@@ -1120,6 +1193,24 @@ def check_k5(torch, shapes, k, card):
             # times: kernel and plain in turns, then the library's way
             a_ms, a_plain = timed_pair(torch, lambda: F.fused_group_max(u, t, mask),
                                        lambda: F.fused_group_max_plain(u, t, mask))
+            # at baby the kernel takes less than the host's time per call:
+            # its device time alone, from a CUDA graph
+            a_graph = graph_ms(torch, lambda: F.fused_group_max(u, t, mask))
+            # K5a's yardsticks, three calls and the first alone: the bf16
+            # matmul against the table padded to whole groups, masked_fill,
+            # amax over the (b, n_groups, 128) view
+            t_pad = torch.nn.functional.pad(t, (0, 0, 0, ng * 128 - n))
+            excluded_pad = unpack_mask(mask, ng * 128)
+            a_lib = cuda_ms(torch, lambda: (u @ t_pad.T).masked_fill(excluded_pad, float("-inf"))
+                            .view(b, ng, 128).amax(dim=2))
+            a_matmul = cuda_ms(torch, lambda: u @ t_pad.T)
+            del t_pad, excluded_pad
+            # the fused route's choice of groups: its sort, and K3's top-kp of
+            # the maxima as the two-stage route chooses, in turns
+            if not torch.equal(choose_groups(gmax, kp), choose_groups_by_sort(gmax, kp)):
+                raise AssertionError(f"K5 {case}: K3's choice of groups differs from the sort's")
+            choose_k3, choose_sort = timed_pair(torch, lambda: choose_groups(gmax, kp),
+                                                lambda: choose_groups_by_sort(gmax, kp))
             b_ms, b_plain = timed_pair(torch, lambda: F.fused_candidates(u, t, gidx, mask),
                                        lambda: F.fused_candidates_plain(u, t, gidx, mask))
             c_ms, c_plain = timed_pair(torch, lambda: F.fused_candidates_unmasked(u, t, gidx),
@@ -1146,7 +1237,7 @@ def check_k5(torch, shapes, k, card):
             # no one PyTorch call computes a K5 stage alone: their library_ms
             # is the library's way to the whole function, to hold against fused_ms
             rows = {
-                "fused_group_max": (err_a, share_a, a_ms, a_plain, lib_ms),
+                "fused_group_max": (err_a, share_a, a_ms, a_plain, a_lib),
                 "fused_candidates": (err_b, share_b, b_ms, b_plain, lib_ms),
                 "fused_candidates_unmasked": (err_c, share_c, c_ms, c_plain, lib_ms),
                 "grouped_topk_bf16": (0.0, 0.0, k3_ms, k3_plain, k3_lib),
@@ -1154,7 +1245,12 @@ def check_k5(torch, shapes, k, card):
             for name, (e, share, ms, plain_ms, l_ms) in rows.items():
                 entry = dict(case=case, b=b, n_items=n, d=d, k=k, kp=kp, max_abs_err=e, differing_share=share,
                              ms=ms, plain_ms=plain_ms, library_ms=l_ms, **bounds[name])
-                if name.startswith("fused_"):
+                if name == "fused_group_max":
+                    entry.update(
+                        graph_ms=a_graph, matmul_ms=a_matmul, fused_ms=f_ms, fused_library_ms=lib_ms,
+                        library_of="three calls: bfloat16 matmul, masked_fill, amax over (b, n_groups, 128)",
+                    )
+                elif name.startswith("fused_"):
                     entry.update(
                         fused_ms=fe_ms if name == "fused_candidates_unmasked" else f_ms,
                         library_of="fused_grouped_topk whole: bfloat16 matmul + masked_fill + torch.topk",
@@ -1165,6 +1261,9 @@ def check_k5(torch, shapes, k, card):
                 res[name]["max_abs_err"] = max(res[name]["max_abs_err"], e)
                 note = "bit-equal" if exact else f"{share:.2e} of entries differ, none beyond its bound"
                 plan = f" (its plan {plan_ms:.4f} ms)" if "plan_ms" in entry else ""
+                if name == "fused_group_max":
+                    plan = (f" (from a CUDA graph {a_graph:.4f} ms; library: matmul + masked_fill + amax {a_lib:.4f} ms, "
+                            f"the matmul alone {a_matmul:.4f} ms)")
                 print(
                     f"K5 {case} {name}: b={b} n={n} d={d} kp={kp} max_abs_err={e:.3e} ({note}), "
                     f"kernel {ms:.4f} ms{plan}, plain {plain_ms:.4f} ms, bound {bounds[name]['bound_ms']:.4f} ms "
@@ -1173,7 +1272,8 @@ def check_k5(torch, shapes, k, card):
             fused_cases.append(dict(
                 case=case, b=b, n_items=n, d=d, k=k, max_abs_err=err_f, differing_value_share=share_f,
                 differing_index_share=idx_share, ms=f_ms, external_ms=fe_ms, plain_ms=f_plain,
-                library_ms=lib_ms, **fused_bound,
+                library_ms=lib_ms, choose_groups_by_sort_ms=choose_sort, choose_groups_by_k3_ms=choose_k3,
+                **fused_bound,
             ))
             note = "and indices bit-equal" if exact else (
                 f"within one ulp ({share_f:.2e} differ), {idx_share:.2e} of indices differ, all near-ties")
@@ -1181,7 +1281,8 @@ def check_k5(torch, shapes, k, card):
                 f"K5 {case} fused_grouped_topk: values {note}; 'kernel' and 'external' bit-equal; "
                 f"fused {f_ms:.4f} ms (external {fe_ms:.4f} ms), plain plane "
                 f"route {f_plain:.4f} ms, library (bf16 matmul + masked_fill + torch.topk) {lib_ms:.4f} ms, "
-                f"bound {fused_bound['bound_ms']:.4f} ms ({fused_bound['bound_by']}) [{card}]"
+                f"bound {fused_bound['bound_ms']:.4f} ms ({fused_bound['bound_by']}); its choice of {kp} groups "
+                f"by the sort {choose_sort:.4f} ms, by K3 {choose_k3:.4f} ms (the same ids) [{card}]"
             )
             del u32, t32, u, t, cand, raw
         # peak memory of one fused call at this shape, beside the plane it avoids
@@ -1203,12 +1304,71 @@ def check_k5(torch, shapes, k, card):
         if n >= ELEC_ITEMS and rise >= plane_bytes:
             raise AssertionError(f"K5 {shape_name}: the fused route allocated {rise} bytes, a score plane's worth")
         del u, t
+    for shape_name, n, d, mask in shapes:
+        if n >= ELEC_ITEMS:
+            check_k5a_edges(torch, F, n, d, mask)
     check_k5_widths(torch, k, shapes[0][3].device)
     for name in names:
         first = next(c for c in res[name]["cases"] if c["case"].endswith("gaussian"))
-        keys = ("ms", "plan_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "fused_ms", "library_of")
+        keys = ("ms", "graph_ms", "plan_ms", "plain_ms", "library_ms", "matmul_ms", "bound_ms", "bound_by", "fused_ms",
+                "fused_library_ms", "library_of")
         res[name].update({key: first[key] for key in keys if key in first})
     res["fused_grouped_topk"] = fused_cases
+    return res
+
+
+def k5a_against(torch, dirs, card):
+    """K5a of this checkout against the K5a of each other checkout in
+    ``dirs`` (an earlier commit unpacked by ``git archive``, or a build not
+    kept), each built from its own sources into its own ``build/kernels``:
+    the same inputs at the baby and elec shapes, Gaussian operands, each
+    held within one ulp of the plain version, times in turns (other, this,
+    this, other) of 50 launches each, as launched (``cuda_ms``) and replayed
+    from a CUDA graph (``graph_ms``: the device's time alone)."""
+    import ctypes
+    import importlib.util
+
+    from genmmrec_tpu_torch.ops import fused_topk as F
+
+    dev = torch.device("cuda:0")
+    others = {}
+    for d in dirs:
+        spec = importlib.util.spec_from_file_location(
+            f"k5a_build_{len(others)}", os.path.join(d, "genmmrec_tpu_torch", "ops", "_build.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        lib = ctypes.CDLL(mod.build()[0])
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.fused_group_max_bf16.argtypes = [p, p, p, p, i, i, i, p]
+        lib.fused_group_max_bf16.restype = i
+        others[os.path.basename(os.path.normpath(d))] = lib
+
+    def other(lib, u, t, mask):
+        u, t, b, n, d = F._check_operands(u, t, mask)
+        out = torch.empty(b, F.n_groups_for(n), dtype=torch.bfloat16, device=dev)
+        rc = lib.fused_group_max_bf16(u.data_ptr(), t.data_ptr(), mask.data_ptr(), out.data_ptr(), b, n, d,
+                                      torch._C._cuda_getCurrentRawStream(0))
+        if rc:
+            raise RuntimeError(f"another checkout's K5a failed: CUDA error {rc}")
+        return out
+
+    res = []
+    for shape, n, per_row in (("baby", 7050, 20), ("elec", ELEC_ITEMS, ELEC_POSITIVES)):
+        mask = elec_mask(torch, 4096, n, per_row, SEED + 5, dev)
+        u, t = (x.bfloat16() for x in k5_operands(torch, 4096, n, 64, False, SEED + 1, dev))
+        ref = F.fused_group_max_plain(u, t, mask)
+        for name, lib in others.items():
+            for what, out in (("this", F.fused_group_max(u, t, mask)), (name, other(lib, u, t, mask))):
+                if not bool(((bf16_ordinal(torch, out) - bf16_ordinal(torch, ref)).abs() <= 1).all()):
+                    raise AssertionError(f"K5a of {what} at {shape}: more than one ulp from the plain version")
+            mine, theirs = lambda: F.fused_group_max(u, t, mask), lambda: other(lib, u, t, mask)
+            times = {}
+            for how, timer in (("launched", lambda f: cuda_ms(torch, f, iters=50)), ("graph", lambda f: graph_ms(torch, f))):
+                o1, k1, k2, o2 = timer(theirs), timer(mine), timer(mine), timer(theirs)
+                times[how] = dict(ms=[k1, k2], other_ms=[o1, o2])
+                print(f"K5a {shape} (4096, {n}) d=64, {how}: this checkout {k1:.4f}, {k2:.4f} ms; {name} {o1:.4f}, "
+                      f"{o2:.4f} ms [{card}]")
+            res.append(dict(shape=shape, other=name, **times))
     return res
 
 
@@ -1770,6 +1930,10 @@ def main() -> int:
         help="profile one more bf16 evaluation and one more epoch of DiffMM, phase by phase, and ten more "
         "training batches and two more evaluations of LightGCN, into DIR",
     )
+    parser.add_argument(
+        "--k5a-against", nargs="+", metavar="DIR",
+        help="only time this checkout's K5a against the K5a of each other checkout DIR, in turns, and stop",
+    )
     args = parser.parse_args()
 
     from genmmrec_tpu_torch.config import Config
@@ -1795,6 +1959,9 @@ def main() -> int:
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
+    if args.k5a_against:
+        print(json.dumps({"k5a_against": k5a_against(torch, args.k5a_against, card)}))
+        return 0
 
     # -- the slice's data and model (set-up) ------------------------------
     t0 = time.perf_counter()

@@ -3,7 +3,7 @@
 // chunk is never written to device memory.
 //
 // They replace the three Pallas kernels of genmmrec_tpu/ops/fused_topk.py:
-//   K5a  group_max_kernel             _fold_kernel      (pallas_call at :293)
+//   K5a  fold_kernel                  _fold_kernel      (pallas_call at :293)
 //   K5b  candidates_kernel<.., true>  _cand_kernel      (pallas_call at :329)
 //   K5c  candidates_kernel<.., false> _cand_kernel_slim (pallas_call at :312)
 //
@@ -36,26 +36,48 @@
 // the mask (n / 8 bytes a row: 3.7 MB and 32.3 MB a chunk), u (0.5 MB), the
 // table (0.9 MB, 8.1 MB) and the maxima (0.5 MB, 4.0 MB): 0.002 and 0.013 ms
 // at 3.35 TB/s. So the operations bound it, narrowly (660 operations a byte
-// against the card's 295). What this design pays beyond either is a re-read of
-// the table by every user tile, from the L2 cache (32 user tiles: 29 MB and
-// 258 MB), one pass of each table tile through shared memory per warp, and
-// two barriers a tile with no load in flight meanwhile.
+// against the card's 295).
 // K5b and K5c compute kp * 128 * d multiply-adds a row (all of the plane at
 // baby, where kp = 50 of 56 groups; an eighth of it at elec) and must write
 // the candidates, B * kp * 256 bytes: 52 MB at B 4096, k = 50, 0.016 ms at
 // 3.35 TB/s. That write is their bound (bytes); the operations take 0.004 ms.
 //
-// Design of K5a. The product comes from the tensor cores with
-// mma.sync.m16n8k16 (bfloat16 in, float32 out): A is a 16-row tile of u, held
-// in registers for the block's life, B a 128-item table tile in shared
-// memory, its rows padded by 8 elements so that the fragment loads of a warp
-// fall on 32 different banks. A block of 8 warps owns 128 rows and walks
-// groups blockIdx.y, blockIdx.y + gridDim.y, ...; a warp owns 16 rows and all
-// 128 columns of the tile (64 accumulators a thread). Each thread rounds its
-// 32 scores of a row, applies the row's 16 mask bytes, takes the maximum, and
-// the four threads of a quad combine theirs with two shuffles. Rows past B
-// are zero in A and are not written; the mask is not read for them.
-//
+// Design of K5a: a persistent, warp-specialised wgmma pass fed by TMA.
+// - Work. A unit is 512 rows of u and a chunk of the groups (fold_work): the
+//   groups are cut into as many chunks as the SMs allow beside the rows'
+//   chunks, so that at B 4,096 the 132 SMs take one unit each (8 row chunks x
+//   16 chunks of 31 groups at elec). Every block re-reads the table from the
+//   L2 once a row chunk (8 x 8.1 MB at elec, against 32 x in the first
+//   design); the mask and u are read once.
+// - The block: one producer warpgroup (40 registers a thread after
+//   setmaxnreg) and four consumer warpgroups (104). One producer thread
+//   issues TMA copies: the unit's 512 rows of u once, into shared memory,
+//   then for each group a ring stage (four deep at d = 64) of its table tile
+//   and the rows' 16 mask bytes, each stage completing on an mbarrier and
+//   freed by the consumers' arrivals. Tiles keep TMA's swizzle (128 bytes,
+//   64 for d = 32; d = 128 is two K-blocks); wgmma reads them through
+//   descriptors of the same swizzle.
+// - A consumer warpgroup owns 128 of the unit's rows: for each group, two
+//   64 x 128 tiles, each wgmma.m64n128k16 in 16-wide k-steps from shared A
+//   (u) and B (the table tile), then folded. The four warpgroups run out of
+//   step, so one's MMAs run while another folds. (Two accumulators a
+//   warpgroup, the next tile's wgmma in flight during the fold, made ptxas
+//   serialize the wgmmas: C7514, C7518; that build was no faster.)
+// - The fold: each thread holds rows lane / 4 and + 8, columns 8j + 2t and
+//   + 1 of each n-tile j. Its 16 mask bytes of a row become one 32-bit word
+//   (mask_word: bit 8q + 2i + c is column c of n-tile 4i + q), the float32
+//   maximum of its included sums is taken (a warp none of whose rows
+//   excludes an item in the group takes them all, without tests), the quad
+//   combines with two shuffles, and the maximum is rounded to bfloat16 once
+//   (rounding is monotone, so this is the maximum of the rounded scores).
+//   wgmma's sums are mma.sync's bit for bit (chip_smoke.py holds K5b's
+//   candidates' maxima equal to K5a's), so the two stages agree.
+// - Edges: rows past B and table rows past n are read as zeros by TMA; rows
+//   past B are never written; the catalog's pad columns are excluded by the
+//   mask's set bits, never by their zero scores.
+// What remains (PERF.md): the tensor cores read both operands from shared
+// memory at about 96 bytes a cycle, close to its limit, and the fold's
+// latency is hidden only in part by four warpgroups.
 // Design of K5b and K5c: one pass per group, not per row. The first design gave
 // a block one row: its A tile held that row and 15 rows of zeros (1/16 of
 // each tensor-core instruction useful), and for each of the row's kp groups
@@ -79,13 +101,14 @@
 //   work item exits. So a long list (at baby nearly every row chooses 50 of
 //   the 56 groups) is cut into slices and no block owns more than 128 rows. The
 //   block (4 warps) loads the group's table tile into shared memory once, by
-//   cp.async, at the padded layout of K5a, and gathers the slice's u rows
+//   cp.async, its rows padded by 8 elements (a warp's fragment loads fall
+//   on 32 banks), and gathers the slice's u rows
 //   into full 16-row A tiles and their 16 mask bytes beside them, in two
 //   halves of 64 rows: the second half's gather is in flight while the
 //   first half is multiplied and stored. A warp multiplies 16 rows by the
-//   128 items with the same mma.sync.m16n8k16, the same fragments and the
-//   same ascending k-steps as K5a, so that every candidate is bit-equal to
-//   the score K5a folded; each thread rounds once and applies the row's
+//   128 items with mma.sync.m16n8k16 in the same ascending k-steps as K5a's
+//   wgmma, whose sums are the same bits, so that every candidate is
+//   bit-equal to the score K5a folded; each thread rounds once and applies the row's
 //   mask bits. The output leaves as whole 128-byte lines: a warp's 16 rows
 //   pass through shared memory, 64 items at a time, and go out as 16-byte
 //   vectors, each 8 lanes one row's 128 bytes. (Written as they come out of
@@ -100,10 +123,13 @@
 //   full rows but for the last tile of a list.
 // Table rows past the catalog are loaded as zeros, never read.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -146,21 +172,6 @@ __device__ __forceinline__ uint16_t bf16_bits(float x) {
   return static_cast<uint16_t>(__float_as_uint(x) >> 16);
 }
 
-// Items item0 .. item0 + 127 of the (n, D) table into the tile, 16 bytes a
-// thread and step, neighbouring threads on neighbouring addresses.
-template <int D, int THREADS>
-__device__ __forceinline__ void load_tile(uint16_t* tile, const uint16_t* __restrict__ table,
-                                          int item0, int n, int tid) {
-  constexpr int kVec = D / 8;  // 16-byte pieces in a table row
-  for (int i = tid; i < kGroup * kVec; i += THREADS) {
-    const int item = i / kVec, c = i % kVec;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (item0 + item < n)
-      v = __ldg(reinterpret_cast<const uint4*>(table + static_cast<long long>(item0 + item) * D) + c);
-    *reinterpret_cast<uint4*>(tile + item * (D + kPad) + c * 8) = v;
-  }
-}
-
 // The two B fragments of n-tile nt (items nt*8 .. nt*8+7) and k-step ks.
 template <int D>
 __device__ __forceinline__ void b_fragments(const uint16_t* tile, int nt, int ks, int g, int t,
@@ -171,73 +182,350 @@ __device__ __forceinline__ void b_fragments(const uint16_t* tile, int nt, int ks
   b1 = p[4];
 }
 
+// ---- K5a: the group maxima ----
+//
+// Shared memory holds every operand tile as TMA writes it with the tensor
+// map's swizzle: a K-block is up to 64 elements of d (128 bytes a row; d = 32
+// is one K-block of 64 bytes a row), 8 rows an atom of 8 * kRowBytes bytes,
+// the 16-byte chunk c of row r stored at chunk c ^ (r % 8) (128-byte swizzle)
+// or c ^ ((r / 2) % 4) (64-byte swizzle). wgmma reads it through descriptors
+// of the same swizzle.
 template <int D>
-__global__ void __launch_bounds__(256)
-group_max_kernel(const uint16_t* __restrict__ u, const uint16_t* __restrict__ table,
-                 const unsigned char* __restrict__ mask, uint16_t* __restrict__ gmax, int b, int n,
-                 int n_groups) {
-  constexpr int kSteps = D / 16;
-  __shared__ __align__(16) uint16_t tile[kGroup * (D + kPad)];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.x * 128 + warp * 16 + g, row1 = row0 + 8;
-  const bool in0 = row0 < b, in1 = row1 < b;
+struct FoldShape {
+  static constexpr int kKbElems = D < 64 ? D : 64;   // elements of a K-block row
+  static constexpr int kRowBytes = kKbElems * 2;     // 64 or 128: the swizzle span
+  static constexpr int kKBlocks = D / kKbElems;      // 1 or 2
+  static constexpr int kKbSteps = kKbElems / 16;     // k-steps of 16 in a K-block
+  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;  // descriptor: 128B or 64B swizzle
+  __host__ __device__ static constexpr int tile_bytes(int rows) { return rows * D * 2; }  // all K-blocks of `rows` rows
+};
 
-  uint32_t a[kSteps][4];
-#pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks) {
-    const int k0 = ks * 16 + t * 2;
-    const uint16_t* p0 = u + static_cast<long long>(row0) * D + k0;
-    const uint16_t* p1 = u + static_cast<long long>(row1) * D + k0;
-    a[ks][0] = in0 ? __ldg(reinterpret_cast<const uint32_t*>(p0)) : 0u;
-    a[ks][1] = in1 ? __ldg(reinterpret_cast<const uint32_t*>(p1)) : 0u;
-    a[ks][2] = in0 ? __ldg(reinterpret_cast<const uint32_t*>(p0 + 8)) : 0u;
-    a[ks][3] = in1 ? __ldg(reinterpret_cast<const uint32_t*>(p1 + 8)) : 0u;
+constexpr int kSubRows = 64;       // rows of one wgmma tile (m64)
+constexpr int kFoldConsumers = 4;  // K5a's consumer warpgroups
+constexpr int kMaxStages = 4;
+constexpr int kSmemLimit = 232448;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ uint32_t mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done;
+}
+// Until the phase of parity `parity` has completed. A wait of two seconds,
+// far past any copy or product, is a fault in the protocol: it traps, so
+// that the launch fails instead of holding the card (try_wait may suspend
+// the thread a while each time, so a count of tries is no measure of time).
+// WARP: all 32 lanes wait together and leave together, the result taken
+// from lane 0.
+template <bool WARP>
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint64_t start = 0;
+  for (uint32_t tries = 0;; ++tries) {
+    uint32_t done = mbar_try_wait(bar, parity);
+    if (WARP) done = __shfl_sync(0xffffffffu, done, 0);
+    if (done) return;
+    if (tries % 64 == 0) {
+      const uint64_t now = global_ns();
+      if (tries == 0) start = now;
+      else if (now - start > 2000000000ull) __trap();
+    }
   }
+}
+// box (c0, c1) of a 2-D tensor map into shared memory; completes on bar
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
 
-  const long long mask_stride = static_cast<long long>(n_groups) * 16;
-  for (int grp = blockIdx.y; grp < n_groups; grp += gridDim.y) {
-    __syncthreads();  // the previous tile has been consumed
-    load_tile<D, 256>(tile, table, grp * kGroup, n, tid);
-    __syncthreads();
+// wgmma's shared-memory descriptor of a K-major tile at addr: the swizzle,
+// 8 rows an atom of 8 * kRowBytes bytes (the stride byte offset); the
+// leading byte offset is not read for swizzled K-major tiles.
+template <int D>
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  using S = FoldShape<D>;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>((8 * S::kRowBytes) >> 4) << 32) | (S::kLayout << 62);
+}
 
-    float c[16][4];
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
 #pragma unroll
-    for (int nt = 0; nt < 16; ++nt) {
-      c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d = A (64 x 16, K-major) * B (128 x 16, K-major)ᵀ + (scale_d ? d : 0)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// The warpgroup's 64 x 128 tile of float32 sums: 16-wide k-steps
+// ascending, as K5b forms each candidate with mma.sync (the two give the
+// same bits: chip_smoke.py holds K5b's candidates' maxima equal to these).
+// The first step has scale-d = 0 (D = A·B) in place of a zeroed
+// accumulator; a sum can then differ from K5b's only in the sign of an exact
+// zero, which fold_tile's + 0.0 removes. desc_a, desc_b: descriptors of the
+// tiles' first K-blocks, a K-block a_kb (b_kb) bytes after the one before.
+// Thread `lane` of warp w holds rows 16w + lane / 4 (d[4j], d[4j + 1]) and
+// + 8 (d[4j + 2], d[4j + 3]), columns 8j + 2 (lane % 4) and + 1: mma.sync's
+// layout of each 8-column n-tile.
+template <int D>
+__device__ __forceinline__ void tile_sums(float (&d)[64], uint64_t desc_a, uint32_t a_kb, uint64_t desc_b,
+                                          uint32_t b_kb) {
+  using S = FoldShape<D>;
+  fence_acc(d);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-      for (int ks = 0; ks < kSteps; ++ks) {
-        uint32_t b0, b1;
-        b_fragments<D>(tile, nt, ks, g, t, b0, b1);
-        mma_bf16(c[nt], a[ks], b0, b1);
+  for (int kb = 0; kb < S::kKBlocks; ++kb)
+#pragma unroll
+    for (int ks = 0; ks < S::kKbSteps; ++ks)  // a descriptor's address field counts 16 bytes
+      wgmma_m64n128k16(d, desc_a + ((kb * a_kb + ks * 32) >> 4), desc_b + ((kb * b_kb + ks * 32) >> 4),
+                       kb + ks > 0);
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc(d);
+}
+
+// The thread's 32 mask bits of one row and group, from the group's 16 mask
+// bytes: byte j holds the items of n-tile j, its bits 2t and 2t + 1 this
+// thread's columns. Shifted by 2t once, word i keeps n-tiles 4i .. 4i + 3 in
+// bits 0-1 of its bytes; interleaved, bit 8q + 2i + c is column c of n-tile
+// 4i + q.
+__device__ __forceinline__ uint32_t mask_word(uint4 m, int t) {
+  const int s = 2 * t;
+  const uint32_t lo = 0x03030303u;
+  return ((m.x >> s) & lo) | (((m.y >> s) & lo) << 2) | (((m.z >> s) & lo) << 4) | (((m.w >> s) & lo) << 6);
+}
+
+__device__ __forceinline__ constexpr uint32_t mask_bit(int j, int c) {
+  return 1u << (8 * (j & 3) + 2 * (j >> 2) + c);
+}
+
+// The maxima of one 64 x 128 tile: the float32 maximum of each row's
+// included sums (-inf if none), one rounding, one bfloat16 a (row, group).
+// mask: this thread's row's 16 mask bytes of the group, the row 8 below
+// 128 bytes on; row: that row of u.
+__device__ __forceinline__ void fold_tile(const float (&d)[64], const unsigned char* mask, int row, int grp, int b,
+                                          int n_groups, uint16_t* __restrict__ gmax) {
+  const int t = threadIdx.x & 3;
+  const uint32_t m0 = mask_word(*reinterpret_cast<const uint4*>(mask), t);
+  const uint32_t m1 = mask_word(*reinterpret_cast<const uint4*>(mask + 8 * 16), t);
+  float p0[4], p1[4];  // partial maxima: four chains
+#pragma unroll
+  for (int i = 0; i < 4; ++i) p0[i] = p1[i] = -CUDART_INF_F;
+  // the warp skips the tests where none of its rows excludes an item here
+  if (__any_sync(0xffffffffu, (m0 | m1) != 0u)) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        if (!(m0 & mask_bit(j, c))) p0[j & 3] = fmaxf(p0[j & 3], d[4 * j + c]);
+        if (!(m1 & mask_bit(j, c))) p1[j & 3] = fmaxf(p1[j & 3], d[4 * j + 2 + c]);
+      }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      p0[j & 3] = fmaxf(p0[j & 3], fmaxf(d[4 * j], d[4 * j + 1]));
+      p1[j & 3] = fmaxf(p1[j & 3], fmaxf(d[4 * j + 2], d[4 * j + 3]));
+    }
+  }
+  float best0 = fmaxf(fmaxf(p0[0], p0[1]), fmaxf(p0[2], p0[3]));
+  float best1 = fmaxf(fmaxf(p1[0], p1[1]), fmaxf(p1[2], p1[3]));
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    best0 = fmaxf(best0, __shfl_xor_sync(0xffffffffu, best0, off));
+    best1 = fmaxf(best1, __shfl_xor_sync(0xffffffffu, best1, off));
+  }
+  // one rounding of the maximum: rounding is monotone, so this is the
+  // maximum of the rounded scores; + 0.0 makes a zero maximum +0. Thread
+  // t = 0 writes row `row`, t = 1 row `row` + 8.
+  row += t == 1 ? 8 : 0;
+  if (t < 2 && row < b)
+    gmax[static_cast<long long>(row) * n_groups + grp] = bf16_bits(round_bf16((t == 0 ? best0 : best1) + 0.0f));
+}
+
+// The persistent grid's work: units (row chunk, group chunk), group chunk
+// fastest, unit_groups groups and unit_rows rows each (the last ones
+// cut at n_groups and b); block x takes units x, x + gridDim.x, ...
+struct FoldWork {
+  int b, n_groups, unit_groups, unit_rows, group_chunks, units, stages;
+  __device__ void unit(int u, int& g0, int& g1, int& r0, int& r1) const {
+    g0 = (u % group_chunks) * unit_groups;
+    g1 = min(n_groups, g0 + unit_groups);
+    r0 = (u / group_chunks) * unit_rows;
+    r1 = min(b, r0 + unit_rows);
+  }
+};
+
+// K5a's block: WGS consumer warpgroups and one producer warpgroup. A unit's
+// rows of u, 128 a consumer, stay in shared memory (stationary) while its
+// groups stream past, a ring stage each: the group's table tile and the
+// unit's rows' 16 mask bytes of it.
+template <int D_>
+struct FoldCfg {
+  static constexpr int D = D_, WGS = kFoldConsumers;
+  static constexpr int kThreads = 128 * (WGS + 1);
+  static constexpr int kConsumerWarps = 4 * WGS;
+  static constexpr int kUnitRows = 2 * kSubRows * WGS;  // u rows a unit holds
+  static constexpr int kBoxRows = 128;                  // rows of a TMA box of u or the mask (<= 256)
+  // registers a thread: ptxas gives the 640 threads 96 each at launch; the
+  // producer's drop to 40 pays for the consumers' rise to 104 (launch_fold
+  // checks the sum)
+  static constexpr int kProducerRegs = 40, kConsumerRegs = 104;
+  using S = FoldShape<D>;
+  // shared memory: [u rows][stage: table tile | mask box]...[barriers]
+  __host__ __device__ static constexpr int stationary() { return S::tile_bytes(kUnitRows); }
+  __host__ __device__ static constexpr int stage_tile() { return S::tile_bytes(kGroup); }
+  __host__ __device__ static constexpr int stage() { return stage_tile() + kUnitRows * 16; }
+  // the alignment slack, the u rows, the stages, 2 * kMaxStages + 2 barriers
+  __host__ __device__ static constexpr int bytes(int stages) {
+    return 1024 + stationary() + stages * stage() + (2 * kMaxStages + 2) * 8;
+  }
+};
+
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+fold_kernel(const __grid_constant__ CUtensorMap map_u, const __grid_constant__ CUtensorMap map_t,
+            const __grid_constant__ CUtensorMap map_m, uint16_t* __restrict__ gmax, const FoldWork work) {
+  using S = FoldShape<C::D>;
+  extern __shared__ unsigned char fold_smem_raw[];
+  // TMA's 128-byte swizzle repeats every 1024 bytes: every tile starts on such a boundary
+  unsigned char* smem = fold_smem_raw + ((1024 - (smem_u32(fold_smem_raw) & 1023)) & 1023);
+  unsigned char* stat = smem;
+  unsigned char* stages = stat + C::stationary();
+  uint64_t* bars = reinterpret_cast<uint64_t*>(stages + work.stages * C::stage());
+  // full[s], empty[s], then the u rows' full and empty
+  const uint32_t full0 = smem_u32(bars), empty0 = full0 + 8 * kMaxStages;
+  const uint32_t stat_full = full0 + 16 * kMaxStages, stat_empty = stat_full + 8;
+  // the warp's index broadcast from lane 0: the roles below split by warp,
+  // which the compiler then knows
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0), lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < work.stages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, C::kConsumerWarps);
+    }
+    mbar_init(stat_full, 1);
+    mbar_init(stat_empty, C::kConsumerWarps);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= C::kConsumerWarps) {
+    // the producer warpgroup: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::kProducerRegs) : "memory");
+    if (threadIdx.x != C::kConsumerWarps * 32) return;
+    int stage = 0;
+    uint32_t phase = 0, stat_phase = 0;
+    for (int u = blockIdx.x; u < work.units; u += gridDim.x) {
+      int g0, g1, r0, r1;
+      work.unit(u, g0, g1, r0, r1);
+      mbar_wait<false>(stat_empty, stat_phase ^ 1);
+      stat_phase ^= 1;
+      mbar_expect_tx(stat_full, C::stationary());
+      for (int kb = 0; kb < S::kKBlocks; ++kb)
+        for (int j = 0; j < C::kUnitRows / C::kBoxRows; ++j)
+          tma_load_2d(smem_u32(stat + (kb * C::kUnitRows + j * C::kBoxRows) * S::kRowBytes), &map_u,
+                      kb * S::kKbElems, r0 + j * C::kBoxRows, stat_full);
+      for (int g = g0; g < g1; ++g) {
+        mbar_wait<false>(empty0 + 8 * stage, phase ^ 1);
+        const uint32_t bar = full0 + 8 * stage;
+        unsigned char* st = stages + stage * C::stage();
+        mbar_expect_tx(bar, C::stage());
+        for (int kb = 0; kb < S::kKBlocks; ++kb)
+          tma_load_2d(smem_u32(st + kb * kGroup * S::kRowBytes), &map_t, kb * S::kKbElems, g * kGroup, bar);
+        for (int j = 0; j < C::kUnitRows / C::kBoxRows; ++j)
+          tma_load_2d(smem_u32(st + C::stage_tile() + j * C::kBoxRows * 16), &map_m, g * 16, r0 + j * C::kBoxRows,
+                      bar);
+        if (++stage == work.stages) stage = 0, phase ^= 1;
       }
     }
-
-    // the group's 16 mask bytes of each of the thread's two rows; byte nt
-    // holds the bits of the items of n-tile nt, bits 2t and 2t+1 are this
-    // thread's two columns
-    uint4 m0 = make_uint4(~0u, ~0u, ~0u, ~0u), m1 = m0;
-    if (in0) m0 = __ldg(reinterpret_cast<const uint4*>(mask + row0 * mask_stride + grp * 16));
-    if (in1) m1 = __ldg(reinterpret_cast<const uint4*>(mask + row1 * mask_stride + grp * 16));
-    const uint32_t w0[4] = {m0.x, m0.y, m0.z, m0.w}, w1[4] = {m1.x, m1.y, m1.z, m1.w};
-    float best0 = -CUDART_INF_F, best1 = -CUDART_INF_F;
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::kConsumerRegs) : "memory");
+    // this warpgroup's two 64-row tiles of the unit's rows: their descriptors
+    // and this thread's first row in each (16 rows a warp, rows r and r + 8)
+    const int wg = warp >> 2;
+    const int r = 16 * (warp & 3) + (lane >> 2);
+    const uint64_t desc_a0 = smem_desc<C::D>(smem_u32(stat) + 2 * wg * kSubRows * S::kRowBytes);
+    const uint64_t desc_a1 = desc_a0 + ((kSubRows * S::kRowBytes) >> 4);
+    int stage = 0;
+    uint32_t phase = 0, stat_phase = 0;
+    float acc[64];
+    for (int u = blockIdx.x; u < work.units; u += gridDim.x) {
+      int g0, g1, r0, r1;
+      work.unit(u, g0, g1, r0, r1);
+      const int row0 = r0 + 2 * wg * kSubRows;  // the warpgroup's first row
+      mbar_wait<true>(stat_full, stat_phase);
+      stat_phase ^= 1;
+      for (int g = g0; g < g1; ++g) {
+        mbar_wait<true>(full0 + 8 * stage, phase);
+        const unsigned char* st = stages + stage * C::stage();
+        const uint64_t desc_b = smem_desc<C::D>(smem_u32(st));
+        const unsigned char* mask = st + C::stage_tile() + (2 * wg * kSubRows + r) * 16;
 #pragma unroll
-    for (int nt = 0; nt < 16; ++nt) {
-      const uint32_t bits0 = (w0[nt >> 2] >> ((nt & 3) * 8 + t * 2)) & 3u;
-      const uint32_t bits1 = (w1[nt >> 2] >> ((nt & 3) * 8 + t * 2)) & 3u;
-      if (!(bits0 & 1u)) best0 = fmaxf(best0, round_bf16(c[nt][0]));
-      if (!(bits0 & 2u)) best0 = fmaxf(best0, round_bf16(c[nt][1]));
-      if (!(bits1 & 1u)) best1 = fmaxf(best1, round_bf16(c[nt][2]));
-      if (!(bits1 & 2u)) best1 = fmaxf(best1, round_bf16(c[nt][3]));
-    }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      best0 = fmaxf(best0, __shfl_xor_sync(0xffffffffu, best0, off));
-      best1 = fmaxf(best1, __shfl_xor_sync(0xffffffffu, best1, off));
-    }
-    if (t == 0) {
-      if (in0) gmax[static_cast<long long>(row0) * n_groups + grp] = bf16_bits(best0);
-      if (in1) gmax[static_cast<long long>(row1) * n_groups + grp] = bf16_bits(best1);
+        for (int half = 0; half < 2; ++half) {
+          if (row0 + half * kSubRows < r1) {  // a tile with rows of u in it
+            tile_sums<C::D>(acc, half ? desc_a1 : desc_a0, C::kUnitRows * S::kRowBytes, desc_b,
+                            kGroup * S::kRowBytes);
+            fold_tile(acc, mask + half * kSubRows * 16, row0 + half * kSubRows + r, g, work.b, work.n_groups, gmax);
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty0 + 8 * stage);
+        if (++stage == work.stages) stage = 0, phase ^= 1;
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(stat_empty);
     }
   }
 }
@@ -406,8 +694,7 @@ plan_scatter_kernel(const int* __restrict__ gidx, int* scratch, int n_slots, int
 // ---- the candidates kernel (K5b with MASKED, K5c without) ----
 
 // The mask bits of n-tile nt for this thread's two columns (2t, 2t + 1) out
-// of a group's 16 mask bytes, as K5a reads them: byte nt holds the bits of
-// the n-tile's items.
+// of a group's 16 mask bytes: byte nt holds the bits of the n-tile's items.
 __device__ __forceinline__ uint32_t tile_bits(const uint32_t (&w)[4], int nt, int t) {
   return (w[nt >> 2] >> ((nt & 3) * 8 + t * 2)) & 3u;
 }
@@ -544,18 +831,143 @@ candidates_kernel(const uint16_t* __restrict__ u, const uint16_t* __restrict__ t
 
 inline cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
 
-template <int D>
-cudaError_t launch_group_max(const void* u, const void* table, const void* mask, void* gmax, int b,
-                             int n, cudaStream_t stream) {
-  const int n_groups = (n + kGroup - 1) / kGroup;
-  const int gx = (b + 127) / 128;
-  // enough blocks for a few waves over the card's SMs; a block walks the
-  // groups its blockIdx.y leaves it
-  int gy = 1024 / gx;
-  gy = gy < 1 ? 1 : (gy > n_groups ? n_groups : gy);
-  group_max_kernel<D><<<dim3(gx, gy), 256, 0, stream>>>(
-      static_cast<const uint16_t*>(u), static_cast<const uint16_t*>(table),
-      static_cast<const unsigned char*>(mask), static_cast<uint16_t*>(gmax), b, n, n_groups);
+// ---- K5a's host side: tensor maps, the work plan, the launch ----
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime, so that
+// the library links no libcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A row-major (rows, cols) tensor of `elem` bytes an element, read in boxes
+// of (box_rows, box_cols); rows past the end are read as zeros.
+bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* ptr, int rows, int cols,
+               int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The last few tensor maps of one role in one build, by address and shape:
+// a map describes memory, not its contents, so one encoded for the same
+// (pointer, rows, cols) serves again (the item table of every chunk of an
+// evaluation; repeated calls), and the launch's host time stays short.
+struct MapCache {
+  static constexpr int kSlots = 4;
+  const void* ptr[kSlots] = {};
+  int rows[kSlots] = {}, cols[kSlots] = {}, next = 0;
+  CUtensorMap map[kSlots];
+  bool get(CUtensorMap* out, CUtensorMapDataType type, int elem, const void* p, int r, int c, int box_rows,
+           int box_cols, CUtensorMapSwizzle swizzle) {
+    for (int i = 0; i < kSlots; ++i)
+      if (ptr[i] == p && rows[i] == r && cols[i] == c) {
+        *out = map[i];
+        return true;
+      }
+    if (!encode_2d(out, type, elem, p, r, c, box_rows, box_cols, swizzle)) return false;
+    ptr[next] = p, rows[next] = r, cols[next] = c, map[next] = *out;
+    next = (next + 1) % kSlots;
+    return true;
+  }
+};
+
+int sm_count() {
+  static int count[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (count[dev] == 0 && cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    count[dev] = 132;
+  return count[dev];
+}
+
+inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// The work plan (mirrored by ops/fused_topk.py fold_work_plan): units of
+// C::kUnitRows rows and a chunk of the groups, the groups cut into as many
+// chunks as the SMs allow beside the rows' chunks, so that the units fill
+// the card's SMs once where the shape allows; each block takes the units
+// blockIdx.x + i * gridDim.x.
+template <class C>
+FoldWork fold_work(int b, int n_groups, int sms) {
+  FoldWork w{};
+  w.b = b;
+  w.n_groups = n_groups;
+  w.unit_rows = C::kUnitRows;
+  const int row_chunks = cdiv(b, w.unit_rows);
+  w.unit_groups = cdiv(n_groups, std::max(1, std::min(n_groups, sms / row_chunks)));
+  w.group_chunks = cdiv(n_groups, w.unit_groups);
+  w.units = w.group_chunks * row_chunks;
+  return w;
+}
+
+// Once a build and device: the shared memory past 48 KB, and the registers
+// setmaxnreg moves within a block, where the consumers' rise must be paid by
+// the producer's drop from what the block was launched with, or the rise
+// waits forever.
+template <class C>
+cudaError_t fold_setup() {
+  static cudaError_t state[64];
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || dev < 0 || dev >= 64) return e != cudaSuccess ? e : cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    e = cudaFuncSetAttribute(fold_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             std::min(C::bytes(kMaxStages), kSmemLimit));
+    cudaFuncAttributes attr;
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, fold_kernel<C>);
+    if (e == cudaSuccess &&
+        (attr.numRegs - C::kProducerRegs) * 128 < (C::kConsumerRegs - attr.numRegs) * 128 * C::WGS)
+      e = cudaErrorInvalidConfiguration;
+    state[dev] = e;
+    done[dev] = true;
+  }
+  return state[dev];
+}
+
+template <class C>
+cudaError_t launch_fold(const void* u, const void* table, const void* mask, void* gmax, int b, int n,
+                        cudaStream_t stream) {
+  using S = FoldShape<C::D>;
+  const int n_groups = cdiv(n, kGroup);
+  const int sms = sm_count();
+  FoldWork work = fold_work<C>(b, n_groups, sms);
+  work.stages = std::min(kMaxStages, (kSmemLimit - C::bytes(0)) / C::stage());
+  if (work.stages < 2) return cudaErrorInvalidValue;
+  const CUtensorMapSwizzle swizzle = S::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  // the box shapes are the build's: a cache a build, role and host thread
+  static thread_local MapCache cache_u, cache_t, cache_m;
+  CUtensorMap map_u, map_t, map_m;
+  if (!cache_u.get(&map_u, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, u, b, C::D, C::kBoxRows, S::kKbElems, swizzle) ||
+      !cache_t.get(&map_t, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, table, n, C::D, kGroup, S::kKbElems, swizzle) ||
+      !cache_m.get(&map_m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, mask, b, n_groups * 16, C::kBoxRows, 16,
+                   CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  const int smem = C::bytes(work.stages);
+  const cudaError_t err = fold_setup<C>();
+  if (err != cudaSuccess) return err;
+  fold_kernel<C><<<std::min(work.units, sms), C::kThreads, smem, stream>>>(map_u, map_t, map_m,
+                                                                          static_cast<uint16_t*>(gmax), work);
   return cudaGetLastError();
 }
 
@@ -633,11 +1045,10 @@ extern "C" int fused_group_max_bf16(const void* u, const void* table, const void
   if (b <= 0) return 0;
   if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = as_stream(stream);
-  cudaError_t err;
-  if (d == 32) err = launch_group_max<32>(u, table, mask, gmax, b, n, st);
-  else if (d == 64) err = launch_group_max<64>(u, table, mask, gmax, b, n, st);
-  else if (d == 128) err = launch_group_max<128>(u, table, mask, gmax, b, n, st);
-  else err = cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (d == 32) err = launch_fold<FoldCfg<32>>(u, table, mask, gmax, b, n, st);
+  else if (d == 64) err = launch_fold<FoldCfg<64>>(u, table, mask, gmax, b, n, st);
+  else if (d == 128) err = launch_fold<FoldCfg<128>>(u, table, mask, gmax, b, n, st);
   return static_cast<int>(err);
 }
 

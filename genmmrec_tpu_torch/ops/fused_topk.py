@@ -6,8 +6,9 @@ the (B, n_items) score plane. The catalog is cut into groups of 128 items:
 
 1. K5a ``fused_group_max``: every score, train positives at ``-inf``, folded
    to one maximum per (row, group) → (B, n_groups) bfloat16;
-2. a PyTorch sort of the maxima picks each row's ``min(k, n_groups)`` best
-   groups, a superset of the groups that hold the row's top-k;
+2. K3 on the maxima (``choose_groups``; a sort on the CPU) picks each row's
+   ``min(k, n_groups)`` best groups, a superset of the groups that hold the
+   row's top-k;
 3. K5b ``fused_candidates`` computes those groups' scores again with the
    mask applied → (B, kp·128) bfloat16. With ``cand_mask="external"`` K5c
    ``fused_candidates_unmasked`` leaves the mask out and ``external_mask``
@@ -44,7 +45,7 @@ from __future__ import annotations
 import torch
 
 from genmmrec_tpu_torch.ops import _build
-from genmmrec_tpu_torch.ops.topk import GROUP, choose_groups_by_sort, grouped_topk, unpack_mask
+from genmmrec_tpu_torch.ops.topk import GROUP, choose_groups, grouped_topk, unpack_mask
 
 # embedding widths the kernels are built for; a narrower one is padded with
 # zero columns up to the next of these, which leaves every score unchanged
@@ -78,6 +79,80 @@ def _grouped_plane(u_emb, item_emb, packed_mask=None) -> torch.Tensor:
 def fused_group_max_plain(u_emb, item_emb, packed_mask) -> torch.Tensor:
     groups = _grouped_plane(u_emb, item_emb, packed_mask)[:, :-1]
     return groups.float().amax(dim=2).bfloat16()
+
+
+# K5a's work plan (``fold_work`` of the source): rows of u a unit keeps in
+# shared memory (128 a consumer warpgroup, four of them), and the SMs of an
+# H100 SXM, whose count the kernel reads from the device
+FOLD_UNIT_ROWS = 512
+H100_SMS = 132
+
+
+def fold_work_plan(b: int, n_groups: int, sms: int = H100_SMS):
+    """K5a's persistent grid as the kernel's host side cuts it → (grid,
+    units): each unit (r0, r1, g0, g1) ``FOLD_UNIT_ROWS`` rows (the last
+    cut at b) and a chunk of the groups, in the kernel's unit order (group
+    chunk fastest); the groups are cut into as many chunks as the SMs allow
+    beside the rows' chunks. Block x takes units x, x + grid, ...."""
+    cdiv = lambda a, c: -(-a // c)
+    row_chunks = cdiv(b, FOLD_UNIT_ROWS)
+    unit_groups = cdiv(n_groups, max(1, min(n_groups, sms // row_chunks)))
+    group_chunks = cdiv(n_groups, unit_groups)
+    units = []
+    for u in range(group_chunks * row_chunks):
+        g0, r0 = (u % group_chunks) * unit_groups, (u // group_chunks) * FOLD_UNIT_ROWS
+        units.append((r0, min(b, r0 + FOLD_UNIT_ROWS), g0, min(n_groups, g0 + unit_groups)))
+    return min(len(units), sms), units
+
+
+def fold_mask_word(group_bytes, t: int) -> torch.Tensor:
+    """The 32-bit mask word of thread ``t`` (0..3 in its quad) from a group's
+    16 mask bytes ((..., 16) uint8), as K5a forms it once per row and group:
+    each 4-byte word shifted right by 2t, its bytes' low two bits kept, the
+    four interleaved, so that bit ``fold_mask_bit(j, c)`` is the bit of the
+    thread's column c of n-tile j (item 8j + 2t + c). int64 values."""
+    w = group_bytes.to(torch.int64).view(*group_bytes.shape[:-1], 4, 4)
+    w = (w << (8 * torch.arange(4))).sum(-1)  # little-endian 32-bit words
+    x = (w >> (2 * t)) & 0x03030303
+    return (x << (2 * torch.arange(4))).sum(-1)
+
+
+def fold_mask_bit(j: int, c: int) -> int:
+    return 8 * (j & 3) + 2 * (j >> 2) + c
+
+
+def fused_group_max_tiled_plain(u_emb, item_emb, packed_mask, *, sms: int = H100_SMS):
+    """K5a's arithmetic as the kernel runs it, in plain PyTorch on the CPU:
+    the embedding width padded as the wrapper pads it; the float32 sums of a
+    (row, group); each thread's 32 columns masked by its mask word and folded
+    to their float32 maximum (-inf if none is left), the quad's four maxima
+    folded, one rounding to bfloat16; every (row, group) written by the unit
+    of ``fold_work_plan`` that owns it. Raises if a unit leaves one unwritten
+    or writes one twice, and for a tensor on a CUDA device (the kernel's
+    place)."""
+    if not u_emb.is_cpu:
+        raise ValueError("fused_group_max_tiled_plain mirrors the kernel on the CPU; the card runs the kernel")
+    b, d = u_emb.shape
+    n = item_emb.shape[0]
+    ng = n_groups_for(n)
+    width = next(w for w in KERNEL_WIDTHS if w >= d)
+    u = torch.nn.functional.pad(u_emb.bfloat16(), (0, width - d)).float()
+    t = torch.nn.functional.pad(item_emb.bfloat16(), (0, width - d, 0, ng * GROUP - n)).float()  # zero rows past n
+    sums = (u @ t.T).view(b, ng, 16, 4, 2)  # (row, group, n-tile j, thread t, column c)
+    group_bytes = packed_mask.view(b, ng, 16)
+    bit = torch.tensor([[fold_mask_bit(j, c) for c in range(2)] for j in range(16)])
+    words = torch.stack([fold_mask_word(group_bytes, q) for q in range(4)], dim=-1)  # (row, group, thread)
+    excluded = ((words[:, :, None, :, None] >> bit[None, None, :, None, :]) & 1).bool()
+    thread_max = sums.masked_fill(excluded, NEG_INF).amax(dim=(2, 4))  # (row, group, thread)
+    folded = thread_max.amax(dim=2).bfloat16()  # the quad's maximum, rounded once
+    out = torch.full((b, ng), float("nan"), dtype=torch.bfloat16)
+    written = torch.zeros(b, ng, dtype=torch.int32)
+    for r0, r1, g0, g1 in fold_work_plan(b, ng, sms)[1]:
+        out[r0:r1, g0:g1] = folded[r0:r1, g0:g1]
+        written[r0:r1, g0:g1] += 1
+    if not bool((written == 1).all()):
+        raise AssertionError("K5a's work plan leaves a (row, group) unwritten or writes one twice")
+    return out
 
 
 def _gather_groups(groups, gidx) -> torch.Tensor:
@@ -179,9 +254,9 @@ def external_mask(cand, gidx, packed_mask) -> torch.Tensor:
 
 
 def _check_operands(u_emb, item_emb, packed_mask=None):
-    """The kernels' operands: bfloat16, contiguous, on one CUDA device; the
-    embedding width padded with zero columns to one the kernels are built
-    for. Returns (u, table, b, n, d)."""
+    """The kernels' operands: bfloat16, contiguous, 16-byte aligned, on one
+    CUDA device; the embedding width padded with zero columns to one the
+    kernels are built for. Returns (u, table, b, n, d)."""
     if u_emb.dim() != 2 or item_emb.dim() != 2 or u_emb.shape[1] != item_emb.shape[1]:
         raise ValueError(f"u_emb {tuple(u_emb.shape)} and item_emb {tuple(item_emb.shape)} must be (B, d) and (n, d)")
     if u_emb.dtype != torch.bfloat16 or item_emb.dtype != torch.bfloat16 or item_emb.device != u_emb.device:
@@ -206,7 +281,12 @@ def _check_operands(u_emb, item_emb, packed_mask=None):
             or packed_mask.data_ptr() % 16
         ):
             raise ValueError(f"packed_mask must be a contiguous, 16-byte aligned uint8 {want} tensor")
-    return u_emb.contiguous(), item_emb.contiguous(), b, n, width
+    u, table = u_emb.contiguous(), item_emb.contiguous()
+    # the kernels' tensor maps (TMA) read from 16-byte aligned addresses; a
+    # row's width (64, 128 or 256 bytes) keeps every row aligned
+    if u.data_ptr() % 16 or table.data_ptr() % 16:
+        raise ValueError("u_emb and item_emb must start on 16-byte aligned addresses")
+    return u, table, b, n, width
 
 
 def fused_group_max(u_emb, item_emb, packed_mask) -> torch.Tensor:
@@ -284,9 +364,10 @@ def fused_grouped_topk(u_emb, item_emb, k: int, packed_mask, *, cand_mask: str =
         raise ValueError(f"k={k} must be in [1, {n}]")
     u, table = u_emb.bfloat16(), item_emb.bfloat16()
     gmax = fused_group_max(u, table, packed_mask)
-    # a catalog of fewer than k groups hands all of them on; the choice by K3
-    # that the two-stage route makes is not yet timed on this route
-    gidx = choose_groups_by_sort(gmax, min(k, gmax.shape[1]))
+    # a catalog of fewer than k groups hands all of them on; on the card K3
+    # chooses them, as on the two-stage route (faster than a full sort of the
+    # maxima: chip_smoke.py check_k5)
+    gidx = choose_groups(gmax, min(k, gmax.shape[1]))
     if cand_mask == "external":
         cand = external_mask(fused_candidates_unmasked(u, table, gidx), gidx, packed_mask)
     else:

@@ -349,8 +349,7 @@ def choose_groups(gmax, kp: int) -> torch.Tensor:
 
 def choose_groups_by_sort(gmax, kp: int) -> torch.Tensor:
     """The same by a full stable descending sort of the maxima, its first
-    ``kp`` ids sorted ascending: ``choose_groups``' CPU body, and the fused
-    route's choice on any device."""
+    ``kp`` ids sorted ascending: ``choose_groups``' CPU body."""
     ranked = torch.sort(gmax, dim=1, descending=True, stable=True).indices[:, :kp]
     return torch.sort(ranked, dim=1).values.to(torch.int32)
 
