@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--profile DIR]
     python3 chip_smoke.py --k5a-against DIR [DIR ...]
 
-Drives DiffMM and LightGCN at full width, parameters from a seeded generator.
+Drives DiffMM, GenRecV1 and LightGCN at full width, parameters from a
+seeded generator.
 
 DiffMM on Amazon-baby (19,445 users x 7,050 items, the synthetic fallback
 data), through three paths of the port:
@@ -38,6 +39,19 @@ the fused kernels: evaluate(valid) in float32 and in bfloat16, which takes
 the plane route (bfloat16 scores, K3 with the packed mask), and a
 scores-only view of the float32 model, scored chunk by chunk.
 
+GenRecV1 on Amazon-baby at its published width (embedding 64, one layer,
+a 6-layer ModalDenoise of width 512 over the 7,050 items, ``gen_topk`` 5,
+``rebuild_k`` 10, ``knn_k`` 10, interest debiasing with baby's cluster
+counts), through ``get_model`` and ``get_trainer``: the set-up (adjacency,
+R, the two KNN graphs, the clustering) timed apart; K3 on its KNN rows
+(7,050 x 7,050, k = 10) and on the regeneration's (2,048 x 7,050) planes at
+k = 5 and 10, K1 forward on both KNN graphs, R at d = 128 and the generated
+graph, K1's backward over the transposed CSR of the image KNN graph and of
+R, each against its plain version; two epochs of its three phases; one
+batch against the CPU (dropout masks injected; the CPU takes each
+``leaky_relu`` entry's branch as the card took it); evaluate(valid) and
+evaluate(test) in float32 (K3) and bfloat16 (K5).
+
 Before the paths it builds the CUDA kernels from ``genmmrec_tpu_torch/csrc``
 and holds each one (K1 forward and backward, K2 forward and backward, K3,
 K4, K5a, K5b, K5c) against its plain PyTorch version, on the card, at the
@@ -65,8 +79,8 @@ scatter. Each
 kernel's time stands beside its bound: the larger of the bytes it must move
 over the card's memory rate and its operations over the card's peak rate.
 ``--profile DIR`` adds one more bf16 evaluate(valid) and one more DiffMM
-epoch, phase by phase, under ``torch.profiler`` and writes the kernel tables
-to DIR. ``--k5a-against DIR ...`` does none of the above: it times this
+and GenRecV1 epoch, phase by phase, under ``torch.profiler`` and writes the
+kernel tables to DIR. ``--k5a-against DIR ...`` does none of the above: it times this
 checkout's K5a against the K5a of each other checkout (say an earlier
 commit from ``git archive``), built from its own sources, in turns on the
 same inputs.
@@ -104,6 +118,13 @@ K1_RTOL, K1_ATOL = 1e-5, 1e-6
 # plus GRAD_ATOL of its tensor's largest magnitude.
 LOSS_RTOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-4
+# the batch check's KNN graphs, built on each device, must share this much
+# of their edges; an entry whose pre-activation sits on other sides of 0 on
+# the two devices must be within FLIP_RTOL of its tensor's largest
+# magnitude (about 80 float32 ulps of it), and such entries at most
+# FLIP_SHARE of all
+CARD_GRAPH_SHARE = 0.99
+FLIP_RTOL, FLIP_SHARE = 1e-5, 1e-5
 # bf16 evaluation against the float32 evaluation of the same parameters:
 # bfloat16 scores reorder near-ties only, so Recall@20 and NDCG@20 stay
 # within the bound the JAX package's own test of its bf16 path uses.
@@ -711,7 +732,7 @@ def check_k4_adversarial(torch, dev):
     )
 
 
-def check_nonsymmetric_grad(torch, g, d, card):
+def check_nonsymmetric_grad(torch, g, d, card, case="nonsymmetric_ui"):
     """``spmm`` of a sorted graph that is not symmetric, differentiated on
     the card: the x-gradient (K1 over the graph's transposed CSR) against the
     plain version's autograd, within K1_RTOL · Σ|vals|·|ḡ| + K1_ATOL, and
@@ -755,12 +776,12 @@ def check_nonsymmetric_grad(torch, g, d, card):
     )
     longest = max(int((p.row_ptr[1:] - p.row_ptr[:-1]).max()) for p in (g, t))
     print(
-        f"K1 backward nonsymmetric_ui_d{d} ({g.n_rows} x {g.n_cols}, nnz={g.nnz}, longest row {longest}): x-gradient "
+        f"K1 backward {case}_d{d} ({g.n_rows} x {g.n_cols}, nnz={g.nnz}, longest row {longest}): x-gradient "
         f"over the transposed CSR max_abs_err={e:.3e} repeatable, forward+backward kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, two torch.sparse.mm {lib_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
         f"the two launches without autograd {pair_ms:.4f} ms [{card}]"
     )
-    return dict(case=f"nonsymmetric_ui_d{d}", n_rows=g.n_rows, nnz=g.nnz, longest_row=longest, d=d, max_abs_err=e,
+    return dict(case=f"{case}_d{d}", n_rows=g.n_rows, nnz=g.nnz, longest_row=longest, d=d, max_abs_err=e,
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms, launch_pair_ms=pair_ms, **b)
 
 
@@ -1401,15 +1422,18 @@ def reset_counts():
         fn.launches = 0
 
 
-def train_epoch(torch, trainer, epoch: int, card, profile_dir=None):
+def train_epoch(torch, trainer, epoch: int, card, profile_dir=None, unread=()):
     """One epoch as ``Trainer.fit`` runs it (the prelude's phases 1 and 2,
     then the BPR + InfoNCE epoch), timed phase by phase; each phase checked
-    for the parameters it must leave alone and for its launches."""
+    for the parameters it must leave alone (phases 1 and 2 every ``rec``
+    parameter, the BPR epoch the denoisers and the ``rec`` parameters named
+    in ``unread``, which its loss does not read) and for its launches."""
     model = trainer.model
     groups = model.param_groups()
+    named = dict(model.named_parameters())
     snap = lambda names: [p.detach().clone() for n in names for p in groups[n]]
     same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))
-    dn = ("denoise_image", "denoise_text")
+    dn = tuple(k for k in groups if k != "rec")
     res = {}
 
     profiler = None
@@ -1432,10 +1456,12 @@ def train_epoch(torch, trainer, epoch: int, card, profile_dir=None):
                 out = fn()
                 torch.cuda.synchronize()
                 res[f"{label}_s"] = time.perf_counter() - t0
-            write_profile(torch, prof, profile_dir, f"epoch{epoch}_{label}", res[f"{label}_s"], card)
+            name = f"{type(model).__name__}_epoch{epoch}_{label}"
+            write_profile(torch, prof, profile_dir, name, res[f"{label}_s"], card)
         res[f"{label}_launches"] = launch_counts()
         return out
 
+    res["epoch"] = epoch
     rec0 = snap(["rec"])
     gen = trainer.split("epoch", epoch, "prelude")
     if profiler is None:
@@ -1444,27 +1470,29 @@ def train_epoch(torch, trainer, epoch: int, card, profile_dir=None):
         log = trainer.prelude_log
     else:
         # the prelude's two phases, each under its own profiler
-        steps = -(-model.n_users // trainer.train_batch_size)
-        losses = run("diffusion", lambda: trainer._diffusion_epoch(gen).sum(dim=0).cpu() / steps)
+        losses = run("diffusion", lambda: trainer._diffusion_epoch(gen).cpu())
         run("regenerate", lambda: trainer.regenerate(gen))
-        log = dict(diffusion_s=res["diffusion_s"], regenerate_s=res["regenerate_s"],
-                   diffusion_loss_image=float(losses[0]), diffusion_loss_text=float(losses[1]))
+        log = dict(diffusion_s=res["diffusion_s"], regenerate_s=res["regenerate_s"], **trainer._loss_log(losses))
         res["prelude_launches"] = {
             k: res["diffusion_launches"][k] + res["regenerate_launches"][k] for k in res["diffusion_launches"]
         }
         res["prelude_s"] = log["diffusion_s"] + log["regenerate_s"]
-    for k in ("diffusion_s", "regenerate_s", "diffusion_loss_image", "diffusion_loss_text"):
+    loss_keys = [k for k in log if k.startswith("diffusion_loss")]
+    for k in ("diffusion_s", "regenerate_s", *loss_keys):
         res[k] = log[k]
     if not same(rec0, snap(["rec"])):
         raise AssertionError(f"epoch {epoch}: phases 1 and 2 changed rec parameters")
     dn0 = snap(dn)
+    unread0 = [named[n].detach().clone() for n in unread]
     losses = run("bpr", lambda: trainer._train_epoch(trainer.split("epoch", epoch, "train")).cpu())
     if not same(dn0, snap(dn)):
         raise AssertionError(f"epoch {epoch}: the BPR epoch changed the denoisers")
+    if not same(unread0, [named[n] for n in unread]):
+        raise AssertionError(f"epoch {epoch}: the BPR epoch changed parameters its loss does not read: {unread}")
     res["bpr_loss_sum"] = float(losses.sum())
     res["bpr_loss_first"], res["bpr_loss_last"] = float(losses[0, 0]), float(losses[-1, 0])
     res["bpr_batches"] = losses.shape[0]
-    finite = [res[k] for k in ("diffusion_loss_image", "diffusion_loss_text", "bpr_loss_sum")]
+    finite = [res[k] for k in (*loss_keys, "bpr_loss_sum")]
     if not all(math.isfinite(v) for v in finite) or not bool(torch.isfinite(losses).all()):
         raise AssertionError(f"epoch {epoch}: a loss is not finite: {finite}")
     bpr = res["bpr_launches"]
@@ -1474,10 +1502,10 @@ def train_epoch(torch, trainer, epoch: int, card, profile_dir=None):
         raise AssertionError(f"epoch {epoch}: K3 not launched in the regeneration")
     res["epoch_s"] = res["prelude_s"] + res["bpr_s"]
     res["phase1_users_per_s"] = model.n_users / res["diffusion_s"]
+    shown = " ".join(f"{k[len('diffusion_loss_'):]} {res[k]:.4f}".strip() for k in loss_keys)
     print(
-        f"epoch {epoch}: phase 1 (denoisers) {res['diffusion_s']:.3f} s "
-        f"({res['phase1_users_per_s']:.0f} users/s), loss image {res['diffusion_loss_image']:.4f} "
-        f"text {res['diffusion_loss_text']:.4f}; phase 2 (regenerate) {res['regenerate_s']:.3f} s; "
+        f"{type(model).__name__} epoch {epoch}: phase 1 (denoisers) {res['diffusion_s']:.3f} s "
+        f"({res['phase1_users_per_s']:.0f} users/s), loss {shown}; phase 2 (regenerate) {res['regenerate_s']:.3f} s; "
         f"phase 3 (BPR+InfoNCE, {res['bpr_batches']} batches) {res['bpr_s']:.3f} s, loss first "
         f"{res['bpr_loss_first']:.4f} last {res['bpr_loss_last']:.4f} sum {res['bpr_loss_sum']:.4f}; "
         f"epoch {res['epoch_s']:.3f} s [{card}]"
@@ -1510,10 +1538,35 @@ def write_profile(torch, prof, out_dir, label, wall_s, card):
     print(f"profile {label}: wall {wall_s * 1e3:.2f} ms, device {total_ms:.2f} ms (busy {busy:.1%}); {top}")
 
 
-def check_batch_against_cpu(torch, trainer, td, train_ds, config, card):
+def check_batch_against_cpu(
+    torch, trainer, td, train_ds, config, card, loss_kwargs=None, zero_grads=None, card_graphs=(), replay_branches=False
+):
     """One training batch on the card and on the CPU, from the same
-    parameters, state and batch: the loss and every ``rec`` gradient."""
+    parameters, state and batch: the loss and every ``rec`` gradient.
+
+    ``loss_kwargs`` (tensors on the card, such as dropout masks) go to
+    ``loss`` on both, copied to the CPU for the CPU's. ``zero_grads`` maps
+    a parameter whose gradient is zero but for rounding (a linear bias in
+    front of a batch norm, which subtracts the mean) to the weight of its
+    layer: on both devices it must stay below GRAD_ATOL of that weight's
+    largest gradient.
+
+    Every graph of the model that the CPU builds must equal the card's,
+    edge for edge and value for value, but for those named in
+    ``card_graphs`` (KNN graphs: a top-k over each device's own similarity
+    product may choose another of two near-equal neighbours; K3 against its
+    plain version on the card's rows holds the card's choice). Those must
+    share CARD_GRAPH_SHARE of their edges, and the CPU takes the card's.
+
+    With ``replay_branches`` the CPU takes each ``leaky_relu`` entry's slope
+    as the card took it, where the two devices' pre-activations lie on two
+    sides of 0: an entry within rounding of 0 may take the other slope on
+    one device, whose gradient differs by 0.8 of its cotangent (not a
+    rounding difference). Such an entry must lie within FLIP_RTOL of its
+    tensor's largest magnitude on both devices, and such entries may be at
+    most FLIP_SHARE of all."""
     from genmmrec_tpu_torch.data.arrays import build_train_data, sample_negatives
+    from genmmrec_tpu_torch.ops.graph import SparseGraph
 
     model, dev, cpu = trainer.model, td.device, torch.device("cpu")
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -1527,38 +1580,105 @@ def check_batch_against_cpu(torch, trainer, td, train_ds, config, card):
     cpu_model = type(model)(config, build_train_data(train_ds, cpu))
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     cpu_state = {k: g.to(cpu) for k, g in trainer.state.items()}
+    edges_equal = {}
+    for name, g in vars(model).items():
+        if not isinstance(g, SparseGraph):
+            continue
+        own = getattr(cpu_model, name)
+        same_rows = own.nnz == g.nnz and bool(torch.equal(own.rows, g.rows.cpu()))
+        edges_equal[name] = float((own.cols == g.cols.cpu()).float().mean()) if same_rows else 0.0
+        if name in card_graphs:
+            if edges_equal[name] < CARD_GRAPH_SHARE:
+                raise AssertionError(f"{name}: the CPU's graph shares {edges_equal[name]} of the card's edges")
+            setattr(cpu_model, name, g.to(cpu))
+        elif edges_equal[name] != 1.0 or not torch.equal(own.vals, g.vals.cpu()):
+            raise AssertionError(f"{name}: the CPU's graph differs from the card's (edges equal {edges_equal[name]})")
     rec_names = {id(p) for p in model.param_groups()["rec"]}
 
-    def loss_and_grads(m, state, b):
+    def to_cpu(v):
+        if torch.is_tensor(v):
+            return v.cpu()
+        if isinstance(v, dict):
+            return {k: to_cpu(x) for k, x in v.items()}
+        return tuple(to_cpu(x) for x in v)
+
+    loss_kwargs = loss_kwargs or {}
+    cpu_kwargs = to_cpu(loss_kwargs)
+
+    def loss_and_grads(m, state, b, kwargs):
         m.zero_grad(set_to_none=True)
         with torch.enable_grad():
-            total, _ = m.loss(state, b)
+            total, _ = m.loss(state, b, **kwargs)
             total.backward()
         names = [n for n, p in model.named_parameters() if id(p) in rec_names]
         params = dict(m.named_parameters())
-        return total.item(), {n: params[n].grad.detach().cpu() for n in names}
+        return total.item(), {n: params[n].grad.detach().cpu() for n in names if params[n].grad is not None}
+
+    F = torch.nn.functional
+    leaky_relu, on_card = F.leaky_relu, []
+    flips = dict(flipped=0, entries=0, worst_flip=0.0, worst_apart=0.0)
+
+    def recording(x, negative_slope=0.01, inplace=False):
+        on_card.append(x.detach())
+        return leaky_relu(x, negative_slope)
+
+    def replaying(x, negative_slope=0.01, inplace=False):
+        card_x, own = on_card.pop(0).cpu(), x.detach()
+        apart = (card_x - own).abs() / own.abs().max().clamp(min=1e-30)
+        flipped = (card_x > 0) != (own > 0)
+        flips["flipped"] += int(flipped.sum())
+        flips["entries"] += x.numel()
+        flips["worst_apart"] = max(flips["worst_apart"], float(apart.max()))
+        if flipped.any():
+            # across 0, |card - own| is the sum of the two magnitudes
+            flips["worst_flip"] = max(flips["worst_flip"], float(apart[flipped].max()))
+        return torch.where(card_x > 0, x, x * negative_slope)
 
     t0 = time.perf_counter()
-    loss_gpu, g_gpu = loss_and_grads(model, trainer.state, batch)
-    loss_cpu, g_cpu = loss_and_grads(cpu_model, cpu_state, {k: v.cpu() for k, v in batch.items()})
+    try:
+        if replay_branches:
+            F.leaky_relu = recording
+        loss_gpu, g_gpu = loss_and_grads(model, trainer.state, batch, loss_kwargs)
+        if replay_branches:
+            F.leaky_relu = replaying
+        loss_cpu, g_cpu = loss_and_grads(cpu_model, cpu_state, {k: v.cpu() for k, v in batch.items()}, cpu_kwargs)
+    finally:
+        F.leaky_relu = leaky_relu
     model.zero_grad(set_to_none=True)
     rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    if g_gpu.keys() != g_cpu.keys():
+        raise AssertionError(f"rec gradients of other parameters on the two devices: {g_gpu.keys() ^ g_cpu.keys()}")
     worst = {}
+    zero_grads = zero_grads or {}
     for n, ref in g_cpu.items():
+        if n in zero_grads:
+            scale = GRAD_ATOL * g_cpu[zero_grads[n]].abs().max()
+            worst[n] = float(max(ref.abs().max(), g_gpu[n].abs().max()) / scale)
+            continue
         diff = (g_gpu[n] - ref).abs()
         bound = GRAD_RTOL * ref.abs() + GRAD_ATOL * ref.abs().max()
         worst[n] = float((diff / bound.clamp(min=1e-30)).max())
+    replayed = (
+        f"; leaky_relu: {flips['flipped']} of {flips['entries']} entries on other sides of 0 on the two devices, "
+        f"the CPU took the card's slope there (the largest such pair {flips['worst_flip']:.2e} of its tensor's "
+        f"largest magnitude, bound {FLIP_RTOL:.0e}; any entry's largest difference {flips['worst_apart']:.2e})"
+        if replay_branches else ""
+    )
     print(
         f"card vs CPU, {type(model).__name__}, one batch of {B}: loss {loss_gpu:.7f} vs {loss_cpu:.7f} (rel {rel:.2e}, "
         f"bound {LOSS_RTOL:.0e}); rec gradients, largest share of the bound per tensor "
-        f"{json.dumps({k: round(v, 4) for k, v in worst.items()})} in {time.perf_counter() - t0:.1f} s [{card}]"
+        f"{json.dumps({k: round(v, 4) for k, v in worst.items()})} in {time.perf_counter() - t0:.1f} s; the "
+        f"model's graphs built on the CPU, share of edges equal to the card's {json.dumps(edges_equal)} "
+        f"(the CPU took the card's {list(card_graphs)}){replayed} [{card}]"
     )
     if not math.isfinite(loss_gpu) or rel > LOSS_RTOL:
         raise AssertionError(f"batch loss on the card {loss_gpu} differs from the CPU's {loss_cpu}")
     bad = [n for n, v in worst.items() if not v <= 1.0]
     if bad:
         raise AssertionError(f"rec gradients on the card differ from the CPU's: {bad}")
-    return dict(loss_rel_err=rel, grad_bound_share=max(worst.values()))
+    if flips["worst_flip"] > FLIP_RTOL or flips["flipped"] > FLIP_SHARE * max(flips["entries"], 1):
+        raise AssertionError(f"leaky_relu entries on other sides of 0 past rounding on the two devices: {flips}")
+    return dict(loss_rel_err=rel, grad_bound_share=max(worst.values()), cpu_graph_edges_equal=edges_equal, **flips)
 
 
 def bf16_evaluation_path(torch, config, td, vd, ted, model, valid_f32, test_f32, card, profile_dir=None):
@@ -1915,6 +2035,200 @@ def graph_cf_path(torch, setup, card, steps=40, profile_dir=None):
     return res, launches, total
 
 
+def genrecv1_path(torch, dev, card, profile_dir=None):
+    """GenRecV1 on Amazon-baby at its published width, through
+    ``get_model`` and ``get_trainer``: set-up (the adjacency, R, the two KNN
+    graphs, the clustering), its kernels against their plain versions at
+    the path's shapes, two epochs of its three phases, one batch against the
+    CPU with the dropout masks injected, and the evaluation in float32 and
+    bfloat16. Returns (summary, kernel cases by kernel, launches)."""
+    from genmmrec_tpu_torch.config import Config
+    from genmmrec_tpu_torch.data.arrays import build_eval_data, build_train_data
+    from genmmrec_tpu_torch.data.dataset import RecDataset
+    from genmmrec_tpu_torch.engine.evaluator import group_masks
+    from genmmrec_tpu_torch.engine.trainer import get_trainer
+    from genmmrec_tpu_torch.models import get_model
+    from genmmrec_tpu_torch.ops.graph import knn_graph_sparse
+
+    out, launches = {}, {}
+
+    def timed(label, fn):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[f"{label}_s"] = time.perf_counter() - t0
+        launches[label] = launch_counts()
+        return res
+
+    # -- (a) set-up -----------------------------------------------------
+    t0 = time.perf_counter()
+    config = Config("GenRecV1", "baby", {"save_recommended_topk": False})
+    train_ds, valid_ds, test_ds = RecDataset(config).split()
+    eval_bs = int(config["eval_batch_size"])
+    td = build_train_data(train_ds, dev)
+    vd = build_eval_data(valid_ds, train_ds, eval_bs, dev)
+    ted = build_eval_data(test_ds, train_ds, eval_bs, dev)
+    config["pop_mask"], config["warm_mask"] = group_masks(train_ds, dev)
+    out["data_s"] = time.perf_counter() - t0
+    model = timed("model", lambda: get_model("GenRecV1")(config, td))
+    model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    model.eval()
+    # the two KNN graphs once more, timed apart; the same product and K3 give the model's graphs bit for bit
+    for m, feats, g in (("image", model.v_feat, model.image_II), ("text", model.t_feat, model.text_II)):
+        again = timed(f"knn_{m}", lambda: knn_graph_sparse(feats, model.knn_k, "sym"))
+        if not all(torch.equal(getattr(again, f), getattr(g, f)) for f in ("rows", "cols", "vals")):
+            raise AssertionError(f"GenRecV1 {m} KNN graph: a second build differs from the model's")
+        if launches[f"knn_{m}"]["grouped_topk"] <= 0:
+            raise AssertionError(f"GenRecV1 {m} KNN graph: K3 not launched")
+    trainer = timed("trainer", lambda: get_trainer("GenRecV1")(config, model))
+    if type(trainer).__name__ != "GenRecV1Trainer" or trainer.debias_tables is None:
+        raise AssertionError("get_trainer('GenRecV1') did not give the clustering GenRecV1Trainer")
+    out["cluster_s"] = trainer.cluster_s
+    for ed in (vd, ted):
+        trainer._dense_mask(ed)
+    longest = lambda g: int((g.row_ptr[1:] - g.row_ptr[:-1]).max())
+    graphs = {"adjacency": model.norm_adj, "R": model.R, "image_knn": model.image_II, "text_knn": model.text_II}
+    out["graphs"] = {
+        name: dict(n_rows=g.n_rows, n_cols=g.n_cols, nnz=g.nnz, longest_row=longest(g),
+                   longest_row_transposed=longest(g.transposed()))
+        for name, g in graphs.items()
+    }
+    tables = trainer.debias_tables
+    out["clusters"] = dict(image=int(tables["img_labels"].max()) + 1, text=int(tables["txt_labels"].max()) + 1)
+    print(
+        f"set-up: GenRecV1/baby users={td.n_users} items={td.n_items} train_inters={td.n_inter} "
+        f"graphs {json.dumps(out['graphs'])}; data {out['data_s']:.2f} s (host), model (adjacency, R, both KNN "
+        f"graphs) {out['model_s']:.3f} s, KNN graph image {out['knn_image_s']:.3f} s, text {out['knn_text_s']:.3f} s, "
+        f"clustering (k-means, image k={out['clusters']['image']}, text k={out['clusters']['text']}, n_init 10) "
+        f"{out['cluster_s']:.3f} s [{card}]"
+    )
+
+    # -- (b) kernels at the path's shapes ---------------------------------
+    trainer.regenerate(trainer.split("smoke", "warm-up"))
+    generated = trainer.state["image_ui"]
+    f = torch.nn.functional.normalize(model.v_feat, dim=1, eps=1e-12)
+    k3 = check_k3(torch, [("genrecv1_knn_image_top10", f @ f.T, model.knn_k, None)], card)["cases"]
+    del f
+    B = trainer.train_batch_size
+    users0 = torch.arange(B, device=dev)
+    blended, probs = trainer.generate_chunk(users0, torch.Generator(device=dev).manual_seed(SEED + 3))
+    plane = blended * probs
+    kth = torch.sort(plane, dim=1, descending=True).values[:, model.rebuild_k - 1 : model.rebuild_k]
+    out["rebuild_plane"] = dict(zero_share=float((plane == 0).float().mean()),
+                                rows_tied_at_kth=float(((plane == kth).sum(1) > 1).float().mean()))
+    k3 += check_k3(
+        torch,
+        [("genrecv1_gen_top5", probs, min(model.gen_topk, td.n_items), None),
+         ("genrecv1_rebuild_top10", plane, model.rebuild_k, None)],
+        card,
+    )["cases"]
+    print(
+        f"GenRecV1 regeneration plane (chunk 0): {out['rebuild_plane']['zero_share']:.4f} of blended*probs "
+        f"exact zeros, {out['rebuild_plane']['rows_tied_at_kth']:.4f} of rows tie at the k-th value; K3's "
+        f"indices equal to the plain version's, index order included [{card}]"
+    )
+    del blended, probs, plane
+    k1 = check_spmm(
+        torch,
+        [("genrecv1_image_knn_d64", model.image_II, model.latdim),
+         ("genrecv1_text_knn_d64", model.text_II, model.latdim),
+         ("genrecv1_R_d128", model.R, 2 * model.latdim),
+         ("genrecv1_generated_d64", generated, model.latdim)],
+        card,
+    )["cases"]
+    k1_bwd = [
+        check_nonsymmetric_grad(torch, model.image_II, model.latdim, card, case="genrecv1_image_knn"),
+        check_nonsymmetric_grad(torch, model.R, 2 * model.latdim, card, case="genrecv1_R"),
+    ]
+    k1_bwd += check_spmm_backward(torch, [("genrecv1_generated_d64", generated, model.latdim)], card)["cases"]
+    torch.cuda.empty_cache()
+
+    # -- (c) two epochs, each phase 1, 2 and 3 ----------------------------
+    trainer._build_train_step(td)
+    unread = ("fusion_weight", "img_weight", "txt_weight")
+    epochs = [train_epoch(torch, trainer, epoch, card, unread=unread) for epoch in range(2)]
+    for e in epochs:
+        if e["bpr_launches"]["segment_spmm"] <= 0 or e["bpr_launches"]["segment_spmm_backward"] <= 0:
+            raise AssertionError("GenRecV1: K1 forward or backward not launched in phase 3")
+    if profile_dir:
+        train_epoch(torch, trainer, 2, card, profile_dir=profile_dir, unread=unread)
+
+    # -- (d) one batch on the card against the CPU ------------------------
+    masks = model.dropout_masks(torch.Generator(device=dev).manual_seed(SEED + 4))
+    # the linear layers in front of a batch norm: their biases' gradients are zero but for rounding
+    zero_grads = {
+        n: n[: -len("bias")] + "weight"
+        for n, _ in model.named_parameters() if n.endswith("lin.bias") or n == "common1.bias"
+    }
+    batch_check = check_batch_against_cpu(
+        torch, trainer, td, train_ds, config, card, loss_kwargs={"masks": masks}, zero_grads=zero_grads,
+        card_graphs=("image_II", "text_II"), replay_branches=True,
+    )
+
+    # -- (e) evaluation, float32 (K3) and bfloat16 (fused K5) --------------
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        model.eval_dtype = dtype
+        try:
+            results[f"valid_{tag}"] = timed(f"eval_valid_{tag}", lambda: trainer.evaluate(vd))
+            results[f"test_{tag}"] = timed(f"eval_test_{tag}", lambda: trainer.evaluate(ted, is_test=True))
+            top = trainer.eval_topk(ted)
+        finally:
+            model.eval_dtype = torch.float32
+        mask = trainer._dense_mask(ted)
+        listed = (mask.gather(1, top >> 3) >> (top & 7).to(torch.uint8)) & 1
+        if top.min().item() < 0 or listed[ted.valid].any():
+            raise AssertionError(f"GenRecV1 {tag} evaluation: a pad entry or a train positive is in the top-50")
+    for key, res in results.items():
+        bad = [k for k, v in res.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"GenRecV1 {key}: non-finite metrics {bad}")
+    drift = {
+        f"{split}_{k}": results[f"{split}_bf16"][k] - results[f"{split}_f32"][k]
+        for split in ("valid", "test") for k in ("recall@20", "ndcg@20")
+    }
+    off = {k: v for k, v in drift.items() if abs(v) > BF16_METRIC_ATOL}
+    if off:
+        raise AssertionError(f"GenRecV1 bf16 metrics stray from float32's by more than {BF16_METRIC_ATOL}: {off}")
+    for label in ("eval_valid_bf16", "eval_test_bf16"):
+        need = [n for n in ("fused_group_max", "fused_candidates", "grouped_topk") if launches[label][n] <= 0]
+        if need:
+            raise AssertionError(f"GenRecV1 {label}: {need} not launched")
+    for label in ("eval_valid_f32", "eval_test_f32"):
+        if launches[label]["grouped_topk"] <= 0 or launches[label]["fused_group_max"] > 0:
+            raise AssertionError(f"GenRecV1 {label}: not the K3 route: {launches[label]}")
+    print(
+        f"GenRecV1 evaluate: valid f32 {out['eval_valid_f32_s']:.3f} s, test f32 {out['eval_test_f32_s']:.3f} s, "
+        f"valid bf16 {out['eval_valid_bf16_s']:.3f} s, test bf16 {out['eval_test_bf16_s']:.3f} s; no train positive "
+        f"in any top-50; bf16 - f32 Recall@20/NDCG@20 {json.dumps({k: round(v, 6) for k, v in drift.items()})} "
+        f"(bound {BF16_METRIC_ATOL}) [{card}]"
+    )
+    print(f"GenRecV1 valid f32: {json.dumps(results['valid_f32'])}")
+    print(f"GenRecV1 test f32: {json.dumps(results['test_f32'])}")
+
+    # -- (f) launches --------------------------------------------------------
+    for e in epochs:
+        for phase in ("prelude", "bpr"):
+            launches[f"epoch{e['epoch']}_{phase}"] = e[f"{phase}_launches"]
+    # the path: the model's set-up (its KNN graphs), the trainer's (the
+    # clustering), the epochs and the evaluations; not the KNN graphs' second build
+    path = {k: v for k, v in launches.items() if not k.startswith("knn_")}
+    total = {k: sum(l[k] for l in path.values()) for k in launch_counts()}
+    for name in ("segment_spmm", "segment_spmm_backward", "grouped_topk", "fused_group_max", "fused_candidates"):
+        if total[name] <= 0:
+            raise AssertionError(f"GenRecV1: {name} never launched on its path")
+    print(f"GenRecV1 launches: {json.dumps(launches)}")
+    strip = lambda e: {k: v for k, v in e.items() if not k.endswith("_launches")}
+    summary = dict(**out, epochs=[strip(e) for e in epochs], results=results, bf16_metric_drift=drift,
+                   batch_vs_cpu=batch_check, launches=launches)
+    del trainer, model
+    torch.cuda.empty_cache()
+    return summary, dict(k1=k1, k1_bwd=k1_bwd, k3=k3), total
+
+
 def main() -> int:
     import torch
 
@@ -1935,13 +2249,14 @@ def main() -> int:
         help="only time this checkout's K5a against the K5a of each other checkout DIR, in turns, and stop",
     )
     args = parser.parse_args()
+    smoke_t0 = time.perf_counter()
 
     from genmmrec_tpu_torch.config import Config
     from genmmrec_tpu_torch.data.arrays import build_eval_data, build_train_data
     from genmmrec_tpu_torch.data.dataset import RecDataset
     from genmmrec_tpu_torch.engine.diffusion_trainers import DiffMMTrainer
     from genmmrec_tpu_torch.engine.evaluator import group_masks
-    from genmmrec_tpu_torch.engine.trainer import full_precision_matmuls
+    from genmmrec_tpu_torch.ops.precision import full_precision_matmuls
     from genmmrec_tpu_torch.models.diffmm import DiffMM
     from genmmrec_tpu_torch.ops import _build
     from genmmrec_tpu_torch.ops.topk import grouped_topk_plain
@@ -2194,6 +2509,15 @@ def main() -> int:
     wide_launches = {k: sum(l[k] for l in wide_calls.values()) for k in serving_launches}
     torch.cuda.empty_cache()
 
+    # -- phase 6c: GenRecV1 on Amazon-baby ---------------------------------
+    genrec_t0 = time.perf_counter()
+    genrec, genrec_cases, genrec_launches = genrecv1_path(torch, dev, card, args.profile)
+    k1["cases"] += genrec_cases["k1"]
+    k1_bwd["cases"] += genrec_cases["k1_bwd"]
+    k3["cases"] += genrec_cases["k3"]
+    genrec["phase_s"] = time.perf_counter() - genrec_t0
+    print(f"GenRecV1/baby phase done in {genrec['phase_s']:.1f} s")
+
     # -- phase 7: LightGCN at the Amazon-elec geometry ----------------------
     # the adjacency there takes K2, and the catalog is wide enough for the
     # two-stage top-k (K4): both kernels against their plain versions at the
@@ -2219,7 +2543,7 @@ def main() -> int:
 
     launches = {
         k: serving_launches[k] + switched_launches[k] + bf16_launches[k] + training_launches[k] + wide_launches[k]
-        + elec_launches[k]
+        + elec_launches[k] + genrec_launches[k]
         for k in serving_launches
     }
     never = [k for k, v in launches.items() if v <= 0]
@@ -2280,8 +2604,11 @@ def main() -> int:
         launches_training=training_launches, bf16_eval=bf16_eval,
         fused_grouped_topk=k5["fused_grouped_topk"], batch_vs_cpu=batch_check,
         nonsymmetric_grad=nonsymmetric, unsorted_spmm=unsorted, lightgcn_baby_d192=wide_res,
-        launches_lightgcn_baby_d192=wide_calls, lightgcn_elec=elec_res, launches_lightgcn_elec=elec_calls, card=card,
+        launches_lightgcn_baby_d192=wide_calls, lightgcn_elec=elec_res, launches_lightgcn_elec=elec_calls,
+        genrecv1_baby=dict(**genrec, launches_total=genrec_launches), card=card,
+        total_s=time.perf_counter() - smoke_t0,
     )
+    print(f"chip_smoke: all paths and checks done in {summary['total_s']:.1f} s [{card}]")
     print(json.dumps({"slice": summary}))
     print(json.dumps({"kernels": kernels}))
     print(

@@ -95,6 +95,14 @@ def build_train_data(train_ds: RecDataset, device) -> TrainData:
     )
 
 
+def interaction_vectors(td: TrainData, users: torch.Tensor) -> torch.Tensor:
+    """(B, n_items) 0/1 rows of the users' train items. The history pads
+    with ``n_items``: scatter into one spare column and drop it."""
+    h = td.hist[users]
+    x = torch.zeros(users.shape[0], td.n_items + 1, device=h.device)
+    return x.scatter_(1, h, 1.0)[:, : td.n_items]
+
+
 def build_eval_data(eval_ds: RecDataset, train_ds: RecDataset, batch_size: int, device) -> EvalData:
     n_items = eval_ds.item_num
     e_users = np.asarray(eval_ds.table.users, np.int32)

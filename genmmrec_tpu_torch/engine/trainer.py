@@ -51,23 +51,13 @@ from genmmrec_tpu_torch.engine.checkpoint import load_checkpoint, save_checkpoin
 from genmmrec_tpu_torch.engine.evaluator import TopKEvaluator
 from genmmrec_tpu_torch.models.base import RecModel, scalar
 from genmmrec_tpu_torch.ops.fused_topk import KERNEL_WIDTHS, fused_grouped_topk
+from genmmrec_tpu_torch.ops.precision import full_precision_matmuls
 from genmmrec_tpu_torch.ops.topk import grouped_topk
 from genmmrec_tpu_torch.utils.misc import dict2str, early_stopping
 
 # width granularity of the packed mask: rows are padded to a multiple of
 # this many columns, with the pad columns marked as excluded
 MASK_GROUP = 128
-
-
-def full_precision_matmuls() -> None:
-    """Keep float32 products in full float32: TF32 would keep about three
-    decimal digits, and the scores only feed a top-k whose order must match
-    the float32 reference. Set explicitly for both cuBLAS and cuDNN. A
-    bfloat16 product likewise keeps its sums in float32 to the end (no
-    split reduction in bfloat16), so that a score is rounded once."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 class ChainOptimizer(torch.optim.Optimizer):
@@ -165,6 +155,19 @@ def seeded_generator(device, seed: int, *path) -> torch.Generator:
     words = [seed] + [int.from_bytes(str(p).encode(), "little") for p in path]
     child = int(np.random.SeedSequence(words).generate_state(1, np.uint64)[0]) & ((1 << 63) - 1)
     return torch.Generator(device=device).manual_seed(child)
+
+
+def get_trainer(model_name: Optional[str] = None):
+    """The trainer class of a model (the JAX package's ``get_trainer``):
+    DiffMM and GenRecV1 have their multi-phase trainers, every other model
+    ``Trainer``. MVDiff's trainer is not ported yet and raises."""
+    from genmmrec_tpu_torch.engine import diffusion_trainers as dt
+
+    if model_name == "MVDiff":
+        raise NotImplementedError(
+            "MVDiffTrainer is not ported to genmmrec_tpu_torch yet (ROADMAP.md, Queue 1 item 9)"
+        )
+    return {"DiffMM": dt.DiffMMTrainer, "GenRecV1": dt.GenRecV1Trainer}.get(model_name, Trainer)
 
 
 class Trainer:

@@ -7,9 +7,12 @@ item_emb}`` (BPR, LightGCN), ``{user_embeddings, item_embeddings}``
 DiffMM keeps ``{"rec": {uEmbeds, iEmbeds, modal_weight,
 image_trans, text_trans}, "denoise_image": {...}, "denoise_text": {...}}``
 with linear layers as ``{"w": (d_out, d_in), "b": (d_out,)}`` and layer
-stacks as lists. The port's parameter names are the same paths with the
-``rec`` level dropped, ``w``/``b`` as ``weight``/``bias`` and list indices
-as path parts. The leaves arrive as numpy arrays (``np.asarray`` of the JAX
+stacks as lists; GenRecV1 keeps ``{"rec": {...}, "denoise_image": {...}}``
+with its normalizations as ``{"g", "b"}`` (batch norms under ``rec``, the
+denoiser's layer norms, ``out_ln``) and a bare leaf ``ca_bv`` a layer. The
+port's parameter names are the same paths with the ``rec`` level dropped,
+``w``/``b`` as ``weight``/``bias`` (so a normalization holds ``g`` and
+``bias``, ``common.norm.Norm``) and list indices as path parts. The leaves arrive as numpy arrays (``np.asarray`` of the JAX
 arrays), so this module imports nothing of JAX.
 
 ``jax_tree_by_name`` and ``params_by_jax_name`` flatten the two sides into

@@ -22,6 +22,7 @@ from torch import nn
 
 from genmmrec_tpu_torch.common.init import xavier_uniform
 from genmmrec_tpu_torch.common.losses import exp_denominator_streamed
+from genmmrec_tpu_torch.data.arrays import interaction_vectors
 from genmmrec_tpu_torch.models.base import RecModel, scalar
 from genmmrec_tpu_torch.models.diffusion.dnn import Denoise
 from genmmrec_tpu_torch.models.diffusion.sampler import p_sample_loop
@@ -29,7 +30,8 @@ from genmmrec_tpu_torch.models.diffusion.schedule import make_schedule, q_sample
 from genmmrec_tpu_torch.ops.graph import (
     SparseGraph,
     bipartite_norm_adj,
-    sorted_graph,
+    placeholder_ui_graph,
+    regenerated_ui_graph,
     spmm,
     spmm_multi,
 )
@@ -267,11 +269,7 @@ class DiffMM(RecModel):
 
     # -- diffusion phases (driven by DiffMMTrainer) -----------------------
     def interaction_vectors(self, users: torch.Tensor) -> torch.Tensor:
-        """(B, n_items) 0/1 rows of the users' train items. The history pads
-        with ``n_items``: scatter into one spare column and drop it."""
-        h = self.data.hist[users]
-        x = torch.zeros(users.shape[0], self.n_items + 1, device=h.device)
-        return x.scatter_(1, h, 1.0)[:, : self.n_items]
+        return interaction_vectors(self.data, users)
 
     def p_sample_users(self, denoiser: Denoise, x_start, generator=None):
         """Reverse-diffuse interaction vectors with the eval-mode denoiser."""
@@ -281,37 +279,10 @@ class DiffMM(RecModel):
         )
 
     def rebuild_ui_graph(self, topk_items: torch.Tensor, generator=None) -> SparseGraph:
-        """Static-nnz regenerated graph: symmetrized top-k user-item edges
-        plus self loops, symmetric-normalized, with paired ``keep_rate``
-        edge dropout, row-sorted by a stable sort (the JAX package's edge
-        order)."""
-        U, k = topk_items.shape
-        N = self.n_users + self.n_items
-        dev = topk_items.device
-        u_nodes = torch.arange(U, device=dev).repeat_interleave(k)
-        i_nodes = topk_items.reshape(-1).to(torch.int64) + self.n_users
-        loops = torch.arange(N, device=dev)
-        rows = torch.cat([u_nodes, i_nodes, loops])
-        cols = torch.cat([i_nodes, u_nodes, loops])
-        deg = torch.bincount(rows, minlength=N).to(torch.float32)
-        dis = torch.where(deg > 0, deg.pow(-0.5), torch.zeros_like(deg))
-        vals = dis[rows] * dis[cols]
-        if self.keep_rate < 1.0:
-            # one mask per undirected user-item edge, applied to both
-            # directions, so the graph stays value-symmetric
-            if generator is None:
-                raise ValueError("edge dropout needs a generator")
-            draw = lambda n: torch.rand(n, generator=generator, device=dev) < self.keep_rate
-            m_ui = draw(U * k)
-            mask = torch.cat([m_ui, m_ui, draw(N)])
-            vals = torch.where(mask, vals / self.keep_rate, torch.zeros_like(vals))
-        rows, order = torch.sort(rows, stable=True)
-        return sorted_graph(rows, cols[order], vals[order], N, N, symmetric=True)
+        """The regenerated modal graph of ``topk_items`` (``regenerated_ui_graph``)."""
+        return regenerated_ui_graph(topk_items, self.n_users, self.n_items, self.keep_rate, generator)
 
     def init_state(self, generator=None) -> dict:
         """Self-loop-only graphs until the first regeneration."""
-        topk0 = torch.zeros(self.n_users, self.rebuild_k, dtype=torch.int64, device=self.device)
-        g = self.rebuild_ui_graph(topk0, generator)
-        vals = torch.where(g.rows == g.cols, g.vals, torch.zeros_like(g.vals))
-        g = sorted_graph(g.rows, g.cols, vals, g.n_rows, g.n_cols, symmetric=True)
+        g = placeholder_ui_graph(self.n_users, self.n_items, self.rebuild_k, self.keep_rate, self.device, generator)
         return {"image_ui": g, "text_ui": g}

@@ -15,6 +15,13 @@ any other sorted graph's the same kernel on its transposed CSR, which is
 built at the first backward and kept with the graph. The JAX package's VMEM span planners (``pallas_span``,
 ``pallas_plan``) have no counterpart: the row pointer, the ``blocked`` flag
 and the list of long rows replace them.
+
+Graph constructors: the normalized bipartite adjacency (``bipartite_norm_adj``,
+``ui_norm_adj``), the raw interaction matrix (``interaction_matrix``), an
+item-item KNN graph on the device (``knn_graph_sparse``: a float32
+similarity product and K3's top-k), and the generated user-item graph of
+DiffMM and GenRecV1 (``regenerated_ui_graph``, its stand-in before the
+first regeneration ``placeholder_ui_graph``).
 """
 
 from __future__ import annotations
@@ -26,7 +33,9 @@ import numpy as np
 import torch
 
 from genmmrec_tpu_torch.ops import segment
+from genmmrec_tpu_torch.ops.precision import full_precision_matmuls
 from genmmrec_tpu_torch.ops.segment import spmm_sorted, spmm_symmetric
+from genmmrec_tpu_torch.ops.topk import grouped_topk
 
 
 @dataclasses.dataclass(frozen=True)
@@ -226,6 +235,14 @@ def bipartite_norm_adj(
     return _from_host(rows, cols, vals, N, N, device, symmetric=True)
 
 
+def interaction_matrix(users: np.ndarray, items: np.ndarray, n_users: int, n_items: int, device) -> SparseGraph:
+    """The raw n_users×n_items interaction matrix R: one edge of value 1 per
+    train interaction, stably sorted by user; a repeated (u, i) pair stays
+    two edges, which the product sums. Not symmetric."""
+    ones = np.ones(len(users), np.float32)
+    return _from_host(users.astype(np.int64), items.astype(np.int64), ones, n_users, n_items, device, symmetric=False)
+
+
 def ui_norm_adj(users: np.ndarray, items: np.ndarray, n_users: int, n_items: int, device) -> SparseGraph:
     """Rectangular n_users×n_items D_u^{-1/2} R D_i^{-1/2}, duplicate pairs
     collapsed; not symmetric, so its backward runs over the transposed CSR."""
@@ -263,3 +280,105 @@ def edge_dropout(
         raise ValueError(f"keep must have shape ({n},), not {tuple(keep.shape)}")
     mask = torch.cat([keep, keep]) if paired else keep
     return dataclasses.replace(g, vals=g.vals * mask.to(g.vals.dtype) / keep_prob)
+
+
+# ----------------------------------------------------------------------
+# the most rows of one similarity block of ``knn_graph_sparse``
+KNN_BLOCK = 8192
+KNN_NORMS = ("sym", "rw", "binary_row")
+
+
+def knn_graph_sparse(features: torch.Tensor, topk: int, norm_type: str = "sym") -> SparseGraph:
+    """Item-item KNN graph of ``features`` (n, d), on their device: each
+    row's ``topk`` most cosine-similar rows (itself included), nnz = n·topk,
+    not symmetric.
+
+    The similarity is a float32 product (no TF32: the reference takes it at
+    full precision) of the row-normalized features in blocks of at most
+    ``KNN_BLOCK`` rows, and each row's top-k is K3's (``grouped_topk``,
+    ties to the lower index, as ``lax.top_k``). The degrees and the
+    normalized values are computed in float64, then stored in float32:
+
+    - "sym": cosine values, D^-1/2 S D^-1/2 with D the weighted out-degree;
+    - "rw": cosine values over the weighted out-degree of their row;
+    - "binary_row": unit values, (deg[r] + 1e-7)^-1/2 (deg[c] + 1e-7)^-1/2
+      with deg the out-degree count.
+    """
+    if norm_type not in KNN_NORMS:
+        raise ValueError(f"norm_type must be one of {KNN_NORMS}, not {norm_type!r}")
+    full_precision_matmuls()
+    f = torch.nn.functional.normalize(features.to(torch.float32), dim=1, eps=1e-12)
+    n, dev = f.shape[0], f.device
+    vals, cols = [], []
+    for lo in range(0, n, KNN_BLOCK):
+        v, i = grouped_topk(f[lo : lo + KNN_BLOCK] @ f.T, topk)
+        vals.append(v)
+        cols.append(i)
+    vals = torch.cat(vals).reshape(-1).to(torch.float64)
+    cols = torch.cat(cols).reshape(-1)
+    rows = torch.arange(n, device=dev).repeat_interleave(topk)
+    if norm_type == "binary_row":
+        deg = torch.bincount(rows, minlength=n).to(torch.float64)
+        dis = (deg + 1e-7).pow(-0.5)
+        vals = dis[rows] * dis[cols]
+    else:
+        deg = vals.view(n, topk).sum(dim=1)
+        if norm_type == "sym":
+            dis = torch.where(deg > 0, deg.pow(-0.5), 0.0)
+            vals = dis[rows] * vals * dis[cols]
+        else:
+            vals = torch.where(deg[rows] > 0, vals / deg[rows], 0.0)
+    return sorted_graph(rows, cols, vals.to(torch.float32), n, n)
+
+
+def regenerated_ui_graph(
+    topk_items: torch.Tensor,
+    n_users: int,
+    n_items: int,
+    keep_rate: float,
+    generator: Optional[torch.Generator] = None,
+    keep=None,
+) -> SparseGraph:
+    """The regenerated user-item graph of DiffMM and GenRec-V1, with a
+    static nnz: each user's edges to its ``topk_items`` row in both
+    directions, plus a self loop on every node, symmetric-normalized by the
+    edge counts. With ``keep_rate`` < 1 a paired edge dropout keeps the
+    graph value-symmetric: one draw per user-item edge serves both its
+    directions, one per self loop; ``keep`` gives the two bool masks
+    ((U·k,), (n_users + n_items,)), else they are drawn from ``generator``
+    in that order. The edges are row-sorted by a stable sort (the JAX
+    package's edge order)."""
+    U, k = topk_items.shape
+    N = n_users + n_items
+    dev = topk_items.device
+    u_nodes = torch.arange(U, device=dev).repeat_interleave(k)
+    i_nodes = topk_items.reshape(-1).to(torch.int64) + n_users
+    loops = torch.arange(N, device=dev)
+    rows = torch.cat([u_nodes, i_nodes, loops])
+    cols = torch.cat([i_nodes, u_nodes, loops])
+    deg = torch.bincount(rows, minlength=N).to(torch.float32)
+    dis = torch.where(deg > 0, deg.pow(-0.5), torch.zeros_like(deg))
+    vals = dis[rows] * dis[cols]
+    if keep_rate < 1.0:
+        if keep is None:
+            if generator is None:
+                raise ValueError("edge dropout needs a generator or keep masks")
+            draw = lambda n: torch.rand(n, generator=generator, device=dev) < keep_rate
+            keep = (draw(U * k), draw(N))
+        m_ui, m_loop = keep
+        mask = torch.cat([m_ui, m_ui, m_loop])
+        vals = torch.where(mask, vals / keep_rate, torch.zeros_like(vals))
+    rows, order = torch.sort(rows, stable=True)
+    return sorted_graph(rows, cols[order], vals[order], N, N, symmetric=True)
+
+
+def placeholder_ui_graph(
+    n_users: int, n_items: int, k: int, keep_rate: float, device, generator: Optional[torch.Generator] = None
+) -> SparseGraph:
+    """The regenerated graph's stand-in until the first regeneration: the
+    edge set of ``regenerated_ui_graph`` for item 0 as every user's top-k,
+    with the user-item values 0 and the self loops' values kept."""
+    topk0 = torch.zeros(n_users, k, dtype=torch.int64, device=device)
+    g = regenerated_ui_graph(topk0, n_users, n_items, keep_rate, generator)
+    vals = torch.where(g.rows == g.cols, g.vals, torch.zeros_like(g.vals))
+    return sorted_graph(g.rows, g.cols, vals, g.n_rows, g.n_cols, symmetric=True)
