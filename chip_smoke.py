@@ -52,6 +52,16 @@ batch against the CPU (dropout masks injected; the CPU takes each
 ``leaky_relu`` entry's branch as the card took it); evaluate(valid) and
 evaluate(test) in float32 (K3) and bfloat16 (K5).
 
+The CLI last, on Amazon-baby at the published widths: ``quick_start`` of
+FREEDOM (two epochs; K1 over its item graph and its pruned user-item
+graph, forward and backward; its graphs' K1 against the plain version and
+one batch against the CPU), BM3 (one epoch), VBPR under ``mg`` (the three
+combinations of ``mg.yaml``) and ItemKNNCBF (its similarity's top-k, K3,
+against the plain version), each timed by set-up, epoch and evaluation;
+then ``python -m genmmrec_tpu_torch --model FREEDOM --dataset baby`` with
+bfloat16 evaluation in a child process that names no device, which must
+run on the card (K5a and K5b launched) and print the BEST block.
+
 Before the paths it builds the CUDA kernels from ``genmmrec_tpu_torch/csrc``
 and holds each one (K1 forward and backward, K2 forward and backward, K3,
 K4, K5a, K5b, K5c) against its plain PyTorch version, on the card, at the
@@ -2229,6 +2239,231 @@ def genrecv1_path(torch, dev, card, profile_dir=None):
     return summary, dict(k1=k1, k1_bwd=k1_bwd, k3=k3), total
 
 
+# the CLI phase's runs of ``quick_start``: (model, keyword arguments), each at
+# its published width on Amazon-baby
+CLI_RUNS = (
+    ("FREEDOM", dict(max_epochs=2)),
+    ("BM3", dict(max_epochs=1)),
+    ("VBPR", dict(max_epochs=1, mg=True)),
+    ("ItemKNNCBF", dict()),
+)
+# run in a child process: ``python -m genmmrec_tpu_torch`` as ``-m`` runs it
+# (``runpy`` with the arguments), then the kernels' launch counts on a line
+# of their own
+CLI_CHILD = (
+    "import json, runpy, sys\n"
+    "sys.argv = ['genmmrec_tpu_torch'] + sys.argv[1:]\n"
+    "runpy.run_module('genmmrec_tpu_torch', run_name='__main__', alter_sys=True)\n"
+    "from chip_smoke import launch_counts\n"
+    "import torch\n"
+    "print('cli launches ' + json.dumps(dict(launch_counts(), device=torch.cuda.get_device_name(0))), flush=True)\n"
+)
+
+
+def cli_path(torch, card):
+    """The CLI: ``quick_start`` for each of ``CLI_RUNS`` on Amazon-baby on the
+    card, in a temporary working directory (``log/``, ``saved/`` and
+    ``recommend_topk/`` land there), then ``python -m genmmrec_tpu_torch
+    --model FREEDOM --dataset baby --epochs 1`` with bfloat16 evaluation in a
+    child process that names no device. Each model's set-up, epochs and
+    evaluations are timed by wrapping what ``quick_start`` calls. Checks:
+    finite losses and metrics, a CSV of every user's top-50 for each test
+    evaluation and no train positive in any top-50, K1 forward and backward
+    and K3 launched in the runs, K5a and K5b in the child, FREEDOM's batch
+    on the card against the CPU, ItemKNNCBF's similarity top-k (K3) against
+    its plain version on one block, and FREEDOM's graphs under K1 against
+    their plain versions. Returns (summary, kernel cases by kernel,
+    launches)."""
+    import gc
+    import itertools
+    import logging
+    import tempfile
+
+    from genmmrec_tpu_torch import quick_start as qs
+    from genmmrec_tpu_torch.data.dataset import RecDataset
+    from genmmrec_tpu_torch.engine import evaluator as ev
+
+    out, launches, cases = {}, {}, dict(k1=[], k1_bwd=[], k3=[])
+    made = []
+
+    def timed_model(name):
+        cls = qs_get_model(name)
+
+        def build(config, data):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = cls(config, data)
+            torch.cuda.synchronize()
+            made.append(dict(model=model, setup_s=time.perf_counter() - t0, valid_s=[], test_s=[], test_data=None))
+            return model
+
+        return build
+
+    def timed_trainer(name):
+        cls = qs_get_trainer(name)
+
+        def build(config, model, mg=False):
+            trainer = cls(config, model, mg)
+            run, evaluate = made[-1], trainer.evaluate
+
+            def timed_evaluate(eval_data, is_test=False, idx=0):
+                t0 = time.perf_counter()
+                res = evaluate(eval_data, is_test, idx)
+                run["test_s" if is_test else "valid_s"].append(time.perf_counter() - t0)
+                if is_test:
+                    run["test_data"] = eval_data
+                return res
+
+            trainer.evaluate = timed_evaluate
+            run["trainer"] = trainer
+            return trainer
+
+        return build
+
+    qs_get_model, qs_get_trainer, local_time = qs.get_model, qs.get_trainer, ev.get_local_time
+    stamps = itertools.count()
+    root = logging.getLogger()
+    handlers = list(root.handlers)
+    home, checkout = os.getcwd(), os.path.dirname(os.path.abspath(__file__))
+    n_tests = 0
+    phase_t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        qs.get_model, qs.get_trainer = timed_model, timed_trainer
+        # one CSV name for each test evaluation (a name's time stamp has a
+        # resolution of a second)
+        ev.get_local_time = lambda: f"n{next(stamps)}"
+        try:
+            for name, kwargs in CLI_RUNS:
+                first = len(made)
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                combo, valid, test = qs.quick_start(name, "baby", {}, device="cuda", **kwargs)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches[name] = launch_counts()
+                runs = made[first:]
+                csvs = sorted(os.listdir("recommend_topk"))
+                n_tests += sum(len(r["test_s"]) for r in runs)
+                if len(csvs) != n_tests:
+                    raise AssertionError(f"{name}: {len(csvs)} CSVs for {n_tests} test evaluations")
+                for r in runs:
+                    tr, ted = r["trainer"], r["test_data"]
+                    losses = list(tr.train_loss_dict.values())
+                    if not losses or not all(math.isfinite(v) for v in losses):
+                        raise AssertionError(f"{name}: a training loss is not finite: {losses}")
+                    top = tr.eval_topk(ted)
+                    if top.min().item() < 0:
+                        raise AssertionError(f"{name}: a pad entry is in a top-50")
+                    mask = tr._dense_mask(ted)
+                    listed = (mask.gather(1, top >> 3) >> (top & 7).to(torch.uint8)) & 1
+                    if listed[ted.valid].any():
+                        raise AssertionError(f"{name}: a train positive is in a top-50")
+                for res in (valid, test):
+                    bad = [k for k, v in res.items() if not math.isfinite(v)]
+                    if bad or "recall@20" not in res:
+                        raise AssertionError(f"{name}: non-finite or missing metrics {bad}")
+                need = ["grouped_topk"] + (["segment_spmm", "segment_spmm_backward"] if name in ("FREEDOM", "BM3") else [])
+                if any(launches[name][k] <= 0 for k in need):
+                    raise AssertionError(f"{name}: one of {need} not launched: {launches[name]}")
+                with open(os.path.join("recommend_topk", csvs[-1])) as f:
+                    rows = [ln.split("\t") for ln in f.read().splitlines()]
+                ted = runs[-1]["test_data"]
+                if len(rows) != ted.n_users_eval + 1 or any(len(r) != 51 for r in rows) or rows[0][:2] != ["id", "top_0"]:
+                    raise AssertionError(f"{name}: the last CSV is not a header and one top-50 row a test user")
+                out[name] = dict(
+                    wall_s=wall, combos=len(runs), best_combo=list(combo),
+                    setup_s=[r["setup_s"] for r in runs], epoch_s=[list(r["trainer"].epoch_times) for r in runs],
+                    valid_s=[r["valid_s"] for r in runs], test_s=[r["test_s"] for r in runs],
+                    valid_recall20=valid["recall@20"], test_recall20=test["recall@20"], csvs=len(csvs),
+                )
+                o = out[name]
+                print(
+                    f"CLI quick_start({name}, baby, {kwargs}): {o['combos']} combination(s), best {combo}, "
+                    f"{wall:.2f} s in all; set-up {json.dumps([round(v, 3) for v in o['setup_s']])} s, epochs "
+                    f"{json.dumps([[round(v, 3) for v in e] for e in o['epoch_s']])} s, evaluate(valid) "
+                    f"{json.dumps([[round(v, 3) for v in e] for e in o['valid_s']])} s, evaluate(test) "
+                    f"{json.dumps([[round(v, 3) for v in e] for e in o['test_s']])} s; Recall@20 valid "
+                    f"{valid['recall@20']:.4f} test {test['recall@20']:.4f}; launches {json.dumps(launches[name])} [{card}]"
+                )
+                if name == "FREEDOM":
+                    r = runs[-1]
+                    tr, model = r["trainer"], r["model"]
+                    out[name]["train_batches"] = tr._num_batches * len(tr.epoch_times)
+                    pruned = model.ui.graph(tr.state["masked_vals"])
+                    cases["k1"] += check_spmm(
+                        torch, [("freedom_item_graph_d64", model.mm_adj, model.embedding_dim),
+                                ("freedom_pruned_ui_d64", pruned, model.embedding_dim)], card,
+                    )["cases"]
+                    cases["k1_bwd"].append(
+                        check_nonsymmetric_grad(torch, model.mm_adj, model.embedding_dim, card, case="freedom_item_graph")
+                    )
+                    cases["k1_bwd"] += check_spmm_backward(
+                        torch, [("freedom_pruned_ui_d64", pruned, model.embedding_dim)], card
+                    )["cases"]
+                    train_ds = RecDataset(tr.config).split()[0]
+                    biases = {f"{m}_trs.bias": f"{m}_trs.weight" for m in ("image", "text")}
+                    out[name]["batch_vs_cpu"] = check_batch_against_cpu(
+                        torch, tr, model.data, train_ds, tr.config, card, zero_grads=biases, card_graphs=("mm_adj",),
+                    )
+                if name == "ItemKNNCBF":
+                    model = runs[-1]["model"]
+                    cases["k3"] += check_k3(
+                        torch, [("itemknncbf_similarity_top10", model.similarity(0, 4096), model.knn_k, None)], card
+                    )["cases"]
+                runs = r = tr = model = None
+                made.clear()
+                # a trainer and its timed evaluate hold each other
+                gc.collect()
+                torch.cuda.empty_cache()
+
+            # the command line in a child process, on the default device
+            env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [checkout, os.environ.get("PYTHONPATH")])))
+            args = ["--model", "FREEDOM", "--dataset", "baby", "--epochs", "1", "--config-json",
+                    json.dumps({"eval_dtype": "bfloat16"})]
+            before = set(os.listdir("recommend_topk"))
+            t0 = time.perf_counter()
+            child = subprocess.run([sys.executable, "-c", CLI_CHILD, *args], capture_output=True, text=True,
+                                   env=env, timeout=600)
+            child_s = time.perf_counter() - t0
+            counts = [ln for ln in child.stdout.splitlines() if ln.startswith("cli launches ")]
+            if child.returncode != 0 or not counts:
+                raise AssertionError(f"python -m genmmrec_tpu_torch failed (rc {child.returncode}):\n{child.stderr[-4000:]}")
+            counts = json.loads(counts[-1][len("cli launches "):])
+            best = "█████████████ BEST ████████████████" in child.stderr
+            child_csvs = sorted(set(os.listdir("recommend_topk")) - before)
+            need = [k for k in ("segment_spmm", "segment_spmm_backward", "grouped_topk", "fused_group_max",
+                                "fused_candidates") if counts[k] <= 0]
+            if need or not best or not child_csvs:
+                raise AssertionError(f"python -m genmmrec_tpu_torch: launches {counts}, BEST block {best}, CSVs {child_csvs}")
+            epoch_lines = [ln.split("INFO ", 1)[-1] for ln in child.stderr.splitlines() if "training [time:" in ln
+                           or "evaluating [time:" in ln]
+            launches["cli_child"] = {k: counts[k] for k in launch_counts()}
+            out["cli_child"] = dict(rc=child.returncode, wall_s=child_s, device=counts["device"], log=epoch_lines)
+            print(
+                f"CLI python -m genmmrec_tpu_torch {' '.join(args)} (no --device): rc {child.returncode} in "
+                f"{child_s:.1f} s on {counts['device']}, BEST block printed, CSV {child_csvs[-1]}; "
+                f"{'; '.join(epoch_lines)}; launches {json.dumps(launches['cli_child'])} [{card}]"
+            )
+        finally:
+            qs.get_model, qs.get_trainer, ev.get_local_time = qs_get_model, qs_get_trainer, local_time
+            os.chdir(home)
+            for h in list(root.handlers):
+                root.removeHandler(h)
+                if h not in handlers:
+                    h.close()
+            for h in handlers:
+                root.addHandler(h)
+    total = {k: sum(l[k] for l in launches.values()) for k in launch_counts()}
+    for kname in ("segment_spmm", "segment_spmm_backward", "grouped_topk"):
+        if total[kname] <= 0:
+            raise AssertionError(f"CLI phase: {kname} never launched")
+    out["phase_s"] = time.perf_counter() - phase_t0
+    print(f"CLI phase done in {out['phase_s']:.1f} s; launches {json.dumps(launches)}")
+    return dict(**out, launches=launches), cases, total
+
+
 def main() -> int:
     import torch
 
@@ -2540,10 +2775,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     elec_res, elec_calls, elec_launches = graph_cf_path(torch, elec, card, profile_dir=args.profile)
     print(f"LightGCN/elec phase done in {time.perf_counter() - elec_t0:.1f} s")
+    del elec, adj
+    torch.cuda.empty_cache()
+
+    # -- phase 8: the CLI, quick_start and python -m genmmrec_tpu_torch ----
+    cli, cli_cases, cli_launches = cli_path(torch, card)
+    k1["cases"] += cli_cases["k1"]
+    k1_bwd["cases"] += cli_cases["k1_bwd"]
+    k3["cases"] += cli_cases["k3"]
 
     launches = {
         k: serving_launches[k] + switched_launches[k] + bf16_launches[k] + training_launches[k] + wide_launches[k]
-        + elec_launches[k] + genrec_launches[k]
+        + elec_launches[k] + genrec_launches[k] + cli_launches[k]
         for k in serving_launches
     }
     never = [k for k, v in launches.items() if v <= 0]
@@ -2605,7 +2848,8 @@ def main() -> int:
         fused_grouped_topk=k5["fused_grouped_topk"], batch_vs_cpu=batch_check,
         nonsymmetric_grad=nonsymmetric, unsorted_spmm=unsorted, lightgcn_baby_d192=wide_res,
         launches_lightgcn_baby_d192=wide_calls, lightgcn_elec=elec_res, launches_lightgcn_elec=elec_calls,
-        genrecv1_baby=dict(**genrec, launches_total=genrec_launches), card=card,
+        genrecv1_baby=dict(**genrec, launches_total=genrec_launches),
+        cli=dict(**cli, launches_total=cli_launches), card=card,
         total_s=time.perf_counter() - smoke_t0,
     )
     print(f"chip_smoke: all paths and checks done in {summary['total_s']:.1f} s [{card}]")

@@ -33,11 +33,14 @@ def xavier_normal(shape, generator: torch.Generator, dtype=torch.float32) -> tor
 
 
 @torch.no_grad()
-def init_linear(layer: torch.nn.Linear, generator: torch.Generator, init=xavier_normal) -> None:
+def init_linear(layer: torch.nn.Linear, generator: torch.Generator, init=xavier_normal, zero_bias: bool = False) -> None:
     """The JAX package's ``linear_params`` on an ``nn.Linear`` (weight
     (out, in), applied as x @ Wᵀ + b): ``init`` for the weight and
-    U(±1/sqrt(fan_in)), ``nn.Linear``'s own default, for the bias."""
+    U(±1/sqrt(fan_in)), ``nn.Linear``'s own default, for the bias, or zeros
+    with ``zero_bias`` (the reference's VBPR zeroes its layer's bias)."""
     layer.weight.copy_(init(layer.weight.shape, generator))
-    if layer.bias is not None:
+    if layer.bias is not None and zero_bias:
+        layer.bias.zero_()
+    elif layer.bias is not None:
         bound = 1.0 / math.sqrt(layer.in_features)
         layer.bias.copy_(torch.empty(layer.bias.shape, device=generator.device).uniform_(-bound, bound, generator=generator))

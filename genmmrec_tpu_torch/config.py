@@ -1,9 +1,8 @@
-"""Three-tier YAML configuration, read from the JAX package's config tree.
+"""Three-tier YAML configuration with the hyper-parameter grid.
 
-Counterpart of ``genmmrec_tpu/config.py``. The tier files under
-``genmmrec_tpu/configs/`` are read by path, as data, so the two packages
-share one source of truth and cannot drift apart; nothing of the JAX
-package is imported.
+Counterpart of ``genmmrec_tpu/config.py``. The tier files live in the
+port's own ``configs/`` tree, a copy of the JAX package's
+(``tests/test_torch_cli.py`` holds the two byte-equal).
 
 - merge order: ``overall.yaml`` < ``dataset/<ds>.yaml`` < ``model/<m>.yaml``
   (< ``mg.yaml`` when ``mg=True``), then the runtime ``config_dict`` wins;
@@ -15,17 +14,14 @@ package is imported.
 
 from __future__ import annotations
 
+import itertools
 import os
 import re
 from typing import Any, Dict, List, Optional
 
 import yaml
 
-CONFIG_ROOT = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "genmmrec_tpu",
-    "configs",
-)
+CONFIG_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
 
 _FLOAT_RE = re.compile(
     r"""^(?:
@@ -118,3 +114,15 @@ class Config:
         return "\n" + "\n".join(f"{k}={v}" for k, v in self.final_config_dict.items()) + "\n\n"
 
     __repr__ = __str__
+
+    def hyper_grid(self):
+        """Yield (names, combo) over the hyper-parameter product: a value
+        named in ``hyper_parameters`` that is a list is an axis, any other
+        value a singleton axis; names are de-duplicated in order."""
+        names = list(dict.fromkeys(self.final_config_dict["hyper_parameters"]))
+        axes = []
+        for name in names:
+            v = self.final_config_dict.get(name)
+            axes.append(v if isinstance(v, list) else [v])
+        for combo in itertools.product(*axes):
+            yield names, combo

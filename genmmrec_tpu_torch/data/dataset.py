@@ -178,6 +178,12 @@ class RecDataset:
         nxt.item_num = self.item_num
         return nxt
 
+    def get_user_num(self) -> int:
+        return self.user_num
+
+    def get_item_num(self) -> int:
+        return self.item_num
+
     def __len__(self) -> int:
         return len(self.table)
 

@@ -191,8 +191,8 @@ class DiffMMTrainer(_DiffusionTrainer):
 
 
 class GenRecV1Trainer(_DiffusionTrainer):
-    def __init__(self, config, model):
-        super().__init__(config, model)
+    def __init__(self, config, model, mg: bool = False):
+        super().__init__(config, model, mg)
         self.sample_ratio = float(config["sample_ratio"] or 0.1)
         self.debias_tables = None
         self.cluster_s = 0.0

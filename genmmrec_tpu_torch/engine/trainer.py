@@ -7,6 +7,12 @@ the best valid and test results, and saves a checkpoint on improvement.
 An epoch is a Python loop over batches of a permutation padded to whole
 batches (padding rows weigh 0); negatives, loss, backward and the optimizer
 step stay on the device, and the losses are read back once per epoch.
+With ``mg`` (mirror gradient, ``configs/mg.yaml``) every ``beta``-th batch
+takes two optimizer steps on the same batch: ``alpha1·g``, then
+``−alpha2·g'`` with ``g'`` the gradient at the moved parameters.
+``profile_trace_dir`` puts the first epoch under ``torch.profiler`` and
+writes its Chrome trace there; with ``use_wandb`` and an active wandb run
+the epoch's losses and the evaluations are logged to it.
 
 Randomness: the trainer holds a ``torch.Generator`` seeded from
 ``config["seed"]`` on the model's device, and derives one generator for
@@ -178,10 +184,23 @@ class Trainer:
     # ("kernel") or after K5c in plain PyTorch ("external"); same result
     _FUSED_CAND_MASK = "kernel"
 
-    def __init__(self, config, model):
+    def __init__(self, config, model, mg: bool = False):
         self.config = config
         self.model = model
         self.logger = getLogger()
+        self.mg = mg
+        self.alpha1 = scalar(config["alpha1"] or 1.0) if mg else 1.0
+        self.alpha2 = scalar(config["alpha2"] or 0.0) if mg else 0.0
+        self.beta = scalar(config["beta"] or 1, int) if mg else 1
+        # wandb logs only into a run the caller started
+        self._wandb = None
+        if bool(config["use_wandb"]):
+            try:
+                import wandb
+            except ImportError:
+                wandb = None
+            if wandb is not None and wandb.run is not None:
+                self._wandb = wandb
         self.epochs = int(config["epochs"])
         self.eval_step = min(int(config["eval_step"] or 1), self.epochs)
         self.stopping_step = int(config["stopping_step"])
@@ -257,12 +276,41 @@ class Trainer:
                 neg = torch.zeros_like(pos)
             batch = {"users": users, "pos": pos, "neg": neg, "weight": weight}
             opt.zero_grad(set_to_none=True)
-            total, (parts, self.state) = model.loss_and_update(self.state, batch, generator)
+            total, (parts, state) = model.loss_and_update(self.state, batch, generator)
             total.backward()
+            if self.mg and b % self.beta == 0:
+                self._scale_grads(self.alpha1)
+                opt.step()
+                opt.zero_grad(set_to_none=True)
+                model.loss_and_update(state, batch, generator)[0].backward()
+                self._scale_grads(-self.alpha2)
             opt.step()
+            self.state = state
             parts_all.append(torch.stack([p.detach() for p in parts]))
         opt.zero_grad(set_to_none=True)
         return torch.stack(parts_all)
+
+    def _scale_grads(self, factor: float) -> None:
+        for p in self.model.param_groups()["rec"]:
+            if p.grad is not None:
+                p.grad.mul_(factor)
+
+    def _traced_epoch(self, trace_dir: str, epoch_idx: int, generator: torch.Generator) -> torch.Tensor:
+        """One BPR epoch under ``torch.profiler``; its Chrome trace goes to
+        ``trace_dir``."""
+        from torch.profiler import ProfilerActivity, profile
+
+        cuda = self.model.device.type == "cuda"
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+        with profile(activities=activities) as prof:
+            parts = self._train_epoch(generator)
+            if cuda:
+                torch.cuda.synchronize(self.model.device)
+        os.makedirs(trace_dir, exist_ok=True)
+        path = os.path.join(trace_dir, f"{self.config['model']}-{self.config['dataset']}-epoch{epoch_idx}.json")
+        prof.export_chrome_trace(path)
+        self.logger.info("profiler trace written to %s", path)
+        return parts
 
     def _epoch_prelude(self, generator: torch.Generator, epoch_idx: int) -> None:
         """Hook for the multi-phase trainers, run before each BPR epoch."""
@@ -281,15 +329,20 @@ class Trainer:
         if resume:
             self._resume(str(resume))
         if verbose:
-            n = sum(p.numel() for p in model.parameters())
-            self.logger.info("%s\nTrainable parameters: %d", type(model).__name__, n)
+            self.logger.info(model.describe())
 
         for epoch_idx in range(self.start_epoch, self.epochs):
             t0 = time.time()
             self.state = model.pre_epoch(self.state, self.split("epoch", epoch_idx, "pre"), epoch_idx)
             self._epoch_prelude(self.split("epoch", epoch_idx, "prelude"), epoch_idx)
             if self.req_training:
-                totals = self._train_epoch(self.split("epoch", epoch_idx, "train")).sum(dim=0).cpu().numpy()
+                gen = self.split("epoch", epoch_idx, "train")
+                trace_dir = self.config["profile_trace_dir"]
+                if trace_dir and epoch_idx == self.start_epoch:
+                    parts = self._traced_epoch(str(trace_dir), epoch_idx, gen)
+                else:
+                    parts = self._train_epoch(gen)
+                totals = parts.sum(dim=0).cpu().numpy()
                 if not np.all(np.isfinite(totals)):
                     self.logger.info("Loss is nan at epoch: %d. Exiting.", epoch_idx)
                     break
@@ -308,6 +361,14 @@ class Trainer:
             post_info = model.post_epoch(self.state)
             if post_info is not None and verbose:
                 self.logger.info(post_info)
+            if self._wandb:
+                log = {"epoch": epoch_idx, "train/time": t1 - t0}
+                if isinstance(train_loss, tuple):
+                    log.update({f"train/loss_{i + 1}": l for i, l in enumerate(train_loss)})
+                    log["train/total_loss"] = sum(train_loss)
+                else:
+                    log["train/loss"] = train_loss
+                self._wandb.log(log, step=epoch_idx)
 
             if valid_data is None or (epoch_idx + 1) % self.eval_step != 0:
                 continue
@@ -326,6 +387,17 @@ class Trainer:
                 )
                 self.logger.info("valid result: \n%s", dict2str(valid_result))
                 self.logger.info("test result: \n%s", dict2str(test_result))
+            if self._wandb:
+                self._wandb.log(
+                    {
+                        "epoch": epoch_idx,
+                        "valid/score": valid_score,
+                        "valid/time": tv1 - tv0,
+                        **{f"valid/{k}": v for k, v in valid_result.items()},
+                        **{f"test/{k}": v for k, v in test_result.items()},
+                    },
+                    step=epoch_idx,
+                )
             if update_flag:
                 if verbose:
                     self.logger.info("██ %s--Best validation results updated!!!", self.config["model"])
@@ -493,3 +565,18 @@ class Trainer:
             is_test=is_test,
             idx=idx,
         )
+
+    def plot_train_loss(self, show=True, save_path=None):
+        """The per-epoch training loss, plotted with matplotlib (imported
+        here: nothing else needs it) and saved to ``save_path``."""
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        epochs = sorted(self.train_loss_dict.keys())
+        plt.plot(epochs, [float(self.train_loss_dict[e]) for e in epochs])
+        plt.xlabel("Epoch")
+        plt.ylabel("Loss")
+        if save_path:
+            plt.savefig(save_path)

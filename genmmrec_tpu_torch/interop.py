@@ -3,7 +3,11 @@
 The graph-CF models keep a flat or lightly nested tree, ``{user_emb,
 item_emb}`` (BPR, LightGCN), ``{user_embeddings, item_embeddings}``
 (LayerGCN), ``{"encoder": {user_emb, item_emb}, "predictor": {w, b}}``
-(SELFCFED_LGN), and the port's parameters carry the same paths. The JAX
+(SELFCFED_LGN), ``{user_embedding, item_id_embedding, predictor: {w, b},
+image_embedding, image_trs: {w, b}, text_embedding, text_trs: {w, b}}``
+(BM3; FREEDOM without the predictor and the two tables), ``{u_embedding,
+i_embedding, item_linear: {w, b}}`` (VBPR), ``{dummy_embeddings}``
+(ItemKNNCBF), and the port's parameters carry the same paths. The JAX
 DiffMM keeps ``{"rec": {uEmbeds, iEmbeds, modal_weight,
 image_trans, text_trans}, "denoise_image": {...}, "denoise_text": {...}}``
 with linear layers as ``{"w": (d_out, d_in), "b": (d_out,)}`` and layer

@@ -56,6 +56,17 @@ class RecModel(nn.Module):
             as_dev = lambda a: None if a is None else torch.as_tensor(a, device=self.device)
             self.v_feat, self.t_feat = as_dev(v), as_dev(t)
 
+    @property
+    def item_raw_features(self) -> torch.Tensor:
+        """The raw item features, text then vision (VBPR's pattern), or
+        whichever of the two the model has."""
+        if self.v_feat is not None and self.t_feat is not None:
+            return torch.cat([self.t_feat, self.v_feat], dim=-1)
+        return self.v_feat if self.v_feat is not None else self.t_feat
+
+    def describe(self) -> str:
+        return f"{type(self).__name__}\nTrainable parameters: {sum(p.numel() for p in self.parameters())}"
+
     def init_state(self, generator=None) -> dict:
         return {}
 

@@ -17,7 +17,7 @@ built at the first backward and kept with the graph. The JAX package's VMEM span
 and the list of long rows replace them.
 
 Graph constructors: the normalized bipartite adjacency (``bipartite_norm_adj``,
-``ui_norm_adj``), the raw interaction matrix (``interaction_matrix``), an
+``ui_norm_adj``; ``SampledUIGraph`` with values recomputed per epoch), the raw interaction matrix (``interaction_matrix``), an
 item-item KNN graph on the device (``knn_graph_sparse``: a float32
 similarity product and K3's top-k), and the generated user-item graph of
 DiffMM and GenRecV1 (``regenerated_ui_graph``, its stand-in before the
@@ -191,6 +191,59 @@ def unique_ui_pairs(users: np.ndarray, items: np.ndarray):
     """Deduplicated (user, item) interaction pairs, sorted by (user, item)."""
     pairs = np.unique(np.stack([users.astype(np.int64), items.astype(np.int64)], axis=1), axis=0)
     return pairs[:, 0], pairs[:, 1]
+
+
+class SampledUIGraph:
+    """The symmetric D^{-1/2}AD^{-1/2} adjacency of the unique train pairs
+    over a static edge layout ([u → i + n_users ; i + n_users → u], stably
+    row-sorted), whose values are recomputed from a keep mask over the pairs:
+    the per-epoch edge pruning of LayerGCN and FREEDOM. A pruned pair keeps
+    its two edges at the value 0, so the graph's structure never changes."""
+
+    def __init__(self, users: np.ndarray, items: np.ndarray, n_users: int, n_items: int, device):
+        users, items = unique_ui_pairs(users, items)
+        self.n_users, self.n_items, self.n_edges = n_users, n_items, len(users)
+        self.users = torch.as_tensor(users, device=device)
+        self.items = torch.as_tensor(items, device=device)
+        N = n_users + n_items
+        rows = np.concatenate([users, items + n_users])
+        cols = np.concatenate([items + n_users, users])
+        order = np.argsort(rows, kind="stable")
+        # position of each sorted edge in [v, v], the values of both directions
+        self.perm = torch.as_tensor(order, device=device)
+        self.structure = sorted_graph(
+            torch.as_tensor(rows[order], device=device), torch.as_tensor(cols[order], device=device),
+            torch.zeros(2 * self.n_edges, device=device), N, N, symmetric=True,
+        )
+        # the pairs' degree weights, which the pruning samples by
+        du = np.bincount(users, minlength=n_users) + 1e-7
+        di = np.bincount(items, minlength=n_items) + 1e-7
+        self.edge_values = torch.as_tensor(
+            (np.power(du, -0.5)[users] * np.power(di, -0.5)[items]).astype(np.float32), device=device
+        )
+
+    def values(self, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Normalized values of the kept pairs ((n_edges,) 0/1 float32; all
+        of them when None), degrees + 1e-7, in the layout's edge order."""
+        if keep is None:
+            keep = torch.ones(self.n_edges, device=self.users.device)
+        du = torch.zeros(self.n_users, device=keep.device).index_add_(0, self.users, keep) + 1e-7
+        di = torch.zeros(self.n_items, device=keep.device).index_add_(0, self.items, keep) + 1e-7
+        v = keep * du[self.users] ** -0.5 * di[self.items] ** -0.5
+        return torch.cat([v, v])[self.perm]
+
+    def sample_keep(self, n_keep: int, uniform: torch.Tensor, weighted: bool = True) -> torch.Tensor:
+        """(n_edges,) 0/1 float32: ``n_keep`` pairs without replacement by
+        Gumbel top-k over ``uniform`` ((n_edges,) U[0, 1)), in proportion to
+        ``edge_values`` when ``weighted``, else uniformly; the threshold is
+        the score at sorted position ``n_edges - n_keep``."""
+        g = -torch.log(-torch.log(uniform + 1e-20) + 1e-20)
+        scores = torch.log(self.edge_values) + g if weighted else g
+        thresh = torch.sort(scores).values[self.n_edges - n_keep]
+        return (scores >= thresh).to(torch.float32)
+
+    def graph(self, vals: torch.Tensor) -> SparseGraph:
+        return dataclasses.replace(self.structure, vals=vals)
 
 
 def _from_host(rows, cols, vals, n_rows, n_cols, device, symmetric) -> SparseGraph:

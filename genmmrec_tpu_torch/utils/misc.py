@@ -3,10 +3,21 @@
 from __future__ import annotations
 
 import datetime
+import random
+
+import numpy as np
 
 
 def get_local_time() -> str:
     return datetime.datetime.now().strftime("%b-%d-%Y-%H-%M-%S")
+
+
+def init_seed(seed: int) -> None:
+    """Seed the host's ``random`` and ``numpy``, as the JAX package does. The
+    device draws come from the trainer's generators, seeded from
+    ``config["seed"]``."""
+    random.seed(seed)
+    np.random.seed(seed)
 
 
 def early_stopping(value, best, cur_step, max_step, bigger=True):

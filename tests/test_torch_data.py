@@ -35,7 +35,12 @@ def _both(model, dataset, overrides=None):
 
 
 def test_config_root_is_the_jax_tree():
-    assert os.path.samefile(tcfg.CONFIG_ROOT, jcfg._CONFIG_ROOT)
+    """The port reads its own copy of the JAX package's tier files: the same
+    files under the port's package (``tests/test_torch_cli.py`` holds their
+    bytes equal)."""
+    assert os.path.samefile(tcfg.CONFIG_ROOT, os.path.join(REPO, "genmmrec_tpu_torch", "configs"))
+    rel = lambda root: sorted(os.path.relpath(p, root) for p in glob.glob(os.path.join(root, "**", "*.yaml"), recursive=True))
+    assert rel(tcfg.CONFIG_ROOT) == rel(jcfg._CONFIG_ROOT)
 
 
 def test_every_tier_file_parses_like_the_jax_loader():
