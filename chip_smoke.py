@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--profile DIR]
     python3 chip_smoke.py --k5a-against DIR [DIR ...]
+    python3 chip_smoke.py --mp-only [--profile DIR]
 
 Drives DiffMM, GenRecV1 and LightGCN at full width, parameters from a
 seeded generator.
@@ -52,7 +53,7 @@ batch against the CPU (dropout masks injected; the CPU takes each
 ``leaky_relu`` entry's branch as the card took it); evaluate(valid) and
 evaluate(test) in float32 (K3) and bfloat16 (K5).
 
-The CLI last, on Amazon-baby at the published widths: ``quick_start`` of
+The CLI, on Amazon-baby at the published widths: ``quick_start`` of
 FREEDOM (two epochs; K1 over its item graph and its pruned user-item
 graph, forward and backward; its graphs' K1 against the plain version and
 one batch against the CPU), BM3 (one epoch), VBPR under ``mg`` (the three
@@ -61,6 +62,19 @@ against the plain version), each timed by set-up, epoch and evaluation;
 then ``python -m genmmrec_tpu_torch --model FREEDOM --dataset baby`` with
 bfloat16 evaluation in a child process that names no device, which must
 run on the card (K5a and K5b launched) and print the BEST block.
+
+The message-passing models last (``mp_path``), on Amazon-baby at the
+published widths through ``quick_start``, one epoch and ``evaluate`` of
+valid and test each: MMGCN, GRCN, DualGNN (float32, then bfloat16: K5a and
+K5b), DRAGON, COHESION and MVGAE, each timed by set-up, epoch and
+evaluation; K1 through ``ops/mp.py`` ``propagate`` (``mean``) against its
+plain version on MMGCN's user-item graph at d = 64, 256 and 384 and on
+MVGAE's self-looped one, forward and x-gradient; GRCN's edge-weight
+gradient, and GRCN's and MVGAE's batch (MVGAE's draws made on the card),
+on the card against the CPU; DualGNN's user co-occurrence graph (``R @
+Rᵀ`` and K3's top-40) against its build on the CPU and against scipy's
+sparse counts; K3 on a block of counts against its plain version.
+``--mp-only`` builds the kernels and runs this phase alone.
 
 Before the paths it builds the CUDA kernels from ``genmmrec_tpu_torch/csrc``
 and holds each one (K1 forward and backward, K2 forward and backward, K3,
@@ -2239,13 +2253,15 @@ def genrecv1_path(torch, dev, card, profile_dir=None):
     return summary, dict(k1=k1, k1_bwd=k1_bwd, k3=k3), total
 
 
-# the CLI phase's runs of ``quick_start``: (model, keyword arguments), each at
-# its published width on Amazon-baby
+K1_BOTH = ("segment_spmm", "segment_spmm_backward")
+# the CLI phase's runs of ``quick_start``: (key, model, config overrides,
+# keyword arguments, kernels the run must launch), each at its published
+# width on Amazon-baby
 CLI_RUNS = (
-    ("FREEDOM", dict(max_epochs=2)),
-    ("BM3", dict(max_epochs=1)),
-    ("VBPR", dict(max_epochs=1, mg=True)),
-    ("ItemKNNCBF", dict()),
+    ("FREEDOM", "FREEDOM", {}, dict(max_epochs=2), ("grouped_topk",) + K1_BOTH),
+    ("BM3", "BM3", {}, dict(max_epochs=1), ("grouped_topk",) + K1_BOTH),
+    ("VBPR", "VBPR", {}, dict(max_epochs=1, mg=True), ("grouped_topk",)),
+    ("ItemKNNCBF", "ItemKNNCBF", {}, dict(), ("grouped_topk",)),
 )
 # run in a child process: ``python -m genmmrec_tpu_torch`` as ``-m`` runs it
 # (``runpy`` with the arguments), then the kernels' launch counts on a line
@@ -2260,31 +2276,27 @@ CLI_CHILD = (
 )
 
 
-def cli_path(torch, card):
-    """The CLI: ``quick_start`` for each of ``CLI_RUNS`` on Amazon-baby on the
-    card, in a temporary working directory (``log/``, ``saved/`` and
-    ``recommend_topk/`` land there), then ``python -m genmmrec_tpu_torch
-    --model FREEDOM --dataset baby --epochs 1`` with bfloat16 evaluation in a
-    child process that names no device. Each model's set-up, epochs and
-    evaluations are timed by wrapping what ``quick_start`` calls. Checks:
-    finite losses and metrics, a CSV of every user's top-50 for each test
-    evaluation and no train positive in any top-50, K1 forward and backward
-    and K3 launched in the runs, K5a and K5b in the child, FREEDOM's batch
-    on the card against the CPU, ItemKNNCBF's similarity top-k (K3) against
-    its plain version on one block, and FREEDOM's graphs under K1 against
-    their plain versions. Returns (summary, kernel cases by kernel,
-    launches)."""
+def quick_start_runs(torch, runs, card, label, after=None, last=None):
+    """``quick_start`` of each (key, model, overrides, keyword arguments,
+    kernels) of ``runs`` on Amazon-baby on the card, in a temporary working
+    directory (``log/``, ``saved/`` and ``recommend_topk/`` land there).
+    Each model's set-up, epochs and evaluations are timed by wrapping what
+    ``quick_start`` calls. Checks of each run: finite losses and metrics, a
+    CSV of every user's top-50 for each test evaluation, no train positive
+    in any top-50, each of its kernels launched. ``after(key, run, out)``
+    checks more on the run's last combination (its ``model``, ``trainer``
+    and ``test_data``) while it is alive; ``last(launches, out)`` runs in
+    the directory after the runs. Returns (summary by key, launches by
+    key)."""
     import gc
     import itertools
     import logging
     import tempfile
 
     from genmmrec_tpu_torch import quick_start as qs
-    from genmmrec_tpu_torch.data.dataset import RecDataset
     from genmmrec_tpu_torch.engine import evaluator as ev
 
-    out, launches, cases = {}, {}, dict(k1=[], k1_bwd=[], k3=[])
-    made = []
+    out, launches, made = {}, {}, []
 
     def timed_model(name):
         cls = qs_get_model(name)
@@ -2324,9 +2336,8 @@ def cli_path(torch, card):
     stamps = itertools.count()
     root = logging.getLogger()
     handlers = list(root.handlers)
-    home, checkout = os.getcwd(), os.path.dirname(os.path.abspath(__file__))
+    home = os.getcwd()
     n_tests = 0
-    phase_t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         qs.get_model, qs.get_trainer = timed_model, timed_trainer
@@ -2334,118 +2345,69 @@ def cli_path(torch, card):
         # resolution of a second)
         ev.get_local_time = lambda: f"n{next(stamps)}"
         try:
-            for name, kwargs in CLI_RUNS:
+            for key, name, overrides, kwargs, need in runs:
                 first = len(made)
                 reset_counts()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                combo, valid, test = qs.quick_start(name, "baby", {}, device="cuda", **kwargs)
+                combo, valid, test = qs.quick_start(name, "baby", dict(overrides), device="cuda", **kwargs)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-                launches[name] = launch_counts()
-                runs = made[first:]
+                launches[key] = launch_counts()
+                runs_made = made[first:]
                 csvs = sorted(os.listdir("recommend_topk"))
-                n_tests += sum(len(r["test_s"]) for r in runs)
+                n_tests += sum(len(r["test_s"]) for r in runs_made)
                 if len(csvs) != n_tests:
-                    raise AssertionError(f"{name}: {len(csvs)} CSVs for {n_tests} test evaluations")
-                for r in runs:
+                    raise AssertionError(f"{key}: {len(csvs)} CSVs for {n_tests} test evaluations")
+                for r in runs_made:
                     tr, ted = r["trainer"], r["test_data"]
                     losses = list(tr.train_loss_dict.values())
                     if not losses or not all(math.isfinite(v) for v in losses):
-                        raise AssertionError(f"{name}: a training loss is not finite: {losses}")
+                        raise AssertionError(f"{key}: a training loss is not finite: {losses}")
                     top = tr.eval_topk(ted)
                     if top.min().item() < 0:
-                        raise AssertionError(f"{name}: a pad entry is in a top-50")
+                        raise AssertionError(f"{key}: a pad entry is in a top-50")
                     mask = tr._dense_mask(ted)
                     listed = (mask.gather(1, top >> 3) >> (top & 7).to(torch.uint8)) & 1
                     if listed[ted.valid].any():
-                        raise AssertionError(f"{name}: a train positive is in a top-50")
+                        raise AssertionError(f"{key}: a train positive is in a top-50")
                 for res in (valid, test):
                     bad = [k for k, v in res.items() if not math.isfinite(v)]
                     if bad or "recall@20" not in res:
-                        raise AssertionError(f"{name}: non-finite or missing metrics {bad}")
-                need = ["grouped_topk"] + (["segment_spmm", "segment_spmm_backward"] if name in ("FREEDOM", "BM3") else [])
-                if any(launches[name][k] <= 0 for k in need):
-                    raise AssertionError(f"{name}: one of {need} not launched: {launches[name]}")
+                        raise AssertionError(f"{key}: non-finite or missing metrics {bad}")
+                if any(launches[key][k] <= 0 for k in need):
+                    raise AssertionError(f"{key}: one of {need} not launched: {launches[key]}")
                 with open(os.path.join("recommend_topk", csvs[-1])) as f:
                     rows = [ln.split("\t") for ln in f.read().splitlines()]
-                ted = runs[-1]["test_data"]
+                ted = runs_made[-1]["test_data"]
                 if len(rows) != ted.n_users_eval + 1 or any(len(r) != 51 for r in rows) or rows[0][:2] != ["id", "top_0"]:
-                    raise AssertionError(f"{name}: the last CSV is not a header and one top-50 row a test user")
-                out[name] = dict(
-                    wall_s=wall, combos=len(runs), best_combo=list(combo),
-                    setup_s=[r["setup_s"] for r in runs], epoch_s=[list(r["trainer"].epoch_times) for r in runs],
-                    valid_s=[r["valid_s"] for r in runs], test_s=[r["test_s"] for r in runs],
+                    raise AssertionError(f"{key}: the last CSV is not a header and one top-50 row a test user")
+                out[key] = dict(
+                    wall_s=wall, combos=len(runs_made), best_combo=list(combo),
+                    setup_s=[r["setup_s"] for r in runs_made],
+                    epoch_s=[list(r["trainer"].epoch_times) for r in runs_made],
+                    valid_s=[r["valid_s"] for r in runs_made], test_s=[r["test_s"] for r in runs_made],
                     valid_recall20=valid["recall@20"], test_recall20=test["recall@20"], csvs=len(csvs),
+                    train_batches=runs_made[-1]["trainer"]._num_batches * len(runs_made[-1]["trainer"].epoch_times),
                 )
-                o = out[name]
+                o = out[key]
                 print(
-                    f"CLI quick_start({name}, baby, {kwargs}): {o['combos']} combination(s), best {combo}, "
-                    f"{wall:.2f} s in all; set-up {json.dumps([round(v, 3) for v in o['setup_s']])} s, epochs "
+                    f"{label} quick_start({name}, baby, {overrides}, {kwargs}): {o['combos']} combination(s), best "
+                    f"{combo}, {wall:.2f} s in all; set-up {json.dumps([round(v, 3) for v in o['setup_s']])} s, epochs "
                     f"{json.dumps([[round(v, 3) for v in e] for e in o['epoch_s']])} s, evaluate(valid) "
                     f"{json.dumps([[round(v, 3) for v in e] for e in o['valid_s']])} s, evaluate(test) "
                     f"{json.dumps([[round(v, 3) for v in e] for e in o['test_s']])} s; Recall@20 valid "
-                    f"{valid['recall@20']:.4f} test {test['recall@20']:.4f}; launches {json.dumps(launches[name])} [{card}]"
+                    f"{valid['recall@20']:.4f} test {test['recall@20']:.4f}; launches {json.dumps(launches[key])} [{card}]"
                 )
-                if name == "FREEDOM":
-                    r = runs[-1]
-                    tr, model = r["trainer"], r["model"]
-                    out[name]["train_batches"] = tr._num_batches * len(tr.epoch_times)
-                    pruned = model.ui.graph(tr.state["masked_vals"])
-                    cases["k1"] += check_spmm(
-                        torch, [("freedom_item_graph_d64", model.mm_adj, model.embedding_dim),
-                                ("freedom_pruned_ui_d64", pruned, model.embedding_dim)], card,
-                    )["cases"]
-                    cases["k1_bwd"].append(
-                        check_nonsymmetric_grad(torch, model.mm_adj, model.embedding_dim, card, case="freedom_item_graph")
-                    )
-                    cases["k1_bwd"] += check_spmm_backward(
-                        torch, [("freedom_pruned_ui_d64", pruned, model.embedding_dim)], card
-                    )["cases"]
-                    train_ds = RecDataset(tr.config).split()[0]
-                    biases = {f"{m}_trs.bias": f"{m}_trs.weight" for m in ("image", "text")}
-                    out[name]["batch_vs_cpu"] = check_batch_against_cpu(
-                        torch, tr, model.data, train_ds, tr.config, card, zero_grads=biases, card_graphs=("mm_adj",),
-                    )
-                if name == "ItemKNNCBF":
-                    model = runs[-1]["model"]
-                    cases["k3"] += check_k3(
-                        torch, [("itemknncbf_similarity_top10", model.similarity(0, 4096), model.knn_k, None)], card
-                    )["cases"]
-                runs = r = tr = model = None
+                if after is not None:
+                    after(key, runs_made[-1], o)
+                runs_made = tr = ted = None
                 made.clear()
                 # a trainer and its timed evaluate hold each other
                 gc.collect()
                 torch.cuda.empty_cache()
-
-            # the command line in a child process, on the default device
-            env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [checkout, os.environ.get("PYTHONPATH")])))
-            args = ["--model", "FREEDOM", "--dataset", "baby", "--epochs", "1", "--config-json",
-                    json.dumps({"eval_dtype": "bfloat16"})]
-            before = set(os.listdir("recommend_topk"))
-            t0 = time.perf_counter()
-            child = subprocess.run([sys.executable, "-c", CLI_CHILD, *args], capture_output=True, text=True,
-                                   env=env, timeout=600)
-            child_s = time.perf_counter() - t0
-            counts = [ln for ln in child.stdout.splitlines() if ln.startswith("cli launches ")]
-            if child.returncode != 0 or not counts:
-                raise AssertionError(f"python -m genmmrec_tpu_torch failed (rc {child.returncode}):\n{child.stderr[-4000:]}")
-            counts = json.loads(counts[-1][len("cli launches "):])
-            best = "█████████████ BEST ████████████████" in child.stderr
-            child_csvs = sorted(set(os.listdir("recommend_topk")) - before)
-            need = [k for k in ("segment_spmm", "segment_spmm_backward", "grouped_topk", "fused_group_max",
-                                "fused_candidates") if counts[k] <= 0]
-            if need or not best or not child_csvs:
-                raise AssertionError(f"python -m genmmrec_tpu_torch: launches {counts}, BEST block {best}, CSVs {child_csvs}")
-            epoch_lines = [ln.split("INFO ", 1)[-1] for ln in child.stderr.splitlines() if "training [time:" in ln
-                           or "evaluating [time:" in ln]
-            launches["cli_child"] = {k: counts[k] for k in launch_counts()}
-            out["cli_child"] = dict(rc=child.returncode, wall_s=child_s, device=counts["device"], log=epoch_lines)
-            print(
-                f"CLI python -m genmmrec_tpu_torch {' '.join(args)} (no --device): rc {child.returncode} in "
-                f"{child_s:.1f} s on {counts['device']}, BEST block printed, CSV {child_csvs[-1]}; "
-                f"{'; '.join(epoch_lines)}; launches {json.dumps(launches['cli_child'])} [{card}]"
-            )
+            if last is not None:
+                last(launches, out)
         finally:
             qs.get_model, qs.get_trainer, ev.get_local_time = qs_get_model, qs_get_trainer, local_time
             os.chdir(home)
@@ -2455,12 +2417,369 @@ def cli_path(torch, card):
                     h.close()
             for h in handlers:
                 root.addHandler(h)
+    return out, launches
+
+
+def cli_path(torch, card):
+    """The CLI: ``quick_start`` for each of ``CLI_RUNS`` (``quick_start_runs``),
+    then ``python -m genmmrec_tpu_torch --model FREEDOM --dataset baby
+    --epochs 1`` with bfloat16 evaluation in a child process that names no
+    device. Checks beside the runs': K5a and K5b launched in the child,
+    FREEDOM's batch on the card against the CPU, ItemKNNCBF's similarity
+    top-k (K3) against its plain version on one block, and FREEDOM's graphs
+    under K1 against their plain versions. Returns (summary, kernel cases by
+    kernel, launches)."""
+    from genmmrec_tpu_torch.data.dataset import RecDataset
+
+    cases = dict(k1=[], k1_bwd=[], k3=[])
+    checkout = os.path.dirname(os.path.abspath(__file__))
+
+    def after(key, r, o):
+        tr, model = r["trainer"], r["model"]
+        if key == "FREEDOM":
+            pruned = model.ui.graph(tr.state["masked_vals"])
+            cases["k1"] += check_spmm(
+                torch, [("freedom_item_graph_d64", model.mm_adj, model.embedding_dim),
+                        ("freedom_pruned_ui_d64", pruned, model.embedding_dim)], card,
+            )["cases"]
+            cases["k1_bwd"].append(
+                check_nonsymmetric_grad(torch, model.mm_adj, model.embedding_dim, card, case="freedom_item_graph")
+            )
+            cases["k1_bwd"] += check_spmm_backward(
+                torch, [("freedom_pruned_ui_d64", pruned, model.embedding_dim)], card
+            )["cases"]
+            train_ds = RecDataset(tr.config).split()[0]
+            biases = {f"{m}_trs.bias": f"{m}_trs.weight" for m in ("image", "text")}
+            o["batch_vs_cpu"] = check_batch_against_cpu(
+                torch, tr, model.data, train_ds, tr.config, card, zero_grads=biases, card_graphs=("mm_adj",),
+            )
+        if key == "ItemKNNCBF":
+            cases["k3"] += check_k3(
+                torch, [("itemknncbf_similarity_top10", model.similarity(0, 4096), model.knn_k, None)], card
+            )["cases"]
+
+    def child(launches, out):
+        # the command line in a child process, on the default device
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [checkout, os.environ.get("PYTHONPATH")])))
+        args = ["--model", "FREEDOM", "--dataset", "baby", "--epochs", "1", "--config-json",
+                json.dumps({"eval_dtype": "bfloat16"})]
+        before = set(os.listdir("recommend_topk"))
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-c", CLI_CHILD, *args], capture_output=True, text=True,
+                             env=env, timeout=600)
+        child_s = time.perf_counter() - t0
+        counts = [ln for ln in run.stdout.splitlines() if ln.startswith("cli launches ")]
+        if run.returncode != 0 or not counts:
+            raise AssertionError(f"python -m genmmrec_tpu_torch failed (rc {run.returncode}):\n{run.stderr[-4000:]}")
+        counts = json.loads(counts[-1][len("cli launches "):])
+        best = "█████████████ BEST ████████████████" in run.stderr
+        child_csvs = sorted(set(os.listdir("recommend_topk")) - before)
+        need = [k for k in ("segment_spmm", "segment_spmm_backward", "grouped_topk", "fused_group_max",
+                            "fused_candidates") if counts[k] <= 0]
+        if need or not best or not child_csvs:
+            raise AssertionError(f"python -m genmmrec_tpu_torch: launches {counts}, BEST block {best}, CSVs {child_csvs}")
+        epoch_lines = [ln.split("INFO ", 1)[-1] for ln in run.stderr.splitlines() if "training [time:" in ln
+                       or "evaluating [time:" in ln]
+        launches["cli_child"] = {k: counts[k] for k in launch_counts()}
+        out["cli_child"] = dict(rc=run.returncode, wall_s=child_s, device=counts["device"], log=epoch_lines)
+        print(
+            f"CLI python -m genmmrec_tpu_torch {' '.join(args)} (no --device): rc {run.returncode} in "
+            f"{child_s:.1f} s on {counts['device']}, BEST block printed, CSV {child_csvs[-1]}; "
+            f"{'; '.join(epoch_lines)}; launches {json.dumps(launches['cli_child'])} [{card}]"
+        )
+
+    phase_t0 = time.perf_counter()
+    out, launches = quick_start_runs(torch, CLI_RUNS, card, "CLI", after, child)
     total = {k: sum(l[k] for l in launches.values()) for k in launch_counts()}
     for kname in ("segment_spmm", "segment_spmm_backward", "grouped_topk"):
         if total[kname] <= 0:
             raise AssertionError(f"CLI phase: {kname} never launched")
     out["phase_s"] = time.perf_counter() - phase_t0
     print(f"CLI phase done in {out['phase_s']:.1f} s; launches {json.dumps(launches)}")
+    return dict(**out, launches=launches), cases, total
+
+
+# the message-passing phase's runs of ``quick_start``, each model at its
+# published widths on Amazon-baby for one epoch; a hyper-parameter list of
+# the YAML is set to one of its values, so that the grid is one combination
+MP_NEED = ("grouped_topk",) + K1_BOTH
+MP_RUNS = (
+    ("MMGCN", "MMGCN", {"reg_weight": 0.0001}, dict(max_epochs=1), MP_NEED),
+    ("GRCN", "GRCN", {"reg_weight": 0.001}, dict(max_epochs=1), MP_NEED),
+    ("DualGNN", "DualGNN", {}, dict(max_epochs=1), MP_NEED),
+    ("DualGNN_bf16", "DualGNN", {"eval_dtype": "bfloat16"}, dict(max_epochs=1),
+     MP_NEED + ("fused_group_max", "fused_candidates")),
+    ("DRAGON", "DRAGON", {"learning_rate": 0.001, "reg_weight": 0.001}, dict(max_epochs=1), MP_NEED),
+    ("COHESION", "COHESION", {}, dict(max_epochs=1), MP_NEED),
+    ("MVGAE", "MVGAE", {"beta": 0.1}, dict(max_epochs=1), MP_NEED),
+)
+# the users of the user graph built on both devices for its check
+USER_GRAPH_CHECK_USERS = 4096
+
+
+def propagate_plain(torch, g, x, aggr, w=None):
+    """``propagate``'s plain version: the scatter of the weighted messages
+    (``index_add_``) and, for ``mean``, the division by the clamped in-degree."""
+    w = g.vals if w is None else w
+    out = torch.zeros(g.n_rows, x.shape[1], device=x.device).index_add_(0, g.rows.long(), w[:, None] * x[g.cols.long()])
+    if aggr == "mean":
+        out = out / (g.row_ptr[1:] - g.row_ptr[:-1]).float().clamp(min=1.0)[:, None]
+    return out
+
+
+def check_propagate(torch, cases_in, card):
+    """K1 through ``ops/mp.py`` ``propagate`` against its plain version on
+    each (name, graph, aggr, d): the forward within K1_RTOL · Σ|terms| (over
+    the degree for ``mean``) + K1_ATOL, and the x-gradient through autograd
+    (K1 on the cotangent over the graph's own edges or its transposed CSR)
+    within the same bound over Aᵀ; both bit-equal on a second run. Timed:
+    the forward (also K1's launch alone, and the forward's device time from
+    a CUDA graph), and forward+backward through autograd, against the plain
+    version and the library (``torch.sparse.mm``, then the division for
+    ``mean``; two products for forward+backward). Returns (forward cases,
+    backward cases)."""
+    from genmmrec_tpu_torch.ops.mp import propagate
+    from genmmrec_tpu_torch.ops.segment import segment_spmm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    fwd_cases, bwd_cases = [], []
+    for name, g, aggr, d in cases_in:
+        deg = (g.row_ptr[1:] - g.row_ptr[:-1]).float().clamp(min=1.0) if aggr == "mean" else None
+        scale = (lambda y: y / deg[:, None]) if aggr == "mean" else (lambda y: y)
+        t = g if g.symmetric else g.transposed()
+        x = torch.randn(g.n_cols, d, generator=gen, device="cuda")
+        g_bar = torch.randn(g.n_rows, d, generator=gen, device="cuda")
+        abs_g = dataclasses.replace(g, vals=g.vals.abs())
+        out = propagate(x, g, aggr)
+        diff = (out - propagate_plain(torch, g, x, aggr)).abs()
+        magnitude = propagate_plain(torch, abs_g, x.abs(), aggr)
+        e = diff.max().item()
+        if not bool((diff <= K1_RTOL * magnitude + K1_ATOL).all()):
+            raise AssertionError(f"K1 propagate {name}: kernel and plain version differ by up to {e:.3e}")
+        if not torch.equal(propagate(x, g, aggr), out):
+            raise AssertionError(f"K1 propagate {name}: two launches differ")
+        k_ms, p_ms = timed_pair(torch, lambda: propagate(x, g, aggr), lambda: propagate_plain(torch, g, x, aggr))
+        # K1's launch alone, and propagate's device time with the host out of the way
+        launch_ms = cuda_ms(torch, lambda: segment_spmm(g.row_ptr, g.cols, g.vals, x, g.n_rows, g.long_rows))
+        device_ms = graph_ms(torch, lambda: propagate(x, g, aggr))
+        csr = torch.sparse_csr_tensor(g.row_ptr, g.cols, g.vals, size=(g.n_rows, g.n_cols), check_invariants=False)
+        csr_t = torch.sparse_csr_tensor(t.row_ptr, t.cols, t.vals, size=(t.n_rows, t.n_cols), check_invariants=False)
+        l_ms = cuda_ms(torch, lambda: scale(torch.sparse.mm(csr, x)))
+        b = Bound().add(nbytes(g.row_ptr, g.cols, g.vals, x, out), 2.0 * g.nnz * d, F32_FLOPS)
+        with torch.enable_grad():
+            xg = x.clone().requires_grad_()
+            grad = lambda fwd: torch.autograd.grad(fwd(xg), xg, g_bar)[0]
+            kernel_fb = lambda: grad(lambda v: propagate(v, g, aggr))
+            plain_fb = lambda: grad(lambda v: propagate_plain(torch, g, v, aggr))
+            got, ref = kernel_fb(), plain_fb()
+            diff_b = (got - ref).abs()
+            magnitude_b = propagate_plain(torch, dataclasses.replace(t, vals=t.vals.abs()), scale(g_bar).abs(), "add")
+            eb = diff_b.max().item()
+            if not bool((diff_b <= K1_RTOL * magnitude_b + K1_ATOL).all()):
+                raise AssertionError(f"K1 backward propagate {name}: x-gradients differ by up to {eb:.3e}")
+            if not torch.equal(kernel_fb(), got):
+                raise AssertionError(f"K1 backward propagate {name}: two backward runs differ")
+            kb_ms, pb_ms = timed_pair(torch, kernel_fb, plain_fb)
+        lb_ms = cuda_ms(torch, lambda: (scale(torch.sparse.mm(csr, x)), torch.sparse.mm(csr_t, scale(g_bar))))
+        bb = Bound().add(2 * nbytes(g.row_ptr, g.cols, g.vals, x, g_bar), 4.0 * g.nnz * d, F32_FLOPS)
+        longest = int((g.row_ptr[1:] - g.row_ptr[:-1]).max())
+        route = "the same edges" if g.symmetric else "the transposed CSR"
+        print(
+            f"K1 propagate {name} ({aggr}, {g.n_rows} rows, nnz={g.nnz}, longest row {longest}, d={d}): forward "
+            f"max_abs_err={e:.3e} repeatable, kernel {k_ms:.4f} ms (K1's launch alone {launch_ms:.4f} ms; device time "
+            f"from a CUDA graph {device_ms:.4f} ms), plain {p_ms:.4f} ms, torch.sparse.mm {l_ms:.4f} "
+            f"ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}); x-gradient over {route} max_abs_err={eb:.3e} "
+            f"repeatable, forward+backward kernel {kb_ms:.4f} ms, plain {pb_ms:.4f} ms, two torch.sparse.mm "
+            f"{lb_ms:.4f} ms, bound {bb['bound_ms']:.4f} ms [{card}]"
+        )
+        common = dict(n_rows=g.n_rows, nnz=g.nnz, longest_row=longest, d=d, aggr=aggr)
+        fwd_cases.append(dict(case=f"propagate_{name}", max_abs_err=e, ms=k_ms, launch_ms=launch_ms,
+                              graph_ms=device_ms, plain_ms=p_ms, library_ms=l_ms, **common, **b))
+        bwd_cases.append(dict(case=f"propagate_{name}", max_abs_err=eb, ms=kb_ms, plain_ms=pb_ms, library_ms=lb_ms,
+                              backward_route=route, **common, **bb))
+    return fwd_cases, bwd_cases
+
+
+def check_edge_weight_grad(torch, g, d, card, name):
+    """``propagate(x, g, "add", w)`` with an edge weight that requires a
+    gradient (GRCN's): the x-gradient (K1 over the transposed CSR) and the
+    edge-weight gradient (``_Spmm``'s plain ``Σ_d x[src]·ḡ[dst]``) on the
+    card against the same on the CPU, each element within K1_RTOL of the
+    sum of its terms' magnitudes + K1_ATOL; timed forward+backward against
+    the plain version's autograd on the card."""
+    from genmmrec_tpu_torch.ops.mp import propagate
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    x = torch.randn(g.n_cols, d, generator=gen, device="cuda")
+    w = torch.rand(g.nnz, generator=gen, device="cuda")
+    g_bar = torch.randn(g.n_rows, d, generator=gen, device="cuda")
+
+    def grads(graph, fwd, *args):
+        with torch.enable_grad():
+            xs, ws = (a.clone().requires_grad_() for a in args[:2])
+            return torch.autograd.grad(fwd(graph, xs, ws), (xs, ws), args[2])
+
+    kernel = lambda graph, xs, ws: propagate(xs, graph, "add", ws)
+    plain = lambda graph, xs, ws: propagate_plain(torch, graph, xs, "add", ws)
+    on_card = grads(g, kernel, x, w, g_bar)
+    cpu = torch.device("cpu")
+    on_cpu = grads(g.to(cpu), kernel, x.cpu(), w.cpu(), g_bar.cpu())
+    t = g.transposed(w)
+    mag_x = propagate_plain(torch, dataclasses.replace(t, vals=t.vals.abs()), g_bar.abs(), "add")
+    mag_w = (x[g.cols.long()].abs() * g_bar[g.rows.long()].abs()).sum(-1)
+    errs = {}
+    for part, got, ref, mag in (("x", on_card[0], on_cpu[0], mag_x), ("edge_weight", on_card[1], on_cpu[1], mag_w)):
+        diff = (got.cpu() - ref).abs()
+        errs[part] = diff.max().item()
+        if not bool((diff <= K1_RTOL * mag.cpu() + K1_ATOL).all()):
+            raise AssertionError(f"{name}: the {part} gradient on the card differs from the CPU's by up to {errs[part]:.3e}")
+    ms, plain_ms = timed_pair(torch, lambda: grads(g, kernel, x, w, g_bar), lambda: grads(g, plain, x, w, g_bar))
+    print(
+        f"K1 backward {name} (edge weights with a gradient, {g.n_rows} rows, nnz={g.nnz}, d={d}): x-gradient over the "
+        f"transposed CSR and the edge-weight gradient on the card against the CPU, max_abs_err x {errs['x']:.3e}, "
+        f"edge weight {errs['edge_weight']:.3e}; forward+backward kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]"
+    )
+    return dict(case=name, d=d, max_abs_err_x=errs["x"], max_abs_err_edge_weight=errs["edge_weight"], ms=ms,
+                plain_ms=plain_ms)
+
+
+def _sorted_and_strict(np, nbrs, w):
+    """Each row's weights sorted descending, and each row's set of
+    neighbours whose weight is above the row's least."""
+    return -np.sort(-w, axis=1), [frozenset(n[x > x.min()].tolist()) for n, x in zip(nbrs, w)]
+
+
+def check_user_graph(torch, model, train_ds, card):
+    """DualGNN's user co-occurrence graph. ``build_user_graph`` on the card
+    and on the CPU for the first USER_GRAPH_CHECK_USERS users'
+    pairs: each row's sorted weights within 1e-6 and the neighbours above
+    the row's least weight equal (counts tie, so the ids of tied neighbours
+    may differ). The model's full graph against a host reference from
+    scipy's sparse ``R @ Rᵀ``: the same two. K3 on one block of counts
+    against its plain version."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from genmmrec_tpu_torch.models.dualgnn import USER_GRAPH_BLOCK, build_user_graph
+    from genmmrec_tpu_torch.ops.graph import unique_ui_pairs
+
+    users, items = unique_ui_pairs(train_ds.table.users, train_ds.table.items)
+    k, n_items = model.k, model.n_items
+    as_rows = lambda g: (g.cols.cpu().numpy().reshape(-1, k), g.vals.cpu().numpy().reshape(-1, k))
+    sel = users < USER_GRAPH_CHECK_USERS
+    sub = [as_rows(build_user_graph(model.config, users[sel], items[sel], USER_GRAPH_CHECK_USERS, n_items, k, dev))
+           for dev in ("cuda", "cpu")]
+    (card_w, card_s), (cpu_w, cpu_s) = (_sorted_and_strict(np, *r) for r in sub)
+    sub_err = float(np.abs(card_w - cpu_w).max())
+    if sub_err > 1e-6 or card_s != cpu_s:
+        raise AssertionError(f"user graph: the card's build differs from the CPU's ({sub_err:.3e})")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = build_user_graph(model.config, users, items, model.n_users, n_items, k, "cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if not all(torch.equal(getattr(full, f), getattr(model.user_graph, f)) for f in ("rows", "cols", "vals")):
+        raise AssertionError("user graph: a second build on the card differs from the model's")
+    r = sp.csr_matrix((np.ones(len(users), np.float32), (users, items)), shape=(model.n_users, n_items))
+    co = (r @ r.T).tocsr()
+    co.setdiag(0)  # every user's diagonal entry exists: no change of structure
+    co.eliminate_zeros()
+    ref_w = np.zeros((model.n_users, k))
+    ref_s = []
+    for u in range(model.n_users):
+        cnt, nb = co.data[co.indptr[u] : co.indptr[u + 1]], co.indices[co.indptr[u] : co.indptr[u + 1]]
+        top = -np.sort(-cnt)[:k]
+        if len(top):
+            e = np.exp(top - top[0])
+            ref_w[u, : len(top)] = e / e.sum()
+        cut = top[k - 1] if len(top) >= k else 0
+        ref_s.append(frozenset(nb[cnt > cut].tolist()))
+    got_w, got_s = _sorted_and_strict(np, *as_rows(model.user_graph))
+    full_err = float(np.abs(got_w - ref_w).max())
+    if full_err > 1e-6 or got_s != ref_s:
+        raise AssertionError(f"user graph: the card's graph differs from scipy's counts ({full_err:.3e}, "
+                             f"{sum(a != b for a, b in zip(got_s, ref_s))} rows' strict sets)")
+    n_full = int((ref_w > 0).all(1).sum())
+    tied = int(sum((w == w.min()).sum() > 1 for w in got_w[(ref_w > 0).all(1)]))
+    print(
+        f"user graph (DualGNN/baby, {model.n_users} users, top-{k}): built on the card in {build_s:.3f} s (R @ Rᵀ in "
+        f"blocks of {USER_GRAPH_BLOCK}, K3), equal to a second build; against the CPU's build on {USER_GRAPH_CHECK_USERS} "
+        f"users sorted weights within {sub_err:.1e}, strict sets equal; against scipy's counts sorted weights within "
+        f"{full_err:.1e}, strict sets equal ({n_full} rows of {k} neighbours, {tied} of them tied at the least) [{card}]"
+    )
+    rt = torch.zeros(model.n_users, n_items, device="cuda")
+    rt[torch.as_tensor(users, device="cuda"), torch.as_tensor(items, device="cuda")] = 1.0
+    block = rt[:USER_GRAPH_BLOCK] @ rt.T
+    block[torch.arange(USER_GRAPH_BLOCK, device="cuda"), torch.arange(USER_GRAPH_BLOCK, device="cuda")] = 0.0
+    k3 = check_k3(torch, [("dualgnn_cooccurrence_top40", block, k, None)], card)["cases"]
+    return dict(build_s=build_s, subset_max_abs_err=sub_err, full_max_abs_err=full_err, full_rows=n_full,
+                tied_rows=tied), k3
+
+
+def mp_path(torch, card, profile_dir=None):
+    """The message-passing models: ``quick_start`` for each of ``MP_RUNS``
+    (``quick_start_runs``: one epoch, ``evaluate`` valid and test; DualGNN
+    once more with bfloat16 evaluation, K5a and K5b). Checks beside the
+    runs': K1 through ``propagate`` against its plain version on MMGCN's
+    dst-sorted user-item graph (``mean``) at d = 64, 256 and 384 and on
+    MVGAE's self-looped one at d = 64, forward and backward; GRCN's
+    edge-weight gradient on the card against the CPU; one batch's loss and
+    every gradient on the card against the CPU for GRCN and for MVGAE (its
+    draws made on the card and handed to both); DualGNN's user graph
+    (``check_user_graph``). ``profile_dir`` adds ten more training batches
+    of each model under ``torch.profiler``. Returns (summary, kernel cases by
+    kernel, launches)."""
+    from genmmrec_tpu_torch.data.dataset import RecDataset
+
+    cases = dict(k1=[], k1_bwd=[], k3=[])
+    data = {}
+
+    def train_ds(config):
+        # the baby data of every run: generated once for the checks
+        if "train" not in data:
+            data["train"] = RecDataset(config).split()[0]
+        return data["train"]
+
+    def after(key, r, o):
+        tr, model = r["trainer"], r["model"]
+        if key in ("MMGCN", "MVGAE"):
+            widths = (model.dim_x,) + ((model.dim_latent_v, model.t_feat.shape[1]) if key == "MMGCN" else ())
+            f, b = check_propagate(torch, [(f"{key.lower()}_ui_mean_d{d}", model.graph, "mean", d) for d in widths], card)
+            cases["k1"] += f
+            cases["k1_bwd"] += b
+        if key == "GRCN":
+            cases["k1_bwd"].append(check_edge_weight_grad(torch, model.graph, model.dim_x, card, "grcn_edge_weights_d64"))
+            o["batch_vs_cpu"] = check_batch_against_cpu(
+                torch, tr, model.data, train_ds(tr.config), tr.config, card, replay_branches=True
+            )
+        if key == "MVGAE":
+            keep, noise = model.draws(torch.Generator(device="cuda").manual_seed(SEED + 11))
+            o["batch_vs_cpu"] = check_batch_against_cpu(
+                torch, tr, model.data, train_ds(tr.config), tr.config, card,
+                loss_kwargs=dict(keep=keep, noise=noise), replay_branches=True,
+            )
+        if key == "DualGNN":
+            o["user_graph"], k3 = check_user_graph(torch, model, train_ds(tr.config), card)
+            cases["k3"] += k3
+        if profile_dir:
+            from torch.profiler import ProfilerActivity, profile
+
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+            B = tr.train_batch_size
+            idx = torch.randperm(tr._num_batches * B, generator=gen, device="cuda")[: 10 * B].reshape(10, B)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                tr._train_epoch(gen, plan={"idx": idx})
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            write_profile(torch, prof, profile_dir, f"{key}_baby_train_10_batches", wall, card)
+
+    phase_t0 = time.perf_counter()
+    out, launches = quick_start_runs(torch, MP_RUNS, card, "mp_path", after)
+    total = {k: sum(l[k] for l in launches.values()) for k in launch_counts()}
+    out["phase_s"] = time.perf_counter() - phase_t0
+    print(f"mp_path phase done in {out['phase_s']:.1f} s; launches {json.dumps(launches)}")
     return dict(**out, launches=launches), cases, total
 
 
@@ -2477,7 +2796,12 @@ def main() -> int:
     parser.add_argument(
         "--profile", metavar="DIR",
         help="profile one more bf16 evaluation and one more epoch of DiffMM, phase by phase, and ten more "
-        "training batches and two more evaluations of LightGCN, into DIR",
+        "training batches and two more evaluations of LightGCN, ten more batches of each message-passing "
+        "model, into DIR",
+    )
+    parser.add_argument(
+        "--mp-only", action="store_true",
+        help="only build the kernels and run the message-passing phase (mp_path), and stop",
     )
     parser.add_argument(
         "--k5a-against", nargs="+", metavar="DIR",
@@ -2511,6 +2835,10 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}")
     if args.k5a_against:
         print(json.dumps({"k5a_against": k5a_against(torch, args.k5a_against, card)}))
+        return 0
+    if args.mp_only:
+        mp, mp_cases, mp_launches = mp_path(torch, card, args.profile)
+        print(json.dumps({"mp_path": dict(**mp, launches_total=mp_launches), "kernel_cases": mp_cases}))
         return 0
 
     # -- the slice's data and model (set-up) ------------------------------
@@ -2780,13 +3108,16 @@ def main() -> int:
 
     # -- phase 8: the CLI, quick_start and python -m genmmrec_tpu_torch ----
     cli, cli_cases, cli_launches = cli_path(torch, card)
-    k1["cases"] += cli_cases["k1"]
-    k1_bwd["cases"] += cli_cases["k1_bwd"]
-    k3["cases"] += cli_cases["k3"]
+    # -- phase 9: the message-passing models -------------------------------
+    mp, mp_cases, mp_launches = mp_path(torch, card, args.profile)
+    for cs in (cli_cases, mp_cases):
+        k1["cases"] += cs["k1"]
+        k1_bwd["cases"] += cs["k1_bwd"]
+        k3["cases"] += cs["k3"]
 
     launches = {
         k: serving_launches[k] + switched_launches[k] + bf16_launches[k] + training_launches[k] + wide_launches[k]
-        + elec_launches[k] + genrec_launches[k] + cli_launches[k]
+        + elec_launches[k] + genrec_launches[k] + cli_launches[k] + mp_launches[k]
         for k in serving_launches
     }
     never = [k for k, v in launches.items() if v <= 0]
@@ -2849,7 +3180,7 @@ def main() -> int:
         nonsymmetric_grad=nonsymmetric, unsorted_spmm=unsorted, lightgcn_baby_d192=wide_res,
         launches_lightgcn_baby_d192=wide_calls, lightgcn_elec=elec_res, launches_lightgcn_elec=elec_calls,
         genrecv1_baby=dict(**genrec, launches_total=genrec_launches),
-        cli=dict(**cli, launches_total=cli_launches), card=card,
+        cli=dict(**cli, launches_total=cli_launches), mp_path=dict(**mp, launches_total=mp_launches), card=card,
         total_s=time.perf_counter() - smoke_t0,
     )
     print(f"chip_smoke: all paths and checks done in {summary['total_s']:.1f} s [{card}]")

@@ -32,6 +32,18 @@ def xavier_normal(shape, generator: torch.Generator, dtype=torch.float32) -> tor
     return normal(shape, math.sqrt(2.0 / (fan_in + fan_out)), generator, dtype)
 
 
+def uniform(shape, bound: float, generator: torch.Generator, dtype=torch.float32) -> torch.Tensor:
+    """U(±bound)."""
+    out = torch.empty(shape, dtype=dtype, device=generator.device)
+    return out.uniform_(-bound, bound, generator=generator)
+
+
+def kaiming_uniform_default(shape, generator: torch.Generator, dtype=torch.float32) -> torch.Tensor:
+    """``nn.Linear``'s default weight init, kaiming_uniform_(a=sqrt(5)):
+    U(±1/sqrt(fan_in)) with fan_in = shape[-1]."""
+    return uniform(shape, 1.0 / math.sqrt(shape[-1]), generator, dtype)
+
+
 @torch.no_grad()
 def init_linear(layer: torch.nn.Linear, generator: torch.Generator, init=xavier_normal, zero_bias: bool = False) -> None:
     """The JAX package's ``linear_params`` on an ``nn.Linear`` (weight
@@ -42,5 +54,4 @@ def init_linear(layer: torch.nn.Linear, generator: torch.Generator, init=xavier_
     if layer.bias is not None and zero_bias:
         layer.bias.zero_()
     elif layer.bias is not None:
-        bound = 1.0 / math.sqrt(layer.in_features)
-        layer.bias.copy_(torch.empty(layer.bias.shape, device=generator.device).uniform_(-bound, bound, generator=generator))
+        layer.bias.copy_(uniform(layer.bias.shape, 1.0 / math.sqrt(layer.in_features), generator))

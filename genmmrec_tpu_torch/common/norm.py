@@ -1,7 +1,8 @@
 """The scale and shift of a normalization, named as the JAX package's
 ``{"g": ones, "b": zeros}`` leaves (``b`` reads ``bias`` in the port, so
 ``interop.from_jax_params`` copies them across by name), with the two
-normalizations that use them."""
+normalizations that use them; and the row normalization of the
+message-passing models (``l2n``)."""
 
 from __future__ import annotations
 
@@ -28,3 +29,8 @@ class Norm(nn.Module):
         mu = x.mean(dim=0, keepdim=True)
         var = x.var(dim=0, keepdim=True, correction=0)
         return (x - mu) / torch.sqrt(var + EPS) * self.g + self.bias
+
+
+def l2n(x: torch.Tensor) -> torch.Tensor:
+    """Each row over its L2 norm, ``x / sqrt(Σx² + 1e-12)`` (the JAX models' ``_l2n``)."""
+    return x / torch.sqrt((x * x).sum(-1, keepdim=True) + 1e-12)

@@ -94,7 +94,8 @@ class RecDataset:
         with open(inter_file, "r", newline="", encoding="utf-8") as f:
             reader = csv.reader(f, delimiter=sep)
             header = next(reader)
-            rows = list(reader)
+            # a blank line yields an empty row; the JAX loader skips it
+            rows = [r for r in reader if r]
         col = {name: i for i, name in enumerate(header)}
         missing = [
             c for c in (self.uid_field, self.iid_field, self.splitting_label) if c not in col

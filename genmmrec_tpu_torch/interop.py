@@ -7,7 +7,18 @@ item_emb}`` (BPR, LightGCN), ``{user_embeddings, item_embeddings}``
 image_embedding, image_trs: {w, b}, text_embedding, text_trs: {w, b}}``
 (BM3; FREEDOM without the predictor and the two tables), ``{u_embedding,
 i_embedding, item_linear: {w, b}}`` (VBPR), ``{dummy_embeddings}``
-(ItemKNNCBF), and the port's parameters carry the same paths. The JAX
+(ItemKNNCBF), and the port's parameters carry the same paths. The
+message-passing models nest their towers and keep bare leaves beside the
+linear layers: ``{id_embedding, v_gcn: {preference, conv1_w, lin1: {w, b},
+g1: {w, b}, ..., mlp: {w, b}}, t_gcn: {...}}`` (MMGCN; ``conv{i}_w`` is
+(in, out), applied as ``x @ W``), ``{id_embedding, v_preference, v_mlp:
+{w, b}, t_preference, t_mlp, model_specific_conf}`` (GRCN),
+``{v_preference, v_mlp, v_mlp1, t_preference, t_mlp, t_mlp1, weight_u (U,
+2, 1), weight_i}`` (DualGNN, DRAGON), ``{id_feat, id_gcn: {preference,
+mlp, mlp1}, v_gcn, t_gcn, weight_u}`` (COHESION), ``{collaborative,
+v_gcn: {preference, mlp, conv1: {w (in, out), b}, g1, conv2, g2, conv4,
+lin4, g4, conv5, lin5, g5}, t_gcn, c_gcn}`` (MVGAE; a ``conv`` is not an
+``nn.Linear``, so its ``weight`` keeps the (in, out) layout). The JAX
 DiffMM keeps ``{"rec": {uEmbeds, iEmbeds, modal_weight,
 image_trans, text_trans}, "denoise_image": {...}, "denoise_text": {...}}``
 with linear layers as ``{"w": (d_out, d_in), "b": (d_out,)}`` and layer

@@ -24,7 +24,7 @@ from torch import nn
 from genmmrec_tpu_torch.common.init import init_linear, xavier_normal, xavier_uniform
 from genmmrec_tpu_torch.common.losses import bpr_loss
 from genmmrec_tpu_torch.models.base import RecModel, scalar
-from genmmrec_tpu_torch.ops.graph import SampledUIGraph, knn_graph_sparse, sorted_graph, spmm
+from genmmrec_tpu_torch.ops.graph import SampledUIGraph, mixed_knn_graph, spmm
 
 
 class FREEDOM(RecModel):
@@ -40,26 +40,13 @@ class FREEDOM(RecModel):
         self.dropout = scalar(config["dropout"])
         dev = self.device
         self.ui = SampledUIGraph(data.users.cpu().numpy(), data.items.cpu().numpy(), self.n_users, self.n_items, dev)
-        self.mm_adj = self._item_graph()
+        self.mm_adj = mixed_knn_graph(self.v_feat, self.t_feat, self.knn_k, self.mm_image_weight)
         self.user_embedding = nn.Parameter(torch.empty(self.n_users, d, device=dev))
         self.item_id_embedding = nn.Parameter(torch.empty(self.n_items, d, device=dev))
         if self.v_feat is not None:
             self.image_trs = nn.Linear(self.v_feat.shape[1], self.feat_embed_dim, device=dev)
         if self.t_feat is not None:
             self.text_trs = nn.Linear(self.t_feat.shape[1], self.feat_embed_dim, device=dev)
-
-    def _item_graph(self):
-        """The weighted union of the modalities' KNN graphs, stably row-sorted."""
-        parts = []
-        if self.v_feat is not None:
-            parts.append((knn_graph_sparse(self.v_feat, self.knn_k, "binary_row"), self.mm_image_weight))
-        if self.t_feat is not None:
-            w = 1.0 - self.mm_image_weight if parts else 1.0
-            parts.append((knn_graph_sparse(self.t_feat, self.knn_k, "binary_row"), w))
-        rows, order = torch.sort(torch.cat([g.rows for g, _ in parts]), stable=True)
-        cols = torch.cat([g.cols for g, _ in parts])[order]
-        vals = torch.cat([g.vals * w for g, w in parts])[order]
-        return sorted_graph(rows, cols, vals, self.n_items, self.n_items)
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> None:

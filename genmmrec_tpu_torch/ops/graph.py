@@ -19,7 +19,8 @@ and the list of long rows replace them.
 Graph constructors: the normalized bipartite adjacency (``bipartite_norm_adj``,
 ``ui_norm_adj``; ``SampledUIGraph`` with values recomputed per epoch), the raw interaction matrix (``interaction_matrix``), an
 item-item KNN graph on the device (``knn_graph_sparse``: a float32
-similarity product and K3's top-k), and the generated user-item graph of
+similarity product and K3's top-k; ``mixed_knn_graph``, the weighted union
+of two modalities' graphs), and the generated user-item graph of
 DiffMM and GenRecV1 (``regenerated_ui_graph``, its stand-in before the
 first regeneration ``placeholder_ui_graph``).
 """
@@ -382,6 +383,24 @@ def knn_graph_sparse(features: torch.Tensor, topk: int, norm_type: str = "sym") 
         else:
             vals = torch.where(deg[rows] > 0, vals / deg[rows], 0.0)
     return sorted_graph(rows, cols, vals.to(torch.float32), n, n)
+
+
+def mixed_knn_graph(v_feat, t_feat, topk: int, image_weight: float) -> SparseGraph:
+    """The multimodal item graph of FREEDOM, DRAGON and COHESION: each
+    modality's ``binary_row`` KNN graph, the image graph's values times
+    ``image_weight`` and the text graph's times the rest (all of it when
+    there is no image graph), as one edge list (a pair in both stays two
+    edges) stably row-sorted, image edges first."""
+    parts = []
+    if v_feat is not None:
+        parts.append((knn_graph_sparse(v_feat, topk, "binary_row"), image_weight))
+    if t_feat is not None:
+        parts.append((knn_graph_sparse(t_feat, topk, "binary_row"), 1.0 - image_weight if parts else 1.0))
+    rows, order = torch.sort(torch.cat([g.rows for g, _ in parts]), stable=True)
+    cols = torch.cat([g.cols for g, _ in parts])[order]
+    vals = torch.cat([g.vals * w for g, w in parts])[order]
+    n = parts[0][0].n_rows
+    return sorted_graph(rows, cols, vals, n, n)
 
 
 def regenerated_ui_graph(

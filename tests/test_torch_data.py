@@ -156,3 +156,23 @@ def test_chip_smoke_fails_without_a_gpu(where, tmp_path):
     )
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("where", ["end", "middle"])
+def test_inter_file_with_a_blank_line_loads(where, tmp_path):
+    """A blank line in a .inter file, after the last row or between two rows:
+    the port skips it as the JAX loader does, and both read the same table
+    (four rows, two users, two items)."""
+    rows = ["0\t0\t5\t100\t0", "0\t1\t4\t101\t1", "1\t0\t3\t102\t2", "1\t1\t2\t103\t0"]
+    lines = rows + [""] if where == "end" else rows[:2] + [""] + rows[2:]
+    d = tmp_path / "toy"
+    d.mkdir()
+    (d / "toy.inter").write_text("userID\titemID\trating\ttimestamp\tx_label\n" + "\n".join(lines) + "\n")
+    over = {"data_path": str(tmp_path), "inter_file_name": "toy.inter"}
+    jc, tc = _both("DiffMM", "tiny", over)
+    jc["dataset"] = tc["dataset"] = "toy"
+    jd, td = JDataset(jc), TDataset(tc)
+    assert (len(td), td.user_num, td.item_num) == (len(jd), jd.user_num, jd.item_num) == (4, 2, 2)
+    for f in ("users", "items", "ratings", "times"):
+        np.testing.assert_array_equal(getattr(td.table, f), getattr(jd.table, f))
+    np.testing.assert_array_equal(td.labels, jd.labels)
