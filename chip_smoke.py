@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--profile DIR]
     python3 chip_smoke.py --k5a-against DIR [DIR ...]
     python3 chip_smoke.py --mp-only [--profile DIR]
+    python3 chip_smoke.py --mmg-only [--profile DIR]
 
 Drives DiffMM, GenRecV1 and LightGCN at full width, parameters from a
 seeded generator.
@@ -75,6 +76,20 @@ on the card against the CPU; DualGNN's user co-occurrence graph (``R @
 Rᵀ`` and K3's top-40) against its build on the CPU and against scipy's
 sparse counts; K3 on a block of counts against its plain version.
 ``--mp-only`` builds the kernels and runs this phase alone.
+
+The last multimodal graph models after them (``mmg_path``), the same way:
+GUME, LATTICE, MGCN (float32, then bfloat16: K5a and K5b), LGMRec, SMORE,
+PGL, SLMRec and DAMRS. LATTICE's per-step top-k of its learned
+similarity: K3 on that plane against its plain version and ``torch.topk``,
+the learned graph's gradient on the card against the CPU, three training
+batches that must launch K3 twice each, with their peak memory; LATTICE's
+and SLMRec's batch on the card against the CPU (LATTICE's CPU takes the
+card's original planes and top-k columns); SMORE's fusion graph against
+its CPU build and K3 at its k = 40; DAMRS's co-occurrence neighbours
+against the CPU's build and scipy's counts, and K3 on a block of counts;
+K1 forward and backward on GUME's augmented graph (not symmetric) and
+forward on SMORE's fusion graph. ``--mmg-only`` builds the kernels and
+runs this phase alone.
 
 Before the paths it builds the CUDA kernels from ``genmmrec_tpu_torch/csrc``
 and holds each one (K1 forward and backward, K2 forward and backward, K3,
@@ -148,6 +163,10 @@ GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-4
 # magnitude (about 80 float32 ulps of it), and such entries at most
 # FLIP_SHARE of all
 CARD_GRAPH_SHARE = 0.99
+# a top-k inside the loss (LATTICE's per step) on the card and on the CPU:
+# at most this share of its rows may choose other columns on the two
+# devices (near-equal similarities), and the CPU then takes the card's
+TOPK_ROW_SHARE = 1e-2
 FLIP_RTOL, FLIP_SHARE = 1e-5, 1e-5
 # bf16 evaluation against the float32 evaluation of the same parameters:
 # bfloat16 scores reorder near-ties only, so Recall@20 and NDCG@20 stay
@@ -1563,7 +1582,8 @@ def write_profile(torch, prof, out_dir, label, wall_s, card):
 
 
 def check_batch_against_cpu(
-    torch, trainer, td, train_ds, config, card, loss_kwargs=None, zero_grads=None, card_graphs=(), replay_branches=False
+    torch, trainer, td, train_ds, config, card, loss_kwargs=None, zero_grads=None, card_graphs=(), replay_branches=False,
+    card_tensors=(), replay_topk=False,
 ):
     """One training batch on the card and on the CPU, from the same
     parameters, state and batch: the loss and every ``rec`` gradient.
@@ -1581,6 +1601,15 @@ def check_batch_against_cpu(
     product may choose another of two near-equal neighbours; K3 against its
     plain version on the card's rows holds the card's choice). Those must
     share CARD_GRAPH_SHARE of their edges, and the CPU takes the card's.
+    The dense planes named in ``card_tensors`` (LATTICE's original KNN
+    graphs) must share CARD_GRAPH_SHARE of their nonzero pattern, and the
+    CPU takes the card's.
+
+    With ``replay_topk`` the CPU takes the card's columns of every top-k of
+    the loss (``ops.graph.grouped_topk``: LATTICE's per-step KNN of its
+    learned similarity, whose near-equal neighbours either device may rank
+    first) and gathers its own values there; the rows whose own columns
+    differ are counted and may be at most TOPK_ROW_SHARE of all.
 
     With ``replay_branches`` the CPU takes each ``leaky_relu`` entry's slope
     as the card took it, where the two devices' pre-activations lie on two
@@ -1617,6 +1646,12 @@ def check_batch_against_cpu(
             setattr(cpu_model, name, g.to(cpu))
         elif edges_equal[name] != 1.0 or not torch.equal(own.vals, g.vals.cpu()):
             raise AssertionError(f"{name}: the CPU's graph differs from the card's (edges equal {edges_equal[name]})")
+    for name in card_tensors:
+        theirs = getattr(model, name).cpu()
+        edges_equal[name] = float(((getattr(cpu_model, name) != 0) == (theirs != 0)).float().mean())
+        if edges_equal[name] < CARD_GRAPH_SHARE:
+            raise AssertionError(f"{name}: the CPU's plane shares {edges_equal[name]} of the card's pattern")
+        setattr(cpu_model, name, theirs)
     rec_names = {id(p) for p in model.param_groups()["rec"]}
 
     def to_cpu(v):
@@ -1658,16 +1693,37 @@ def check_batch_against_cpu(
             flips["worst_flip"] = max(flips["worst_flip"], float(apart[flipped].max()))
         return torch.where(card_x > 0, x, x * negative_slope)
 
+    import genmmrec_tpu_torch.ops.graph as G
+
+    topk, picked, topk_rows = G.grouped_topk, [], dict(rows=0, differ=0)
+
+    def recording_topk(scores, k, **kw):
+        v, i = topk(scores, k, **kw)
+        picked.append(i)
+        return v, i
+
+    def replaying_topk(scores, k, **kw):
+        _, own = topk(scores, k, **kw)
+        card_i = picked.pop(0).cpu()
+        topk_rows["rows"] += own.shape[0]
+        topk_rows["differ"] += int((own.sort(1).values != card_i.sort(1).values).any(1).sum())
+        return scores.gather(1, card_i), card_i
+
     t0 = time.perf_counter()
     try:
         if replay_branches:
             F.leaky_relu = recording
+        if replay_topk:
+            G.grouped_topk = recording_topk
         loss_gpu, g_gpu = loss_and_grads(model, trainer.state, batch, loss_kwargs)
         if replay_branches:
             F.leaky_relu = replaying
+        if replay_topk:
+            G.grouped_topk = replaying_topk
         loss_cpu, g_cpu = loss_and_grads(cpu_model, cpu_state, {k: v.cpu() for k, v in batch.items()}, cpu_kwargs)
     finally:
         F.leaky_relu = leaky_relu
+        G.grouped_topk = topk
     model.zero_grad(set_to_none=True)
     rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
     if g_gpu.keys() != g_cpu.keys():
@@ -1688,12 +1744,17 @@ def check_batch_against_cpu(
         f"largest magnitude, bound {FLIP_RTOL:.0e}; any entry's largest difference {flips['worst_apart']:.2e})"
         if replay_branches else ""
     )
+    if replay_topk:
+        replayed += (
+            f"; the loss's top-k: the CPU took the card's columns, its own differ on {topk_rows['differ']} of "
+            f"{topk_rows['rows']} rows"
+        )
     print(
         f"card vs CPU, {type(model).__name__}, one batch of {B}: loss {loss_gpu:.7f} vs {loss_cpu:.7f} (rel {rel:.2e}, "
         f"bound {LOSS_RTOL:.0e}); rec gradients, largest share of the bound per tensor "
         f"{json.dumps({k: round(v, 4) for k, v in worst.items()})} in {time.perf_counter() - t0:.1f} s; the "
         f"model's graphs built on the CPU, share of edges equal to the card's {json.dumps(edges_equal)} "
-        f"(the CPU took the card's {list(card_graphs)}){replayed} [{card}]"
+        f"(the CPU took the card's {list(card_graphs) + list(card_tensors)}){replayed} [{card}]"
     )
     if not math.isfinite(loss_gpu) or rel > LOSS_RTOL:
         raise AssertionError(f"batch loss on the card {loss_gpu} differs from the CPU's {loss_cpu}")
@@ -1702,7 +1763,10 @@ def check_batch_against_cpu(
         raise AssertionError(f"rec gradients on the card differ from the CPU's: {bad}")
     if flips["worst_flip"] > FLIP_RTOL or flips["flipped"] > FLIP_SHARE * max(flips["entries"], 1):
         raise AssertionError(f"leaky_relu entries on other sides of 0 past rounding on the two devices: {flips}")
-    return dict(loss_rel_err=rel, grad_bound_share=max(worst.values()), cpu_graph_edges_equal=edges_equal, **flips)
+    if replay_topk and (not topk_rows["rows"] or topk_rows["differ"] > TOPK_ROW_SHARE * topk_rows["rows"]):
+        raise AssertionError(f"the loss's top-k on the two devices: {topk_rows}")
+    return dict(loss_rel_err=rel, grad_bound_share=max(worst.values()), cpu_graph_edges_equal=edges_equal, **flips,
+                topk_rows=topk_rows)
 
 
 def bf16_evaluation_path(torch, config, td, vd, ted, model, valid_f32, test_f32, card, profile_dir=None):
@@ -2634,13 +2698,26 @@ def check_edge_weight_grad(torch, g, d, card, name):
         if not bool((diff <= K1_RTOL * mag.cpu() + K1_ATOL).all()):
             raise AssertionError(f"{name}: the {part} gradient on the card differs from the CPU's by up to {errs[part]:.3e}")
     ms, plain_ms = timed_pair(torch, lambda: grads(g, kernel, x, w, g_bar), lambda: grads(g, plain, x, w, g_bar))
+    # the library's way: a COO tensor over the weights (its values carry the
+    # gradient), torch.sparse.mm forward and backward into x and the weights
+    index = torch.stack([g.rows.long(), g.cols.long()])
+    coo = lambda graph, xs, ws: torch.sparse.mm(
+        torch.sparse_coo_tensor(index, ws, (graph.n_rows, graph.n_cols), check_invariants=False), xs
+    )
+    lib_ms = cuda_ms(torch, lambda: grads(g, coo, x, w, g_bar))
+    # the edges, weights, x and the cotangent read once; the product and the
+    # two gradients written once
+    moved = nbytes(g.row_ptr, g.rows, g.cols, w, x, g_bar) + nbytes(g_bar, x, w)
+    b = Bound().add(moved, 6.0 * g.nnz * d, F32_FLOPS)
     print(
         f"K1 backward {name} (edge weights with a gradient, {g.n_rows} rows, nnz={g.nnz}, d={d}): x-gradient over the "
         f"transposed CSR and the edge-weight gradient on the card against the CPU, max_abs_err x {errs['x']:.3e}, "
-        f"edge weight {errs['edge_weight']:.3e}; forward+backward kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]"
+        f"edge weight {errs['edge_weight']:.3e}; forward+backward kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch.sparse.mm (COO, values with a gradient) {lib_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}) [{card}]"
     )
     return dict(case=name, d=d, max_abs_err_x=errs["x"], max_abs_err_edge_weight=errs["edge_weight"], ms=ms,
-                plain_ms=plain_ms)
+                plain_ms=plain_ms, library_ms=lib_ms, **b)
 
 
 def _sorted_and_strict(np, nbrs, w):
@@ -2783,6 +2860,261 @@ def mp_path(torch, card, profile_dir=None):
     return dict(**out, launches=launches), cases, total
 
 
+# the last multimodal graph models' runs of ``quick_start``, each at its
+# published widths on Amazon-baby for one epoch (every YAML list of these
+# is one value); MGCN once more in bfloat16, which takes the fused route
+MMG_RUNS = (
+    ("GUME", "GUME", {}, dict(max_epochs=1), MP_NEED),
+    ("LATTICE", "LATTICE", {}, dict(max_epochs=1), MP_NEED),
+    ("MGCN", "MGCN", {}, dict(max_epochs=1), MP_NEED),
+    ("MGCN_bf16", "MGCN", {"eval_dtype": "bfloat16"}, dict(max_epochs=1),
+     MP_NEED + ("fused_group_max", "fused_candidates")),
+    ("LGMRec", "LGMRec", {}, dict(max_epochs=1), MP_NEED),
+    ("SMORE", "SMORE", {}, dict(max_epochs=1), MP_NEED),
+    ("PGL", "PGL", {}, dict(max_epochs=1), MP_NEED),
+    ("SLMRec", "SLMRec", {}, dict(max_epochs=1), MP_NEED),
+    ("DAMRS", "DAMRS", {}, dict(max_epochs=1), MP_NEED),
+)
+# LATTICE's training batches run again with the counts at 0, to show its
+# per-step top-k on K3
+LATTICE_CHECK_BATCHES = 3
+# the users whose interactions the card and the CPU both count for DAMRS's
+# co-occurrence check
+COOCCURRENCE_CHECK_USERS = 2048
+
+
+def check_lattice(torch, tr, model, card):
+    """LATTICE's per-step top-k: K3 on the learned similarity plane of the
+    image projection (7,050² float32, k = ``knn_k``) against its plain
+    version and ``torch.topk``; the learned graph's gradient into the
+    projections and ``modal_weight`` on the card against the CPU (the CPU
+    takes the card's columns of the top-k; a random cotangent); then
+    LATTICE_CHECK_BATCHES training batches with the counts at 0, which must
+    launch K3 twice a batch, and the peak memory they hold. Returns (K3
+    cases, summary)."""
+    from genmmrec_tpu_torch.ops.graph import build_sim, norm_laplacian_dense
+    from genmmrec_tpu_torch.ops.topk import grouped_topk
+
+    with torch.no_grad():
+        sim = build_sim(model.image_trs(model.v_feat))
+    k3 = check_k3(torch, [("lattice_learned_sim_top10", sim, model.knn_k, None)], card)["cases"]
+    del sim
+    cpu = torch.device("cpu")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    n = model.n_items
+    g_bar = torch.randn(n, n, generator=gen, device="cuda")
+    names = ("modal_weight", "image_trs.weight", "image_trs.bias", "text_trs.weight", "text_trs.bias")
+
+    def grads(dev, idx=None):
+        """The gradients, the columns taken (``idx``, else its own) and its own."""
+        params = {k: v.detach().to(dev).requires_grad_() for k, v in model.named_parameters() if k in names}
+        weight = torch.softmax(params["modal_weight"], dim=0)
+        planes, taken, own = [], [], []
+        for m, feats in (("image", model.v_feat), ("text", model.t_feat)):
+            s = build_sim(feats.to(dev) @ params[f"{m}_trs.weight"].T + params[f"{m}_trs.bias"])
+            own.append(grouped_topk(s.detach(), model.knn_k)[1])
+            taken.append(own[-1] if idx is None else idx[len(planes)].to(dev))
+            planes.append(torch.zeros_like(s).scatter(1, taken[-1], s.gather(1, taken[-1])))
+        adj = norm_laplacian_dense(weight[0] * planes[0] + weight[1] * planes[1], "sym")
+        out = torch.autograd.grad((adj * g_bar.to(dev)).sum(), [params[k] for k in names])
+        return [o.cpu() for o in out], taken, own
+
+    with torch.enable_grad():
+        on_card, picked, _ = grads("cuda")
+        on_cpu, _, cpu_own = grads(cpu, picked)
+    differ = sum(int((a.cpu().sort(1).values != b.sort(1).values).any(1).sum()) for a, b in zip(picked, cpu_own))
+    if differ > TOPK_ROW_SHARE * 2 * n:
+        raise AssertionError(f"LATTICE's learned top-k: the CPU's own columns differ on {differ} rows")
+    worst = {}
+    for name, a, b in zip(names, on_card, on_cpu):
+        bound = GRAD_RTOL * b.abs() + GRAD_ATOL * b.abs().max()
+        worst[name] = float(((a - b).abs() / bound.clamp(min=1e-30)).max())
+    if not all(v <= 1.0 for v in worst.values()):
+        raise AssertionError(f"LATTICE's learned graph: gradients on the card differ from the CPU's {worst}")
+    # the path's training batches, counted: K3 twice a batch
+    B = tr.train_batch_size
+    idx = torch.randperm(tr._num_batches * B, generator=gen, device="cuda")[: LATTICE_CHECK_BATCHES * B]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    tr._train_epoch(gen, plan={"idx": idx.reshape(LATTICE_CHECK_BATCHES, B)})
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / LATTICE_CHECK_BATCHES * 1e3
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if counts["grouped_topk"] != 2 * LATTICE_CHECK_BATCHES or counts["segment_spmm"] <= 0:
+        raise AssertionError(f"LATTICE's training batches: K3 not launched twice a batch: {counts}")
+    print(
+        f"LATTICE per-step top-k: the learned graph's gradients (modal_weight, the projections; the CPU took the card's "
+        f"columns, its own differ on {differ} of {2 * n} rows) on the card against the CPU, largest share of the bound "
+        f"{json.dumps({k: round(v, 4) for k, v in worst.items()})}; {LATTICE_CHECK_BATCHES} training batches "
+        f"{step_ms:.2f} ms a batch, launches {json.dumps(counts)}; peak memory {peak / 2**30:.3f} GiB "
+        f"({(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held before the batches) [{card}]"
+    )
+    return k3, dict(grad_bound_share=worst, topk_rows_differ=differ, step_ms=step_ms, launches=counts,
+                    peak_gib=peak / 2**30, base_gib=base / 2**30)
+
+
+def check_smore_fusion(torch, model, card):
+    """SMORE's fusion graph built on the CPU from the card's two KNN graphs
+    equals the card's, edge for edge and value for value; K3 on the image
+    similarity plane at k = ``image_knn_k`` (40) against its plain
+    version."""
+    from genmmrec_tpu_torch.models.smore import max_pool_fusion
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    ref = max_pool_fusion(model.image_original_adj.to(cpu), model.text_original_adj.to(cpu))
+    cpu_s = time.perf_counter() - t0
+    g = model.fusion_adj
+    if not all(torch.equal(getattr(g, f).cpu(), getattr(ref, f)) for f in ("rows", "cols", "vals", "row_ptr")):
+        raise AssertionError("SMORE's fusion graph differs from the CPU's build")
+    both = model.image_original_adj.nnz + model.text_original_adj.nnz - g.nnz
+    print(
+        f"SMORE fusion graph: nnz {g.nnz} (image {model.image_original_adj.nnz}, text {model.text_original_adj.nnz}, "
+        f"{both} pairs in both at the larger value) equal to the CPU's build ({cpu_s:.3f} s on the host) [{card}]"
+    )
+    f = torch.nn.functional.normalize(model.v_feat, dim=1, eps=1e-12)
+    return check_k3(torch, [("smore_image_sim_top40", f @ f.T, model.image_knn_k, None)], card)["cases"], g.nnz
+
+
+def check_damrs_cooccurrence(torch, model, train_ds, card):
+    """DAMRS's co-occurrence neighbours: ``cooccurrence_neighbours`` on the
+    card and on the CPU over the first COOCCURRENCE_CHECK_USERS users'
+    interactions, each row's sorted counts equal and its neighbours above
+    the row's least count equal (counts tie); the model's session graph
+    against scipy's sparse ``RᵀR`` over every interaction, the same two; K3
+    on one block of counts against its plain version."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from genmmrec_tpu_torch.models.damrs import COOCCURRENCE_BLOCK, cooccurrence_neighbours
+
+    users, items = train_ds.table.users, train_ds.table.items
+    n, k = model.n_items, min(model.knn_k, model.n_items - 1)
+    sel = users < COOCCURRENCE_CHECK_USERS
+    sub = [cooccurrence_neighbours(users[sel], items[sel], COOCCURRENCE_CHECK_USERS, n, k, dev) for dev in ("cuda", "cpu")]
+    as_np = lambda nb, c: (nb.cpu().numpy(), c.cpu().numpy())
+    (card_w, card_s), (cpu_w, cpu_s) = (_sorted_and_strict(np, *as_np(*r)) for r in sub)
+    if not (np.array_equal(card_w, cpu_w) and card_s == cpu_s):
+        raise AssertionError("DAMRS co-occurrence: the card's build differs from the CPU's")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nbrs, counts = cooccurrence_neighbours(users, items, model.n_users, n, k, "cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    r = sp.csr_matrix((np.ones(len(users), np.float32), (users, items)), shape=(model.n_users, n))
+    co = (r.T @ r).tocsr()
+    co.setdiag(0)
+    co.eliminate_zeros()
+    ref_w, ref_s = np.zeros((n, k)), []
+    for i in range(n):
+        cnt, nb = co.data[co.indptr[i] : co.indptr[i + 1]], co.indices[co.indptr[i] : co.indptr[i + 1]]
+        top = -np.sort(-cnt)[:k]
+        ref_w[i, : len(top)] = top
+        cut = top[k - 1] if len(top) >= k else 0
+        ref_s.append(frozenset(nb[cnt > cut].tolist()))
+    got_w, got_s = _sorted_and_strict(np, *as_np(nbrs, counts))
+    if not (np.array_equal(got_w, ref_w) and got_s == ref_s):
+        raise AssertionError("DAMRS co-occurrence: the card's neighbours differ from scipy's counts")
+    # the model's session graph holds exactly these neighbours of positive count
+    g = model.session_adj
+    if g.nnz != n + int((counts > 0).sum()):
+        raise AssertionError(f"DAMRS session graph: nnz {g.nnz} for {int((counts > 0).sum())} neighbours and {n} loops")
+    tied = int(sum((w == w.min()).sum() > 1 for w in got_w[(ref_w > 0).all(1)]))
+    print(
+        f"DAMRS co-occurrence ({n} items, top-{k}): built on the card in {build_s:.3f} s (RᵀR in blocks of "
+        f"{COOCCURRENCE_BLOCK}, K3), against the CPU's build on {COOCCURRENCE_CHECK_USERS} users and scipy's counts "
+        f"on all: sorted counts and strict sets equal ({int((ref_w > 0).all(1).sum())} full rows, {tied} tied at the "
+        f"least); session graph nnz {g.nnz} [{card}]"
+    )
+    rt = torch.zeros(model.n_users, n, device="cuda")
+    rt.index_put_((torch.as_tensor(users, device="cuda"), torch.as_tensor(items, device="cuda")),
+                  torch.ones(len(users), device="cuda"), accumulate=True)
+    block = rt[:, :COOCCURRENCE_BLOCK].T @ rt
+    rows = torch.arange(COOCCURRENCE_BLOCK, device="cuda")
+    block[rows, rows] = 0.0
+    k3 = check_k3(torch, [("damrs_cooccurrence_top10", block, k, None)], card)["cases"]
+    return dict(build_s=build_s, full_rows=int((ref_w > 0).all(1).sum()), tied_rows=tied, session_nnz=g.nnz), k3
+
+
+def mmg_path(torch, card, profile_dir=None):
+    """The last multimodal graph models: ``quick_start`` for each of
+    ``MMG_RUNS`` (``quick_start_runs``: one epoch, ``evaluate`` valid and
+    test; MGCN once more with bfloat16 evaluation, K5a and K5b). Checks
+    beside the runs': LATTICE's per-step top-k (``check_lattice``) and its
+    batch, and SLMRec's, on the card against the CPU; SMORE's fusion graph
+    against the CPU's (``check_smore_fusion``); DAMRS's co-occurrence
+    neighbours (``check_damrs_cooccurrence``); K1 forward and backward on
+    GUME's augmented graph (not symmetric) and SMORE's fusion graph.
+    ``profile_dir`` adds ten more training batches of each model under
+    ``torch.profiler``. Returns (summary, kernel cases by kernel,
+    launches)."""
+    from genmmrec_tpu_torch.data.dataset import RecDataset
+
+    cases = dict(k1=[], k1_bwd=[], k3=[])
+    data = {}
+
+    def train_ds(config):
+        if "train" not in data:
+            data["train"] = RecDataset(config).split()[0]
+        return data["train"]
+
+    def after(key, r, o):
+        tr, model = r["trainer"], r["model"]
+        if key == "LATTICE":
+            k3, o["lattice"] = check_lattice(torch, tr, model, card)
+            cases["k3"] += k3
+            o["batch_vs_cpu"] = check_batch_against_cpu(
+                torch, tr, model.data, train_ds(tr.config), tr.config, card,
+                card_tensors=("image_original_adj", "text_original_adj"), replay_topk=True,
+            )
+        if key == "SLMRec":
+            draws = model.draws(torch.Generator(device="cuda").manual_seed(SEED + 14))
+            # a bias added to every row of the in-batch cross-entropy's second
+            # view shifts each row's logits by one constant: zero but for rounding
+            heads = {f"{h}.bias": f"{h}.weight" for h in ("g_v_iv", "g_t_ivat")}
+            o["batch_vs_cpu"] = check_batch_against_cpu(
+                torch, tr, model.data, train_ds(tr.config), tr.config, card, loss_kwargs=dict(draws=draws),
+                zero_grads=heads,
+            )
+        if key == "GUME":
+            cases["k1"] += check_spmm(torch, [("gume_augmented_d192", model.norm_adj, 3 * model.embedding_dim)],
+                                      card)["cases"]
+            cases["k1_bwd"].append(check_nonsymmetric_grad(torch, model.norm_adj, 3 * model.embedding_dim, card,
+                                                           case="gume_augmented"))
+        if key == "SMORE":
+            k3, o["fusion_nnz"] = check_smore_fusion(torch, model, card)
+            cases["k3"] += k3
+            cases["k1"] += check_spmm(torch, [("smore_fusion_d64", model.fusion_adj, model.embedding_dim)],
+                                      card)["cases"]
+        if key == "DAMRS":
+            o["cooccurrence"], k3 = check_damrs_cooccurrence(torch, model, train_ds(tr.config), card)
+            cases["k3"] += k3
+        if profile_dir:
+            from torch.profiler import ProfilerActivity, profile
+
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+            B = tr.train_batch_size
+            idx = torch.randperm(tr._num_batches * B, generator=gen, device="cuda")[: 10 * B].reshape(10, B)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                tr._train_epoch(gen, plan={"idx": idx})
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            write_profile(torch, prof, profile_dir, f"{key}_baby_train_10_batches", wall, card)
+
+    phase_t0 = time.perf_counter()
+    out, launches = quick_start_runs(torch, MMG_RUNS, card, "mmg_path", after)
+    total = {k: sum(l[k] for l in launches.values()) for k in launch_counts()}
+    out["phase_s"] = time.perf_counter() - phase_t0
+    print(f"mmg_path phase done in {out['phase_s']:.1f} s; launches {json.dumps(launches)}")
+    return dict(**out, launches=launches), cases, total
+
+
 def main() -> int:
     import torch
 
@@ -2802,6 +3134,10 @@ def main() -> int:
     parser.add_argument(
         "--mp-only", action="store_true",
         help="only build the kernels and run the message-passing phase (mp_path), and stop",
+    )
+    parser.add_argument(
+        "--mmg-only", action="store_true",
+        help="only build the kernels and run the last multimodal graph models' phase (mmg_path), and stop",
     )
     parser.add_argument(
         "--k5a-against", nargs="+", metavar="DIR",
@@ -2839,6 +3175,10 @@ def main() -> int:
     if args.mp_only:
         mp, mp_cases, mp_launches = mp_path(torch, card, args.profile)
         print(json.dumps({"mp_path": dict(**mp, launches_total=mp_launches), "kernel_cases": mp_cases}))
+        return 0
+    if args.mmg_only:
+        mmg, mmg_cases, mmg_launches = mmg_path(torch, card, args.profile)
+        print(json.dumps({"mmg_path": dict(**mmg, launches_total=mmg_launches), "kernel_cases": mmg_cases}))
         return 0
 
     # -- the slice's data and model (set-up) ------------------------------
@@ -3110,14 +3450,16 @@ def main() -> int:
     cli, cli_cases, cli_launches = cli_path(torch, card)
     # -- phase 9: the message-passing models -------------------------------
     mp, mp_cases, mp_launches = mp_path(torch, card, args.profile)
-    for cs in (cli_cases, mp_cases):
+    # -- phase 10: the last multimodal graph models ------------------------
+    mmg, mmg_cases, mmg_launches = mmg_path(torch, card, args.profile)
+    for cs in (cli_cases, mp_cases, mmg_cases):
         k1["cases"] += cs["k1"]
         k1_bwd["cases"] += cs["k1_bwd"]
         k3["cases"] += cs["k3"]
 
     launches = {
         k: serving_launches[k] + switched_launches[k] + bf16_launches[k] + training_launches[k] + wide_launches[k]
-        + elec_launches[k] + genrec_launches[k] + cli_launches[k] + mp_launches[k]
+        + elec_launches[k] + genrec_launches[k] + cli_launches[k] + mp_launches[k] + mmg_launches[k]
         for k in serving_launches
     }
     never = [k for k, v in launches.items() if v <= 0]
@@ -3180,7 +3522,8 @@ def main() -> int:
         nonsymmetric_grad=nonsymmetric, unsorted_spmm=unsorted, lightgcn_baby_d192=wide_res,
         launches_lightgcn_baby_d192=wide_calls, lightgcn_elec=elec_res, launches_lightgcn_elec=elec_calls,
         genrecv1_baby=dict(**genrec, launches_total=genrec_launches),
-        cli=dict(**cli, launches_total=cli_launches), mp_path=dict(**mp, launches_total=mp_launches), card=card,
+        cli=dict(**cli, launches_total=cli_launches), mp_path=dict(**mp, launches_total=mp_launches),
+        mmg_path=dict(**mmg, launches_total=mmg_launches), card=card,
         total_s=time.perf_counter() - smoke_t0,
     )
     print(f"chip_smoke: all paths and checks done in {summary['total_s']:.1f} s [{card}]")

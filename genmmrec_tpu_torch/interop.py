@@ -18,7 +18,24 @@ g1: {w, b}, ..., mlp: {w, b}}, t_gcn: {...}}`` (MMGCN; ``conv{i}_w`` is
 mlp, mlp1}, v_gcn, t_gcn, weight_u}`` (COHESION), ``{collaborative,
 v_gcn: {preference, mlp, conv1: {w (in, out), b}, g1, conv2, g2, conv4,
 lin4, g4, conv5, lin5, g5}, t_gcn, c_gcn}`` (MVGAE; a ``conv`` is not an
-``nn.Linear``, so its ``weight`` keeps the (in, out) layout). The JAX
+``nn.Linear``, so its ``weight`` keeps the (in, out) layout). The last
+multimodal graph models keep flat trees of tables and ``{w (out, in), b}``
+linear layers (``nn.Linear``'s layout, applied as ``x @ Wᵀ + b``; a
+layer without bias has ``w`` alone): ``{user_embedding,
+item_id_embedding, extended_image_user, extended_text_user, image_reduce,
+image_trans, text_reduce, text_trans, separate1, separate2,
+image_behavior, text_behavior}`` (GUME), ``{user_embedding,
+item_id_embedding, modal_weight, image_trs, text_trs}`` (LATTICE),
+``{..., image_trs, text_trs, query1, query2, gate_v, gate_t,
+gate_image_prefer, gate_text_prefer}`` (MGCN), ``{user_embedding,
+item_id_embedding, item_image_trs, v_hyper, item_text_trs, t_hyper}``
+(LGMRec; the four feature matrices are bare (in, out) leaves applied as
+``x @ W``), MGCN's plus ``{query_v: {l1, l2}, query_t, gate_f,
+gate_fusion_prefer, image_complex_weight (1, d/2+1, 2), ...}`` (SMORE),
+``{user_image, user_text, image_trs, text_trs}`` (PGL),
+``{embedding_user, embedding_item, v_dense, t_dense, user_after,
+item_after, g_i_iv, g_v_iv, g_iv_iva, g_a_iva, g_iva_ivat, g_t_ivat}``
+(SLMRec), ``{user_embedding, item_id_embedding}`` (DAMRS). The JAX
 DiffMM keeps ``{"rec": {uEmbeds, iEmbeds, modal_weight,
 image_trans, text_trans}, "denoise_image": {...}, "denoise_text": {...}}``
 with linear layers as ``{"w": (d_out, d_in), "b": (d_out,)}`` and layer

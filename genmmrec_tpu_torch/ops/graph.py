@@ -20,9 +20,12 @@ Graph constructors: the normalized bipartite adjacency (``bipartite_norm_adj``,
 ``ui_norm_adj``; ``SampledUIGraph`` with values recomputed per epoch), the raw interaction matrix (``interaction_matrix``), an
 item-item KNN graph on the device (``knn_graph_sparse``: a float32
 similarity product and K3's top-k; ``mixed_knn_graph``, the weighted union
-of two modalities' graphs), and the generated user-item graph of
+of two modalities' graphs), the generated user-item graph of
 DiffMM and GenRecV1 (``regenerated_ui_graph``, its stand-in before the
-first regeneration ``placeholder_ui_graph``).
+first regeneration ``placeholder_ui_graph``), and LATTICE's dense KNN
+planes (``build_sim``, ``knn_graph_dense``, ``norm_laplacian_dense``),
+whose top-k is K3's on the detached plane and whose values carry the
+gradient.
 """
 
 from __future__ import annotations
@@ -178,6 +181,16 @@ def spmm_t(g: SparseGraph, x: torch.Tensor) -> torch.Tensor:
     t = g.transposed()
     own = lambda: _as_operands(dataclasses.replace(g, vals=g.vals.detach()))
     return spmm_sorted(t.row_ptr, t.rows, t.cols, t.vals, x.contiguous(), t.n_rows, own, t.blocked, t.long_rows)
+
+
+def layer_mean(g: SparseGraph, x: torch.Tensor, n_layers: int) -> torch.Tensor:
+    """LightGCN's propagation: the mean of ``x`` and its ``n_layers``
+    successive products with ``g``."""
+    acc = x
+    for _ in range(n_layers):
+        x = spmm(g, x)
+        acc = acc + x
+    return acc / (n_layers + 1)
 
 
 def spmm_multi(g: SparseGraph, xs):
@@ -454,3 +467,50 @@ def placeholder_ui_graph(
     g = regenerated_ui_graph(topk0, n_users, n_items, keep_rate, generator)
     vals = torch.where(g.rows == g.cols, g.vals, torch.zeros_like(g.vals))
     return sorted_graph(g.rows, g.cols, vals, g.n_rows, g.n_cols, symmetric=True)
+
+
+# ----------------------------------------------------------------------
+# dense KNN item-item planes (LATTICE)
+DENSE_NORMS = ("sym", "rw", "none")
+
+
+def build_sim(features: torch.Tensor) -> torch.Tensor:
+    """(n, n) cosine similarity of the rows of ``features``: each row over
+    max(its L2 norm, 1e-12), times the transpose (a float32 product)."""
+    x = torch.nn.functional.normalize(features, dim=-1, eps=1e-12)
+    return x @ x.T
+
+
+def norm_laplacian_dense(adj: torch.Tensor, norm_type: str = "sym") -> torch.Tensor:
+    """``D^-1/2 A D^-1/2`` ("sym") or ``D^-1 A`` ("rw") with D the row sums,
+    a zero row staying zero; "none" returns ``adj``. The power is taken of
+    the positive row sums only, so a zero row passes no NaN to the
+    gradient."""
+    if norm_type not in DENSE_NORMS:
+        raise ValueError(f"norm_type must be one of {DENSE_NORMS}, not {norm_type!r}")
+    if norm_type == "none":
+        return adj
+    rowsum = adj.sum(dim=-1)
+    pos = rowsum > 0
+    safe = torch.where(pos, rowsum, torch.ones_like(rowsum))
+    if norm_type == "sym":
+        d = torch.where(pos, safe.pow(-0.5), torch.zeros_like(rowsum))
+        return adj * d[:, None] * d[None, :]
+    d = torch.where(pos, 1.0 / safe, torch.zeros_like(rowsum))
+    return adj * d[:, None]
+
+
+def dense_topk_plane(sim: torch.Tensor, topk: int) -> torch.Tensor:
+    """A zero plane the shape of ``sim`` holding each row's ``topk`` largest
+    entries where they stand. The columns are K3's top-k of the detached
+    plane (ties to the lower index, as ``lax.top_k``); the values are
+    gathered from ``sim`` itself, so the gradient reaches it at the kept
+    entries only."""
+    _, idx = grouped_topk(sim.detach(), topk)
+    return torch.zeros_like(sim).scatter(1, idx, sim.gather(1, idx))
+
+
+def knn_graph_dense(sim: torch.Tensor, topk: int, norm_type: str = "sym") -> torch.Tensor:
+    """Dense KNN adjacency: each row's ``topk`` largest similarities
+    (``dense_topk_plane``), normalized by ``norm_laplacian_dense``."""
+    return norm_laplacian_dense(dense_topk_plane(sim, topk), norm_type)
