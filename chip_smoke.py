@@ -5,6 +5,7 @@
     python3 chip_smoke.py --k5a-against DIR [DIR ...]
     python3 chip_smoke.py --mp-only [--profile DIR]
     python3 chip_smoke.py --mmg-only [--profile DIR]
+    python3 chip_smoke.py --diff-only [--profile DIR]
 
 Drives DiffMM, GenRecV1 and LightGCN at full width, parameters from a
 seeded generator.
@@ -90,6 +91,21 @@ against the CPU's build and scipy's counts, and K3 on a block of counts;
 K1 forward and backward on GUME's augmented graph (not symmetric) and
 forward on SMORE's fusion graph. ``--mmg-only`` builds the kernels and
 runs this phase alone.
+
+The diffusion recommenders last (``diff_path``), the same way: DiffRec,
+LD4MRec, DDRM, DiffGraph (float32, then bfloat16: K5a and K5b), MCDRec,
+CoDMR and MVDiff (through ``MVDiffTrainer``: feature diffusion, the item
+graphs' rebuild, sparsity diffusion, the user-item graphs' rebuild, then
+the BPR epoch), each with one training batch's launches and Recall@20
+beside the JAX package's two-epoch smoke value; DiffRec's evaluation
+beside its float32 bound; DiffRec's and MCDRec's batch on the card against
+the CPU (draws made on the card); MCDRec's graph after its
+diffusion-guided resampling under K1, forward and backward; K1 through
+DiffGraph's ``propagate`` and on CoDMR's self-looped graph; K3 on CoDMR's
+KNN rows; MVDiff's phase 4 again, its user-item graphs held equal to
+those the plain top-k builds on the same denoised rows, and K3 on its
+tie-heavy high-order rows and its denoised scores. ``--diff-only`` builds
+the kernels and runs this phase alone.
 
 Before the paths it builds the CUDA kernels from ``genmmrec_tpu_torch/csrc``
 and holds each one (K1 forward and backward, K2 forward and backward, K3,
@@ -3115,6 +3131,216 @@ def mmg_path(torch, card, profile_dir=None):
     return dict(**out, launches=launches), cases, total
 
 
+# the diffusion recommenders' runs of ``quick_start``, each at its published
+# widths on Amazon-baby for one epoch (their YAMLs' only list is the seed);
+# MVDiff through its own trainer (``get_trainer``), DiffGraph once more in
+# bfloat16, which takes the fused route
+DIFF_RUNS = (
+    ("DiffRec", "DiffRec", {}, dict(max_epochs=1), ("grouped_topk",)),
+    ("LD4MRec", "LD4MRec", {}, dict(max_epochs=1), ("grouped_topk",)),
+    ("DDRM", "DDRM", {}, dict(max_epochs=1), MP_NEED),
+    ("DiffGraph", "DiffGraph", {}, dict(max_epochs=1), MP_NEED),
+    ("DiffGraph_bf16", "DiffGraph", {"eval_dtype": "bfloat16"}, dict(max_epochs=1),
+     MP_NEED + ("fused_group_max", "fused_candidates")),
+    ("MCDRec", "MCDRec", {}, dict(max_epochs=1), MP_NEED),
+    ("CoDMR", "CoDMR", {}, dict(max_epochs=1), MP_NEED),
+    ("MVDiff", "MVDiff", {}, dict(max_epochs=1), MP_NEED),
+)
+# Recall@20 (valid) of the JAX package's two-epoch smoke lane on Amazon-baby
+# (``docs/ZOO_RESULTS.md``): printed beside the port's one epoch as context,
+# not held
+ZOO_SMOKE_RECALL20 = {
+    "DiffRec": 0.1723, "LD4MRec": 0.1761, "DDRM": 0.0766, "DiffGraph": 0.1608, "MCDRec": 0.0151,
+    "CoDMR": 0.0903, "MVDiff": 0.1341,
+}
+
+
+def batch_launches(torch, tr):
+    """The kernels' launches in one training batch of ``tr`` (a seeded
+    permutation's first batch), the counts set to 0 before it."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    B = tr.train_batch_size
+    idx = torch.randperm(tr._num_batches * B, generator=gen, device="cuda")[:B].reshape(1, B)
+    reset_counts()
+    tr._train_epoch(gen, plan={"idx": idx})
+    torch.cuda.synchronize()
+    return launch_counts()
+
+
+def diffrec_eval_bound(model, n_rows: int) -> float:
+    """Seconds an evaluation of ``n_rows`` users takes at the card's peak
+    float32 rate: the denoiser's products at every reverse step."""
+    dnn = model.dnn
+    macs = sum(l.in_features * l.out_features for l in [*dnn.in_layers, *dnn.out_layers])
+    return 2.0 * macs * n_rows * model.sched.steps / F32_FLOPS
+
+
+def check_mcdrec_graph(torch, tr, model, card):
+    """MCDRec's graph after DGD: the values of this epoch over the edge
+    layout built once (the same row pointer and long-row list), K1 forward
+    and backward on them against the plain version."""
+    vals = tr.state["graph_vals"]
+    g = model.ui.graph(vals)
+    first = model.init_state()["graph_vals"]
+    kept = int((vals[: model.n_edges * 2] != 0).sum()) // 2
+    n_keep = max(1, int(model.n_edges * (1.0 - model.rho)))
+    if g.row_ptr is not model.ui.structure.row_ptr or kept < n_keep or torch.equal(vals, first):
+        raise AssertionError(f"MCDRec's DGD graph: {kept} pairs kept (at least {n_keep}), layout shared "
+                             f"{g.row_ptr is model.ui.structure.row_ptr}, values changed {not torch.equal(vals, first)}")
+    print(f"MCDRec DGD graph: {kept} of {model.n_edges} pairs kept ({n_keep} by the threshold, ties kept), the values "
+          f"of this epoch over the layout built once [{card}]")
+    fwd = check_spmm(torch, [("mcdrec_dgd_graph_d64", g, model.latent_dim)], card)["cases"]
+    bwd = check_spmm_backward(torch, [("mcdrec_dgd_graph_d64", g, model.latent_dim)], card)["cases"]
+    return fwd, bwd, dict(pairs_kept=kept, n_keep=n_keep)
+
+
+def check_mvdiff_rebuild(torch, tr, model, card):
+    """MVDiff's phase 4 again, timed, its denoised rows recorded; then the
+    same on those rows with every top-k taken by K3's plain version and the
+    same dropout draws: both user-item graphs equal. K3 against its plain
+    version on the first chunk's tie-heavy high-order rows ((B·10, 7,050),
+    k = 10) and on its denoised scores ((B, 7,050), k = 10)."""
+    import genmmrec_tpu_torch.models.mvdiff as MV
+    from genmmrec_tpu_torch.ops.topk import grouped_topk, grouped_topk_plain
+
+    recorded = []
+    own = model.sparsity_p_sample
+
+    def recording(dn, x):
+        out = own(dn, x)
+        recorded.append(out)
+        return out
+
+    def rebuild():
+        tr.regenerate_users(torch.Generator(device="cuda").manual_seed(SEED + 16))
+        return {m: tr.state[f"{m}_ui"] for m in ("image", "text")}
+
+    model.sparsity_p_sample = recording
+    try:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_graphs = rebuild()
+        torch.cuda.synchronize()
+        rebuild_s = time.perf_counter() - t0
+        launches = launch_counts()
+        replay = list(recorded)
+        model.sparsity_p_sample = lambda dn, x: replay.pop(0)
+        MV.grouped_topk = grouped_topk_plain
+        plain_graphs = rebuild()
+    finally:
+        MV.grouped_topk = grouped_topk
+        del model.sparsity_p_sample
+    for m, g in card_graphs.items():
+        p = plain_graphs[m]
+        if not all(torch.equal(getattr(g, f), getattr(p, f)) for f in ("rows", "cols", "vals", "row_ptr")):
+            raise AssertionError(f"MVDiff phase 4: the {m} graph on K3 differs from the plain version's")
+    if launches["grouped_topk"] <= 0:
+        raise AssertionError(f"MVDiff phase 4 launched no K3: {launches}")
+    den = recorded[0]
+    rk = model.rebuild_k
+    _, interest = grouped_topk(den, rk)
+    sim = (tr.state["image_ii_dense"][interest] * tr.state["text_ii_dense"][interest]).reshape(-1, model.n_items)
+    zeros = float((sim == 0).float().mean())
+    print(f"MVDiff phase 4: {rebuild_s:.3f} s, both user-item graphs on K3 equal to the plain version's on the same "
+          f"denoised rows (image nnz {card_graphs['image'].nnz}, text nnz {card_graphs['text'].nnz}); the high-order "
+          f"rows {tuple(sim.shape)} are {100 * zeros:.2f}% exact zeros; launches {json.dumps(launches)} [{card}]")
+    k3 = check_k3(torch, [("mvdiff_high_order_top10", sim, rk, None), ("mvdiff_denoised_top10", den, rk, None)],
+                  card)["cases"]
+    return k3, dict(rebuild_s=rebuild_s, launches=launches, high_order_zero_share=zeros)
+
+
+def diff_path(torch, card, profile_dir=None):
+    """The diffusion recommenders: ``quick_start`` for each of ``DIFF_RUNS``
+    (``quick_start_runs``: one epoch, ``evaluate`` valid and test; MVDiff's
+    four phases through ``MVDiffTrainer``; DiffGraph once more with
+    bfloat16 evaluation, K5a and K5b). Beside each run: one training batch's
+    launches, Recall@20 beside the JAX two-epoch smoke value. Checks:
+    DiffRec's and MCDRec's batch on the card against the CPU (draws made on
+    the card and handed to both); MCDRec's graph after DGD under K1
+    (``check_mcdrec_graph``); DiffGraph's ``propagate`` and CoDMR's
+    self-looped graph under K1, CoDMR's KNN rows under K3; MVDiff's phase 4
+    (``check_mvdiff_rebuild``). DiffRec's evaluation beside its bound.
+    ``profile_dir`` adds ten more training batches of each model under
+    ``torch.profiler``. Returns (summary, kernel cases by kernel,
+    launches)."""
+    from genmmrec_tpu_torch.data.dataset import RecDataset
+
+    cases = dict(k1=[], k1_bwd=[], k3=[])
+    data = {}
+
+    def train_ds(config):
+        if "train" not in data:
+            data["train"] = RecDataset(config).split()[0]
+        return data["train"]
+
+    def after(key, r, o):
+        tr, model = r["trainer"], r["model"]
+        dev = model.device
+        gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+        B = tr.train_batch_size
+        if key == "DiffRec":
+            rows = r["test_data"].users.shape[0]
+            bound = diffrec_eval_bound(model, rows)
+            o["eval_test_bound_s"] = bound
+            print(f"DiffRec evaluate(test): {o['test_s'][-1][-1]:.3f} s for {rows} users x {model.sched.steps} "
+                  f"reverse steps, bound {bound:.3f} s (float32 operations at {F32_FLOPS / 1e12:.0f} TFLOP/s) [{card}]")
+            draws = dict(ts=torch.randint(0, model.steps, (B,), generator=gen, device=dev),
+                         noise=torch.randn(B, model.n_items, generator=gen, device=dev),
+                         keep=torch.rand(B, model.n_items, generator=gen, device=dev) < 1.0 - model.dropout)
+            o["batch_vs_cpu"] = check_batch_against_cpu(torch, tr, model.data, train_ds(tr.config), tr.config, card,
+                                                        loss_kwargs=draws)
+        if key == "MCDRec":
+            f, b, o["dgd"] = check_mcdrec_graph(torch, tr, model, card)
+            cases["k1"] += f
+            cases["k1_bwd"] += b
+            ts, noise = model.draws(gen, B)
+            biases = {f"unet.{blk}.{c}.bias": f"unet.{blk}.{c}.weight"
+                      for blk in ("enc1", "enc2", "dec1") for c in ("c1", "c2")}
+            o["batch_vs_cpu"] = check_batch_against_cpu(torch, tr, model.data, train_ds(tr.config), tr.config, card,
+                                                        loss_kwargs=dict(ts=ts, noise=noise), zero_grads=biases)
+        if key == "DiffGraph":
+            f, b = check_propagate(torch, [("diffgraph_ui_add_d64", model.graph, "add", model.latdim)], card)
+            cases["k1"] += f
+            cases["k1_bwd"] += b
+        if key == "CoDMR":
+            cases["k1"] += check_spmm(torch, [("codmr_self_looped_ui_d64", model.uiMat, model.hide_dim)],
+                                      card)["cases"]
+            f = torch.nn.functional.normalize(model.t_feat, dim=1)
+            cases["k3"] += check_k3(torch, [("codmr_text_knn_top10", f[:4096] @ f.T, model.knn_k, None)],
+                                    card)["cases"]
+        if key == "MVDiff":
+            k3, o["phase4"] = check_mvdiff_rebuild(torch, tr, model, card)
+            cases["k3"] += k3
+            o["prelude"] = dict(tr.prelude_log)
+            print(f"MVDiff phases: {json.dumps({k: round(v, 4) for k, v in tr.prelude_log.items()})} [{card}]")
+        per_batch = batch_launches(torch, tr)
+        o["batch_launches"] = per_batch
+        base = key.split("_")[0]
+        print(f"diff_path {key}: one training batch launches K1 {per_batch['segment_spmm']} + "
+              f"{per_batch['segment_spmm_backward']}, K3 {per_batch['grouped_topk']}; Recall@20 valid "
+              f"{o['valid_recall20']:.4f} after one epoch (JAX two-epoch smoke {ZOO_SMOKE_RECALL20[base]}) [{card}]")
+        if profile_dir:
+            from torch.profiler import ProfilerActivity, profile
+
+            pgen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+            idx = torch.randperm(tr._num_batches * B, generator=pgen, device="cuda")[: 10 * B].reshape(10, B)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                tr._train_epoch(pgen, plan={"idx": idx})
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            write_profile(torch, prof, profile_dir, f"{key}_baby_train_10_batches", wall, card)
+
+    phase_t0 = time.perf_counter()
+    out, launches = quick_start_runs(torch, DIFF_RUNS, card, "diff_path", after)
+    total = {k: sum(l[k] for l in launches.values()) for k in launch_counts()}
+    out["phase_s"] = time.perf_counter() - phase_t0
+    print(f"diff_path phase done in {out['phase_s']:.1f} s; launches {json.dumps(launches)}")
+    return dict(**out, launches=launches), cases, total
+
+
 def main() -> int:
     import torch
 
@@ -3138,6 +3364,10 @@ def main() -> int:
     parser.add_argument(
         "--mmg-only", action="store_true",
         help="only build the kernels and run the last multimodal graph models' phase (mmg_path), and stop",
+    )
+    parser.add_argument(
+        "--diff-only", action="store_true",
+        help="only build the kernels and run the diffusion recommenders' phase (diff_path), and stop",
     )
     parser.add_argument(
         "--k5a-against", nargs="+", metavar="DIR",
@@ -3179,6 +3409,10 @@ def main() -> int:
     if args.mmg_only:
         mmg, mmg_cases, mmg_launches = mmg_path(torch, card, args.profile)
         print(json.dumps({"mmg_path": dict(**mmg, launches_total=mmg_launches), "kernel_cases": mmg_cases}))
+        return 0
+    if args.diff_only:
+        diff, diff_cases, diff_launches = diff_path(torch, card, args.profile)
+        print(json.dumps({"diff_path": dict(**diff, launches_total=diff_launches), "kernel_cases": diff_cases}))
         return 0
 
     # -- the slice's data and model (set-up) ------------------------------
@@ -3452,7 +3686,9 @@ def main() -> int:
     mp, mp_cases, mp_launches = mp_path(torch, card, args.profile)
     # -- phase 10: the last multimodal graph models ------------------------
     mmg, mmg_cases, mmg_launches = mmg_path(torch, card, args.profile)
-    for cs in (cli_cases, mp_cases, mmg_cases):
+    # -- phase 11: the diffusion recommenders ------------------------------
+    diff, diff_cases, diff_launches = diff_path(torch, card, args.profile)
+    for cs in (cli_cases, mp_cases, mmg_cases, diff_cases):
         k1["cases"] += cs["k1"]
         k1_bwd["cases"] += cs["k1_bwd"]
         k3["cases"] += cs["k3"]
@@ -3460,6 +3696,7 @@ def main() -> int:
     launches = {
         k: serving_launches[k] + switched_launches[k] + bf16_launches[k] + training_launches[k] + wide_launches[k]
         + elec_launches[k] + genrec_launches[k] + cli_launches[k] + mp_launches[k] + mmg_launches[k]
+        + diff_launches[k]
         for k in serving_launches
     }
     never = [k for k, v in launches.items() if v <= 0]
@@ -3523,7 +3760,8 @@ def main() -> int:
         launches_lightgcn_baby_d192=wide_calls, lightgcn_elec=elec_res, launches_lightgcn_elec=elec_calls,
         genrecv1_baby=dict(**genrec, launches_total=genrec_launches),
         cli=dict(**cli, launches_total=cli_launches), mp_path=dict(**mp, launches_total=mp_launches),
-        mmg_path=dict(**mmg, launches_total=mmg_launches), card=card,
+        mmg_path=dict(**mmg, launches_total=mmg_launches), diff_path=dict(**diff, launches_total=diff_launches),
+        card=card,
         total_s=time.perf_counter() - smoke_t0,
     )
     print(f"chip_smoke: all paths and checks done in {summary['total_s']:.1f} s [{card}]")

@@ -19,6 +19,11 @@ probabilities, filters the flips by the users' interest clusters
 (``common.interest_cluster``, clustered once at construction when
 ``OpenInterestDebiase`` is on) and takes the top ``rebuild_k`` of the
 blended probabilities (K3).
+
+``MVDiffTrainer`` runs four phases of its own before the BPR epoch: the
+feature denoisers' epoch over the items, the item-item graphs' rebuild,
+the sparsity denoisers' epoch over the users and the user-item graphs'
+rebuild (K3 for every top-k).
 """
 
 from __future__ import annotations
@@ -272,3 +277,183 @@ class GenRecV1Trainer(_DiffusionTrainer):
 
     def _loss_log(self, losses) -> dict:
         return {"diffusion_loss": float(losses.sum()) / losses.shape[0]}
+
+
+class MVDiffTrainer(Trainer):
+    """MVDiff's four phases before each BPR epoch, in this order, from one
+    generator (``_epoch_prelude``, timed apart into ``prelude_log``):
+
+    1. ``feature_epoch``: each modality's feature denoiser, with its own
+       Adam, over the items in batches of ``train_batch_size``;
+    2. ``regenerate_items``: both reverse chains over every item plus the
+       original features rebuild the item-item graphs and planes;
+    3. ``sparsity_epoch``: each modality's sparsity denoiser, with its own
+       Adam, over the users' interaction vectors;
+    4. ``regenerate_users``: the two user-item graphs from the reverse
+       chains of the sparsity denoisers (``MVDiff.ui_topk``), chunk by
+       chunk of ``train_batch_size`` users.
+
+    Each epoch's batches are a permutation of the padded slots; a slot past
+    the last item or user repeats the last one (weight 0 in the loss, but
+    in the batch norms, as in the JAX package). A ``plan`` may give each
+    phase's draws."""
+
+    # the parameter groups trained in phases 1 and 3, one Adam each
+    DENOISERS = ("feat_denoise_image", "feat_denoise_text", "denoise_image", "denoise_text")
+
+    def _build_train_step(self, train_data) -> None:
+        super()._build_train_step(train_data)
+        self._build_phase_optimizers()
+
+    def _build_phase_optimizers(self) -> None:
+        """One plain Adam per denoiser, at the main learning rate."""
+        lr = scalar(self.config["learning_rate"])
+        groups = self.model.param_groups()
+        for name in self.DENOISERS:
+            self.optimizers[name] = ChainOptimizer(groups[name], "adam", lambda step: lr)
+
+    def _slots(self, n: int, generator, plan) -> torch.Tensor:
+        B = self.train_batch_size
+        if plan is not None:
+            return plan["idx"].to(self.model.device)
+        nb = -(-n // B)
+        return torch.randperm(nb * B, generator=generator, device=self.model.device).reshape(nb, B)
+
+    def _step(self, name: str, loss) -> torch.Tensor:
+        opt = self.optimizers[name]
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    @staticmethod
+    def _wmean(v, valid):
+        return (v * valid).sum() / valid.sum().clamp(min=1.0)
+
+    @torch.enable_grad()
+    def feature_epoch(self, generator: Optional[torch.Generator] = None, plan: Optional[dict] = None):
+        """Phase 1; returns the (n_batches, 2) losses (image, text) on the
+        device. ``plan`` may give the slots (``idx``, (n_batches, B)) and
+        per batch and modality the timesteps and noise (``draws[b][j]``,
+        a (ts, noise) pair)."""
+        if "feat_denoise_image" not in self.optimizers:
+            self._build_phase_optimizers()
+        full_precision_matmuls()
+        model = self.model
+        I = model.n_items
+        losses = []
+        for b, idx in enumerate(self._slots(I, generator, plan)):
+            valid = (idx < I).to(torch.float32)
+            ii = idx.clamp(max=I - 1)
+            x_img, x_txt = model.v_feat[ii], model.t_feat[ii]
+            step = []
+            for j, m in enumerate(MODALITIES):
+                dim = x_img.shape[1] if m == "image" else x_txt.shape[1]
+                if plan is not None:
+                    ts, noise = (t.to(model.device) for t in plan["draws"][b][j])
+                else:
+                    ts = torch.randint(0, model.steps, idx.shape, generator=generator, device=model.device)
+                    noise = torch.randn(idx.shape[0], dim, generator=generator, device=model.device)
+                per = model.feat_diffusion_loss(m, x_img, x_txt, ts, noise)
+                step.append(self._step(f"feat_denoise_{m}", self._wmean(per, valid)))
+            losses.append(torch.stack(step))
+        return torch.stack(losses)
+
+    @torch.no_grad()
+    def regenerate_items(self) -> dict:
+        """Phase 2: the item-item graphs of ``self.state`` from both feature
+        denoisers' reverse chains plus the original features."""
+        full_precision_matmuls()
+        model = self.model
+        den_img = model.feat_p_sample("image") + model.v_feat
+        den_txt = model.feat_p_sample("text") + model.t_feat
+        self.state = {**self.state, **model.ii_state(den_img, den_txt)}
+        return self.state
+
+    @torch.enable_grad()
+    def sparsity_epoch(self, generator: Optional[torch.Generator] = None, plan: Optional[dict] = None):
+        """Phase 3; returns the (n_batches, 2) losses (image, text) on the
+        device. The item embeddings and the modal projections (without
+        dropout) are read once, detached. ``plan`` may give the slots
+        (``idx``) and per batch and modality ``sparsity_losses``' draws
+        (``draws[b][j]``)."""
+        if "denoise_image" not in self.optimizers:
+            self._build_phase_optimizers()
+        full_precision_matmuls()
+        model = self.model
+        U = model.n_users
+        with torch.no_grad():
+            i_emb = model.item_id_embedding.detach().clone()
+            feats = {m: model.modal_feats(m) for m in MODALITIES}
+        losses = []
+        for b, users in enumerate(self._slots(U, generator, plan)):
+            valid = (users < U).to(torch.float32)
+            x = interaction_vectors(model.data, users.clamp(max=U - 1)) * valid[:, None]
+            step = []
+            for j, m in enumerate(MODALITIES):
+                if plan is not None:
+                    draws = _to_device(plan["draws"][b][j], model.device)
+                else:
+                    draws = model.sparsity_draws(generator, users.shape[0])
+                diff, gc, contra = model.sparsity_losses(getattr(model, f"denoise_{m}"), x, i_emb, feats[m], draws)
+                loss = (self._wmean(diff, valid) + model.e_loss * self._wmean(gc, valid)
+                        + model.ssl_reg * self._wmean(contra, valid))
+                step.append(self._step(f"denoise_{m}", loss))
+            losses.append(torch.stack(step))
+        return torch.stack(losses)
+
+    @torch.no_grad()
+    def regenerate_users(self, generator: Optional[torch.Generator] = None, plan: Optional[dict] = None) -> dict:
+        """Phase 4: ``image_ui`` and ``text_ui`` of ``self.state`` from each
+        user's picks (``MVDiff.ui_topk``), in chunks of ``train_batch_size``
+        users (the last padded with the last user). ``plan`` may give the
+        two graphs' dropout masks (``keep``: {"image": (m_ui, m_loop),
+        "text": ...})."""
+        full_precision_matmuls()
+        model = self.model
+        U, B = model.n_users, self.train_batch_size
+        chunks = torch.arange(-(-U // B) * B, device=model.device).clamp_(max=U - 1).split(B)
+        keep = {} if plan is None else _to_device(plan["keep"], model.device)
+        graphs = {}
+        for m in MODALITIES:
+            items = torch.cat([model.ui_topk(self.state, m, users) for users in chunks])[:U]
+            graphs[f"{m}_ui"] = model.rebuild_ui_graph(items, generator, keep.get(m))
+        self.state = {**self.state, **graphs}
+        return self.state
+
+    def _epoch_prelude(self, generator: torch.Generator, epoch_idx: int) -> None:
+        """The four phases, each timed to its end on the device."""
+        cuda = self.model.device.type == "cuda"
+        sync = lambda: torch.cuda.synchronize(self.model.device) if cuda else None
+        t0 = time.time()
+        feat = self.feature_epoch(generator).cpu()
+        t1 = time.time()
+        self.regenerate_items()
+        sync()
+        t2 = time.time()
+        sparse = self.sparsity_epoch(generator).cpu()
+        t3 = time.time()
+        self.regenerate_users(generator)
+        sync()
+        t4 = time.time()
+        mean = lambda losses, j: float(losses[:, j].sum()) / max(1, losses.shape[0])
+        self.prelude_log = {
+            "feature_s": t1 - t0, "regenerate_items_s": t2 - t1, "sparsity_s": t3 - t2, "regenerate_users_s": t4 - t3,
+            **{f"feature_loss_{m}": mean(feat, j) for j, m in enumerate(MODALITIES)},
+            **{f"sparsity_loss_{m}": mean(sparse, j) for j, m in enumerate(MODALITIES)},
+        }
+        log = self.prelude_log
+        self.logger.info(
+            "MVDiff Losses - Feature Diffusion: Image=%.4f, Text=%.4f; Interaction Diffusion: Image=%.4f, "
+            "Text=%.4f [%.2fs]", log["feature_loss_image"], log["feature_loss_text"], log["sparsity_loss_image"],
+            log["sparsity_loss_text"], t4 - t0,
+        )
+
+
+def _to_device(value, device):
+    if torch.is_tensor(value):
+        return value.to(device)
+    if isinstance(value, dict):
+        return {k: _to_device(v, device) for k, v in value.items()}
+    return type(value)(_to_device(v, device) for v in value)

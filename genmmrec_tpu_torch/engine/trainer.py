@@ -165,15 +165,12 @@ def seeded_generator(device, seed: int, *path) -> torch.Generator:
 
 def get_trainer(model_name: Optional[str] = None):
     """The trainer class of a model (the JAX package's ``get_trainer``):
-    DiffMM and GenRecV1 have their multi-phase trainers, every other model
-    ``Trainer``. MVDiff's trainer is not ported yet and raises."""
+    DiffMM, GenRecV1 and MVDiff have their multi-phase trainers, every other
+    model ``Trainer``."""
     from genmmrec_tpu_torch.engine import diffusion_trainers as dt
 
-    if model_name == "MVDiff":
-        raise NotImplementedError(
-            "MVDiffTrainer is not ported to genmmrec_tpu_torch yet (ROADMAP.md, Queue 1 item 9)"
-        )
-    return {"DiffMM": dt.DiffMMTrainer, "GenRecV1": dt.GenRecV1Trainer}.get(model_name, Trainer)
+    mapping = {"DiffMM": dt.DiffMMTrainer, "GenRecV1": dt.GenRecV1Trainer, "MVDiff": dt.MVDiffTrainer}
+    return mapping.get(model_name, Trainer)
 
 
 class Trainer:

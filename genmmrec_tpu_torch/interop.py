@@ -47,6 +47,25 @@ port's parameter names are the same paths with the ``rec`` level dropped,
 ``bias``, ``common.norm.Norm``) and list indices as path parts. The leaves arrive as numpy arrays (``np.asarray`` of the JAX
 arrays), so this module imports nothing of JAX.
 
+The diffusion models keep flat trees of tables and ``{w, b}`` layers
+(``nn.Linear``'s layout) with their denoisers nested: ``{dnn: {emb_layer,
+in_layers, out_layers}}`` (DiffRec), ``{mm_project, item_proj, cond_proj,
+time_proj, output_proj, t_in, layers: [{ln: {g, b}, l1, l2, scale,
+shift}]}`` (LD4MRec), ``{user_emb, item_emb, user_reverse, item_reverse}``
+(DDRM), ``{user_emb, item_emb, usr_denoiser, item_denoiser}``
+(DiffGraph), ``{user_emb, item_emb, unet: {enc1: {c1: {w (O, I, 3, 3), b},
+bn1, c2, bn2}, enc2, dec1, final, time1, time2}, v_mlp, t_mlp}`` (MCDRec;
+a convolution's ``w`` is ``nn.Conv2d``'s OIHW weight), ``{user_emb,
+item_emb, uinterest_emb, user_emb_text, item_text_net: {w}, encodecon1:
+{l1, l2}, encodecon2, non: {emb_layer, in, ln, out}, cdn: {emb_layer, in,
+ln1, ln2, in1, out, out1}}`` (CoDMR) and ``{"rec": {user_embedding,
+item_id_embedding, image_residual: [{lin, bn}], image_modal, text_residual,
+text_modal, gate_image, gate_text, common1, common2: {w}}, "denoise_image":
+{emb, down: [...], up: [...]}, "denoise_text", "feat_denoise_image":
+{img_enc1, img_bn1, ..., att_o}, "feat_denoise_text"}`` (MVDiff).
+``from_jax_state`` carries a model's JAX ``state`` across (DiffRec's and
+LD4MRec's loss histories, MCDRec's ``graph_vals``, MVDiff's graphs).
+
 ``jax_tree_by_name`` and ``params_by_jax_name`` flatten the two sides into
 one naming, ``"rec/uEmbeds"``, ``"denoise_image/in_layers/0/w"``, so that
 parameters can be compared leaf by leaf.
@@ -62,7 +81,7 @@ _LEAF_NAMES = {"w": "weight", "b": "bias"}
 _JAX_LEAF_NAMES = {v: k for k, v in _LEAF_NAMES.items()}
 # top-level subtrees of a JAX tree that has them; every other parameter of
 # such a model sits under "rec"
-_TOP_LEVEL = ("denoise_image", "denoise_text")
+_TOP_LEVEL = ("denoise_image", "denoise_text", "feat_denoise_image", "feat_denoise_text")
 
 
 def _flatten(tree, prefix=()):
@@ -98,6 +117,23 @@ def from_jax_params(model: nn.Module, tree) -> nn.Module:
             raise ValueError(f"{name}: shape {tuple(leaf.shape)} != {tuple(p.shape)}")
         p.copy_(torch.tensor(leaf, dtype=p.dtype))
     return model
+
+
+def from_jax_state(model: nn.Module, state) -> dict:
+    """The port's ``state`` from a JAX model state of numpy leaves: each
+    array a tensor on the model's device (integers as int64); a dict of
+    ``rows``/``cols``/``vals`` edges becomes the model's graph of that
+    entry (``model.state_graph_from_edges(name, edges)``)."""
+
+    def conv(name, value):
+        if isinstance(value, dict):
+            edges = {k: conv(k, v) for k, v in value.items()}
+            return model.state_graph_from_edges(name, edges) if set(edges) == {"rows", "cols", "vals"} else edges
+        a = np.asarray(value)
+        t = torch.as_tensor(np.array(a, dtype=np.int64 if np.issubdtype(a.dtype, np.integer) else a.dtype))
+        return t.to(model.device)
+
+    return {k: conv(k, v) for k, v in state.items()}
 
 
 def jax_tree_by_name(tree) -> dict:

@@ -59,7 +59,13 @@ def make_schedule(
         betas[0] = beta_fixed_value
     if not ((betas > 0).all() and (betas <= 1).all()):
         raise ValueError("betas out of range")
+    return schedule_from_betas(betas, device)
 
+
+def schedule_from_betas(betas: np.ndarray, device=None) -> GaussianSchedule:
+    """The DDPM tables of a float64 beta sequence (the ᾱ products and the
+    posterior coefficients), as ``make_schedule`` builds them."""
+    steps = len(betas)
     alphas = 1.0 - betas
     acp = np.cumprod(alphas)
     acp_prev = np.concatenate([[1.0], acp[:-1]])

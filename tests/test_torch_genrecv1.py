@@ -270,12 +270,11 @@ def test_generate_matches(fresh):
 def test_get_trainer():
     assert get_trainer("GenRecV1") is tdt.GenRecV1Trainer
     assert get_trainer("DiffMM") is tdt.DiffMMTrainer
+    assert get_trainer("MVDiff") is tdt.MVDiffTrainer
     assert get_trainer("LightGCN") is TBaseTrainer and get_trainer(None) is TBaseTrainer
-    for name in ("GenRecV1", "DiffMM", "LightGCN"):
+    for name in ("GenRecV1", "DiffMM", "MVDiff", "LightGCN"):
         assert get_trainer(name).__name__ == j_get_trainer(name).__name__
     assert get_model("GenRecV1") is TGenRecV1
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        get_trainer("MVDiff")
 
 
 # ----------------------------------------------------------------------
