@@ -6,6 +6,7 @@
     python3 chip_smoke.py --mp-only [--profile DIR]
     python3 chip_smoke.py --mmg-only [--profile DIR]
     python3 chip_smoke.py --diff-only [--profile DIR]
+    python3 chip_smoke.py --rf-only [--profile DIR]
 
 Drives DiffMM, GenRecV1 and LightGCN at full width, parameters from a
 seeded generator.
@@ -106,6 +107,21 @@ KNN rows; MVDiff's phase 4 again, its user-item graphs held equal to
 those the plain top-k builds on the same denoised rows, and K3 on its
 tie-heavy high-order rows and its denoised scores. ``--diff-only`` builds
 the kernels and runs this phase alone.
+
+The Rectified-Flow family last (``rf_path``), the same way, the YAML's
+``rf_loss_weight`` set to 0.2: RFGUME, RFGUMETime, RFMRec, GenRecBM3,
+RFBM3 and the 14 thin RF hosts, then RFGUMETime and GenRecBM3 with
+``rf_warmup_epochs`` 0 (the generated term reaches the scores) and RFBM3
+with bfloat16 evaluation (K5a and K5b), each with one training batch's
+launches and Recall@20 beside the JAX package's two-epoch smoke value;
+RFGUME's and RFMRec's batch on the card against the CPU (every gradient,
+the ``rf`` subtree's too, and the parameters after the main
+optimizer and the ``"rf"`` AdamW stepped); K1 on R at d = 64 and, cut into
+column slices, at d = 4,096; K1 on RFMRec's weighted adjacency forward and
+backward and on the causal denoiser's edge layout with one batch's values;
+the ``"rf"`` parameters moved by the epoch and untouched by the main
+optimizer alone. ``--rf-only`` builds the kernels and runs this phase
+alone.
 
 Before the paths it builds the CUDA kernels from ``genmmrec_tpu_torch/csrc``
 and holds each one (K1 forward and backward, K2 forward and backward, K3,
@@ -1597,12 +1613,34 @@ def write_profile(torch, prof, out_dir, label, wall_s, card):
     print(f"profile {label}: wall {wall_s * 1e3:.2f} ms, device {total_ms:.2f} ms (busy {busy:.1%}); {top}")
 
 
+def batch_optimizers(model, trainer):
+    """Copies of the optimizers ``trainer`` steps after a batch (the main
+    one and each group of the model's ``label_transforms``), state
+    included, over ``model``'s parameters on its device."""
+    from genmmrec_tpu_torch.engine.trainer import make_optimizer
+
+    groups = model.param_groups()
+    made = {"main": lambda: make_optimizer(groups["rec"], trainer.config, trainer._num_batches)}
+    made.update({k: (lambda make=make, k=k: make(groups[k])) for k, make in model.label_transforms().items()})
+    opts = []
+    for name in trainer._batch_steps:
+        opt = made[name]()
+        opt.load_state_dict(trainer.optimizers[name].state_dict())
+        opts.append(opt)
+    return opts
+
+
 def check_batch_against_cpu(
     torch, trainer, td, train_ds, config, card, loss_kwargs=None, zero_grads=None, card_graphs=(), replay_branches=False,
-    card_tensors=(), replay_topk=False,
+    card_tensors=(), replay_topk=False, groups=("rec",), step=False, card_derived=(),
 ):
     """One training batch on the card and on the CPU, from the same
-    parameters, state and batch: the loss and every ``rec`` gradient.
+    parameters, state and batch: the loss and every gradient of the
+    parameter ``groups`` (``rec``, the main optimizer's, by default). With
+    ``step``, each device then steps copies of the trainer's batch
+    optimizers (the main one and the model's ``label_transforms``, their
+    state included) and each parameter after the step is held at the
+    gradients' bound, but for those of ``zero_grads``.
 
     ``loss_kwargs`` (tensors on the card, such as dropout masks) go to
     ``loss`` on both, copied to the CPU for the CPU's. ``zero_grads`` maps
@@ -1617,7 +1655,9 @@ def check_batch_against_cpu(
     product may choose another of two near-equal neighbours; K3 against its
     plain version on the card's rows holds the card's choice). Those must
     share CARD_GRAPH_SHARE of their edges, and the CPU takes the card's.
-    The dense planes named in ``card_tensors`` (LATTICE's original KNN
+    The graphs named in ``card_derived`` are built from those (GUME's
+    augmented graph and its R, from the two KNN graphs' common pairs): the
+    CPU takes the card's. The dense planes named in ``card_tensors`` (LATTICE's original KNN
     graphs) must share CARD_GRAPH_SHARE of their nonzero pattern, and the
     CPU takes the card's.
 
@@ -1648,7 +1688,7 @@ def check_batch_against_cpu(
     batch = {"users": users, "pos": pos, "neg": neg, "weight": weight}
     cpu_model = type(model)(config, build_train_data(train_ds, cpu))
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    cpu_state = {k: g.to(cpu) for k, g in trainer.state.items()}
+    cpu_state = {k: g.to(cpu) if hasattr(g, "to") else g for k, g in trainer.state.items()}
     edges_equal = {}
     for name, g in vars(model).items():
         if not isinstance(g, SparseGraph):
@@ -1656,7 +1696,9 @@ def check_batch_against_cpu(
         own = getattr(cpu_model, name)
         same_rows = own.nnz == g.nnz and bool(torch.equal(own.rows, g.rows.cpu()))
         edges_equal[name] = float((own.cols == g.cols.cpu()).float().mean()) if same_rows else 0.0
-        if name in card_graphs:
+        if name in card_derived:
+            setattr(cpu_model, name, g.to(cpu))
+        elif name in card_graphs:
             if edges_equal[name] < CARD_GRAPH_SHARE:
                 raise AssertionError(f"{name}: the CPU's graph shares {edges_equal[name]} of the card's edges")
             setattr(cpu_model, name, g.to(cpu))
@@ -1668,14 +1710,17 @@ def check_batch_against_cpu(
         if edges_equal[name] < CARD_GRAPH_SHARE:
             raise AssertionError(f"{name}: the CPU's plane shares {edges_equal[name]} of the card's pattern")
         setattr(cpu_model, name, theirs)
-    rec_names = {id(p) for p in model.param_groups()["rec"]}
+    held = model.param_groups()
+    rec_names = {id(p) for g in groups for p in held[g]}
 
     def to_cpu(v):
         if torch.is_tensor(v):
             return v.cpu()
         if isinstance(v, dict):
             return {k: to_cpu(x) for k, x in v.items()}
-        return tuple(to_cpu(x) for x in v)
+        if isinstance(v, (tuple, list)):
+            return tuple(to_cpu(x) for x in v)
+        return v
 
     loss_kwargs = loss_kwargs or {}
     cpu_kwargs = to_cpu(loss_kwargs)
@@ -1687,7 +1732,12 @@ def check_batch_against_cpu(
             total.backward()
         names = [n for n, p in model.named_parameters() if id(p) in rec_names]
         params = dict(m.named_parameters())
-        return total.item(), {n: params[n].grad.detach().cpu() for n in names if params[n].grad is not None}
+        grads = {n: params[n].grad.detach().cpu() for n in names if params[n].grad is not None}
+        if step:
+            for opt in batch_optimizers(m, trainer):
+                opt.step()
+            stepped.append({n: params[n].detach().cpu().clone() for n in names})
+        return total.item(), grads
 
     F = torch.nn.functional
     leaky_relu, on_card = F.leaky_relu, []
@@ -1725,6 +1775,8 @@ def check_batch_against_cpu(
         topk_rows["differ"] += int((own.sort(1).values != card_i.sort(1).values).any(1).sum())
         return scores.gather(1, card_i), card_i
 
+    stepped = []
+    card_params = {n: p.detach().clone() for n, p in model.named_parameters()} if step else {}
     t0 = time.perf_counter()
     try:
         if replay_branches:
@@ -1741,19 +1793,33 @@ def check_batch_against_cpu(
         F.leaky_relu = leaky_relu
         G.grouped_topk = topk
     model.zero_grad(set_to_none=True)
+    if step:
+        # the card's parameters as they were: the batch is a check
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(card_params[n])
     rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
     if g_gpu.keys() != g_cpu.keys():
         raise AssertionError(f"rec gradients of other parameters on the two devices: {g_gpu.keys() ^ g_cpu.keys()}")
-    worst = {}
+    worst, worst_step = {}, {}
     zero_grads = zero_grads or {}
+
+    def share(ours, ref):
+        bound = GRAD_RTOL * ref.abs() + GRAD_ATOL * ref.abs().max()
+        return float(((ours - ref).abs() / bound.clamp(min=1e-30)).max())
+
     for n, ref in g_cpu.items():
         if n in zero_grads:
             scale = GRAD_ATOL * g_cpu[zero_grads[n]].abs().max()
             worst[n] = float(max(ref.abs().max(), g_gpu[n].abs().max()) / scale)
             continue
-        diff = (g_gpu[n] - ref).abs()
-        bound = GRAD_RTOL * ref.abs() + GRAD_ATOL * ref.abs().max()
-        worst[n] = float((diff / bound.clamp(min=1e-30)).max())
+        worst[n] = share(g_gpu[n], ref)
+    if step:
+        # a gradient zero but for rounding makes a full Adam step of noise:
+        # such a parameter is not held after the step
+        for n, ref in stepped[1].items():
+            if n not in zero_grads:
+                worst_step[n] = share(stepped[0][n], ref)
     replayed = (
         f"; leaky_relu: {flips['flipped']} of {flips['entries']} entries on other sides of 0 on the two devices, "
         f"the CPU took the card's slope there (the largest such pair {flips['worst_flip']:.2e} of its tensor's "
@@ -1765,24 +1831,32 @@ def check_batch_against_cpu(
             f"; the loss's top-k: the CPU took the card's columns, its own differ on {topk_rows['differ']} of "
             f"{topk_rows['rows']} rows"
         )
+    if step:
+        replayed += (
+            f"; after a step of {trainer._batch_steps} (copies with the trainer's state), the parameters, largest "
+            f"share of the bound per tensor {json.dumps({k: round(v, 4) for k, v in worst_step.items()})}"
+        )
     print(
         f"card vs CPU, {type(model).__name__}, one batch of {B}: loss {loss_gpu:.7f} vs {loss_cpu:.7f} (rel {rel:.2e}, "
-        f"bound {LOSS_RTOL:.0e}); rec gradients, largest share of the bound per tensor "
+        f"bound {LOSS_RTOL:.0e}); {'+'.join(groups)} gradients, largest share of the bound per tensor "
         f"{json.dumps({k: round(v, 4) for k, v in worst.items()})} in {time.perf_counter() - t0:.1f} s; the "
         f"model's graphs built on the CPU, share of edges equal to the card's {json.dumps(edges_equal)} "
-        f"(the CPU took the card's {list(card_graphs) + list(card_tensors)}){replayed} [{card}]"
+        f"(the CPU took the card's {list(card_graphs) + list(card_derived) + list(card_tensors)}){replayed} [{card}]"
     )
     if not math.isfinite(loss_gpu) or rel > LOSS_RTOL:
         raise AssertionError(f"batch loss on the card {loss_gpu} differs from the CPU's {loss_cpu}")
     bad = [n for n, v in worst.items() if not v <= 1.0]
     if bad:
         raise AssertionError(f"rec gradients on the card differ from the CPU's: {bad}")
+    bad = [n for n, v in worst_step.items() if not v <= 1.0]
+    if bad:
+        raise AssertionError(f"parameters after the step on the card differ from the CPU's: {bad}")
     if flips["worst_flip"] > FLIP_RTOL or flips["flipped"] > FLIP_SHARE * max(flips["entries"], 1):
         raise AssertionError(f"leaky_relu entries on other sides of 0 past rounding on the two devices: {flips}")
     if replay_topk and (not topk_rows["rows"] or topk_rows["differ"] > TOPK_ROW_SHARE * topk_rows["rows"]):
         raise AssertionError(f"the loss's top-k on the two devices: {topk_rows}")
     return dict(loss_rel_err=rel, grad_bound_share=max(worst.values()), cpu_graph_edges_equal=edges_equal, **flips,
-                topk_rows=topk_rows)
+                topk_rows=topk_rows, step_bound_share=max(worst_step.values(), default=None))
 
 
 def bf16_evaluation_path(torch, config, td, vd, ted, model, valid_f32, test_f32, card, profile_dir=None):
@@ -2364,8 +2438,9 @@ def quick_start_runs(torch, runs, card, label, after=None, last=None):
     ``quick_start`` calls. Checks of each run: finite losses and metrics, a
     CSV of every user's top-50 for each test evaluation, no train positive
     in any top-50, each of its kernels launched. ``after(key, run, out)``
-    checks more on the run's last combination (its ``model``, ``trainer``
-    and ``test_data``) while it is alive; ``last(launches, out)`` runs in
+    checks more on the run's last combination (its ``model``, ``trainer``,
+    ``test_data`` and ``initial``, the parameters of the model's own
+    optimizer groups as ``fit`` initialized them) while it is alive; ``last(launches, out)`` runs in
     the directory after the runs. Returns (summary by key, launches by
     key)."""
     import gc
@@ -2408,6 +2483,16 @@ def quick_start_runs(torch, runs, card, label, after=None, last=None):
 
             trainer.evaluate = timed_evaluate
             run["trainer"] = trainer
+            build_step = trainer._build_train_step
+
+            def snapshot_then_build(train_data):
+                # the groups of the model's own optimizers as ``fit``
+                # initialized them, for a check that the epoch moved them
+                run["initial"] = {n: p.detach().clone() for label in model.label_transforms()
+                                  for n, p in model.named_parameters() if n.split(".")[0] == label}
+                build_step(train_data)
+
+            trainer._build_train_step = snapshot_then_build
             return trainer
 
         return build
@@ -3341,6 +3426,248 @@ def diff_path(torch, card, profile_dir=None):
     return dict(**out, launches=launches), cases, total
 
 
+RF_ONE = {"rf_loss_weight": 0.2}
+RF_HOSTS = (
+    "RFFREEDOM", "RFLATTICE", "RFMGCN", "RFMMGCN", "RFVBPR", "RFLGMRec", "RFBPR_remove", "RFLightGCN_remove",
+    "RFLayerGCN_remove", "RFDualGNN", "RFGRCN", "RFCOHESION", "RFSMORE", "RFPGL",
+)
+# the kernels a run must launch: K3 evaluates every model; K1 forward and
+# backward propagate every host with a graph. RFBPR_remove has none (its
+# zero condition is built without a product); RFVBPR lifts its raw
+# features through R once, at set-up.
+RF_NEED = {"RFBPR_remove": ("grouped_topk",), "RFVBPR": ("grouped_topk", "segment_spmm")}
+RF_RUNS = tuple(
+    (name, name, dict(RF_ONE), dict(max_epochs=1), RF_NEED.get(name, MP_NEED))
+    for name in ("RFGUME", "RFGUMETime", "RFMRec", "GenRecBM3", "RFBM3") + RF_HOSTS
+) + (
+    # warm-up 0: the generated term reaches the scores, convexly (RFGUMETime)
+    # and additively (GenRecBM3)
+    ("RFGUMETime_warm", "RFGUMETime", {**RF_ONE, "rf_warmup_epochs": 0}, dict(max_epochs=1), MP_NEED),
+    ("GenRecBM3_warm", "GenRecBM3", {**RF_ONE, "rf_warmup_epochs": 0}, dict(max_epochs=1), MP_NEED),
+    ("RFBM3_bf16", "RFBM3", {**RF_ONE, "eval_dtype": "bfloat16"}, dict(max_epochs=1),
+     MP_NEED + ("fused_group_max", "fused_candidates")),
+)
+ZOO_SMOKE_RECALL20.update({
+    "RFGUME": 0.0294, "RFGUMETime": 0.0294, "RFMRec": 0.0017, "GenRecBM3": 0.1789, "RFBM3": 0.1402,
+    "RFFREEDOM": 0.1655, "RFLATTICE": 0.1558, "RFMGCN": 0.1642, "RFMMGCN": 0.1764, "RFVBPR": 0.0013,
+    "RFLGMRec": 0.1791, "RFBPR_remove": 0.0864, "RFLightGCN_remove": 0.1754, "RFLayerGCN_remove": 0.0000,
+    "RFDualGNN": 0.1347, "RFGRCN": 0.0774, "RFCOHESION": 0.1701, "RFSMORE": 0.0139, "RFPGL": 0.1788,
+})
+# the models whose training batches ``--profile`` profiles in rf_path
+RF_PROFILED = ("RFGUME", "RFMRec", "GenRecBM3")
+
+
+def check_sliced_spmm(torch, name, g, d, card):
+    """``ops.graph.spmm`` at a width past K1's 512 columns (cut into column
+    slices, one K1 launch each) against the plain product of the whole
+    width and ``torch.sparse.mm``; K1 forward launches counted. Each
+    element is held to K1_RTOL · Σ|vals·x| + K1_ATOL."""
+    from genmmrec_tpu_torch.ops import segment as S
+    from genmmrec_tpu_torch.ops.graph import KERNEL_MAX_D, spmm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    x = torch.randn(g.n_cols, d, generator=gen, device="cuda")
+    before = S.segment_spmm.launches
+    out = spmm(g, x)
+    launched = S.segment_spmm.launches - before
+    plain = lambda: S.segment_spmm_plain(g.row_ptr, g.cols, g.vals, x, g.n_rows)
+    ref = plain()
+    magnitude = S.segment_spmm_plain(g.row_ptr, g.cols, g.vals.abs(), x.abs(), g.n_rows)
+    csr = torch.sparse_csr_tensor(g.row_ptr, g.cols, g.vals, size=(g.n_rows, g.n_cols), check_invariants=False)
+    lib = torch.sparse.mm(csr, x)
+    torch.cuda.synchronize()
+    diff = (out - ref).abs()
+    e = diff.max().item()
+    want = -(-d // KERNEL_MAX_D)
+    if launched != want or not bool((diff <= K1_RTOL * magnitude + K1_ATOL).all()):
+        raise AssertionError(f"K1 {name}: {launched} launches (want {want}), differs from the plain product by {e:.3e}")
+    if not bool(((out - lib).abs() <= K1_RTOL * magnitude + K1_ATOL).all()) or not torch.equal(spmm(g, x), out):
+        raise AssertionError(f"K1 {name}: differs from torch.sparse.mm or between two calls")
+    del diff, magnitude, lib
+    k_ms, p_ms = timed_pair(torch, lambda: spmm(g, x), plain)
+    l_ms = cuda_ms(torch, lambda: torch.sparse.mm(csr, x))
+    b = Bound().add(nbytes(g.row_ptr, g.cols, g.vals, x, out), 2.0 * g.nnz * d, F32_FLOPS)
+    print(f"K1 {name}: n_rows={g.n_rows} nnz={g.nnz} d={d} in {launched} column slices, max_abs_err={e:.3e} "
+          f"repeatable, sliced spmm {k_ms:.4f} ms, plain {p_ms:.4f} ms, torch.sparse.mm {l_ms:.4f} ms, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]")
+    return dict(case=name, n_rows=g.n_rows, nnz=g.nnz, d=d, slices=launched, max_abs_err=e, ms=k_ms, plain_ms=p_ms,
+                library_ms=l_ms, **b)
+
+
+def check_rf_warm(torch, tr, model, card):
+    """A run with ``rf_warmup_epochs`` 0: the generated term reaches the
+    scores. The first evaluation chunk's scores with it, and again with the
+    warm-up moved past the epoch (the term multiplied by 0): both finite,
+    and they differ."""
+    users = torch.arange(min(tr.eval_batch_size, model.n_users), device=model.device)
+    cfg = model.rf_cfg
+    with torch.no_grad():
+        warm = model.scores_cached(tr.state, users, model.full_embeddings(tr.state))
+        kept, cfg.warmup_epochs = cfg.warmup_epochs, 10**9
+        try:
+            cold = model.scores_cached(tr.state, users, model.full_embeddings(tr.state))
+        finally:
+            cfg.warmup_epochs = kept
+    apart = (warm - cold).abs().max().item()
+    if not (bool(torch.isfinite(warm).all()) and bool(torch.isfinite(cold).all()) and apart > 0):
+        raise AssertionError(f"{type(model).__name__} warm: scores not finite or the generated term moved none "
+                             f"({apart})")
+    print(f"{type(model).__name__} with rf_warmup_epochs 0: the generated term moves {users.shape[0]} users' scores "
+          f"by up to {apart:.4e} (finite) [{card}]")
+    return dict(warm_scores_max_abs_diff=apart)
+
+
+def check_rf_groups(torch, tr, model, initial, card):
+    """The ``"rf"`` parameters moved in the epoch (against ``fit``'s
+    initialization); one more batch stepped by copies of the main
+    optimizer alone leaves them bit-unchanged and moves the ``rec`` ones."""
+    named = dict(model.named_parameters())
+    still = [n for n, p in initial.items() if torch.equal(p, named[n].detach())]
+    if not initial or still:
+        raise AssertionError(f"{type(model).__name__}: rf parameters unmoved by the epoch: {still or 'none kept'}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    B = tr.train_batch_size
+    idx = torch.randperm(tr._td.n_inter, generator=gen, device="cuda")[:B]
+    td = tr._td
+    batch = {"users": td.users[idx], "pos": td.items[idx], "neg": td.items[idx.flip(0)],
+             "weight": torch.ones(B, device="cuda")}
+    before = {n: p.detach().clone() for n, p in named.items()}
+    main = batch_optimizers(model, tr)[0]
+    with torch.enable_grad():
+        model.zero_grad(set_to_none=True)
+        model.loss(tr.state, batch, gen)[0].backward()
+        main.step()
+    model.zero_grad(set_to_none=True)
+    rf_same = all(torch.equal(before[n], named[n].detach()) for n in initial)
+    rec_moved = any(not torch.equal(before[n], p.detach()) for n, p in named.items() if n not in initial)
+    with torch.no_grad():
+        for n, p in named.items():
+            p.copy_(before[n])
+    if not (rf_same and rec_moved):
+        raise AssertionError(f"{type(model).__name__}: a main step moved rf ({not rf_same}) or no rec ({not rec_moved})")
+    print(f"{type(model).__name__}: all {len(initial)} rf tensors moved in the epoch; a step of the main optimizer "
+          f"alone leaves them bit-unchanged [{card}]")
+
+
+def rf_path(torch, card, profile_dir=None):
+    """The Rectified-Flow family: ``quick_start`` for each of ``RF_RUNS``
+    (``quick_start_runs``: one epoch, ``evaluate`` valid and test, the YAML's
+    ``rf_loss_weight`` set to 0.2): RFGUME, RFGUMETime, RFMRec, GenRecBM3,
+    RFBM3, the 14 thin hosts, then RFGUMETime and GenRecBM3 with
+    ``rf_warmup_epochs`` 0 and RFBM3 with bfloat16 evaluation (K5a, K5b).
+    Beside each run: one training batch's launches, Recall@20 beside the
+    JAX two-epoch smoke value. Checks: RFGUME's and RFMRec's batch on the
+    card against the CPU (every draw made on the card and handed to both;
+    every gradient, the ``rf`` subtree's too, and the parameters
+    after the main optimizer and the ``"rf"`` AdamW stepped); K1 on RFBM3's
+    R at d = 64 and on RFDualGNN's at d = 4,096 (the sliced product) and
+    on RFMRec's weighted adjacency at d = 64, forward and backward; the
+    causal denoiser's layout with one batch's values (GenRecBM3); the
+    ``_warm`` runs' scores with and without the generated term; for every
+    model with an ``"rf"`` group, its parameters moved by the epoch and left
+    bit-unchanged by the main optimizer alone. ``profile_dir`` adds ten
+    profiled training batches of RFGUME, RFMRec and GenRecBM3. Returns
+    (summary, kernel cases by kernel, launches)."""
+    from genmmrec_tpu_torch.data.dataset import RecDataset
+
+    cases = dict(k1=[], k1_bwd=[], k3=[])
+    data = {}
+
+    def train_ds(config):
+        if "train" not in data:
+            data["train"] = RecDataset(config).split()[0]
+        return data["train"]
+
+    def after(key, r, o):
+        tr, model = r["trainer"], r["model"]
+        dev = model.device
+        gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+        B = tr.train_batch_size
+        base = key.split("_warm")[0].split("_bf16")[0]
+        if key in ("RFGUME", "RFMRec"):
+            graphs = {}
+            if key == "RFGUME":
+                draws = dict(noise=model.draws(gen), rf_draws=model.rf_draws(gen, B, tr.state["epoch"]))
+                # each device ranks its own float32 similarities: near-equal
+                # neighbours may swap in the KNN graphs, and the augmented
+                # graph follows them
+                graphs = dict(card_graphs=("image_original_adj", "text_original_adj"),
+                              card_derived=("norm_adj", "R"))
+            else:
+                draws = dict(draws=model.draws(gen, B))
+                # a key bias adds one constant to a query's logits, which
+                # the softmax cancels; the self-attention's one key takes
+                # probability 1 whatever its projections: gradients zero but
+                # for rounding, held against the value projection's
+                vel = "velocity.{}.{}.attn.{}"
+                graphs = dict(zero_grads={
+                    **{vel.format("cross", i, "bk"): vel.format("cross", i, "wv") for i in range(model.n_layers)},
+                    **{vel.format("selfa", i, w): vel.format("selfa", i, "wv") for i in range(model.n_layers)
+                       for w in ("wq", "wk", "bq", "bk")},
+                })
+            groups = tuple(model.param_groups())
+            kept = {}
+            if key == "RFGUME":
+                # the first layer of GUME's modal attention: its bias
+                # gradient is a cancellation of the two modal rows' tanh
+                # slopes at the initialization's small inputs, 1e-2 of the
+                # weight's, below float32 rounding of the sum. It is widened
+                # for the check, as the CPU tests widen it, and restored
+                layer = model.separate1
+                kept = {n: p.detach().clone() for n, p in layer.named_parameters()}
+                with torch.no_grad():
+                    layer.weight.mul_(30.0)
+                    layer.bias.copy_(0.5 * torch.randn(layer.bias.shape, generator=gen, device=dev))
+            o["batch_vs_cpu"] = check_batch_against_cpu(torch, tr, model.data, train_ds(tr.config), tr.config, card,
+                                                        loss_kwargs=draws, groups=groups, step=True, **graphs)
+            with torch.no_grad():
+                for n, p in (model.separate1.named_parameters() if kept else ()):
+                    p.copy_(kept[n])
+        if key == "RFMRec":
+            g = model.norm_adj
+            cases["k1"] += check_spmm(torch, [("rfmrec_weighted_adjacency_d64", g, model.embedding_dim)],
+                                      card)["cases"]
+            cases["k1_bwd"] += check_spmm_backward(torch, [("rfmrec_weighted_adjacency_d64", g, model.embedding_dim)],
+                                                   card)["cases"]
+        if key == "RFBM3":
+            cases["k1"] += check_spmm(torch, [("rf_R_d64", model._rf_R, model.embedding_dim)], card)["cases"]
+        if key == "RFDualGNN":
+            cases["k1"].append(check_sliced_spmm(torch, "rf_R_d4096_sliced", model._rf_R, model.v_feat.shape[1], card))
+        if key == "GenRecBM3":
+            cd = model.causal_denoiser
+            with torch.no_grad():
+                g = cd.ipw_graph(cd.propensity(model._ego()))
+            cases["k1"] += check_spmm(torch, [("genrecbm3_ipw_layout_d64", g, model.embedding_dim)], card)["cases"]
+        if key.endswith("_warm"):
+            o["warm"] = check_rf_warm(torch, tr, model, card)
+        if "rf" in model.label_transforms():
+            check_rf_groups(torch, tr, model, r["initial"], card)
+        per_batch = batch_launches(torch, tr)
+        o["batch_launches"] = per_batch
+        print(f"rf_path {key}: one training batch launches K1 {per_batch['segment_spmm']} + "
+              f"{per_batch['segment_spmm_backward']}, K3 {per_batch['grouped_topk']}; Recall@20 valid "
+              f"{o['valid_recall20']:.4f} after one epoch (JAX two-epoch smoke {ZOO_SMOKE_RECALL20[base]}) [{card}]")
+        if profile_dir and key in RF_PROFILED:
+            from torch.profiler import ProfilerActivity, profile
+
+            pgen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+            idx = torch.randperm(tr._num_batches * B, generator=pgen, device="cuda")[: 10 * B].reshape(10, B)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                tr._train_epoch(pgen, plan={"idx": idx})
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            write_profile(torch, prof, profile_dir, f"{key}_baby_train_10_batches", wall, card)
+
+    phase_t0 = time.perf_counter()
+    out, launches = quick_start_runs(torch, RF_RUNS, card, "rf_path", after)
+    total = {k: sum(l[k] for l in launches.values()) for k in launch_counts()}
+    out["phase_s"] = time.perf_counter() - phase_t0
+    print(f"rf_path phase done in {out['phase_s']:.1f} s; launches {json.dumps(launches)}")
+    return dict(**out, launches=launches), cases, total
+
+
 def main() -> int:
     import torch
 
@@ -3370,10 +3697,17 @@ def main() -> int:
         help="only build the kernels and run the diffusion recommenders' phase (diff_path), and stop",
     )
     parser.add_argument(
+        "--rf-only", action="store_true",
+        help="only build the kernels and run the Rectified-Flow family's phase (rf_path), and stop",
+    )
+    parser.add_argument(
         "--k5a-against", nargs="+", metavar="DIR",
         help="only time this checkout's K5a against the K5a of each other checkout DIR, in turns, and stop",
     )
     args = parser.parse_args()
+    if args.profile:
+        # the model phases run in a temporary working directory
+        args.profile = os.path.abspath(args.profile)
     smoke_t0 = time.perf_counter()
 
     from genmmrec_tpu_torch.config import Config
@@ -3413,6 +3747,10 @@ def main() -> int:
     if args.diff_only:
         diff, diff_cases, diff_launches = diff_path(torch, card, args.profile)
         print(json.dumps({"diff_path": dict(**diff, launches_total=diff_launches), "kernel_cases": diff_cases}))
+        return 0
+    if args.rf_only:
+        rfp, rf_cases, rf_launches = rf_path(torch, card, args.profile)
+        print(json.dumps({"rf_path": dict(**rfp, launches_total=rf_launches), "kernel_cases": rf_cases}))
         return 0
 
     # -- the slice's data and model (set-up) ------------------------------
@@ -3688,7 +4026,9 @@ def main() -> int:
     mmg, mmg_cases, mmg_launches = mmg_path(torch, card, args.profile)
     # -- phase 11: the diffusion recommenders ------------------------------
     diff, diff_cases, diff_launches = diff_path(torch, card, args.profile)
-    for cs in (cli_cases, mp_cases, mmg_cases, diff_cases):
+    # -- phase 12: the Rectified-Flow family -------------------------------
+    rfp, rf_cases, rf_launches = rf_path(torch, card, args.profile)
+    for cs in (cli_cases, mp_cases, mmg_cases, diff_cases, rf_cases):
         k1["cases"] += cs["k1"]
         k1_bwd["cases"] += cs["k1_bwd"]
         k3["cases"] += cs["k3"]
@@ -3696,7 +4036,7 @@ def main() -> int:
     launches = {
         k: serving_launches[k] + switched_launches[k] + bf16_launches[k] + training_launches[k] + wide_launches[k]
         + elec_launches[k] + genrec_launches[k] + cli_launches[k] + mp_launches[k] + mmg_launches[k]
-        + diff_launches[k]
+        + diff_launches[k] + rf_launches[k]
         for k in serving_launches
     }
     never = [k for k, v in launches.items() if v <= 0]
@@ -3761,6 +4101,7 @@ def main() -> int:
         genrecv1_baby=dict(**genrec, launches_total=genrec_launches),
         cli=dict(**cli, launches_total=cli_launches), mp_path=dict(**mp, launches_total=mp_launches),
         mmg_path=dict(**mmg, launches_total=mmg_launches), diff_path=dict(**diff, launches_total=diff_launches),
+        rf_path=dict(**rfp, launches_total=rf_launches),
         card=card,
         total_s=time.perf_counter() - smoke_t0,
     )

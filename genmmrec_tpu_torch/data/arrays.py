@@ -54,6 +54,9 @@ class TrainData:
     n_items: int
     n_inter: int
     n_pool: int
+    # per-interaction timestamps as float32 (the JAX field's type: a Unix
+    # time rounds to a multiple of 128 s), or None when the table has none
+    times: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -92,6 +95,7 @@ def build_train_data(train_ds: RecDataset, device) -> TrainData:
         n_items=n_items,
         n_inter=len(users),
         n_pool=len(pool),
+        times=None if train_ds.table.times is None else to(train_ds.table.times, torch.float32),
     )
 
 

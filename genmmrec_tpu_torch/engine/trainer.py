@@ -74,18 +74,25 @@ class ChainOptimizer(torch.optim.Optimizer):
 
     ``learner`` is adam (b1 0.9, b2 0.999, eps 1e-8), sgd (identity),
     adagrad (``scale_by_rss``, accumulator 0, eps 1e-7 inside the root) or
-    rmsprop (``scale_by_rms``, decay 0.9, eps 1e-8 inside the root). A
-    parameter without a gradient steps as if its gradient were zero, as a
-    leaf of an optax tree does."""
+    rmsprop (``scale_by_rms``, decay 0.9, eps 1e-8 inside the root). With
+    ``decoupled_weight_decay`` the learner's update gains
+    ``decoupled_weight_decay · p`` before the rate, ``optax.adamw``'s
+    ``add_decayed_weights`` after ``scale_by_adam``. A parameter without a
+    gradient steps as if its gradient were zero, as a leaf of an optax tree
+    does."""
 
     LEARNERS = ("adam", "sgd", "adagrad", "rmsprop")
 
-    def __init__(self, params, learner: str, lr_fn, max_norm=None, weight_decay: float = 0.0):
+    def __init__(
+        self, params, learner: str, lr_fn, max_norm=None, weight_decay: float = 0.0,
+        decoupled_weight_decay: float = 0.0,
+    ):
         if learner not in self.LEARNERS:
             raise ValueError(f"unknown learner {learner}")
         super().__init__(params, {})
         self.learner, self.lr_fn = learner, lr_fn
         self.max_norm, self.weight_decay = max_norm, weight_decay
+        self.decoupled_weight_decay = decoupled_weight_decay
         self.count = 0
 
     def state_dict(self):
@@ -127,6 +134,8 @@ class ChainOptimizer(torch.optim.Optimizer):
                 u = g * torch.rsqrt(st["nu"] + 1e-8)
             else:
                 u = g
+            if self.decoupled_weight_decay:
+                u = u + self.decoupled_weight_decay * p
             p.add_(u, alpha=-lr)
         self.count += 1
 
@@ -151,6 +160,13 @@ def make_optimizer(params, config, steps_per_epoch: int) -> ChainOptimizer:
     wd = config["weight_decay"]
     wd = float(wd[0] if isinstance(wd, list) else wd) if wd else 0.0
     return ChainOptimizer(params, name, lr_fn, max_norm=max_norm, weight_decay=wd)
+
+
+def adamw(params, lr: float, weight_decay: float = 1e-4) -> ChainOptimizer:
+    """``optax.adamw(lr)`` with its defaults: adam (b1 0.9, b2 0.999, eps
+    1e-8), decoupled decay ``weight_decay``, a constant rate; no clip and no
+    coupled decay."""
+    return ChainOptimizer(params, "adam", lambda step: lr, decoupled_weight_decay=weight_decay)
 
 
 def seeded_generator(device, seed: int, *path) -> torch.Generator:
@@ -235,11 +251,18 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _build_train_step(self, train_data: TrainData) -> None:
-        """Batch plan and main optimizer, over the model's ``rec`` parameters."""
+        """Batch plan, the main optimizer over the model's ``rec``
+        parameters and one optimizer for each group the model's
+        ``label_transforms`` names (the JAX package's ``multi_transform``
+        labels), all stepped after each batch's backward."""
         self._td = train_data
         self._num_batches = -(-train_data.n_inter // self.train_batch_size)
-        params = self.model.param_groups()["rec"]
-        self.optimizers["main"] = make_optimizer(params, self.config, self._num_batches)
+        groups = self.model.param_groups()
+        self.optimizers["main"] = make_optimizer(groups["rec"], self.config, self._num_batches)
+        self._batch_steps = ["main"]
+        for label, make in self.model.label_transforms().items():
+            self.optimizers[label] = make(groups[label])
+            self._batch_steps.append(label)
 
     @torch.enable_grad()
     def _train_epoch(self, generator: Optional[torch.Generator] = None, plan: Optional[dict] = None):
@@ -250,9 +273,14 @@ class Trainer:
         slots; slot ``raw`` reads interaction ``raw % n_inter`` with weight
         ``raw < n_inter``. ``plan`` may give the slots (``idx``, (any number
         of batches, B)) and the negatives (``neg``, same shape) in place of
-        the draws; the epoch then runs the plan's batches.
+        the draws, and each batch's loss draws (``draws``, and ``draws2``
+        for the second pass of ``mg``: a list of keyword dicts for the
+        model's ``loss``); the epoch then runs the plan's batches.
         """
-        model, td, opt = self.model, self._td, self.optimizers["main"]
+        model, td = self.model, self._td
+        opts = [self.optimizers[k] for k in self._batch_steps]
+        zero = lambda: [o.zero_grad(set_to_none=True) for o in opts]
+        step = lambda: [o.step() for o in opts]
         B, nb, n_inter = self.train_batch_size, self._num_batches, td.n_inter
         dev = td.users.device
         if plan is not None:
@@ -272,25 +300,29 @@ class Trainer:
             else:
                 neg = torch.zeros_like(pos)
             batch = {"users": users, "pos": pos, "neg": neg, "weight": weight}
-            opt.zero_grad(set_to_none=True)
-            total, (parts, state) = model.loss_and_update(self.state, batch, generator)
+            draws = lambda name: plan[name][b] if plan is not None and name in plan else {}
+            zero()
+            total, (parts, state) = model.loss_and_update(self.state, batch, generator, **draws("draws"))
             total.backward()
             if self.mg and b % self.beta == 0:
                 self._scale_grads(self.alpha1)
-                opt.step()
-                opt.zero_grad(set_to_none=True)
-                model.loss_and_update(state, batch, generator)[0].backward()
+                step()
+                zero()
+                model.loss_and_update(state, batch, generator, **draws("draws2"))[0].backward()
                 self._scale_grads(-self.alpha2)
-            opt.step()
+            step()
             self.state = state
             parts_all.append(torch.stack([p.detach() for p in parts]))
-        opt.zero_grad(set_to_none=True)
+        zero()
         return torch.stack(parts_all)
 
     def _scale_grads(self, factor: float) -> None:
-        for p in self.model.param_groups()["rec"]:
-            if p.grad is not None:
-                p.grad.mul_(factor)
+        """Scale the gradients of every parameter a batch's optimizers step."""
+        for k in self._batch_steps:
+            for group in self.optimizers[k].param_groups:
+                for p in group["params"]:
+                    if p.grad is not None:
+                        p.grad.mul_(factor)
 
     def _traced_epoch(self, trace_dir: str, epoch_idx: int, generator: torch.Generator) -> torch.Tensor:
         """One BPR epoch under ``torch.profiler``; its Chrome trace goes to

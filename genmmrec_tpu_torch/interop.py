@@ -63,8 +63,23 @@ item_id_embedding, image_residual: [{lin, bn}], image_modal, text_residual,
 text_modal, gate_image, gate_text, common1, common2: {w}}, "denoise_image":
 {emb, down: [...], up: [...]}, "denoise_text", "feat_denoise_image":
 {img_enc1, img_bn1, ..., att_o}, "feat_denoise_text"}`` (MVDiff).
+The Rectified-Flow models keep their host's tree beside ``{rf:
+{time_lin, cond_lin, cond_ln: {g, b}, in_lin, in_ln, res_blocks: [{l1,
+ln1, l2, ln2}], out_lin1, out_ln, out_lin2}}`` (the 15 RF hosts,
+GenRecBM3, RFGUME, RFGUMETime) and ``{causal_denoiser: {alpha, beta,
+denoise_W: [{w, b}]}}`` (GenRecBM3, RFGUME with ``use_denoise``; ``alpha``
+and ``beta`` 0-d leaves). RFMRec keeps ``{user_embedding, item_embedding,
+visual_proj, text_proj, velocity: {time1, time2, time3, enc_interaction:
+{layers: [{lin, ln}], skip}, enc_visual, enc_text, in_lin, in_ln,
+out_lin1, out_ln, out_lin2, skip_scale, cross: [{attn: {wq, wk, wv, bq,
+bk, bv, wo, bo}, ln1, ln2, ffn1, ffn2}], selfa: [{attn, ln}], res: [{net1,
+net2, gn: {g, b}, scale1, scale2, shift1, shift2, ln}], mid: [{lin,
+ln}]}}``: the attention's projections are bare leaves, as are
+``skip_scale``, ``alpha`` and ``beta``.
+
 ``from_jax_state`` carries a model's JAX ``state`` across (DiffRec's and
-LD4MRec's loss histories, MCDRec's ``graph_vals``, MVDiff's graphs).
+LD4MRec's loss histories, MCDRec's ``graph_vals``, MVDiff's graphs; a 0-d
+integer, the RF models' ``rf_epoch`` or ``epoch``, as a Python int).
 
 ``jax_tree_by_name`` and ``params_by_jax_name`` flatten the two sides into
 one naming, ``"rec/uEmbeds"``, ``"denoise_image/in_layers/0/w"``, so that
@@ -130,6 +145,8 @@ def from_jax_state(model: nn.Module, state) -> dict:
             edges = {k: conv(k, v) for k, v in value.items()}
             return model.state_graph_from_edges(name, edges) if set(edges) == {"rows", "cols", "vals"} else edges
         a = np.asarray(value)
+        if a.ndim == 0 and np.issubdtype(a.dtype, np.integer):
+            return int(a)
         t = torch.as_tensor(np.array(a, dtype=np.int64 if np.issubdtype(a.dtype, np.integer) else a.dtype))
         return t.to(model.device)
 

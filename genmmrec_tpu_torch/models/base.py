@@ -71,19 +71,32 @@ class RecModel(nn.Module):
         return {}
 
     def param_groups(self) -> dict:
-        """Parameters by optimizer: the main optimizer trains ``rec``; a model
-        with parameters trained in phases of their own adds groups."""
-        return {"rec": list(self.parameters())}
+        """Parameters by optimizer: the main optimizer trains ``rec``; each
+        label of ``label_transforms`` is the group of the submodule of that
+        name. A model with parameters trained in phases of their own adds
+        groups."""
+        labels = self.label_transforms()
+        groups = {"rec": [], **{label: [] for label in labels}}
+        for name, p in self.named_parameters():
+            top = name.split(".")[0]
+            groups[top if top in labels else "rec"].append(p)
+        return groups
+
+    def label_transforms(self) -> dict:
+        """label -> ``make(params)``, the optimizer of a group that the
+        trainer steps after every batch beside the main one (the JAX
+        package's ``label_transforms``); none by default."""
+        return {}
 
     def loss(self, state, batch, generator=None):
         """(total loss, tuple of per-part losses) over a batch dict of
         ``users``/``pos``/``neg`` ids and a ``weight`` vector (0 on padding)."""
         raise NotImplementedError
 
-    def loss_and_update(self, state, batch, generator=None):
+    def loss_and_update(self, state, batch, generator=None, **draws):
         """Loss plus the per-batch state update; the default keeps the state.
-        Gradients flow only through the loss."""
-        total, parts = self.loss(state, batch, generator)
+        Gradients flow only through the loss. ``draws`` go to ``loss``."""
+        total, parts = self.loss(state, batch, generator, **draws)
         return total, (parts, state)
 
     def pre_epoch(self, state, generator, epoch: int) -> dict:

@@ -120,14 +120,20 @@ class GUME(RecModel):
             x = spmm(adj, x)
         return x
 
-    def forward(self, train: bool = False, extended_id_override=None):
+    def explicit_embeds(self):
+        """The gated item-id embedding through each modal KNN graph, and the
+        same lifted to the users by R over the items: (image items, text
+        items, explicit image, explicit text)."""
         img_space = torch.sigmoid(self.image_trans(self.image_reduce(self.v_feat)))
         txt_space = torch.sigmoid(self.text_trans(self.text_reduce(self.t_feat)))
         exp_img_item = self._conv_ii(self.image_original_adj, self.item_id_embedding * img_space)
         exp_txt_item = self._conv_ii(self.text_original_adj, self.item_id_embedding * txt_space)
         exp_img_user, exp_txt_user = spmm_multi(self.R, [exp_img_item, exp_txt_item])
-        explicit_image = torch.cat([exp_img_user, exp_img_item])
-        explicit_text = torch.cat([exp_txt_user, exp_txt_item])
+        explicit_image, explicit_text = torch.cat([exp_img_user, exp_img_item]), torch.cat([exp_txt_user, exp_txt_item])
+        return exp_img_item, exp_txt_item, explicit_image, explicit_text
+
+    def forward(self, train: bool = False, extended_id_override=None):
+        exp_img_item, exp_txt_item, explicit_image, explicit_text = self.explicit_embeds()
 
         # the three towers share the augmented graph: one batched pass
         d = self.embedding_dim
@@ -163,10 +169,14 @@ class GUME(RecModel):
         return infonce(perturb(noise[0], emb)[ids], perturb(noise[1], emb)[ids], temp, weights, eps=1e-8)
 
     def loss(self, state, batch, generator=None, noise=None):
+        return self.loss_of(self.forward(train=True), batch, generator, noise)
+
+    def loss_of(self, out, batch, generator=None, noise=None):
+        """The loss from ``forward(train=True)``'s output ``out``."""
         users, pos, neg, w = batch["users"], batch["pos"], batch["neg"], batch["weight"]
         if noise is None:
             noise = self.draws(generator)
-        all_e, (integration, extended_id, extended_it), (exp_img, exp_txt) = self.forward(train=True)
+        all_e, (integration, extended_id, extended_it), (exp_img, exp_txt) = out
         nu = self.n_users
         u, p_e, n_e = all_e[:nu][users], all_e[nu:][pos], all_e[nu:][neg]
         bpr = bpr_loss((u * p_e).sum(1), (u * n_e).sum(1), w, gamma=0.0)

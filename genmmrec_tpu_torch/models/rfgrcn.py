@@ -1,0 +1,22 @@
+"""RFGRCN: GRCN + RF (counterpart of ``genmmrec_tpu/models/rfgrcn.py``): the
+flow runs at GRCN's dim_x + 2·dim_C width; the conditions are the raw
+features, built once."""
+
+from __future__ import annotations
+
+from genmmrec_tpu_torch.models.grcn import GRCN
+from genmmrec_tpu_torch.models.rf_host import RFHostMixin
+
+
+class RFGRCN(RFHostMixin, GRCN):
+    RF_CONSTANT_CONDITIONS = True
+
+    def __init__(self, config, data):
+        super().__init__(config, data)
+        self._rf_setup(self.dim_x + 2 * self.dim_C, self.v_feat.shape[1] + self.t_feat.shape[1])
+
+    def rf_host_repr(self, state):
+        return self.forward()
+
+    def rf_condition_feats(self):
+        return [self.v_feat, self.t_feat]

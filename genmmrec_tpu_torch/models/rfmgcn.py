@@ -1,0 +1,20 @@
+"""RFMGCN: MGCN + RF (counterpart of ``genmmrec_tpu/models/rfmgcn.py``)."""
+
+from __future__ import annotations
+
+import torch
+
+from genmmrec_tpu_torch.models.mgcn import MGCN
+from genmmrec_tpu_torch.models.rf_host import RFHostMixin
+
+
+class RFMGCN(RFHostMixin, MGCN):
+    def __init__(self, config, data):
+        super().__init__(config, data)
+        self._rf_setup(self.embedding_dim, self.image_trs.out_features + self.text_trs.out_features)
+
+    def rf_host_repr(self, state):
+        return torch.cat(self.forward())
+
+    def rf_condition_feats(self):
+        return [self.image_trs(self.v_feat), self.text_trs(self.t_feat)]

@@ -160,8 +160,28 @@ def _as_operands(g: SparseGraph):
     return g.row_ptr, g.rows, g.cols, g.vals, g.n_rows, g.blocked, g.long_rows
 
 
+# the operand widths K1 and K2 take: a multiple of KERNEL_D_MULTIPLE up to
+# KERNEL_MAX_D columns
+KERNEL_MAX_D, KERNEL_D_MULTIPLE = 512, 4
+
+
 def spmm(g: SparseGraph, x: torch.Tensor) -> torch.Tensor:
-    """Sparse @ dense: (n_rows, n_cols) @ (n_cols, d) -> (n_rows, d)."""
+    """Sparse @ dense: (n_rows, n_cols) @ (n_cols, d) -> (n_rows, d), any
+    d ≥ 1. A width the kernels do not take is padded with zero columns to a
+    multiple of ``KERNEL_D_MULTIPLE`` and cut into column slices of at most
+    ``KERNEL_MAX_D``, one product each, on every device; a column's sums
+    keep their order, so the result equals the unsliced product."""
+    d = x.shape[1]
+    if d % KERNEL_D_MULTIPLE == 0 and d <= KERNEL_MAX_D:
+        return _spmm(g, x)
+    pad = -d % KERNEL_D_MULTIPLE
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    out = torch.cat([_spmm(g, x[:, lo : lo + KERNEL_MAX_D]) for lo in range(0, d + pad, KERNEL_MAX_D)], dim=1)
+    return out[:, :d] if pad else out
+
+
+def _spmm(g: SparseGraph, x: torch.Tensor) -> torch.Tensor:
     g = g.row_sorted()
     if g.symmetric:
         return spmm_symmetric(g.row_ptr, g.rows, g.cols, g.vals, x.contiguous(), g.n_rows, g.blocked, g.long_rows)
