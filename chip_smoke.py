@@ -7,6 +7,7 @@
     python3 chip_smoke.py --mmg-only [--profile DIR]
     python3 chip_smoke.py --diff-only [--profile DIR]
     python3 chip_smoke.py --rf-only [--profile DIR]
+    python3 chip_smoke.py --mesh-only
 
 Drives DiffMM, GenRecV1 and LightGCN at full width, parameters from a
 seeded generator.
@@ -122,6 +123,21 @@ backward and on the causal denoiser's edge layout with one batch's values;
 the ``"rf"`` parameters moved by the epoch and untouched by the main
 optimizer alone. ``--rf-only`` builds the kernels and runs this phase
 alone.
+
+The multi-device layer last (``mesh_path``): four ranks of a ``{data: 2,
+model: 2}`` mesh share the card over gloo (``parallel.launch.run``), each
+running DiffMM on Amazon-baby through ``get_model`` and ``get_trainer``:
+one ``fit`` epoch (phase 1 and the BPR epoch split over the data axis, the
+regeneration's chunks dealt over it, the optimizers' rows split over the
+model axis), evaluate(valid) and evaluate(test) in float32 and in
+bfloat16 (K3 on each rank's item shard, ``sharded_topk``); one batch's
+gradients summed over the data axis against the same batch on one rank;
+each rank's K3 on its shard against its plain version; the layer's
+collectives timed. The same seed on one rank in this process: every metric
+within ``MESH_METRIC_ATOL``. Then the spectral clustering of baby's fused
+features (``multimodal_fusion_cluster``, K3 on the 7,050² similarity) on
+the card against the CPU. ``--mesh-only`` builds the kernels and runs this
+phase alone.
 
 Before the paths it builds the CUDA kernels from ``genmmrec_tpu_torch/csrc``
 and holds each one (K1 forward and backward, K2 forward and backward, K3,
@@ -2469,8 +2485,8 @@ def quick_start_runs(torch, runs, card, label, after=None, last=None):
     def timed_trainer(name):
         cls = qs_get_trainer(name)
 
-        def build(config, model, mg=False):
-            trainer = cls(config, model, mg)
+        def build(config, model, mg=False, mesh=None):
+            trainer = cls(config, model, mg, mesh)
             run, evaluate = made[-1], trainer.evaluate
 
             def timed_evaluate(eval_data, is_test=False, idx=0):
@@ -3668,6 +3684,301 @@ def rf_path(torch, card, profile_dir=None):
     return dict(**out, launches=launches), cases, total
 
 
+
+# -- the multi-device layer: DiffMM on a mesh of ranks sharing the card -------
+MESH_SHAPE = {"data": 2, "model": 2}
+# a mesh fit against one rank: the JAX package's bound on its sharded fits
+MESH_METRIC_ATOL = 2e-3
+# the evaluation's chunk and k of the collectives' timing
+MESH_TOPK_SHAPE = (4096, 50)
+
+
+def mesh_setup(torch, dev):
+    """DiffMM on Amazon-baby at its published width through ``get_model``,
+    one epoch: (config, train data, valid, test, model)."""
+    from genmmrec_tpu_torch.config import Config
+    from genmmrec_tpu_torch.data.arrays import build_eval_data, build_train_data
+    from genmmrec_tpu_torch.data.dataset import RecDataset
+    from genmmrec_tpu_torch.engine.evaluator import group_masks
+    from genmmrec_tpu_torch.models import get_model
+
+    config = Config("DiffMM", "baby", {"save_recommended_topk": False, "epochs": 1, "eval_step": 1})
+    train, valid, test = RecDataset(config).split()
+    eval_bs = int(config["eval_batch_size"])
+    td = build_train_data(train, dev)
+    vd, ted = build_eval_data(valid, train, eval_bs, dev), build_eval_data(test, train, eval_bs, dev)
+    config["pop_mask"], config["warm_mask"] = group_masks(train, dev)
+    return config, td, vd, ted, get_model("DiffMM")(config, td)
+
+
+def mesh_drive(torch, make_trainer, model, vd, ted):
+    """Twice, each time with a new trainer from ``make_trainer()``: ``fit``
+    (one epoch: phase 1, the regeneration, the BPR + InfoNCE epoch, then
+    evaluate valid and test in float32), then evaluate valid and test in
+    bfloat16. The first drive warms the process up (its CUDA context,
+    cuBLAS, the kernel library, first calls) and only its wall time is
+    kept; the second is timed and its launches counted → (trainer, results,
+    seconds, launches, launches of the bf16 evaluation)."""
+    for drive in ("cold", "warm"):
+        trainer = make_trainer()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, valid32, test32 = trainer.fit(trainer.model.data, vd, ted, verbose=False)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model.eval_dtype = torch.bfloat16
+        before = launch_counts()
+        valid16, test16 = trainer.evaluate(vd), trainer.evaluate(ted, is_test=True)
+        launches = launch_counts()
+        bf16_launches = {k: v - before[k] for k, v in launches.items()}
+        model.eval_dtype = torch.float32
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if drive == "cold":
+            cold_s = t2 - t0
+    res = dict(valid_float32=valid32, test_float32=test32, valid_bfloat16=valid16, test_bfloat16=test16)
+    times = dict(fit_s=t1 - t0, epoch_s=trainer.epoch_times[0], bf16_eval_s=t2 - t1, total_s=t2 - t0,
+                 first_drive_s=cold_s, **{k: v for k, v in trainer.prelude_log.items() if k.endswith("_s")})
+    return trainer, res, times, launches, bf16_launches
+
+
+def mesh_batch_check(torch, trainer, model, mesh):
+    """One BPR batch of the trained model split over the data axis, its
+    gradients summed over the axis, against the same batch on this one rank
+    (rank 0): the loss within LOSS_RTOL, each gradient element within
+    GRAD_RTOL of its magnitude plus GRAD_ATOL of its tensor's largest."""
+    from genmmrec_tpu_torch.parallel import mesh as pm
+
+    dev = model.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    B = trainer.train_batch_size
+    idx = torch.randint(0, model.data.n_inter, (B,), generator=gen, device=dev)
+    batch = {"users": model.data.users[idx], "pos": model.data.items[idx],
+             "neg": torch.randint(0, model.n_items, (B,), generator=gen, device=dev),
+             "weight": (torch.arange(B, device=dev) < B - 7).to(torch.float32)}
+    params = dict(model.named_parameters())
+    rows = pm.DataRows(mesh, B)
+    with torch.enable_grad():
+        model.zero_grad(set_to_none=True)
+        total, _ = model.loss(trainer.state, {**rows.local(batch), "rows": rows})
+        total.backward()
+        pm.reduce_grads(params.values(), mesh)
+        loss = float(pm.all_reduce(total.detach().clone(), mesh, pm.DATA_AXIS))
+        summed = {k: p.grad.clone() for k, p in params.items()}
+        if not mesh.is_main:
+            return None
+        model.zero_grad(set_to_none=True)
+        ref, _ = model.loss(trainer.state, batch)
+        ref.backward()
+    if abs(loss - ref.item()) > LOSS_RTOL * abs(ref.item()):
+        raise AssertionError(f"mesh batch: loss {loss} against one rank's {ref.item()}")
+    worst = 0.0
+    for k, p in params.items():
+        g_ref = torch.zeros_like(p) if p.grad is None else p.grad
+        bound = GRAD_RTOL * g_ref.abs() + GRAD_ATOL * g_ref.abs().max()
+        share = ((summed[k] - g_ref).abs() / bound.clamp(min=1e-30)).max().item()
+        if share > 1.0:
+            raise AssertionError(f"mesh batch: gradient of {k} off by {share:.3f} of its bound")
+        worst = max(worst, share)
+    model.zero_grad(set_to_none=True)
+    return dict(loss=loss, loss_one_rank=ref.item(), worst_share_of_bound=worst)
+
+
+def mesh_rank(dev, card):
+    """One rank of the ``MESH_SHAPE`` world: ``mesh_drive``, the batch check,
+    K3 on this rank's item shard against its plain version (float32 and
+    bfloat16), and the times of the layer's collectives. Returns, on global
+    rank 0, every rank's results."""
+    import torch
+    import torch.distributed as dist
+
+    from genmmrec_tpu_torch.engine.trainer import get_trainer
+    from genmmrec_tpu_torch.ops.precision import full_precision_matmuls
+    from genmmrec_tpu_torch.parallel import mesh as pm
+
+    full_precision_matmuls()
+    torch.set_grad_enabled(False)
+    mesh = pm.build_mesh({"mesh_shape": MESH_SHAPE})
+    t0 = time.perf_counter()
+    config, td, vd, ted, model = mesh_setup(torch, dev)
+    setup_s = time.perf_counter() - t0
+    make = lambda: get_trainer("DiffMM")(config, model, mesh=mesh)
+    trainer, res, times, launches, bf16_launches = mesh_drive(torch, make, model, vd, ted)
+    batch = mesh_batch_check(torch, trainer, model, mesh)
+    # K3 on this rank's shard of a 4,096-user chunk, as sharded_topk gives it
+    B, k = MESH_TOPK_SHAPE
+    lo, hi = pm.shard_bounds(model.n_items, mesh.model)[mesh.model_rank]
+    u, i = model.eval_artifacts(trainer.state)
+    users = vd.users[:B]
+    plane = (u[users] @ i[lo:hi].T).contiguous()
+    shard_mask = trainer._dense_mask(vd)[:B, lo // 8 : lo // 8 + -(-(hi - lo) // 8)].contiguous()
+    k3 = check_k3(torch, [
+        (f"mesh_rank{mesh.rank}_items{lo}_{hi}_top{k}", plane, k, shard_mask),
+        (f"mesh_rank{mesh.rank}_items{lo}_{hi}_top{k}_bf16", plane.bfloat16(), k, shard_mask),
+    ], card)["cases"]
+
+    def timed(fn, reps=10):
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / reps * 1e3
+
+    vals, idx = torch.randn(B, k, device=dev), torch.randint(0, model.n_items, (B, k), device=dev)
+    rec = trainer._step_params(["main"])
+    for p in rec:
+        p.grad = torch.randn_like(p)
+    collectives = dict(
+        all_gather_topk_ms=timed(lambda: (pm.all_gather(vals[None], mesh, pm.MODEL_AXIS),
+                                          pm.all_gather(idx[None], mesh, pm.MODEL_AXIS))),
+        reduce_grads_main_ms=timed(lambda: pm.reduce_grads(rec, mesh)),
+        main_grad_floats=sum(p.numel() for p in rec),
+    )
+    mine = dict(rank=mesh.rank, device=str(dev), backend=mesh.backend, setup_s=setup_s, results=res, times=times,
+                launches=launches, bf16_launches=bf16_launches, k3_cases=k3, collectives=collectives)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return dict(ranks=every, batch=batch)
+
+
+def mesh_path(torch, card):
+    """The multi-device layer on the one card: ``MESH_SHAPE`` (4 gloo ranks
+    through ``parallel.launch.run``) runs ``mesh_rank``; the same seed on
+    one rank in this process runs ``mesh_drive``; every metric within
+    MESH_METRIC_ATOL. Every rank must launch K1 and K3, and K3 in both
+    evaluations (the sharded route; the fused and K4 routes stand aside).
+    Then the spectral clustering of fused features (``MultimodalCluster.
+    multimodal_fusion_cluster``) at baby on the card against the CPU.
+    Returns (summary, kernel cases by kernel, launches)."""
+    from genmmrec_tpu_torch.engine.trainer import get_trainer
+    from genmmrec_tpu_torch.parallel import launch
+
+    phase_t0 = time.perf_counter()
+    world = launch.run(mesh_rank, MESH_SHAPE, "cuda", (card,))
+    world_s = time.perf_counter() - phase_t0
+    ranks = world["ranks"]
+    for r in ranks:
+        need = [n for n in ("segment_spmm", "segment_spmm_backward", "grouped_topk") if r["launches"][n] <= 0]
+        if need or r["bf16_launches"]["grouped_topk"] <= 0 or r["bf16_launches"]["fused_group_max"] > 0:
+            raise AssertionError(f"mesh rank {r['rank']}: launches {r['launches']}, bf16 {r['bf16_launches']}")
+        print(f"mesh rank {r['rank']} ({r['device']}, {r['backend']}): set-up {r['setup_s']:.1f} s, "
+              f"{json.dumps({k: round(v, 3) for k, v in r['times'].items()})}; launches {json.dumps(r['launches'])}; "
+              f"collectives {json.dumps(r['collectives'])} [{card}]")
+    # the same seed on one rank, in this process
+    t0 = time.perf_counter()
+    config, td, vd, ted, model = mesh_setup(torch, torch.device("cuda:0"))
+    setup_s = time.perf_counter() - t0
+    make = lambda: get_trainer("DiffMM")(config, model)
+    trainer, one, one_times, one_launches, _ = mesh_drive(torch, make, model, vd, ted)
+    mesh_res = ranks[0]["results"]
+    drift = {f"{split}/{k}": mesh_res[split][k] - one[split][k] for split in one for k in one[split]}
+    off = {k: v for k, v in drift.items() if not abs(v) <= MESH_METRIC_ATOL}
+    if off:
+        raise AssertionError(f"the {MESH_SHAPE} fit strays from one rank's by more than {MESH_METRIC_ATOL}: {off}")
+    worst = max(drift.items(), key=lambda kv: abs(kv[1]))
+    print(f"mesh {MESH_SHAPE} against one rank: {len(drift)} metrics within {MESH_METRIC_ATOL} (largest "
+          f"{worst[0]} {worst[1]:+.5f}); Recall@20 valid {mesh_res['valid_float32']['recall@20']:.4f} / "
+          f"{one['valid_float32']['recall@20']:.4f}; one batch {json.dumps(world['batch'])}; wall: world "
+          f"{world_s:.1f} s, rank 0's drive {ranks[0]['times']['total_s']:.2f} s (its first, cold, "
+          f"{ranks[0]['times']['first_drive_s']:.2f} s), one rank's {one_times['total_s']:.2f} s (first "
+          f"{one_times['first_drive_s']:.2f} s) + set-up {setup_s:.1f} s [{card}]")
+    # the spectral clustering of fused features, on the card and on the CPU
+    del trainer
+    torch.cuda.empty_cache()
+    fusion = fusion_cluster_check(torch, model.item_raw_features, card)
+    totals = {k: one_launches[k] + fusion["launches"][k] + sum(r["launches"][k] for r in ranks) for k in one_launches}
+    out = dict(
+        mesh_shape=MESH_SHAPE, world_s=world_s, ranks=[{k: v for k, v in r.items() if k != "k3_cases"} for r in ranks],
+        batch=world["batch"], one_rank=dict(results=one, times=one_times, setup_s=setup_s, launches=one_launches),
+        drift=drift, fusion_cluster={k: v for k, v in fusion.items() if k != "k3_cases"},
+        phase_s=time.perf_counter() - phase_t0,
+    )
+    print(f"mesh_path phase done in {out['phase_s']:.1f} s [{card}]")
+    k3 = [c for r in ranks for c in r["k3_cases"]] + fusion["k3_cases"]
+    return out, dict(k1=[], k1_bwd=[], k3=k3), totals
+
+
+def fusion_cluster_check(torch, feats, card, k: int = 20):
+    """``MultimodalCluster.multimodal_fusion_cluster`` of ``feats`` (``k``
+    clusters, ``sim_top_k`` 20) on the card, timed, and its steps on the
+    card and on the CPU: the sparsified affinity (K3 on the card, the plain
+    top-k on the CPU) with the same kept columns in at least 99.9% of the
+    rows, K3 on the similarity against its plain version, the spectral
+    embeddings spanning the same subspace (every cosine of the principal
+    angles at least 0.999), and the two labelings' k-means inertia on the
+    CPU's embedding within 10% of each other. The two devices' generators
+    draw other k-means seedings, so the labels themselves may differ on
+    features without clusters: their adjusted Rand index is reported."""
+    from genmmrec_tpu_torch.common.interest_cluster import MultimodalCluster, kmeans_fit, spectral_embedding
+
+    mc = MultimodalCluster(spectral_cluster_num=k, sim_top_k=20)
+    before = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mc.multimodal_fusion_cluster(feats)
+    torch.cuda.synchronize()
+    function_s = time.perf_counter() - t0
+
+    def steps(f):
+        aff = mc.fusion_affinity(f)
+        emb = spectral_embedding(aff, k)
+        return aff != 0, emb, kmeans_fit(emb, k, n_init=10, seed=mc.seed)[0]
+
+    t0 = time.perf_counter()
+    kept, emb, labels = steps(feats)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = {k: v - before[k] for k, v in launch_counts().items()}
+    t0 = time.perf_counter()
+    kept_cpu, emb_cpu, labels_cpu = steps(feats.cpu())
+    cpu_s = time.perf_counter() - t0
+    rows_equal = (kept.cpu() == kept_cpu).all(dim=1).double().mean().item()
+    cosines = torch.linalg.svdvals(torch.linalg.qr(emb.cpu())[0].T @ torch.linalg.qr(emb_cpu)[0])
+    x = emb_cpu.float()
+
+    def inertia(lab):
+        lab = lab.cpu()
+        sums = torch.zeros(k, x.shape[1]).index_add_(0, lab, x)
+        centers = sums / torch.bincount(lab, minlength=k).clamp(min=1)[:, None]
+        return ((x - centers[lab]) ** 2).sum().item()
+
+    ratio = inertia(labels) / inertia(labels_cpu)
+    agree = adjusted_rand(labels.cpu(), labels_cpu)
+    sim = (lambda f: f @ f.T)(torch.nn.functional.normalize(feats.double(), dim=1).float())
+    k3 = check_k3(torch, [("fusion_similarity_top20", sim, 20, None)], card)["cases"]
+    del sim
+    if rows_equal < 0.999 or cosines.min().item() < 0.999 or not 1 / 1.1 <= ratio <= 1.1:
+        raise AssertionError(f"fusion cluster: affinity rows equal {rows_equal:.5f}, embedding cosines down to "
+                             f"{cosines.min().item():.6f}, inertia ratio {ratio:.4f}")
+    print(f"fusion cluster ({feats.shape[0]} items, {feats.shape[1]} features, sim_top_k 20, {k} clusters): the "
+          f"function on the card {function_s:.2f} s; its steps on the card {card_s:.2f} s, on the CPU {cpu_s:.2f} s; "
+          f"affinity rows equal {rows_equal:.5f}, embedding subspace cosines >= {cosines.min().item():.9f}, "
+          f"inertia card/CPU {ratio:.4f}, labels adjusted Rand {agree:.4f}, sizes on the card "
+          f"{torch.bincount(labels).tolist()} [{card}]")
+    return dict(function_s=function_s, card_s=card_s, cpu_s=cpu_s, rows_equal=rows_equal,
+                min_subspace_cosine=cosines.min().item(), inertia_ratio=ratio, adjusted_rand=agree, k3_cases=k3,
+                launches=launches)
+
+
+def adjusted_rand(a, b) -> float:
+    """The adjusted Rand index of two labelings (sklearn's formula)."""
+    import torch
+
+    a, b = a.long(), b.long()
+    n = a.numel()
+    table = torch.zeros(int(a.max()) + 1, int(b.max()) + 1, dtype=torch.float64)
+    table.index_put_((a, b), torch.ones(n, dtype=torch.float64), accumulate=True)
+    comb = lambda x: (x * (x - 1) / 2).sum()
+    index, rows, cols = comb(table), comb(table.sum(1)), comb(table.sum(0))
+    expected = rows * cols / (n * (n - 1) / 2)
+    top = (rows + cols) / 2
+    return 1.0 if top == expected else float((index - expected) / (top - expected))
+
+
 def main() -> int:
     import torch
 
@@ -3699,6 +4010,10 @@ def main() -> int:
     parser.add_argument(
         "--rf-only", action="store_true",
         help="only build the kernels and run the Rectified-Flow family's phase (rf_path), and stop",
+    )
+    parser.add_argument(
+        "--mesh-only", action="store_true",
+        help="only build the kernels and run the multi-device layer's phase (mesh_path), and stop",
     )
     parser.add_argument(
         "--k5a-against", nargs="+", metavar="DIR",
@@ -3751,6 +4066,10 @@ def main() -> int:
     if args.rf_only:
         rfp, rf_cases, rf_launches = rf_path(torch, card, args.profile)
         print(json.dumps({"rf_path": dict(**rfp, launches_total=rf_launches), "kernel_cases": rf_cases}))
+        return 0
+    if args.mesh_only:
+        mesh, mesh_cases, mesh_launches = mesh_path(torch, card)
+        print(json.dumps({"mesh_path": dict(**mesh, launches_total=mesh_launches), "kernel_cases": mesh_cases}))
         return 0
 
     # -- the slice's data and model (set-up) ------------------------------
@@ -4028,7 +4347,9 @@ def main() -> int:
     diff, diff_cases, diff_launches = diff_path(torch, card, args.profile)
     # -- phase 12: the Rectified-Flow family -------------------------------
     rfp, rf_cases, rf_launches = rf_path(torch, card, args.profile)
-    for cs in (cli_cases, mp_cases, mmg_cases, diff_cases, rf_cases):
+    # -- phase 13: the multi-device layer ------------------------------------
+    mesh, mesh_cases, mesh_launches = mesh_path(torch, card)
+    for cs in (cli_cases, mp_cases, mmg_cases, diff_cases, rf_cases, mesh_cases):
         k1["cases"] += cs["k1"]
         k1_bwd["cases"] += cs["k1_bwd"]
         k3["cases"] += cs["k3"]
@@ -4036,7 +4357,7 @@ def main() -> int:
     launches = {
         k: serving_launches[k] + switched_launches[k] + bf16_launches[k] + training_launches[k] + wide_launches[k]
         + elec_launches[k] + genrec_launches[k] + cli_launches[k] + mp_launches[k] + mmg_launches[k]
-        + diff_launches[k] + rf_launches[k]
+        + diff_launches[k] + rf_launches[k] + mesh_launches[k]
         for k in serving_launches
     }
     never = [k for k, v in launches.items() if v <= 0]
@@ -4102,6 +4423,7 @@ def main() -> int:
         cli=dict(**cli, launches_total=cli_launches), mp_path=dict(**mp, launches_total=mp_launches),
         mmg_path=dict(**mmg, launches_total=mmg_launches), diff_path=dict(**diff, launches_total=diff_launches),
         rf_path=dict(**rfp, launches_total=rf_launches),
+        mesh_path=dict(**mesh, launches_total=mesh_launches),
         card=card,
         total_s=time.perf_counter() - smoke_t0,
     )

@@ -8,7 +8,11 @@
 - ``MultimodalCluster``: per-modality k-means over features standardized
   in float64, with the per-dataset cluster counts ``OPTIMAL_K`` or the
   reference's auto-k rule (argmin of the inertia curve's second
-  difference).
+  difference); and the spectral clustering of fused features
+  (``multimodal_fusion_cluster``): the cosine similarity, each row's top
+  ``sim_top_k`` (K3 on the card), ``max(S, Sᵀ)``, sklearn's spectral
+  embedding of that affinity (``spectral_embedding``) and the k-means
+  above on it.
 - ``build_debias_tables`` and ``interest_debias``: of the entries the
   generator flipped, a ``sample_ratio`` share is examined again. A 0→1 flip
   stays only if the item's image or text cluster is among the user's train
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from genmmrec_tpu_torch.ops.precision import full_precision_matmuls
+from genmmrec_tpu_torch.ops.topk import grouped_topk
 
 # per-dataset optimal cluster counts (reference trainer.py:632-648)
 OPTIMAL_K = {
@@ -109,6 +114,25 @@ def kmeans_fit(features: torch.Tensor, k: int, n_init: int = 10, seed: int = 0, 
     return best_labels, best_inertia
 
 
+def spectral_embedding(affinity: torch.Tensor, k: int) -> torch.Tensor:
+    """(n, k) embedding of a symmetric affinity, as sklearn's
+    ``SpectralClustering(affinity="precomputed")`` computes it (scipy's
+    normalized Laplacian of the affinity without its diagonal, the
+    diagonal set to 1, the eigenvectors of the ``k`` smallest eigenvalues,
+    each divided by the square root of the degrees and signed so that its
+    largest magnitude is positive), in float64 by ``torch.linalg.eigh``."""
+    a = affinity.to(torch.float64).clone()
+    a.fill_diagonal_(0.0)
+    deg = a.sum(0)
+    dd = torch.where(deg == 0, 1.0, deg.sqrt())
+    lap = -(a / dd) / dd[:, None]
+    lap.fill_diagonal_(1.0)
+    vecs = torch.linalg.eigh(lap).eigenvectors[:, :k].T / dd
+    pick = vecs.abs().argmax(1)
+    signs = torch.sign(vecs.gather(1, pick[:, None]))
+    return (vecs * signs).T
+
+
 class MultimodalCluster:
     def __init__(
         self,
@@ -117,7 +141,11 @@ class MultimodalCluster:
         kmeans_cluster_num_max: int = 237,
         kmeans_stride: int = 10,
         seed: int = 0,
+        spectral_cluster_num: int = 20,
+        sim_top_k: int = 20,
     ):
+        self.spectral_cluster_num = spectral_cluster_num
+        self.sim_top_k = sim_top_k
         self.use_auto_optimal_k = use_auto_optimal_k
         self.k_min = kmeans_cluster_num_min
         self.k_max = kmeans_cluster_num_max
@@ -151,6 +179,27 @@ class MultimodalCluster:
             for i in range(self.k_min, min(self.k_max, feats.shape[0]), self.stride)
         ]
         return int(np.argmin(np.diff(np.diff(distortions)))) + self.k_min + 1
+
+    def fusion_affinity(self, fusion_feats: torch.Tensor) -> torch.Tensor:
+        """(n, n) float64: the cosine similarity of the fused features with
+        each row's top ``sim_top_k`` kept (K3 on the float32 similarity on
+        the card) and the rest 0, then ``max(S, Sᵀ)``."""
+        full_precision_matmuls()
+        f = fusion_feats.to(torch.float64)
+        fn = f / torch.linalg.vector_norm(f, dim=1, keepdim=True).clamp(min=1e-12)
+        sim = fn @ fn.T
+        _, idx = grouped_topk(sim.to(torch.float32), min(self.sim_top_k, sim.shape[1]))
+        kept = torch.zeros_like(sim).scatter_(1, idx, sim.gather(1, idx))
+        return torch.maximum(kept, kept.T)
+
+    def multimodal_fusion_cluster(self, fusion_feats: torch.Tensor) -> torch.Tensor:
+        """Spectral cluster labels of the fused features, ``min(
+        spectral_cluster_num, n − 1)`` clusters: ``fusion_affinity``, its
+        ``spectral_embedding``, then ``kmeans_fit`` (10 restarts)."""
+        sim = self.fusion_affinity(fusion_feats)
+        k = min(self.spectral_cluster_num, sim.shape[0] - 1)
+        labels, _ = kmeans_fit(spectral_embedding(sim, k), k, n_init=10, seed=self.seed)
+        return labels
 
 
 def build_debias_tables(

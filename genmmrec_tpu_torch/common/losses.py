@@ -1,7 +1,9 @@
 """Shared loss functions (counterpart of ``genmmrec_tpu/common/losses.py``).
 
 Pure functions with optional per-row weights, so padded batch rows
-contribute nothing.
+contribute nothing. ``rows`` (``parallel.mesh.DataRows``) is this rank's
+share of a batch split over the data axis: a loss then returns this rank's
+share of the global loss (its rows' terms over the global denominator).
 """
 
 from __future__ import annotations
@@ -13,24 +15,30 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 
-def _wmean(x: torch.Tensor, weights: Optional[torch.Tensor]) -> torch.Tensor:
+def _wmean(x: torch.Tensor, weights: Optional[torch.Tensor], rows=None) -> torch.Tensor:
     if weights is None:
         return x.mean()
-    return (x * weights).sum() / weights.sum().clamp(min=1.0)
+    den = weights.sum() if rows is None else rows.count(weights.sum())
+    return (x * weights).sum() / den.clamp(min=1.0)
 
 
-def bpr_loss(pos_score, neg_score, weights=None, gamma: float = 1e-10) -> torch.Tensor:
+def bpr_loss(pos_score, neg_score, weights=None, gamma: float = 1e-10, rows=None) -> torch.Tensor:
     """-log σ(pos − neg), averaged; ``gamma=0`` takes the stable log-sigmoid form."""
     diff = pos_score - neg_score
     if gamma == 0.0:
-        return _wmean(-F.logsigmoid(diff), weights)
-    return _wmean(-torch.log(gamma + torch.sigmoid(diff)), weights)
+        return _wmean(-F.logsigmoid(diff), weights, rows)
+    return _wmean(-torch.log(gamma + torch.sigmoid(diff)), weights, rows)
 
 
-def emb_loss(*embeddings: torch.Tensor, norm: int = 2) -> torch.Tensor:
-    """Σ ‖E‖_p / batch, batch = rows of the last embedding."""
-    batch = embeddings[-1].shape[0]
-    return sum(torch.linalg.vector_norm(e.reshape(-1), ord=norm) for e in embeddings) / batch
+def emb_loss(*embeddings: torch.Tensor, norm: int = 2, rows=None) -> torch.Tensor:
+    """Σ ‖E‖_p / batch, batch = rows of the last embedding. Over ``rows``
+    the norms are of the global rows (p = 2), and the term is shared."""
+    if rows is None:
+        batch = embeddings[-1].shape[0]
+        return sum(torch.linalg.vector_norm(e.reshape(-1), ord=norm) for e in embeddings) / batch
+    if norm != 2:
+        raise NotImplementedError("emb_loss over a data axis takes the 2-norm")
+    return sum(rows.sum((e * e).sum()).sqrt() for e in embeddings) / rows.n * rows.share
 
 
 def l2_loss(*embeddings: torch.Tensor) -> torch.Tensor:

@@ -24,6 +24,12 @@ blended probabilities (K3).
 feature denoisers' epoch over the items, the item-item graphs' rebuild,
 the sparsity denoisers' epoch over the users and the user-item graphs'
 rebuild (K3 for every top-k).
+
+On a data axis (DiffMM and GenRecV1) phase 1's batches split over the
+ranks as the BPR batches do, and phase 2 deals its user chunks whole, chunk
+``i`` to data rank ``i % data``; every rank still makes every chunk's
+draws, in the order one rank makes them, so that the generator stays in
+step with the one-device run, and the chunks' top items are gathered.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from genmmrec_tpu_torch.data.arrays import interaction_vectors
 from genmmrec_tpu_torch.engine.trainer import ChainOptimizer, Trainer
 from genmmrec_tpu_torch.models.base import scalar
 from genmmrec_tpu_torch.ops.precision import full_precision_matmuls
+from genmmrec_tpu_torch.parallel import mesh as pm
 from genmmrec_tpu_torch.ops.topk import grouped_topk
 
 MODALITIES = ("image", "text")
@@ -59,6 +66,7 @@ class _DiffusionTrainer(Trainer):
     def _build_train_step(self, train_data) -> None:
         super()._build_train_step(train_data)
         self._build_diffusion_phase()
+        self._shard_optimizers()
 
     @torch.enable_grad()
     def _diffusion_epoch(self, generator: Optional[torch.Generator] = None, plan: Optional[dict] = None):
@@ -71,10 +79,13 @@ class _DiffusionTrainer(Trainer):
         optimizer of each loss that ``_batch_losses`` yields, in turn.
         Returns the (n_batches, n_losses) per-batch losses on the device.
         ``plan`` may give the slots (``users``, (n_batches, B)) and the
-        subclass's draws, in place of the draws.
+        subclass's draws, in place of the draws. On a data axis each rank
+        takes its rows of every batch (a plan's draws are the global
+        batch's) and the losses returned are the global batch's.
         """
         if "denoise_image" not in self.optimizers:
             self._build_diffusion_phase()
+            self._shard_optimizers()
         full_precision_matmuls()
         model = self.model
         U, B = model.n_users, self.train_batch_size
@@ -85,21 +96,24 @@ class _DiffusionTrainer(Trainer):
             batches = torch.randperm(nb * B, generator=generator, device=model.device).reshape(nb, B)
         with torch.no_grad():
             inputs = self._phase1_inputs()
+        rows = pm.data_sharding(self.mesh, B)
         losses = []
         for b in range(nb):
-            users = batches[b]
+            users = batches[b] if rows is None else rows.local(batches[b])
             valid = (users < U).to(torch.float32)
             x_start = interaction_vectors(model.data, users.clamp(max=U - 1)) * valid[:, None]
             step = []
-            for name, loss in self._batch_losses(x_start, valid, inputs, generator, plan, b):
+            for name, loss in self._batch_losses(x_start, valid, inputs, generator, plan, b, rows):
                 opt = self.optimizers[name]
                 opt.zero_grad(set_to_none=True)
                 loss.backward()
+                pm.reduce_grads(self._step_params([name]), self.mesh)
                 opt.step()
                 opt.zero_grad(set_to_none=True)
                 step.append(loss.detach())
             losses.append(torch.stack(step))
-        return torch.stack(losses)
+        losses = torch.stack(losses)
+        return losses if rows is None else pm.all_reduce(losses, self.mesh, pm.DATA_AXIS)
 
     def _user_chunks(self) -> list:
         """Phase 2's users in ``train_batch_size`` chunks; the last chunk
@@ -110,10 +124,22 @@ class _DiffusionTrainer(Trainer):
         users = torch.arange(n_chunks * B, device=self.model.device).clamp_(max=U - 1)
         return [users[c * B : (c + 1) * B] for c in range(n_chunks)]
 
-    def _top_items(self, chunk_topk) -> torch.Tensor:
-        """(n_users, k) items: ``chunk_topk(c, users)`` over the chunks."""
-        idx = [chunk_topk(c, users) for c, users in enumerate(self._user_chunks())]
-        return torch.cat(idx)[: self.model.n_users]
+    def _top_items(self, chunk_topk, chunk_draws=None) -> torch.Tensor:
+        """(n_users, k) items: ``chunk_topk(c, users)`` over the chunks. On a
+        data axis each rank takes its dealt chunks, with the draws
+        ``chunk_draws(n_rows)`` makes for every chunk in turn, and the
+        chunks' items are gathered."""
+        chunks = self._user_chunks()
+        if pm.axis_size(self.mesh, pm.DATA_AXIS) == 1:
+            return torch.cat([chunk_topk(c, users) for c, users in enumerate(chunks)])[: self.model.n_users]
+        mine, dealt = [], set(pm.deal(len(chunks), self.mesh))
+        for c, users in enumerate(chunks):
+            drawn = chunk_draws(users.shape[0]) if chunk_draws is not None else {}
+            if c in dealt:
+                mine.append(chunk_topk(c, users, **drawn))
+        like = torch.empty(chunks[0].shape[0], self.model.rebuild_k, dtype=torch.int64, device=self.model.device)
+        top = pm.gather_chunks(mine, len(chunks), self.mesh, like)
+        return top.reshape(-1, top.shape[-1])[: self.model.n_users]
 
     @torch.no_grad()
     def regenerate(self, generator: Optional[torch.Generator] = None, plan: Optional[dict] = None) -> dict:
@@ -163,11 +189,13 @@ class DiffMMTrainer(_DiffusionTrainer):
             "text": model.get_text_feats(),
         }
 
-    def _batch_losses(self, x_start, valid, inputs, generator, plan, b):
+    def _batch_losses(self, x_start, valid, inputs, generator, plan, b, rows=None):
         model = self.model
-        denom = valid.sum().clamp(min=1.0)
+        denom = (valid.sum() if rows is None else rows.count(valid.sum())).clamp(min=1.0)
         for m in MODALITIES:
             drawn = {} if plan is None else {k: plan[f"{k}_{m}"][b].to(model.device) for k in ("ts", "noise", "keep")}
+            if rows is not None:
+                drawn = rows.local(drawn or model.diffusion_draws(rows.n, generator))
             denoiser = getattr(model, f"denoise_{m}")
             diff, gc = model.diffusion_losses(
                 denoiser, x_start, inputs["i_embeds"], inputs[m], generator=generator, **drawn
@@ -182,11 +210,12 @@ class DiffMMTrainer(_DiffusionTrainer):
         model = self.model
 
         def graph(denoiser):
-            def chunk_topk(c, users):
-                denoised = model.p_sample_users(denoiser, interaction_vectors(model.data, users), generator)
-                return grouped_topk(denoised, model.rebuild_k)[1]
+            def chunk_topk(c, users, noise=None):
+                x = interaction_vectors(model.data, users)
+                return grouped_topk(model.p_sample_users(denoiser, x, generator, noise), model.rebuild_k)[1]
 
-            return model.rebuild_ui_graph(self._top_items(chunk_topk), generator)
+            draws = lambda n: {"noise": model.sample_noise((n, model.n_items), generator)}
+            return model.rebuild_ui_graph(self._top_items(chunk_topk, draws), generator)
 
         return {"image_ui": graph(model.denoise_image), "text_ui": graph(model.denoise_text)}
 
@@ -196,8 +225,8 @@ class DiffMMTrainer(_DiffusionTrainer):
 
 
 class GenRecV1Trainer(_DiffusionTrainer):
-    def __init__(self, config, model, mg: bool = False):
-        super().__init__(config, model, mg)
+    def __init__(self, config, model, mg: bool = False, mesh=None):
+        super().__init__(config, model, mg, mesh)
         self.sample_ratio = float(config["sample_ratio"] or 0.1)
         self.debias_tables = None
         self.cluster_s = 0.0
@@ -236,14 +265,16 @@ class GenRecV1Trainer(_DiffusionTrainer):
             "text": model.get_text_feats(),
         }
 
-    def _batch_losses(self, x_start, valid, inputs, generator, plan, b):
+    def _batch_losses(self, x_start, valid, inputs, generator, plan, b, rows=None):
         """The denoiser's loss over all B rows, padded ones included, as in
         the JAX package. ``plan`` may give, per batch, the draws of
         ``diffusion_losses`` (``draws``, a list of dicts)."""
         draws = None if plan is None else plan["draws"][b]
         model = self.model
+        if rows is not None:
+            draws = rows.local(draws or model.diffusion_draws(rows.n, generator))
         yield "denoise_image", model.diffusion_losses(
-            x_start, inputs["i_embeds"], inputs["image"], inputs["text"], generator, draws
+            x_start, inputs["i_embeds"], inputs["image"], inputs["text"], generator, draws, rows
         )
 
     @torch.no_grad()
@@ -267,13 +298,24 @@ class GenRecV1Trainer(_DiffusionTrainer):
         and ``sampled`` (the debias plane), and ``keep`` (the edge
         dropout's two masks), in place of the draws."""
 
-        def chunk_topk(c, users):
-            drawn = {} if plan is None else {"draws": plan["gen"][c], "sampled": plan["sampled"][c]}
-            blended, probs = self.generate_chunk(users, generator, **drawn)
-            return grouped_topk(blended * probs, self.model.rebuild_k)[1]
+        model = self.model
+
+        def chunk_topk(c, users, draws=None, sampled=None):
+            if plan is not None:
+                draws, sampled = plan["gen"][c], plan["sampled"][c]
+            blended, probs = self.generate_chunk(users, generator, draws, sampled)
+            return grouped_topk(blended * probs, model.rebuild_k)[1]
+
+        def chunk_draws(n):
+            draws = model.generate_draws(n, generator)
+            if self.debias_tables is None:
+                return {"draws": draws}
+            sampled = torch.rand(n, model.n_items, generator=generator, device=model.device) < self.sample_ratio
+            return {"draws": draws, "sampled": sampled}
 
         keep = None if plan is None else plan["keep"]
-        return {"image_ui": self.model.rebuild_ui_graph(self._top_items(chunk_topk), generator, keep)}
+        top = self._top_items(chunk_topk, None if plan is not None else chunk_draws)
+        return {"image_ui": model.rebuild_ui_graph(top, generator, keep)}
 
     def _loss_log(self, losses) -> dict:
         return {"diffusion_loss": float(losses.sum()) / losses.shape[0]}
@@ -304,6 +346,7 @@ class MVDiffTrainer(Trainer):
     def _build_train_step(self, train_data) -> None:
         super()._build_train_step(train_data)
         self._build_phase_optimizers()
+        self._shard_optimizers()
 
     def _build_phase_optimizers(self) -> None:
         """One plain Adam per denoiser, at the main learning rate."""
@@ -339,6 +382,7 @@ class MVDiffTrainer(Trainer):
         a (ts, noise) pair)."""
         if "feat_denoise_image" not in self.optimizers:
             self._build_phase_optimizers()
+            self._shard_optimizers()
         full_precision_matmuls()
         model = self.model
         I = model.n_items
@@ -380,6 +424,7 @@ class MVDiffTrainer(Trainer):
         (``draws[b][j]``)."""
         if "denoise_image" not in self.optimizers:
             self._build_phase_optimizers()
+            self._shard_optimizers()
         full_precision_matmuls()
         model = self.model
         U = model.n_users

@@ -40,6 +40,16 @@ suite. A chunk takes one of three routes:
 - scatter: a packed mask over ``_DENSE_MASK_BUDGET`` is not built; each
   chunk's plane gets ``-1e10`` scattered over its users' train positives
   and K3 takes the unmasked top-k.
+
+On a mesh (``config["mesh_shape"]`` in a process group, ``parallel/``):
+every rank starts from rank 0's parameters and state; each batch's rows
+are split over the data axis (``DataRows``) and the gradients summed over
+it, for the models of ``DATA_AXIS_MODELS``; the optimizers step only this
+model rank's rows of the tables ``shard_model_params`` names and gather
+them. The evaluation deals whole user chunks over the data axis and
+gathers their lists; over a model axis the fused and K4 routes stand aside
+and each chunk takes ``sharded_topk`` (K3 on each item shard). Only global
+rank 0 writes the log, checkpoints, top-k files and wandb.
 """
 
 from __future__ import annotations
@@ -57,6 +67,7 @@ from genmmrec_tpu_torch.engine.checkpoint import load_checkpoint, save_checkpoin
 from genmmrec_tpu_torch.engine.evaluator import TopKEvaluator
 from genmmrec_tpu_torch.models.base import RecModel, scalar
 from genmmrec_tpu_torch.ops.fused_topk import KERNEL_WIDTHS, fused_grouped_topk
+from genmmrec_tpu_torch.parallel import mesh as pm
 from genmmrec_tpu_torch.ops.precision import full_precision_matmuls
 from genmmrec_tpu_torch.ops.topk import grouped_topk
 from genmmrec_tpu_torch.utils.misc import dict2str, early_stopping
@@ -64,6 +75,9 @@ from genmmrec_tpu_torch.utils.misc import dict2str, early_stopping
 # width granularity of the packed mask: rows are padded to a multiple of
 # this many columns, with the pad columns marked as excluded
 MASK_GROUP = 128
+# the models whose losses take a batch split over the data axis: each of
+# their batch-coupled terms sees the global batch
+DATA_AXIS_MODELS = ("BPR", "LightGCN", "DiffMM", "GenRecV1", "DiffRec")
 
 
 class ChainOptimizer(torch.optim.Optimizer):
@@ -79,7 +93,13 @@ class ChainOptimizer(torch.optim.Optimizer):
     ``decoupled_weight_decay · p`` before the rate, ``optax.adamw``'s
     ``add_decayed_weights`` after ``scale_by_adam``. A parameter without a
     gradient steps as if its gradient were zero, as a leaf of an optax tree
-    does."""
+    does.
+
+    ``shard_rows`` splits it over a mesh's model axis: for each parameter
+    it names, this rank keeps the moments of, and updates, its rows alone
+    (the gradients are whole on every rank), then gathers the rows of every
+    rank; the global-norm clip sums those rows' squares over the axis. Its
+    ``state_dict`` then holds the moments gathered whole."""
 
     LEARNERS = ("adam", "sgd", "adagrad", "rmsprop")
 
@@ -94,33 +114,65 @@ class ChainOptimizer(torch.optim.Optimizer):
         self.max_norm, self.weight_decay = max_norm, weight_decay
         self.decoupled_weight_decay = decoupled_weight_decay
         self.count = 0
+        self.mesh, self.rows = None, {}
+
+    def shard_rows(self, rows: dict, mesh) -> None:
+        """``rows``: parameter -> (lo, hi), this model rank's rows of it."""
+        mine = {id(p) for group in self.param_groups for p in group["params"]}
+        self.mesh, self.rows = mesh, {k: v for k, v in rows.items() if k in mine}
+
+    def _sharded(self):
+        """(index, parameter, (lo, hi)) of each row-sharded parameter."""
+        params = [p for group in self.param_groups for p in group["params"]]
+        return [(i, p, self.rows[id(p)]) for i, p in enumerate(params) if id(p) in self.rows]
 
     def state_dict(self):
         out = super().state_dict()
         out["count"] = self.count
+        for i, p, _ in self._sharded():
+            if i in out["state"]:
+                out["state"][i] = {
+                    k: pm.all_gather(v, self.mesh, pm.MODEL_AXIS) if torch.is_tensor(v) else v
+                    for k, v in out["state"][i].items()
+                }
         return out
 
     def load_state_dict(self, state_dict):
         state_dict = dict(state_dict)
         self.count = int(state_dict.pop("count"))
         super().load_state_dict(state_dict)
+        for _, p, (lo, hi) in self._sharded():
+            st = self.state[p]
+            for k, v in list(st.items()):
+                if torch.is_tensor(v) and v.dim() and v.shape[0] == p.shape[0]:
+                    st[k] = v[lo:hi].clone()
 
     @torch.no_grad()
     def step(self, closure=None):
         params = [p for group in self.param_groups for p in group["params"]]
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        # this rank's rows of each sharded parameter and of its gradient
+        rows = [self.rows.get(id(p)) for p in params]
+        cut = lambda t, r: t if r is None else t[r[0] : r[1]]
+        views = [cut(p, r) for p, r in zip(params, rows)]
+        grads = [cut(g, r) for g, r in zip(grads, rows)]
         if self.max_norm is not None:
-            norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+            if self.rows:
+                zero = grads[0].new_zeros(())
+                sq = lambda sharded: sum(((g * g).sum() for g, r in zip(grads, rows) if (r is not None) == sharded), zero)
+                norm = (sq(False) + pm.all_reduce(sq(True), self.mesh, pm.MODEL_AXIS)).sqrt()
+            else:
+                norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
             scale = torch.where(norm < self.max_norm, 1.0, self.max_norm / norm)
             grads = [g * scale for g in grads]
         if self.weight_decay:
-            grads = [g + self.weight_decay * p for g, p in zip(grads, params)]
+            grads = [g + self.weight_decay * p for g, p in zip(grads, views)]
         lr = self.lr_fn(self.count)
         t = self.count + 1
-        for p, g in zip(params, grads):
+        for param, p, g in zip(params, views, grads):
             # moments are replaced, never updated in place: a loaded state
             # dict may share its tensors with another optimizer's
-            st = self.state[p]
+            st = self.state[param]
             if self.learner == "adam":
                 st["mu"] = 0.9 * st.get("mu", 0.0) + 0.1 * g
                 st["nu"] = 0.999 * st.get("nu", 0.0) + 0.001 * (g * g)
@@ -138,6 +190,22 @@ class ChainOptimizer(torch.optim.Optimizer):
                 u = u + self.decoupled_weight_decay * p
             p.add_(u, alpha=-lr)
         self.count += 1
+        if self.rows:
+            self._gather_rows()
+
+    def _gather_rows(self) -> None:
+        """Every model rank's updated rows of the sharded parameters, in one
+        coalesced all-gather."""
+        sharded = self._sharded()
+        mine = torch.cat([p[lo:hi].reshape(-1) for _, p, (lo, hi) in sharded])
+        got = pm.all_gather(mine, self.mesh, pm.MODEL_AXIS).view(self.mesh.model, -1)
+        for r in range(self.mesh.model):
+            off = 0
+            for _, p, (lo, hi) in sharded:
+                n = hi - lo
+                size = p[:n].numel()
+                p[r * n : (r + 1) * n].copy_(got[r, off : off + size].view_as(p[:n]))
+                off += size
 
 
 def make_optimizer(params, config, steps_per_epoch: int) -> ChainOptimizer:
@@ -169,6 +237,16 @@ def adamw(params, lr: float, weight_decay: float = 1e-4) -> ChainOptimizer:
     return ChainOptimizer(params, "adam", lambda step: lr, decoupled_weight_decay=weight_decay)
 
 
+def check_data_axis(model_class: str, data: int) -> None:
+    """A data axis of more than one rank takes only the models whose
+    batch-coupled terms see the global batch (``DATA_AXIS_MODELS``)."""
+    if data > 1 and model_class not in DATA_AXIS_MODELS:
+        raise NotImplementedError(
+            f"{model_class}: its batch-coupled loss terms are not split over the data axis yet; "
+            f"run it with mesh_shape data 1 (models with a data axis: {', '.join(DATA_AXIS_MODELS)})"
+        )
+
+
 def seeded_generator(device, seed: int, *path) -> torch.Generator:
     """A generator on ``device`` seeded from ``seed`` and a path of names
     and numbers: the same path gives the same draws, different paths give
@@ -197,10 +275,16 @@ class Trainer:
     # ("kernel") or after K5c in plain PyTorch ("external"); same result
     _FUSED_CAND_MASK = "kernel"
 
-    def __init__(self, config, model, mg: bool = False):
+    def __init__(self, config, model, mg: bool = False, mesh=None):
         self.config = config
         self.model = model
         self.logger = getLogger()
+        # the mesh of config["mesh_shape"]; None on one device
+        self.mesh = mesh if mesh is not None else pm.build_mesh(config)
+        check_data_axis(type(model).__name__, pm.axis_size(self.mesh, pm.DATA_AXIS))
+        if self.mesh is not None and self.mesh.data_group is None and self.mesh.model_group is None:
+            raise ValueError(f"mesh {self.mesh.shape} needs a process group of its ranks (parallel.launch.run)")
+        self.is_main = self.mesh is None or self.mesh.is_main
         self.mg = mg
         self.alpha1 = scalar(config["alpha1"] or 1.0) if mg else 1.0
         self.alpha2 = scalar(config["alpha2"] or 0.0) if mg else 0.0
@@ -212,7 +296,7 @@ class Trainer:
                 import wandb
             except ImportError:
                 wandb = None
-            if wandb is not None and wandb.run is not None:
+            if wandb is not None and wandb.run is not None and self.is_main:
                 self._wandb = wandb
         self.epochs = int(config["epochs"])
         self.eval_step = min(int(config["eval_step"] or 1), self.epochs)
@@ -237,6 +321,7 @@ class Trainer:
         # wall time per training epoch (prelude included), in fit order
         self.epoch_times: list[float] = []
         self.evaluator = TopKEvaluator(config)
+        self.evaluator.save_recom_result &= self.is_main
         # group masks for test-time metrics (engine.evaluator.group_masks)
         self.pop_mask = config["pop_mask"]
         self.warm_mask = config["warm_mask"]
@@ -263,6 +348,20 @@ class Trainer:
         for label, make in self.model.label_transforms().items():
             self.optimizers[label] = make(groups[label])
             self._batch_steps.append(label)
+        self._shard_optimizers()
+
+    def _shard_optimizers(self) -> None:
+        """Split every optimizer over the model axis (``shard_rows``) by the
+        rows ``shard_model_params`` names."""
+        named = dict(self.model.named_parameters())
+        rows = {id(named[n]): r for n, r in pm.shard_model_params(self.model, self.mesh).items()}
+        if rows:
+            for opt in self.optimizers.values():
+                opt.shard_rows(rows, self.mesh)
+
+    def _step_params(self, names) -> list:
+        """The parameters of the optimizers ``names``."""
+        return [p for k in names for group in self.optimizers[k].param_groups for p in group["params"]]
 
     @torch.enable_grad()
     def _train_epoch(self, generator: Optional[torch.Generator] = None, plan: Optional[dict] = None):
@@ -276,11 +375,19 @@ class Trainer:
         the draws, and each batch's loss draws (``draws``, and ``draws2``
         for the second pass of ``mg``: a list of keyword dicts for the
         model's ``loss``); the epoch then runs the plan's batches.
+
+        On a data axis every rank draws the global batch and keeps its rows
+        (``batch["rows"]``; a plan's draws are the global batch's), the
+        gradients are summed over the axis, and the losses returned are the
+        global batch's.
         """
         model, td = self.model, self._td
         opts = [self.optimizers[k] for k in self._batch_steps]
+        params = self._step_params(self._batch_steps)
         zero = lambda: [o.zero_grad(set_to_none=True) for o in opts]
         step = lambda: [o.step() for o in opts]
+        rows = pm.data_sharding(self.mesh, self.train_batch_size)
+        backward = lambda loss: (loss.backward(), pm.reduce_grads(params, self.mesh))
         B, nb, n_inter = self.train_batch_size, self._num_batches, td.n_inter
         dev = td.users.device
         if plan is not None:
@@ -300,21 +407,24 @@ class Trainer:
             else:
                 neg = torch.zeros_like(pos)
             batch = {"users": users, "pos": pos, "neg": neg, "weight": weight}
+            if rows is not None:
+                batch = {**rows.local(batch), "rows": rows}
             draws = lambda name: plan[name][b] if plan is not None and name in plan else {}
             zero()
             total, (parts, state) = model.loss_and_update(self.state, batch, generator, **draws("draws"))
-            total.backward()
+            backward(total)
             if self.mg and b % self.beta == 0:
                 self._scale_grads(self.alpha1)
                 step()
                 zero()
-                model.loss_and_update(state, batch, generator, **draws("draws2"))[0].backward()
+                backward(model.loss_and_update(state, batch, generator, **draws("draws2"))[0])
                 self._scale_grads(-self.alpha2)
             step()
             self.state = state
             parts_all.append(torch.stack([p.detach() for p in parts]))
         zero()
-        return torch.stack(parts_all)
+        parts = torch.stack(parts_all)
+        return parts if rows is None else pm.all_reduce(parts, self.mesh, pm.DATA_AXIS)
 
     def _scale_grads(self, factor: float) -> None:
         """Scale the gradients of every parameter a batch's optimizers step."""
@@ -353,6 +463,7 @@ class Trainer:
         model = self.model
         model.init_params(self.split("init"))
         self.state = model.init_state(self.split("state"))
+        pm.replicated((list(model.parameters()), self.state), self.mesh)
         self._build_train_step(train_data)
         resume = self.config["resume_checkpoint"]
         if resume:
@@ -448,17 +559,25 @@ class Trainer:
         ckpt_dir = self.config["checkpoint_dir"] or "saved"
         return os.path.join(ckpt_dir, f"{self.config['model']}-{self.config['dataset']}")
 
-    def _save_checkpoint(self, epoch: int) -> str:
+    def _save_checkpoint(self, epoch: int) -> Optional[str]:
+        """Global rank 0 writes the checkpoint (whole tables, and moments
+        gathered from the model ranks); every rank takes part in the
+        gathers and returns once the file is written."""
+        optimizers = {k: opt.state_dict() for k, opt in self.optimizers.items()}
+        if not self.is_main:
+            pm.barrier(self.mesh)
+            return None
         path = save_checkpoint(
             self.checkpoint_path(),
             params=self.model.state_dict(),
-            optimizers={k: opt.state_dict() for k, opt in self.optimizers.items()},
+            optimizers=optimizers,
             state=self.state,
             epoch=epoch,
             best_valid_score=self.best_valid_score,
             best_valid_result=self.best_valid_result,
             best_test_upon_valid=self.best_test_upon_valid,
         )
+        pm.barrier(self.mesh)
         self.logger.info("Saved best model to %s", path)
         return path
 
@@ -531,10 +650,15 @@ class Trainer:
                 "it cannot be evaluated"
             )
         arts = model.eval_artifacts(self.state) if has_cache else None
+        # over a model axis each chunk takes K3 on each item shard and the
+        # merge (the JAX package's sharded_topk rule); the fused and K4
+        # routes stand aside
+        sharded = pm.takes_sharded(n_items, k_eff, self.mesh)
         # bfloat16 scores that are the base class's u @ iᵀ can be computed
         # inside the top-k (K5); a model with scores of its own writes its plane
         fused = (
             has_cache
+            and not sharded
             and mask is not None
             and model.eval_dtype == torch.bfloat16
             and mtype.scores_cached is RecModel.scores_cached
@@ -557,32 +681,54 @@ class Trainer:
             fused = arts[1].shape[1] <= KERNEL_WIDTHS[-1]
         if fused:
             u_emb, table = arts[0], arts[1].bfloat16()
-        out = []
-        for lo in range(0, eval_data.users.shape[0], B):
+        base_scores = has_cache and mtype.scores_cached is RecModel.scores_cached
+
+        def scores_of(users, lo_i=0, hi_i=n_items):
+            """The users' scores of items [lo_i, hi_i): the base class's u @
+            iᵀ scores those items alone; another model writes its plane."""
+            if base_scores and (lo_i, hi_i) != (0, n_items):
+                return model.scores_cached(self.state, users, (arts[0], arts[1][lo_i:hi_i]))
+            plane = model.scores_cached(self.state, users, arts) if has_cache else model.scores(self.state, users)
+            return plane if (lo_i, hi_i) == (0, n_items) else plane[:, lo_i:hi_i].contiguous()
+
+        def excluded(lo, lo_i, scores):
+            """-1e10 over the rows' train positives in items [lo_i, lo_i +
+            width); the pad entries (n_items) of mask_items are dropped."""
+            m = eval_data.mask_items[lo : lo + B]
+            real = (m >= lo_i) & (m < lo_i + scores.shape[1])
+            rows = torch.arange(m.shape[0], device=m.device)[:, None].expand_as(m)
+            scores[rows[real], m[real] - lo_i] = -1e10
+            return scores
+
+        def chunk_topk(c):
+            lo = c * B
             users = eval_data.users[lo : lo + B]
             if fused:
-                _, top = fused_grouped_topk(
+                return fused_grouped_topk(
                     u_emb[users], table, k_eff, mask[lo : lo + B], cand_mask=self._FUSED_CAND_MASK
-                )
-            else:
-                if has_cache:
-                    scores = model.scores_cached(self.state, users, arts)
-                else:
-                    scores = model.scores(self.state, users)
-                if mask is not None:
-                    _, top = grouped_topk(scores, k_eff, packed_mask=mask[lo : lo + B])
-                else:
-                    # -1e10 over each row's train positives; the pad entries
-                    # (n_items) of mask_items are dropped
-                    m = eval_data.mask_items[lo : lo + B]
-                    real = m < n_items
-                    rows = torch.arange(m.shape[0], device=m.device)[:, None].expand_as(m)
-                    scores[rows[real], m[real]] = -1e10
-                    _, top = grouped_topk(scores, k_eff)
-            if k_eff < max_k:
-                top = torch.nn.functional.pad(top, (0, max_k - k_eff), value=-1)
-            out.append(top)
-        return torch.cat(out)
+                )[1]
+            if sharded:
+                def shard(lo_i, hi_i):
+                    scores = scores_of(users, lo_i, hi_i)
+                    return scores if mask is not None else excluded(lo, lo_i, scores)
+
+                chunk_mask = None if mask is None else mask[lo : lo + B]
+                return pm.sharded_topk(shard, k_eff, self.mesh, chunk_mask, n=n_items)[1]
+            scores = scores_of(users)
+            if mask is not None:
+                return grouped_topk(scores, k_eff, packed_mask=mask[lo : lo + B])[1]
+            return grouped_topk(excluded(lo, 0, scores), k_eff)[1]
+
+        n_chunks = -(-eval_data.users.shape[0] // B)
+        out = [chunk_topk(c) for c in pm.deal(n_chunks, self.mesh)]
+        if pm.axis_size(self.mesh, pm.DATA_AXIS) > 1:
+            # whole chunks over the data axis, every list on every rank
+            like = torch.empty(B, k_eff, dtype=torch.int64, device=eval_data.users.device)
+            out = list(pm.gather_chunks(out, n_chunks, self.mesh, like))
+        top = torch.cat(out)
+        if k_eff < max_k:
+            top = torch.nn.functional.pad(top, (0, max_k - k_eff), value=-1)
+        return top
 
     def evaluate(self, eval_data: EvalData, is_test: bool = False, idx: int = 0):
         topk_index = self.eval_topk(eval_data)

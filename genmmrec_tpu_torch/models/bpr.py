@@ -31,8 +31,9 @@ class BPR(RecModel):
         u = self.user_emb[batch["users"]]
         pos = self.item_emb[batch["pos"]]
         neg = self.item_emb[batch["neg"]]
-        mf = bpr_loss((u * pos).sum(dim=1), (u * neg).sum(dim=1), batch["weight"])
-        total = mf + self.reg_weight * emb_loss(u, pos, neg)
+        rows = batch.get("rows")
+        mf = bpr_loss((u * pos).sum(dim=1), (u * neg).sum(dim=1), batch["weight"], rows=rows)
+        total = mf + self.reg_weight * emb_loss(u, pos, neg, rows=rows)
         return total, (total,)
 
     def full_embeddings(self, state):

@@ -25,7 +25,7 @@ from genmmrec_tpu_torch.common.losses import exp_denominator_streamed
 from genmmrec_tpu_torch.data.arrays import interaction_vectors
 from genmmrec_tpu_torch.models.base import RecModel, scalar
 from genmmrec_tpu_torch.models.diffusion.dnn import Denoise
-from genmmrec_tpu_torch.models.diffusion.sampler import p_sample_loop
+from genmmrec_tpu_torch.models.diffusion.sampler import chain_noise, p_sample_loop
 from genmmrec_tpu_torch.models.diffusion.schedule import make_schedule, q_sample, snr
 from genmmrec_tpu_torch.ops.graph import (
     SparseGraph,
@@ -205,8 +205,9 @@ class DiffMM(RecModel):
         nu = self.n_users
         return out[:nu], out[nu:], acc1[:nu], acc1[nu:], acc2[:nu], acc2[nu:]
 
-    def contrast_loss(self, e1, e2, nodes, weights):
-        """InfoNCE of ``e1[nodes]`` against every row of ``e2``."""
+    def contrast_loss(self, e1, e2, nodes, weights, den=None):
+        """InfoNCE of ``e1[nodes]`` against every row of ``e2``, averaged
+        over ``weights`` (or divided by ``den``, a global weight sum)."""
         e1 = _l2norm(e1 + 1e-8)
         e2 = _l2norm(e2 + 1e-8)
         p1, p2 = e1[nodes], e2[nodes]
@@ -217,27 +218,34 @@ class DiffMM(RecModel):
         else:
             deno = torch.exp(p1 @ e2.T / self.temp).sum(-1)
         per = -torch.log(nume / deno)
-        return (per * weights).sum() / weights.sum().clamp(min=1.0)
+        den = weights.sum() if den is None else den
+        return (per * weights).sum() / den.clamp(min=1.0)
 
     def loss(self, state, batch, generator=None):
         """BPR over (user, pos, neg) + L2 on the full embedding tables +
-        ``ssl_reg``·InfoNCE between the views that ``cl_method`` picks."""
+        ``ssl_reg``·InfoNCE between the views that ``cl_method`` picks.
+        Over a data axis (``batch["rows"]``) each term is this rank's share:
+        its rows over the global weight sum, and the L2 term divided."""
         users, pos, neg, w = batch["users"], batch["pos"], batch["neg"], batch["weight"]
+        rows = batch.get("rows")
+        den = w.sum() if rows is None else rows.count(w.sum())
         usrEmbeds, itmEmbeds, u1, i1, u2, i2 = self._forward_joint(state)
         anc, posE, negE = usrEmbeds[users], itmEmbeds[pos], itmEmbeds[neg]
         pos_s = (anc * posE).sum(1)
         neg_s = (anc * negE).sum(1)
-        bpr = -(torch.log(1e-10 + torch.sigmoid(pos_s - neg_s)) * w).sum() / w.sum().clamp(min=1.0)
+        bpr = -(torch.log(1e-10 + torch.sigmoid(pos_s - neg_s)) * w).sum() / den.clamp(min=1.0)
         reg = ((self.uEmbeds**2).sum() + (self.iEmbeds**2).sum()) * self.reg_weight
+        if rows is not None:
+            reg = reg * rows.share
         if self.cl_method == 1:
             cl = (
-                self.contrast_loss(usrEmbeds, u1, users, w)
-                + self.contrast_loss(itmEmbeds, i1, pos, w)
-                + self.contrast_loss(usrEmbeds, u2, users, w)
-                + self.contrast_loss(itmEmbeds, i2, pos, w)
+                self.contrast_loss(usrEmbeds, u1, users, w, den)
+                + self.contrast_loss(itmEmbeds, i1, pos, w, den)
+                + self.contrast_loss(usrEmbeds, u2, users, w, den)
+                + self.contrast_loss(itmEmbeds, i2, pos, w, den)
             ) * self.ssl_reg
         else:
-            cl = (self.contrast_loss(u1, u2, users, w) + self.contrast_loss(i1, i2, pos, w)) * self.ssl_reg
+            cl = (self.contrast_loss(u1, u2, users, w, den) + self.contrast_loss(i1, i2, pos, w, den)) * self.ssl_reg
         total = bpr + reg + cl
         return total, (total,)
 
@@ -271,12 +279,27 @@ class DiffMM(RecModel):
     def interaction_vectors(self, users: torch.Tensor) -> torch.Tensor:
         return interaction_vectors(self.data, users)
 
-    def p_sample_users(self, denoiser: Denoise, x_start, generator=None):
-        """Reverse-diffuse interaction vectors with the eval-mode denoiser."""
+    def p_sample_users(self, denoiser: Denoise, x_start, generator=None, noise=None):
+        """Reverse-diffuse interaction vectors with the eval-mode denoiser;
+        ``noise`` may give the chain's draws (``sample_noise``)."""
         return p_sample_loop(
             self.sched, denoiser, x_start, self.sampling_steps,
-            generator=generator, sampling_noise=self.sampling_noise,
+            generator=generator, sampling_noise=self.sampling_noise, noise=noise,
         )
+
+    def sample_noise(self, shape, generator=None) -> list:
+        """The draws ``p_sample_users`` makes for a batch of ``shape``, in
+        its order (``sampler.chain_noise``)."""
+        return chain_noise(self.sched.steps, self.sampling_steps, self.sampling_noise, shape, generator, self.device)
+
+    def diffusion_draws(self, batch_size: int, generator=None) -> dict:
+        """The draws ``diffusion_losses`` makes for a batch, in its order:
+        the timesteps, the noise and the denoiser's dropout keep mask."""
+        shape = (batch_size, self.n_items)
+        ts = torch.randint(0, self.steps, (batch_size,), generator=generator, device=self.device)
+        noise = torch.randn(shape, generator=generator, device=self.device)
+        keep = torch.rand(shape, generator=generator, device=self.device) < 1.0 - 0.5
+        return {"ts": ts, "noise": noise, "keep": keep}
 
     def rebuild_ui_graph(self, topk_items: torch.Tensor, generator=None) -> SparseGraph:
         """The regenerated modal graph of ``topk_items`` (``regenerated_ui_graph``)."""

@@ -51,34 +51,50 @@ class DiffRec(RecModel):
     def init_state(self, generator=None) -> dict:
         return init_lt_state(self.steps, device=self.device)
 
-    def _diffusion_loss(self, state, users, weight, generator=None, ts=None, noise=None, keep=None):
+    def _diffusion_loss(self, state, users, weight, generator=None, ts=None, noise=None, keep=None, rows=None):
+        """Over a data axis (``rows``) the draws (given or made) are the
+        global batch's and this rank takes its rows of them; the state
+        records every rank's rows, and the loss is this rank's share."""
         x_start = interaction_vectors(self.data, users)
-        B = x_start.shape[0]
-        ts, pt = sample_timesteps(
-            state, B, "importance" if self.reweight else "uniform", generator=generator, t=ts
-        )
+        B = x_start.shape[0] if rows is None else rows.n
+        method = "importance" if self.reweight else "uniform"
+        ts, pt = sample_timesteps(state, B, method, generator=generator, t=ts)
+        shape = (B, self.n_items)
         if noise is None:
-            noise = torch.randn(x_start.shape, generator=generator, device=x_start.device)
+            noise = torch.randn(shape, generator=generator, device=x_start.device)
+        if rows is not None:
+            if keep is None and self.dropout > 0.0:
+                keep = torch.rand(shape, generator=generator, device=x_start.device) < 1.0 - self.dropout
+            ts, pt, noise = rows.local((ts, pt, noise))
+            keep = None if keep is None else rows.local(keep)
         x_t = q_sample(self.sched, x_start, ts, noise) if self.noise_scale != 0 else x_start
         out = self.dnn(x_t, ts, dropout=self.dropout, keep=keep, generator=generator)
         mse = ((x_start - out) ** 2).mean(dim=1)
         if self.reweight:
             w = torch.where(ts == 0, 1.0, snr(self.sched, ts - 1) - snr(self.sched, ts))
         else:
-            w = torch.ones(B, device=x_start.device)
+            w = torch.ones(ts.shape[0], device=x_start.device)
         losses = w * mse
-        new_state = update_lt_state(state, ts, losses, weight) if self.reweight else state
-        total = (losses / pt * weight).sum() / weight.sum().clamp(min=1.0)
-        return total, new_state
+        if rows is None:
+            new_state = update_lt_state(state, ts, losses, weight) if self.reweight else state
+            return (losses / pt * weight).sum() / weight.sum().clamp(min=1.0), new_state
+        if self.reweight:
+            gathered = (rows.gather(t.detach()) for t in (ts, losses, weight))
+            state = update_lt_state(state, *gathered)
+        return (losses / pt * weight).sum() / rows.count(weight.sum()).clamp(min=1.0), state
 
     def loss_and_update(self, state, batch, generator=None, ts=None, noise=None, keep=None):
         """The loss and the state with the batch's losses recorded. ``ts``
         (B,), ``noise`` and ``keep`` (B, n_items) replace the draws."""
-        total, new_state = self._diffusion_loss(state, batch["users"], batch["weight"], generator, ts, noise, keep)
+        total, new_state = self._diffusion_loss(
+            state, batch["users"], batch["weight"], generator, ts, noise, keep, batch.get("rows")
+        )
         return total, ((total,), new_state)
 
     def loss(self, state, batch, generator=None, ts=None, noise=None, keep=None):
-        total, _ = self._diffusion_loss(state, batch["users"], batch["weight"], generator, ts, noise, keep)
+        total, _ = self._diffusion_loss(
+            state, batch["users"], batch["weight"], generator, ts, noise, keep, batch.get("rows")
+        )
         return total, (total,)
 
     def scores(self, state, users) -> torch.Tensor:

@@ -25,9 +25,11 @@ import torch
 import torch.nn.functional as F
 
 
-def flip_schedules(x_start: torch.Tensor, steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(gamma_cum, epsilon_cum), each (steps,), from the batch's sparsity."""
-    sparsity = (x_start == 0).to(torch.float32).mean()
+def flip_schedules(x_start: torch.Tensor, steps: int, sparsity=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(gamma_cum, epsilon_cum), each (steps,), from the batch's sparsity
+    (``sparsity``, the share of zeros, when the batch is split over ranks)."""
+    if sparsity is None:
+        sparsity = (x_start == 0).to(torch.float32).mean()
     gamma_start = 0.1 * (1.0 - sparsity) + 0.001
     gamma_end = gamma_start * 0.1
     epsilon_start = 0.005 * sparsity + 0.0001
@@ -50,11 +52,12 @@ def q_sample(
     generator: Optional[torch.Generator] = None,
     noise: Optional[torch.Tensor] = None,
     flip_u: Optional[torch.Tensor] = None,
+    sparsity=None,
 ) -> torch.Tensor:
     """Flip each entry with probability sigmoid((rate_t − noise)·base_temp),
     the rate γ_t for a 0 and ε_t for a 1. ``noise`` and the flip uniforms
     ``flip_u`` ((B, n) each) are drawn from ``generator`` unless given."""
-    gamma_cum, epsilon_cum = flip_schedules(x_start, steps)
+    gamma_cum, epsilon_cum = flip_schedules(x_start, steps, sparsity)
     a0 = gamma_cum[t][:, None]
     a1 = epsilon_cum[t][:, None]
     if noise is None:
@@ -77,6 +80,7 @@ def p_sample(
     generator: Optional[torch.Generator] = None,
     init: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     step_u: Optional[Sequence[torch.Tensor]] = None,
+    sparsity=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Reverse flip sampling → (x_0 sample, the last step's probabilities).
 
@@ -87,13 +91,13 @@ def p_sample(
     given."""
     B = x_start.shape[0]
     dev = x_start.device
-    gamma_cum, epsilon_cum = flip_schedules(x_start, steps)
+    gamma_cum, epsilon_cum = flip_schedules(x_start, steps, sparsity)
     if q_steps == 0:
         x = x_start
     else:
         t0 = torch.full((B,), q_steps - 1, dtype=torch.int64, device=dev)
         noise, flip_u = init if init is not None else (None, None)
-        x = q_sample(x_start, t0, steps, base_temp, generator, noise, flip_u)
+        x = q_sample(x_start, t0, steps, base_temp, generator, noise, flip_u, sparsity)
     probs = torch.zeros_like(x)
     for j, i in enumerate(range(steps - 1, -1, -1)):
         t = torch.full((B,), i, dtype=torch.int64, device=dev)
@@ -119,10 +123,10 @@ def true_posterior(x0, t, gamma_cum, epsilon_cum, eps: float = 1e-8) -> torch.Te
     return numerator / (denominator + eps)
 
 
-def kl_to_posterior(x0, t, probs, steps: int, eps: float = 1e-8) -> torch.Tensor:
+def kl_to_posterior(x0, t, probs, steps: int, eps: float = 1e-8, sparsity=None) -> torch.Tensor:
     """Per-row KL of the true flip posterior to the model's probabilities;
     neither side carries a gradient, as in the reference."""
-    gamma_cum, epsilon_cum = flip_schedules(x0, steps)
+    gamma_cum, epsilon_cum = flip_schedules(x0, steps, sparsity)
     post = true_posterior(x0, t, gamma_cum, epsilon_cum).clamp(eps, 1 - eps).detach()
     p = probs.detach().clamp(eps, 1 - eps)
     kl = post * (torch.log(post + 1e-10) - torch.log(p + 1e-10))
@@ -137,3 +141,12 @@ def infonce_rows(view1, view2, temperature: float) -> torch.Tensor:
     pos = torch.exp((v1 * v2).sum(-1) / temperature)
     neg = torch.exp(v1 @ v2.T / temperature).sum(1)
     return -torch.log(pos / neg).mean()
+
+
+def p_sample_draws(shape, steps: int, q_steps: int, generator, device) -> dict:
+    """The uniforms ``p_sample`` draws for a batch of ``shape``, in its
+    order: ``gen_init`` (the forward flip's noise and flip planes, when
+    ``q_steps`` > 0) and ``gen_steps`` (one plane a reverse step)."""
+    u = lambda: _uniform(shape, generator, device)
+    init = (u(), u()) if q_steps > 0 else None
+    return {"gen_init": init, "gen_steps": [u() for _ in range(steps)]}

@@ -4,7 +4,7 @@ timesteps in place of ``lax.scan``."""
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -23,18 +23,25 @@ def p_sample_loop(
     q_steps: int,
     generator: Optional[torch.Generator] = None,
     sampling_noise: bool = False,
+    noise: Optional[Sequence[torch.Tensor]] = None,
 ) -> torch.Tensor:
     """DDPM reverse chain with an x0-predicting denoiser.
 
     ``q_steps`` forward-noising steps are applied to ``x_start`` first (0 =
     start from ``x_start``); the reverse loop always runs all
-    ``sched.steps``. The noise, when any is drawn, comes from ``generator``.
+    ``sched.steps``. The noise, when any is drawn, comes from ``generator``,
+    unless ``noise`` gives the planes in the chain's order
+    (``chain_noise``).
     """
     B = x_start.shape[0]
     noisy = q_steps > 0 or sampling_noise
-    if noisy and generator is None:
-        raise ValueError("a noisy reverse chain needs a generator")
-    randn = lambda: torch.randn(x_start.shape, generator=generator, device=x_start.device)
+    if noise is not None:
+        planes = iter(noise)
+        randn = lambda: next(planes)
+    else:
+        if noisy and generator is None:
+            raise ValueError("a noisy reverse chain needs a generator")
+        randn = lambda: torch.randn(x_start.shape, generator=generator, device=x_start.device)
 
     x = x_start
     if q_steps > 0:
@@ -49,3 +56,11 @@ def p_sample_loop(
         else:
             x = mean
     return x
+
+
+def chain_noise(steps: int, q_steps: int, sampling_noise: bool, shape, generator, device) -> list:
+    """The noise planes ``p_sample_loop`` draws for a batch of ``shape``, in
+    its order: one for the forward noising when ``q_steps`` > 0, then one
+    for each reverse step but the last when ``sampling_noise``."""
+    n = (1 if q_steps > 0 else 0) + (steps - 1 if sampling_noise else 0)
+    return [torch.randn(shape, generator=generator, device=device) for _ in range(n)]

@@ -210,31 +210,40 @@ class GenRecV1(RecModel):
         return content, (special_img + special_txt + common) / 4.0
 
     # ------------------------------------------------------------------
-    def _infonce(self, v1, v2, weights):
+    def _infonce(self, v1, v2, weights, rows=None, den=None):
+        """InfoNCE of each row of ``v1`` against the batch's rows of ``v2``
+        (in-batch negatives: over a data axis, every rank's rows)."""
         n1 = F.normalize(v1, dim=1, eps=1e-12)
         n2 = F.normalize(v2, dim=1, eps=1e-12)
         pos = torch.exp((n1 * n2).sum(-1) / self.temp)
-        neg = torch.exp(n1 @ n2.T / self.temp).sum(1)
+        neg = torch.exp(n1 @ (n2 if rows is None else rows.gather(n2)).T / self.temp).sum(1)
         per = -torch.log(pos / neg)
-        return (per * weights).sum() / weights.sum().clamp(min=1.0)
+        den = weights.sum() if den is None else den
+        return (per * weights).sum() / den.clamp(min=1.0)
 
     def loss(self, state, batch, generator=None, masks: Optional[dict] = None):
         """BPR + ``reg_weight``·(‖users‖² + ‖items‖²) + ``ssl_reg1``·(side vs
         content InfoNCE of items and users) + ``ssl_reg2``·(user vs item
         InfoNCE of content and side). The dropout masks are ``masks``, else
-        drawn from ``generator``; with neither there is no dropout."""
+        drawn from ``generator``; with neither there is no dropout. Over a
+        data axis (``batch["rows"]``) each term is this rank's share."""
         users, pos, neg, w = batch["users"], batch["pos"], batch["neg"], batch["weight"]
+        rows = batch.get("rows")
+        den = w.sum() if rows is None else rows.count(w.sum())
         if masks is None and generator is not None:
             masks = self.dropout_masks(generator)
         content, side = self.forward(state, masks)
         nu = self.n_users
         usr, itm = content[:nu], content[nu:]
         anc, posE, negE = usr[users], itm[pos], itm[neg]
-        bpr = -(F.logsigmoid((anc * posE).sum(-1) - (anc * negE).sum(-1)) * w).sum() / w.sum().clamp(min=1.0)
+        bpr = -(F.logsigmoid((anc * posE).sum(-1) - (anc * negE).sum(-1)) * w).sum() / den.clamp(min=1.0)
         reg = ((self.user_embedding**2).sum() + (self.item_id_embedding**2).sum()) * self.reg_weight
+        if rows is not None:
+            reg = reg * rows.share
         side_u, side_i = side[:nu], side[nu:]
-        cl1 = self._infonce(side_i[pos], itm[pos], w) + self._infonce(side_u[users], usr[users], w)
-        cl2 = self._infonce(usr[users], itm[pos], w) + self._infonce(usr[users], side_i[pos], w)
+        nce = lambda a, b: self._infonce(a, b, w, rows, den)
+        cl1 = nce(side_i[pos], itm[pos]) + nce(side_u[users], usr[users])
+        cl2 = nce(usr[users], itm[pos]) + nce(usr[users], side_i[pos])
         total = bpr + reg + cl1 * self.ssl_reg1 + cl2 * self.ssl_reg2
         return total, (total,)
 
@@ -247,8 +256,22 @@ class GenRecV1(RecModel):
         return u[users] @ i.T
 
     # -- the diffusion phases (driven by GenRecV1Trainer) ------------------
+    def diffusion_draws(self, batch_size: int, generator=None) -> dict:
+        """The draws ``diffusion_losses`` makes for a batch, in its order."""
+        shape, dev = (batch_size, self.n_items), self.device
+        ts = torch.randint(0, self.steps, (batch_size,), generator=generator, device=dev)
+        q_noise = torch.rand(shape, generator=generator, device=dev)
+        q_flip = torch.rand(shape, generator=generator, device=dev)
+        return {"ts": ts, "q_noise": q_noise, "q_flip": q_flip,
+                **flip.p_sample_draws(shape, self.steps, self.steps, generator, dev)}
+
+    def generate_draws(self, batch_size: int, generator=None) -> dict:
+        """The draws ``generate`` makes for a batch, in its order."""
+        shape = (batch_size, self.n_items)
+        return flip.p_sample_draws(shape, self.steps, self.sampling_steps, generator, self.device)
+
     def diffusion_losses(
-        self, x_start, item_embeds, img_feats, txt_feats, generator=None, draws: Optional[dict] = None
+        self, x_start, item_embeds, img_feats, txt_feats, generator=None, draws: Optional[dict] = None, rows=None
     ):
         """Phase 1's loss of a (B, n_items) batch: the pos-weighted BCE of the
         denoiser's logits at a flipped ``x_t``, the curriculum-weighted KL to
@@ -262,29 +285,46 @@ class GenRecV1(RecModel):
         ``draws`` may give the timesteps ``ts`` (B,), ``q_sample``'s
         ``q_noise`` and ``q_flip``, and the contrastive chain's ``gen_init``
         (noise, flip) and ``gen_steps`` (one uniform plane per reverse step),
-        in place of draws from ``generator``."""
+        in place of draws from ``generator``.
+
+        Over a data axis (``rows``) ``x_start`` and ``draws`` hold this
+        rank's rows, and the loss is its share: the sparsity, ``pos_weight``
+        and the means are the global batch's, and the InfoNCE (no gradient)
+        takes every rank's rows."""
         draws = draws or {}
         B, dev = x_start.shape[0], x_start.device
         ts = draws.get("ts")
         if ts is None:
             ts = torch.randint(0, self.steps, (B,), generator=generator, device=dev)
-        pos_weight = (1.0 - x_start).sum() / (x_start.sum() + 1e-8)
+        sparsity = None
+        if rows is None:
+            pos_weight = (1.0 - x_start).sum() / (x_start.sum() + 1e-8)
+        else:
+            n = rows.n * x_start.shape[1]
+            sparsity = rows.count((x_start == 0).sum().to(torch.float32)) / n
+            pos_weight = rows.count((1.0 - x_start).sum()) / (rows.count(x_start.sum()) + 1e-8)
         x_t = flip.q_sample(
-            x_start, ts, self.steps, self.flip_temp, generator, draws.get("q_noise"), draws.get("q_flip")
+            x_start, ts, self.steps, self.flip_temp, generator, draws.get("q_noise"), draws.get("q_flip"), sparsity
         )
         logits = self.denoise_image(x_t, ts)
         probs = torch.sigmoid(logits)
-        bce = -(pos_weight * x_start * F.logsigmoid(logits) + (1.0 - x_start) * F.logsigmoid(-logits)).mean()
+        bce = -(pos_weight * x_start * F.logsigmoid(logits) + (1.0 - x_start) * F.logsigmoid(-logits))
         with torch.no_grad():
             gen_output, _ = flip.p_sample(
                 self.denoise_image, x_start, self.steps, self.steps, self.flip_temp, self.bayesian,
-                generator, draws.get("gen_init"), draws.get("gen_steps"),
+                generator, draws.get("gen_init"), draws.get("gen_steps"), sparsity,
             )
             modal_emb = item_embeds * img_feats
-            cl = flip.infonce_rows(x_start @ modal_emb, gen_output @ modal_emb, self.sparse_temp)
-        kl = flip.kl_to_posterior(x_start, ts, probs, self.steps)
+            v1, v2 = x_start @ modal_emb, gen_output @ modal_emb
+            if rows is None:
+                cl = flip.infonce_rows(v1, v2, self.sparse_temp)
+            else:
+                cl = flip.infonce_rows(rows.gather(v1), rows.gather(v2), self.sparse_temp) * rows.share
+        kl = flip.kl_to_posterior(x_start, ts, probs, self.steps, sparsity=sparsity)
         curriculum = (ts.to(torch.float32) / self.steps).clamp(0.0, 0.5)
-        return bce + (curriculum * kl).mean() + 0.01 * cl
+        if rows is None:
+            return bce.mean() + (curriculum * kl).mean() + 0.01 * cl
+        return bce.sum() / n + (curriculum * kl).sum() / rows.n + 0.01 * cl
 
     @torch.no_grad()
     def generate(self, x_start, generator=None, draws: Optional[dict] = None):

@@ -48,8 +48,9 @@ class LightGCN(RecModel):
         u_all, i_all = self.propagate()
         users, pos, neg = batch["users"], batch["pos"], batch["neg"]
         u = u_all[users]
-        mf = bpr_loss((u * i_all[pos]).sum(dim=1), (u * i_all[neg]).sum(dim=1), batch["weight"])
-        reg = emb_loss(self.user_emb[users], self.item_emb[pos], self.item_emb[neg])
+        rows = batch.get("rows")
+        mf = bpr_loss((u * i_all[pos]).sum(dim=1), (u * i_all[neg]).sum(dim=1), batch["weight"], rows=rows)
+        reg = emb_loss(self.user_emb[users], self.item_emb[pos], self.item_emb[neg], rows=rows)
         total = mf + self.reg_weight * reg
         return total, (total,)
 

@@ -403,6 +403,12 @@ def grouped_topk(scores, k: int, packed_mask=None):
     if scores.dim() == 2 and takes_two_stage(scores.shape[1], k):
         _check_scores(scores, k, scores.shape[1])
         return _two_stage_topk(scores, k, packed_mask)
+    return k3_topk(scores, k, packed_mask)
+
+
+def k3_topk(scores, k: int, packed_mask=None):
+    """K3 alone, whatever ``GENMMREC_PALLAS_TOPK`` says (the item shards of
+    ``parallel.mesh.sharded_topk``): the plain version on the CPU."""
     if scores.is_cpu:
         return grouped_topk_plain(scores, k, packed_mask)
     return _masked_topk(scores, k, packed_mask)

@@ -1,0 +1,8 @@
+from genmmrec_tpu_torch.parallel.mesh import (
+    build_mesh,
+    data_sharding,
+    model_axis_size,
+    replicated,
+    shard_model_params,
+    sharded_topk,
+)

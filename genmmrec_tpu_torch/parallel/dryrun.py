@@ -1,0 +1,157 @@
+"""Whole runs of the port on a mesh held against one rank.
+
+``dryrun_multigpu(n)`` is the counterpart of ``__graft_entry__.py``
+``dryrun_multichip``: DiffMM and GenRecV1, one full fit epoch each at the
+tiny size (phase 1, the regeneration, the BPR epoch, the evaluation) on a
+``{data: n/2, model: 2}`` mesh (``{data: n}`` for an odd ``n``) and again on
+one rank; every valid metric must agree within ``METRIC_ATOL``.
+
+``mesh_checks`` is the entry of the ranks that ``tests/test_torch_mesh.py``
+starts on the CPU (it lives here, so that the spawned ranks import ``torch``
+and this package alone): BPR and LightGCN fits, DiffMM's and GenRecV1's
+batch gradients from the parameters, state and batch a file gives, and
+one training batch of FREEDOM and RFBM3 under a model axis alone.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from genmmrec_tpu_torch.config import Config
+from genmmrec_tpu_torch.data.arrays import build_eval_data, build_train_data
+from genmmrec_tpu_torch.data.dataset import RecDataset
+from genmmrec_tpu_torch.engine.evaluator import group_masks
+from genmmrec_tpu_torch.engine.trainer import get_trainer
+from genmmrec_tpu_torch.models import get_model
+from genmmrec_tpu_torch.parallel import launch
+from genmmrec_tpu_torch.parallel import mesh as pm
+
+# the JAX package's bound on a sharded fit's metrics against one device
+METRIC_ATOL = 2e-3
+DRYRUN = {
+    "save_recommended_topk": False,
+    "epochs": 1,
+    "train_batch_size": 64,
+    "eval_batch_size": 64,
+    "topk": [5, 10],
+    "metrics": ["Recall", "NDCG"],
+    "valid_metric": "Recall@10",
+    "hyper_parameters": ["seed"],
+}
+
+
+def fit(model_name: str, overrides: dict, device, mesh=None, dataset: str = "tiny", saved: bool = False):
+    """One ``fit`` of ``model_name`` (``saved``: with its checkpoints) →
+    (best valid score, valid result, test result, the parameters by name
+    as numpy arrays)."""
+    config = Config(model_name, dataset, dict(overrides))
+    train, valid, test = RecDataset(config).split()
+    td = build_train_data(train, device)
+    ebs = int(config["eval_batch_size"])
+    vd, sd = build_eval_data(valid, train, ebs, device), build_eval_data(test, train, ebs, device)
+    config["pop_mask"], config["warm_mask"] = group_masks(train, device)
+    model = get_model(model_name)(config, td)
+    trainer = get_trainer(model_name)(config, model, mesh=mesh)
+    score, valid_res, test_res = trainer.fit(td, vd, sd, saved=saved, verbose=False)
+    params = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    return score, valid_res, test_res, params
+
+
+def _fits_rank(device, names, mesh_shape):
+    mesh = pm.build_mesh({"mesh_shape": mesh_shape})
+    return {name: fit(name, DRYRUN, device, mesh)[:2] for name in names}
+
+
+def dryrun_multigpu(n: int, device="cuda", names=("DiffMM", "GenRecV1")) -> dict:
+    """Fit each model on an ``n``-rank mesh and on one rank, hold every
+    valid metric within ``METRIC_ATOL``; returns {name: (mesh result, one
+    rank's result)}."""
+    mesh_shape = {"data": n // 2, "model": 2} if n % 2 == 0 else {"data": n, "model": 1}
+    on_mesh = launch.run(_fits_rank, mesh_shape, device, (names, mesh_shape))
+    out = {}
+    for name in names:
+        score_sh, valid_sh = on_mesh[name]
+        score_1, valid_1 = fit(name, DRYRUN, torch.device(device))[:2]
+        if not np.isfinite(score_sh):
+            raise AssertionError(f"{name}: the mesh fit's valid score is not finite")
+        off = {k: (valid_1[k], valid_sh[k]) for k in valid_1 if abs(valid_1[k] - valid_sh[k]) >= METRIC_ATOL}
+        if off:
+            raise AssertionError(f"{name}: the {mesh_shape} fit diverged from one rank: {off}")
+        print(f"dryrun_multigpu({n}) {name} OK: mesh={mesh_shape}, valid Recall@10 mesh={score_sh:.4f} "
+              f"one rank={score_1:.4f}")
+        out[name] = (valid_sh, valid_1)
+    return out
+
+
+# -- the ranks of tests/test_torch_mesh.py -----------------------------------
+def batch_grads(case: dict, device, mesh) -> dict:
+    """One batch of ``case`` split over the data axis: the loss (summed over
+    the axis) and every parameter's gradient (summed), by name. ``case``
+    holds the model, its config overrides, its JAX parameters (numpy, for
+    ``interop.from_jax_params``), its state's graphs as ``rebuild_ui_graph``
+    arguments, the global batch and the loss's keyword draws."""
+    from genmmrec_tpu_torch.interop import from_jax_params
+
+    config = Config(case["model"], "tiny", dict(case["overrides"]))
+    train = RecDataset(config).split()[0]
+    model = get_model(case["model"])(config, build_train_data(train, device))
+    from_jax_params(model, case["params"])
+    state = {k: model.rebuild_ui_graph(torch.as_tensor(top, device=device), **kw)
+             for k, (top, kw) in case["state"].items()}
+    batch = {k: torch.as_tensor(v, device=device) for k, v in case["batch"].items()}
+    rows = pm.DataRows(mesh, batch["users"].shape[0])
+    total, _ = model.loss(state, {**rows.local(batch), "rows": rows}, **case["draws"])
+    total.backward()
+    params = dict(model.named_parameters())
+    pm.reduce_grads(params.values(), mesh)
+    loss = pm.all_reduce(total.detach().clone(), mesh, pm.DATA_AXIS)
+    return {"loss": float(loss), "grads": {k: p.grad.cpu().numpy() for k, p in params.items()}}
+
+
+def one_batch(model_name: str, overrides: dict, device, mesh=None) -> dict:
+    """``fit``'s start and the first training batch of epoch 0 (its first
+    ``train_batch_size`` slots) → the parameters after the optimizers
+    stepped, by name."""
+    config = Config(model_name, "tiny", dict(overrides))
+    train = RecDataset(config).split()[0]
+    td = build_train_data(train, device)
+    model = get_model(model_name)(config, td)
+    trainer = get_trainer(model_name)(config, model, mesh=mesh)
+    model.init_params(trainer.split("init"))
+    trainer.state = model.init_state(trainer.split("state"))
+    pm.replicated((list(model.parameters()), trainer.state), mesh)
+    trainer._build_train_step(td)
+    trainer.state = model.pre_epoch(trainer.state, trainer.split("epoch", 0, "pre"), 0)
+    idx = torch.arange(trainer.train_batch_size, device=device)[None]
+    trainer._train_epoch(trainer.split("epoch", 0, "train"), plan={"idx": idx})
+    return {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+
+
+def fit_and_resume(model_name: str, overrides: dict, device, mesh=None) -> tuple:
+    """``fit`` with checkpoints into ``overrides["checkpoint_dir"]``, then a
+    ``fit`` of one more epoch resumed from the last checkpoint → (the
+    checkpoint's optimizer states, the resumed fit's parameters)."""
+    from genmmrec_tpu_torch.engine.checkpoint import load_checkpoint
+
+    fit(model_name, overrides, device, mesh, saved=True)
+    path = f"{overrides['checkpoint_dir']}/{model_name}-tiny"
+    states = load_checkpoint(path)["optimizers"]
+    resumed = fit(model_name, {**overrides, "epochs": overrides["epochs"] + 1, "resume_checkpoint": path}, device, mesh)
+    return states, resumed[3]
+
+
+def mesh_checks(device, spec: dict) -> dict:
+    """The scenarios of ``spec`` on a 4-rank world: ``fits`` (model ->
+    overrides) on a 2 × 2 mesh, ``resumes`` (``fit_and_resume``) and
+    ``batches`` (``batch_grads`` cases) on it, ``steps`` (model ->
+    overrides) on a ``{data: 1, model: 2}`` mesh of the first two ranks.
+    Returns global rank 0's results."""
+    mesh = pm.build_mesh({"mesh_shape": {"data": 2, "model": 2}})
+    out = {f"fit_{name}": fit(name, over, device, mesh) for name, over in spec["fits"].items()}
+    out.update({f"resume_{name}": fit_and_resume(name, over, device, mesh) for name, over in spec["resumes"].items()})
+    out.update({f"grad_{name}": batch_grads(case, device, mesh) for name, case in spec["batches"].items()})
+    model_axis = pm.build_mesh({"mesh_shape": {"data": 1, "model": 2}})
+    if model_axis.member:
+        out.update({f"step_{name}": one_batch(name, over, device, model_axis) for name, over in spec["steps"].items()})
+    return out

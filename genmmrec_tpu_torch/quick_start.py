@@ -12,6 +12,11 @@ BEST block and returns that combination's (combo, best valid, test).
 
 The device is the card unless the caller asks for the CPU: with no CUDA
 device, ``device="cuda"`` raises.
+
+A ``mesh_shape`` of more than one rank launches its ranks
+(``parallel.launch.run``), each running this function on its device in the
+process group, and returns global rank 0's result; only rank 0 writes the
+log, checkpoints, top-k files and wandb.
 """
 
 from __future__ import annotations
@@ -23,13 +28,16 @@ from logging import getLogger
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from genmmrec_tpu_torch.config import Config
 from genmmrec_tpu_torch.data.arrays import build_eval_data, build_train_data
 from genmmrec_tpu_torch.data.dataset import RecDataset
 from genmmrec_tpu_torch.engine.evaluator import group_masks
-from genmmrec_tpu_torch.engine.trainer import get_trainer
+from genmmrec_tpu_torch.engine.trainer import check_data_axis, get_trainer
 from genmmrec_tpu_torch.models import get_model
+from genmmrec_tpu_torch.parallel import launch
+from genmmrec_tpu_torch.parallel.mesh import build_mesh, shape_dims
 from genmmrec_tpu_torch.utils.logger import init_logger
 from genmmrec_tpu_torch.utils.misc import dict2str, init_seed
 
@@ -50,7 +58,7 @@ def _wandb_init_for_combo(config, names, combo, logger):
     plus ``_<name><value>`` for the other axes of a grid, with the config's
     JSON-serializable values (the rest as strings); None when ``use_wandb``
     is off or wandb is not installed."""
-    if not bool(config["use_wandb"]):
+    if not bool(config["use_wandb"]) or (dist.is_initialized() and dist.get_rank() != 0):
         return None
     try:
         import wandb
@@ -80,12 +88,25 @@ def _wandb_init_for_combo(config, names, combo, logger):
     return run
 
 
+def _quick_start_rank(device, *args):
+    return quick_start(*args, device=device)
+
+
 def quick_start(model, dataset, config_dict=None, save_model=True, mg=False, max_epochs=None, device="cuda"):
     device = resolve_device(device)
     config = Config(model, dataset, config_dict, mg)
     if max_epochs is not None:
         config["epochs"] = max_epochs
-    init_logger(config)
+    if not dist.is_initialized() and config["mesh_shape"]:
+        d, m = shape_dims(config["mesh_shape"])
+        check_data_axis(get_model(config["model"]).__name__, d)
+        if d * m > 1:
+            args = (model, dataset, config_dict, save_model, mg, max_epochs)
+            return launch.run(_quick_start_rank, config["mesh_shape"], device, args)
+    mesh = build_mesh(config)
+    if mesh is not None and not mesh.member:
+        return None
+    init_logger(config, main=mesh is None or mesh.is_main)
     logger = getLogger()
     logger.info("██Server: \t" + platform.node())
     logger.info("██Dir: \t" + os.getcwd() + "\n")
@@ -134,7 +155,7 @@ def quick_start(model, dataset, config_dict=None, save_model=True, mg=False, max
         wandb_run = _wandb_init_for_combo(config, names, combo, logger)
 
         model_obj = get_model(config["model"])(config, train_data)
-        trainer = get_trainer(config["model"])(config, model_obj, mg)
+        trainer = get_trainer(config["model"])(config, model_obj, mg, mesh=mesh)
         best_valid_score, best_valid_result, best_test_upon_valid = trainer.fit(
             train_data, valid_data, test_data, saved=save_model
         )

@@ -18,26 +18,33 @@ LEVELS = {
 }
 
 
-def init_logger(config) -> None:
+def init_logger(config, main: bool = True) -> None:
     """Replace the root logger's handlers, so that a second call (the next
-    run of a grid) leaves one file and one stream handler."""
-    log_root = "./log/"
-    os.makedirs(log_root, exist_ok=True)
-    name = f"{config['model'] or 'model'}-{config['dataset'] or 'dataset'}-{get_local_time()}.log"
+    run of a grid) leaves one file and one stream handler. A rank other
+    than global rank 0 of a mesh (``main`` False) writes no file and logs
+    warnings alone."""
     level = LEVELS.get((config["state"] or "info").lower(), logging.INFO)
     fmt = "%(asctime)-15s %(levelname)s %(message)s"
-
-    fh = logging.FileHandler(os.path.join(log_root, name), "w", "utf-8")
-    fh.setLevel(level)
-    fh.setFormatter(logging.Formatter(fmt, "%a %d %b %Y %H:%M:%S"))
+    handlers = []
+    if main:
+        log_root = "./log/"
+        os.makedirs(log_root, exist_ok=True)
+        name = f"{config['model'] or 'model'}-{config['dataset'] or 'dataset'}-{get_local_time()}.log"
+        fh = logging.FileHandler(os.path.join(log_root, name), "w", "utf-8")
+        fh.setLevel(level)
+        fh.setFormatter(logging.Formatter(fmt, "%a %d %b %Y %H:%M:%S"))
+        handlers.append(fh)
+    else:
+        level = max(level, logging.WARNING)
     sh = logging.StreamHandler()
     sh.setLevel(level)
     sh.setFormatter(logging.Formatter(fmt, "%d %b %H:%M"))
+    handlers.append(sh)
 
     root = logging.getLogger()
     for h in list(root.handlers):
         root.removeHandler(h)
         h.close()
     root.setLevel(level)
-    root.addHandler(fh)
-    root.addHandler(sh)
+    for h in handlers:
+        root.addHandler(h)

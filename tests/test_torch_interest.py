@@ -11,7 +11,13 @@ against the JAX package, on the CPU.
   1e-5 relative; the port's own seeding is held to quality on separable
   blobs, as the JAX package's test holds its own;
 - the debias tables and ``interest_debias`` with JAX's sample plane
-  injected: equal.
+  injected: equal;
+- the spectral clustering of fused features (``multimodal_fusion_cluster``):
+  its top-k sparsified, symmetrized plane equals the JAX function's (its
+  loop, written out), its embedding equals sklearn's ``spectral_embedding``
+  where the graph is connected, and its labels equal the JAX function's
+  (sklearn's ``SpectralClustering``) up to a permutation on separable
+  blobs.
 """
 
 import jax
@@ -187,3 +193,52 @@ def test_interest_debias_matches_with_jax_draws(tables, ratio):
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     if ratio == 1.0:
         assert (got.numpy() != generated).any()
+
+
+def _jax_affinity(feats, sim_top_k):
+    """The sparsified, symmetrized plane of the JAX package's
+    ``multimodal_fusion_cluster`` (its loop, before the clustering)."""
+    f = np.asarray(feats, np.float64)
+    fn = f / np.maximum(np.linalg.norm(f, axis=1, keepdims=True), 1e-12)
+    sim = fn @ fn.T
+    n = sim.shape[0]
+    for i in range(n):
+        idx = np.argpartition(sim[i], -sim_top_k)[-sim_top_k:]
+        mask = np.ones(n, bool)
+        mask[idx] = False
+        sim[i, mask] = 0
+    return np.maximum(sim, sim.T)
+
+
+@pytest.mark.parametrize("sim_top_k", [5, 20])
+def test_fusion_affinity_matches_jax(sim_top_k):
+    feats = np.random.default_rng(2).normal(size=(150, 24)).astype(np.float32)
+    got = tic.MultimodalCluster(sim_top_k=sim_top_k).fusion_affinity(_t(feats)).numpy()
+    np.testing.assert_allclose(got, _jax_affinity(feats, sim_top_k), rtol=1e-12, atol=1e-15)
+
+
+def test_spectral_embedding_matches_sklearn_on_a_connected_graph():
+    from sklearn.manifold import spectral_embedding as sk_embedding
+
+    feats = np.random.default_rng(3).normal(size=(120, 8))
+    sim = _jax_affinity(feats, 30)
+    ref = sk_embedding(sim, n_components=4, drop_first=False, random_state=0)
+    got = tic.spectral_embedding(_t(sim), 4).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-6 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("spread", [0.3, 3.0])
+def test_multimodal_fusion_cluster_matches_sklearn_on_blobs(spread):
+    """Tight and ten times wider blobs (the top-k graph falls apart into
+    the blobs, so the eigenvectors of the zero eigenvalue are not unique):
+    the port's labels are the JAX function's up to a permutation (adjusted
+    Rand index 1)."""
+    from sklearn.metrics import adjusted_rand_score
+
+    rng = np.random.default_rng(0)
+    centers = rng.normal(0.0, 8.0, (5, 16))
+    x = np.concatenate([c + rng.normal(0.0, spread, (60, 16)) for c in centers]).astype(np.float32)
+    ref = jic.MultimodalCluster(spectral_cluster_num=5, sim_top_k=20).multimodal_fusion_cluster(x)
+    got = tic.MultimodalCluster(spectral_cluster_num=5, sim_top_k=20).multimodal_fusion_cluster(_t(x)).numpy()
+    assert adjusted_rand_score(ref, got) == 1.0
+    assert adjusted_rand_score(np.repeat(np.arange(5), 60), got) == 1.0

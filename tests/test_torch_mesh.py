@@ -1,0 +1,349 @@
+"""The port's multi-device layer (``genmmrec_tpu_torch/parallel``) against the
+JAX package's ``parallel/mesh.py``, on the CPU.
+
+In this process (the JAX package on the 8 virtual CPU devices of the
+conftest): ``local_topk`` + ``merge_topk`` over 4 item shards against JAX's
+``sharded_topk`` on its 2 × 4 mesh, at (16, 64) and at the Amazon-elec
+width; tie-heavy and masked planes against ``lax.top_k`` and K3's plain
+version; the qualifying parameters of ``shard_model_params`` against the
+JAX leaves that come out sharded; ``build_mesh``'s shapes and its error;
+the gradient-carrying collectives in a world of one rank; the models that a
+data axis refuses.
+
+In one spawned world of 4 gloo ranks a session (``parallel.dryrun.
+mesh_checks``, which imports neither JAX nor these tests): BPR, LightGCN
+and, one epoch each, DiffMM, GenRecV1 and DiffRec fitted on a
+2 × 2 mesh against one rank (parameters within 2e-4, metrics within 2e-3,
+the JAX package's bounds), a BPR checkpoint and resume on the mesh against
+one rank, one DiffMM and one GenRecV1 batch split over
+the data axis against ``jax.grad`` at the global batch (the bounds of
+their parity tests), and one training batch of FREEDOM and RFBM3 on a
+model axis alone against one rank. Then ``dryrun_multigpu(4)``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import Mesh as JMesh
+
+from genmmrec_tpu.config import Config as JConfig
+from genmmrec_tpu.data.arrays import build_train_data as j_train
+from genmmrec_tpu.data.dataset import RecDataset as JDataset
+from genmmrec_tpu.models import get_model as j_get_model
+from genmmrec_tpu.parallel import mesh as jmesh
+from genmmrec_tpu_torch.config import Config as TConfig
+from genmmrec_tpu_torch.data.arrays import build_train_data as t_train
+from genmmrec_tpu_torch.data.dataset import RecDataset as TDataset
+from genmmrec_tpu_torch.engine.trainer import DATA_AXIS_MODELS, Trainer
+from genmmrec_tpu_torch.interop import jax_tree_by_name, params_by_jax_name
+from genmmrec_tpu_torch.models import get_model as t_get_model
+from genmmrec_tpu_torch.ops.topk import grouped_topk_plain
+from genmmrec_tpu_torch.parallel import dryrun, launch
+from genmmrec_tpu_torch.parallel import mesh as pm
+from genmmrec_tpu_torch.quick_start import quick_start
+
+CPU = torch.device("cpu")
+FIT = {
+    "epochs": 2,
+    "save_recommended_topk": False,
+    "hyper_parameters": ["seed"],
+    "topk": [5, 10],
+    "metrics": ["Recall", "NDCG"],
+    "valid_metric": "Recall@10",
+}
+
+
+def _jax_mesh():
+    return JMesh(np.asarray(jax.devices()[:8]).reshape(2, 4), ("data", "model"))
+
+
+def _shards_topk(scores, k, S, packed_mask=None):
+    """``local_topk`` on each of S item shards, then ``merge_topk``: the
+    route of ``sharded_topk`` without the gather."""
+    t = torch.as_tensor(scores)
+    vals, idx = [], []
+    for lo, hi in pm.shard_bounds(t.shape[1], S):
+        mask = None if packed_mask is None else packed_mask[:, lo // 8 : lo // 8 + -(-(hi - lo) // 8)].contiguous()
+        v, i = pm.local_topk(t[:, lo:hi].contiguous(), k, lo, mask)
+        vals.append(v)
+        idx.append(i)
+    return pm.merge_topk(torch.cat(vals, 1), torch.cat(idx, 1), k)
+
+
+@pytest.mark.parametrize("shape,k", [((16, 64), 7), ((8, 63001), 20)])
+def test_sharded_topk_pieces_match_jax(shape, k):
+    scores = np.random.default_rng(0).normal(size=shape).astype(np.float32)
+    v_ref, i_ref = jax.jit(lambda s: jmesh.sharded_topk(s, k, _jax_mesh()))(jnp.asarray(scores))
+    v, i = _shards_topk(scores, k, 4)
+    np.testing.assert_allclose(v.numpy(), np.asarray(v_ref), rtol=1e-6)
+    # the ids are determined where a value occurs once in its row
+    once = (scores[:, None, :] == v.numpy()[:, :, None]).sum(-1) == 1
+    assert once.mean() > 0.9
+    np.testing.assert_array_equal(i.numpy()[once], np.asarray(i_ref)[once])
+
+
+@pytest.mark.parametrize("n,k,S", [(200, 30, 4), (100, 25, 4), (63001, 50, 4), (64, 16, 2)])
+def test_sharded_topk_ties_in_global_order(n, k, S):
+    """A plane of a few integer values: the values' multiset equals
+    ``lax.top_k``'s and the ids follow its rule (larger value, then lower
+    id), also where the last shard is narrower than k (pad slots)."""
+    scores = np.random.default_rng(n).integers(0, 4, (12, n)).astype(np.float32)
+    v_ref, i_ref = jax.lax.top_k(jnp.asarray(scores), k)
+    v, i = _shards_topk(scores, k, S)
+    for row in range(scores.shape[0]):
+        assert sorted(v[row].tolist()) == sorted(np.asarray(v_ref[row]).tolist())
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
+
+
+def test_sharded_topk_with_packed_mask_equals_plain():
+    rng = np.random.default_rng(1)
+    n, k = 1000, 40
+    scores = torch.as_tensor(rng.integers(0, 6, (16, n)).astype(np.float32))
+    pad = -(-n // 128) * 128
+    dense = rng.random((16, pad)) < 0.3
+    dense[:, n:] = True
+    dense[3, : n - 10] = True  # a row with fewer unmasked columns than k
+    packed = torch.as_tensor(np.packbits(dense, axis=1, bitorder="little"))
+    v_ref, i_ref = grouped_topk_plain(scores, k, packed_mask=packed)
+    v, i = _shards_topk(scores, k, 4, packed)
+    assert torch.equal(v, v_ref) and torch.equal(i, i_ref)
+
+
+def _pair(name, shape):
+    jc, tc = JConfig(name, "tiny", {"mesh_shape": shape}), TConfig(name, "tiny", {"mesh_shape": shape})
+    jm = j_get_model(name)(jc, j_train(JDataset(jc).split()[0]))
+    tm = t_get_model(name)(tc, t_train(TDataset(tc).split()[0], CPU))
+    return jm, tm
+
+
+@pytest.mark.parametrize("name", ["BPR", "LightGCN", "DiffRec"])
+def test_shard_model_params_names_match_jax(name):
+    shape = {"data": 2, "model": 4}
+    jm, tm = _pair(name, shape)
+    assert jm.n_items % 4 == 0
+    params = jm.init_params(jax.random.PRNGKey(0))
+    sharded = jmesh.shard_model_params(jm, params, jmesh.build_mesh(JConfig(name, "tiny", {"mesh_shape": shape})))
+    flags = jax.tree_util.tree_map(lambda leaf: "model" in str(leaf.sharding.spec), sharded)
+    j_names = {k for k, on in jax_tree_by_name(flags).items() if on}
+    to_jax = dict(zip(dict(tm.named_parameters()), params_by_jax_name(tm)))
+    port = pm.shard_model_params(tm, pm.build_mesh({"mesh_shape": shape}, world=8))
+    assert {to_jax[n] for n in port} == j_names and j_names
+    assert all(hi - lo == dict(tm.named_parameters())[n].shape[0] // 4 for n, (lo, hi) in port.items())
+    if name == "DiffRec":
+        last = len(tm.dnn.out_layers) - 1
+        assert {f"dnn.out_layers.{last}.weight", f"dnn.out_layers.{last}.bias"} <= set(port)
+
+
+def test_build_mesh_shapes_and_error():
+    jdev = jax.devices()[:8]
+    for shape in ({"data": 2, "model": 4}, {"data": 1, "model": 2}, None):
+        mesh = pm.build_mesh({"mesh_shape": shape}, world=8)
+        j = jmesh.build_mesh({"mesh_shape": shape}, devices=jdev)
+        assert mesh.shape == dict(j.shape)
+    assert pm.build_mesh({"mesh_shape": None}) is None
+    assert pm.build_mesh({"mesh_shape": {"data": 1, "model": 1}}) is None
+    with pytest.raises(ValueError, match="exceeds 8 devices"):
+        pm.build_mesh({"mesh_shape": {"data": 4, "model": 4}}, world=8)
+    with pytest.raises(ValueError, match="exceeds 8 devices"):
+        jmesh.build_mesh({"mesh_shape": {"data": 4, "model": 4}}, devices=jdev)
+    # one process: a shape of more ranks than it has is no longer ignored
+    with pytest.raises(ValueError, match="exceeds 1 devices"):
+        pm.build_mesh({"mesh_shape": {"data": 2, "model": 1}})
+    assert pm.backend_for("cpu", 4) == "gloo"
+    assert [pm.Mesh(2, 2, r).data_rank for r in range(4)] == [0, 0, 1, 1]
+    assert [pm.Mesh(2, 2, r).model_rank for r in range(4)] == [0, 1, 0, 1]
+    assert pm.shard_bounds(63001, 4) == [(0, 15752), (15752, 31504), (31504, 47256), (47256, 63001)]
+    assert pm.takes_sharded(48, 10, pm.Mesh(1, 2)) and not pm.takes_sharded(48, 25, pm.Mesh(1, 2))
+
+
+def _one_rank_group(fn):
+    """``fn(mesh)`` inside a gloo process group of one rank (a 1 × 1 mesh
+    with its groups), which is then destroyed."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{launch._free_port()}", world_size=1, rank=0)
+    try:
+        g = dist.new_group([0])
+        return fn(pm.Mesh(1, 1, 0, "gloo", g, g))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_gradient_collectives_in_a_world_of_one():
+    def run(mesh):
+        x = torch.randn(5, 3, dtype=torch.float64, requires_grad=True)
+        w = torch.randn(5, 3, dtype=torch.float64)
+        (pm.gather_rows(x, mesh) * w).sum().backward()
+        g_gather = x.grad.clone()
+        x.grad = None
+        (pm.sum_over((x * x).sum(), mesh) * 3.0).backward()
+        return x.detach(), w, g_gather, x.grad
+
+    x, w, g_gather, g_sum = _one_rank_group(run)
+    assert torch.equal(g_gather, w)
+    assert torch.equal(g_sum, 6.0 * x)
+
+
+@pytest.mark.parametrize("name", ["FREEDOM", "MVDiff", "VBPR"])
+def test_data_axis_refuses_models_not_split(name):
+    assert name not in DATA_AXIS_MODELS
+    config = TConfig(name, "tiny", {"save_recommended_topk": False})
+    model = t_get_model(name)(config, t_train(TDataset(config).split()[0], CPU))
+    with pytest.raises(NotImplementedError, match=name):
+        Trainer(config, model, mesh=pm.Mesh(2, 1))
+    with pytest.raises(NotImplementedError, match=name):
+        quick_start(name, "tiny", {"mesh_shape": {"data": 2}}, save_model=False, device="cpu")
+
+
+# -- the 4-rank world ---------------------------------------------------------
+def _diffmm_case():
+    from test_torch_train import TRAIN, _batch, _np_tree
+
+    jc = JConfig("DiffMM", "tiny", dict(TRAIN))
+    jm = j_get_model("DiffMM")(jc, j_train(JDataset(jc).split()[0]))
+    params = jm.init_params(jax.random.PRNGKey(0))
+    rng = np.random.default_rng(6)
+    tops = {m: rng.integers(0, jm.n_items, (jm.n_users, 1)) for m in ("image_ui", "text_ui")}
+    jstate = {m: jm.rebuild_ui_graph(jnp.asarray(t, jnp.int32), None) for m, t in tops.items()}
+    users, pos, neg, w = _batch(jm.n_users, jm.n_items)
+    jb = {"users": jnp.asarray(users, jnp.int32), "pos": jnp.asarray(pos, jnp.int32),
+          "neg": jnp.asarray(neg, jnp.int32), "weight": jnp.asarray(w)}
+    (ref, _), grads = jax.value_and_grad(jm.loss, has_aux=True)(params, jstate, jb, None)
+    case = dict(model="DiffMM", overrides=dict(TRAIN), params=_np_tree(params),
+                state={m: (t, {}) for m, t in tops.items()},
+                batch={"users": users, "pos": pos, "neg": neg, "weight": w}, draws={})
+    return case, float(ref), jax_tree_by_name(_np_tree(grads))
+
+
+def _genrecv1_case():
+    from test_torch_genrecv1 import SLICE, _batch, _dropout_masks, _edge_keep, _np_tree
+
+    jc = JConfig("GenRecV1", "tiny", dict(SLICE))
+    jm = j_get_model("GenRecV1")(jc, j_train(JDataset(jc).split()[0]))
+    params = jax.jit(jm.init_params)(jax.random.PRNGKey(0))
+    top = np.random.default_rng(3).integers(0, jm.n_items, (jm.n_users, jm.rebuild_k))
+    key = jax.random.PRNGKey(4)
+    jstate = {"image_ui": jax.jit(jm.rebuild_ui_graph)(jnp.asarray(top, jnp.int32), key)}
+    keep = _edge_keep(key, top.size, jm.n_users + jm.n_items, jm.keep_rate)
+    jb, tb = _batch(jm)
+    mkey = jax.random.PRNGKey(8)
+    (ref, _), grads = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(params, jstate, jb, mkey)
+    case = dict(model="GenRecV1", overrides=dict(SLICE), params=_np_tree(params),
+                state={"image_ui": (top, {"keep": keep})}, batch={k: v.numpy() for k, v in tb.items()},
+                draws={"masks": _dropout_masks(mkey, jm.n_items, jm.latdim)})
+    return case, float(ref), jax_tree_by_name(_np_tree(grads))
+
+
+STEPS = {"FREEDOM": {"save_recommended_topk": False}, "RFBM3": {"save_recommended_topk": False}}
+# fitted one epoch (dryrun.DRYRUN) on the 2 x 2 mesh: phase 1, the
+# regeneration and the loss history over the data axis
+DIFFUSION = ("DiffMM", "GenRecV1", "DiffRec")
+
+
+def _world(tmp):
+    cases = {"DiffMM": _diffmm_case(), "GenRecV1": _genrecv1_case()}
+    spec = {"fits": {"BPR": FIT, "LightGCN": FIT, **{name: dryrun.DRYRUN for name in DIFFUSION}},
+            "resumes": {"BPR": {**FIT, "checkpoint_dir": str(tmp)}},
+            "batches": {k: c[0] for k, c in cases.items()}, "steps": STEPS}
+    out = launch.run(dryrun.mesh_checks, {"data": 2, "model": 2}, "cpu", (spec,))
+    return out, cases
+
+
+@pytest.fixture(scope="session")
+def world(tmp_path_factory, worker_id):
+    """Every scenario of ``mesh_checks`` in one world of 4 gloo ranks, with
+    the JAX references of the batch cases: run once a session, and shared
+    with the other pytest-xdist workers through a file under a lock."""
+    if worker_id == "master":
+        return _world(tmp_path_factory.mktemp("mesh_saved"))
+    from filelock import FileLock
+
+    path = tmp_path_factory.getbasetemp().parent / "torch_mesh_world.pt"
+    with FileLock(str(path) + ".lock"):
+        if not path.is_file():
+            torch.save(_world(tmp_path_factory.mktemp("mesh_saved")), path)
+        return torch.load(path, weights_only=False)
+
+
+@pytest.mark.parametrize("name", ["BPR", "LightGCN", *DIFFUSION])
+def test_mesh_fit_matches_one_rank(world, name):
+    """The parameters within the JAX test's 2e-4 and the metrics within its
+    2e-3. A bias that feeds a batch norm (GenRecV1's) has a gradient that
+    is zero but for rounding, which Adam turns into full steps: it is left
+    out of the parameters, its function held by the metrics."""
+    out, _ = world
+    s_ref, v_ref, t_ref, p_ref = dryrun.fit(name, FIT if name in ("BPR", "LightGCN") else dryrun.DRYRUN, CPU)
+    s_sh, v_sh, t_sh, p_sh = out[f"fit_{name}"]
+    assert p_ref.keys() == p_sh.keys()
+    for k in p_ref:
+        if k.endswith("lin.bias") or k == "common1.bias":
+            continue
+        np.testing.assert_allclose(p_sh[k], p_ref[k], atol=2e-4, rtol=2e-4, err_msg=k)
+    assert abs(s_ref - s_sh) < 2e-3
+    for ref, got in ((v_ref, v_sh), (t_ref, t_sh)):
+        assert ref.keys() == got.keys()
+        assert all(abs(ref[k] - got[k]) < 2e-3 for k in ref), (ref, got)
+
+
+def test_mesh_checkpoint_and_resume_match_one_rank(world, tmp_path):
+    """Rank 0's checkpoint holds the moments gathered whole from the model
+    ranks, and a fit resumed from it on the mesh (each rank taking its rows
+    of them) ends where one rank's resumed fit ends."""
+    states, params = world[0]["resume_BPR"]
+    ref_states, ref_params = dryrun.fit_and_resume("BPR", {**FIT, "checkpoint_dir": str(tmp_path)}, CPU)
+    assert ref_states.keys() == states.keys() == {"main"}
+    got, ref = states["main"], ref_states["main"]
+    assert got["count"] == ref["count"] and got["state"].keys() == ref["state"].keys()
+    for i, st in ref["state"].items():
+        for k in ("mu", "nu"):
+            assert got["state"][i][k].shape == st[k].shape
+            np.testing.assert_allclose(got["state"][i][k].numpy(), st[k].numpy(), rtol=2e-4, atol=2e-6)
+    for k in ref_params:
+        np.testing.assert_allclose(params[k], ref_params[k], atol=2e-4, rtol=2e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("name", ["DiffMM", "GenRecV1"])
+def test_data_axis_batch_gradients_match_jax(world, name):
+    """The loss summed over the data axis and the summed gradients equal
+    ``jax.grad`` of the JAX loss at the global batch (the tolerances of the
+    models' parity tests; a batch-norm-fed bias's gradient, zero but for
+    rounding, within 1e-4 of its weight's largest)."""
+    out, cases = world
+    got = out[f"grad_{name}"]
+    case, ref_loss, ref_grads = cases[name]
+    np.testing.assert_allclose(got["loss"], ref_loss, rtol=1e-5)
+    config = TConfig(name, "tiny", dict(case["overrides"]))
+    tm = t_get_model(name)(config, t_train(TDataset(config).split()[0], CPU))
+    checked = 0
+    for pname, jname in zip(dict(tm.named_parameters()), params_by_jax_name(tm)):
+        if not jname.startswith("rec/"):
+            assert not got["grads"][pname].any(), pname  # the denoisers play no part
+            continue
+        g, r = got["grads"][pname], ref_grads[jname]
+        if name == "GenRecV1" and (jname.endswith("/lin/b") or jname == "rec/common1/b"):
+            bound = 1e-4 * np.abs(ref_grads[jname[:-1] + "w"]).max()
+            assert np.abs(g).max() <= bound, jname
+        else:
+            np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-5 * np.abs(r).max(), err_msg=jname)
+        checked += 1
+    assert checked >= 5
+
+
+@pytest.mark.parametrize("name", sorted(STEPS))
+def test_model_axis_batch_matches_one_rank(world, name):
+    """Under ``{data: 1, model: 2}`` the optimizers step each rank's rows of
+    the tables and gather them: the parameters after one batch equal one
+    rank's."""
+    out, _ = world
+    ref = dryrun.one_batch(name, STEPS[name], CPU)
+    got = out[f"step_{name}"]
+    assert ref.keys() == got.keys()
+    for k in ref:
+        np.testing.assert_allclose(got[k], ref[k], rtol=1e-6, atol=1e-7, err_msg=k)
+
+
+def test_dryrun_multigpu_on_the_cpu():
+    out = dryrun.dryrun_multigpu(4, device="cpu")
+    assert set(out) == {"DiffMM", "GenRecV1"}
