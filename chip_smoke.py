@@ -134,10 +134,19 @@ bfloat16 (K3 on each rank's item shard, ``sharded_topk``); one batch's
 gradients summed over the data axis against the same batch on one rank;
 each rank's K3 on its shard against its plain version; the layer's
 collectives timed. The same seed on one rank in this process: every metric
-within ``MESH_METRIC_ATOL``. Then the spectral clustering of baby's fused
-features (``multimodal_fusion_cluster``, K3 on the 7,050² similarity) on
-the card against the CPU. ``--mesh-only`` builds the kernels and runs this
-phase alone.
+within ``MESH_METRIC_ATOL``. The same world then fits MGCN on baby at its
+published width (embedding 64, ``knn_k`` 10) one epoch and evaluates the
+valid split in float32, against one rank's fit (every metric within
+``MESH_METRIC_ATOL``), and runs one training batch of each of the 20
+graph-CF, multimodal, message-passing and multimodal graph models whose
+batches split over the data axis (``MESH_FAMILY_MODELS``), on baby, the
+same parameters, batch and draws on every rank: the loss summed over the
+data axis and the summed gradients against the global batch on one rank,
+and each rank's launches (K1 forward and backward for every model that
+propagates, K3 in LATTICE's and DAMRS's steps). Then the spectral
+clustering of baby's fused features (``multimodal_fusion_cluster``, K3 on
+the 7,050² similarity) on the card against the CPU. ``--mesh-only`` builds
+the kernels and runs this phase alone.
 
 Before the paths it builds the CUDA kernels from ``genmmrec_tpu_torch/csrc``
 and holds each one (K1 forward and backward, K2 forward and backward, K3,
@@ -3785,6 +3794,168 @@ def mesh_batch_check(torch, trainer, model, mesh):
     return dict(loss=loss, loss_one_rank=ref.item(), worst_share_of_bound=worst)
 
 
+# the models whose batches split over the data axis besides BPR, LightGCN,
+# DiffMM, GenRecV1 and DiffRec: graph-CF, multimodal, message passing,
+# multimodal graph
+MESH_FAMILY_MODELS = (
+    "LayerGCN", "SELFCFED_LGN", "VBPR", "BM3", "FREEDOM", "ItemKNNCBF", "MMGCN", "GRCN", "DualGNN", "DRAGON",
+    "COHESION", "MVGAE", "GUME", "LATTICE", "MGCN", "LGMRec", "SMORE", "PGL", "SLMRec", "DAMRS",
+)
+# the models whose loss reads no graph, and so launches no K1
+MESH_NO_PROPAGATION = ("VBPR", "ItemKNNCBF")
+# the models whose training step launches K3
+MESH_K3_IN_STEP = ("LATTICE", "DAMRS")
+# the layers whose gradients are sums of row terms that cancel, held on the
+# scale of the terms (the sum of their magnitudes, where the rounding of
+# such a sum lies): the loss cancels a bias exactly (FREEDOM's projections
+# shift both scores of a pair, SLMRec's second views every logit of a row),
+# or a layer's two calls nearly cancel at a random start (MGCN's and GUME's
+# modal attention scores the image and the text view of each row through
+# the same layers into a softmax over the two)
+MESH_ON_TERMS = {
+    "FREEDOM": ("image_trs", "text_trs"), "SLMRec": ("g_v_iv", "g_t_ivat"), "MGCN": ("query1", "query2"),
+    "GUME": ("separate1", "separate2"),
+}
+# a batch split over the data axis against the global batch on one rank; a
+# gradient of MESH_ON_TERMS within MESH_TERMS_ATOL of its terms' scale
+MESH_BATCH_LOSS_RTOL = 1e-5
+MESH_BATCH_GRAD_RTOL, MESH_BATCH_GRAD_ATOL = 1e-4, 1e-5
+MESH_TERMS_ATOL = 1e-4
+# the kernels of a training step
+STEP_KERNELS = ("segment_spmm", "segment_spmm_backward", "grouped_topk")
+
+
+def mesh_mgcn_setup(torch, dev):
+    """MGCN on Amazon-baby at its published width through ``get_model``,
+    one epoch: (config, train data, valid, model)."""
+    from genmmrec_tpu_torch.config import Config
+    from genmmrec_tpu_torch.data.arrays import build_eval_data, build_train_data
+    from genmmrec_tpu_torch.data.dataset import RecDataset
+    from genmmrec_tpu_torch.engine.evaluator import group_masks
+    from genmmrec_tpu_torch.models import get_model
+
+    config = Config("MGCN", "baby", {"save_recommended_topk": False, "epochs": 1, "eval_step": 1})
+    train, valid, _ = RecDataset(config).split()
+    td = build_train_data(train, dev)
+    vd = build_eval_data(valid, train, int(config["eval_batch_size"]), dev)
+    config["pop_mask"], config["warm_mask"] = group_masks(train, dev)
+    return config, td, vd, get_model("MGCN")(config, td)
+
+
+def mesh_mgcn_drive(torch, config, model, td, vd, mesh=None) -> dict:
+    """``fit`` of one epoch with evaluate(valid) in float32, timed, its
+    launches counted."""
+    from genmmrec_tpu_torch.engine.trainer import get_trainer
+
+    trainer = get_trainer("MGCN")(config, model, mesh=mesh)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, valid, _ = trainer.fit(td, vd, verbose=False)
+    torch.cuda.synchronize()
+    return dict(valid=valid, fit_s=time.perf_counter() - t0, epoch_s=trainer.epoch_times[0],
+                launches=launch_counts())
+
+
+def mesh_family_batch(torch, name, td, mesh) -> dict:
+    """One training batch of ``name`` on Amazon-baby (its published YAML)
+    split over the data axis: every rank builds the model on ``td``, takes
+    global rank 0's parameters and state, draws the same global batch and
+    passes the loss the same generator; the gradients are summed over the
+    axis. This rank's set-up time and launches in the batch; on global rank
+    0 also the loss and gradients against the global batch on this one rank
+    with the same draws."""
+    from genmmrec_tpu_torch.config import Config
+    from genmmrec_tpu_torch.models import get_model
+    from genmmrec_tpu_torch.parallel import mesh as pm
+
+    dev = td.users.device
+    seeded = lambda k: torch.Generator(device=dev).manual_seed(SEED + k)
+    config = Config(name, "baby", {"save_recommended_topk": False})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = get_model(name)(config, td)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    model.init_params(seeded(0))
+    state = model.pre_epoch(model.init_state(seeded(1)), seeded(2), 0)
+    pm.replicated((list(model.parameters()), state), mesh)
+    B = int(config["train_batch_size"])
+    g = seeded(51)
+    idx = torch.randint(0, td.n_inter, (B,), generator=g, device=dev)
+    batch = {"users": td.users[idx], "pos": td.items[idx],
+             "neg": torch.randint(0, model.n_items, (B,), generator=g, device=dev),
+             "weight": (torch.arange(B, device=dev) < B - 7).to(torch.float32)}
+    params = dict(model.named_parameters())
+    rows = pm.DataRows(mesh, B)
+    out = dict(name=name, setup_s=setup_s, rows=rows.hi - rows.lo)
+    with torch.enable_grad():
+        reset_counts()
+        total, _ = model.loss(state, {**rows.local(batch), "rows": rows}, seeded(52))
+        total.backward()
+        torch.cuda.synchronize()
+        out["launches"] = {k: v for k, v in launch_counts().items() if k in STEP_KERNELS}
+        pm.reduce_grads(params.values(), mesh)
+        out["loss"] = float(pm.all_reduce(total.detach().clone(), mesh, pm.DATA_AXIS))
+        if not mesh.is_main:
+            return out
+        summed = {k: p.grad.clone() for k, p in params.items()}
+        model.zero_grad(set_to_none=True)
+        # the magnitudes of each listed linear layer's row terms: of its
+        # bias gradient Σ|δ| over the rows, of its weight's |δ|ᵀ|x|, with δ
+        # the cotangent of its output and x its input, summed over its calls
+        terms = {}
+
+        def keep_terms(layer):
+            def hook(module, inputs, output):
+                x = inputs[0].detach().abs().reshape(-1, inputs[0].shape[-1])
+
+                def add(g):
+                    g = g.abs().reshape(-1, g.shape[-1])
+                    for key, t in ((f"{layer}.bias", g.sum(0)), (f"{layer}.weight", g.T @ x)):
+                        terms[key] = terms.get(key, 0) + t
+
+                output.register_hook(add)
+            return hook
+
+        hooks = [getattr(model, l).register_forward_hook(keep_terms(l)) for l in MESH_ON_TERMS.get(name, ())]
+        ref, _ = model.loss(state, batch, seeded(52))
+        ref.backward()
+        for h in hooks:
+            h.remove()
+    grads = {k: torch.zeros_like(p) if p.grad is None else p.grad for k, p in params.items()}
+    share, rel = {}, {}
+    for k, r in grads.items():
+        scale = terms[k] if k in terms else r.abs().max()
+        err = (summed[k] - r).abs()
+        bound = MESH_BATCH_GRAD_RTOL * r.abs() + (MESH_TERMS_ATOL if k in terms else MESH_BATCH_GRAD_ATOL) * scale
+        share[k] = (err / bound.clamp(min=1e-30)).max().item()
+        rel[k] = (err / scale.clamp(min=1e-30)).max().item() if scale.max() > 0 else 0.0
+    worst = max(share, key=share.get)
+    out.update(loss_one_rank=ref.item(), loss_rel=abs(out["loss"] - ref.item()) / max(abs(ref.item()), 1e-30),
+               worst_param=worst, worst_share_of_bound=share[worst], largest_rel_err=max(rel.values()),
+               n_params=len(params))
+    return out
+
+
+def mesh_family_rank(torch, dev, mesh) -> dict:
+    """The checks of the 20 models on one rank of the ``MESH_SHAPE`` world:
+    MGCN's fit (``mesh_mgcn_drive``), then one batch of each model of
+    ``MESH_FAMILY_MODELS`` (``mesh_family_batch``) on MGCN's train data."""
+    t0 = time.perf_counter()
+    config, td, vd, model = mesh_mgcn_setup(torch, dev)
+    setup_s = time.perf_counter() - t0
+    mgcn = dict(setup_s=setup_s, **mesh_mgcn_drive(torch, config, model, td, vd, mesh))
+    del model, vd
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    batches = []
+    for name in MESH_FAMILY_MODELS:
+        batches.append(mesh_family_batch(torch, name, td, mesh))
+        torch.cuda.empty_cache()
+    return dict(mgcn=mgcn, batches=batches, batches_s=time.perf_counter() - t0)
+
+
 def mesh_rank(dev, card):
     """One rank of the ``MESH_SHAPE`` world: ``mesh_drive``, the batch check,
     K3 on this rank's item shard against its plain version (float32 and
@@ -3838,8 +4009,13 @@ def mesh_rank(dev, card):
         reduce_grads_main_ms=timed(lambda: pm.reduce_grads(rec, mesh)),
         main_grad_floats=sum(p.numel() for p in rec),
     )
+    for p in rec:
+        p.grad = None
+    del trainer, model, plane, u, i, rec
+    torch.cuda.empty_cache()
+    family = mesh_family_rank(torch, dev, mesh)
     mine = dict(rank=mesh.rank, device=str(dev), backend=mesh.backend, setup_s=setup_s, results=res, times=times,
-                launches=launches, bf16_launches=bf16_launches, k3_cases=k3, collectives=collectives)
+                launches=launches, bf16_launches=bf16_launches, k3_cases=k3, collectives=collectives, family=family)
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, mine)
     return dict(ranks=every, batch=batch)
@@ -3886,13 +4062,16 @@ def mesh_path(torch, card):
           f"{world_s:.1f} s, rank 0's drive {ranks[0]['times']['total_s']:.2f} s (its first, cold, "
           f"{ranks[0]['times']['first_drive_s']:.2f} s), one rank's {one_times['total_s']:.2f} s (first "
           f"{one_times['first_drive_s']:.2f} s) + set-up {setup_s:.1f} s [{card}]")
-    # the spectral clustering of fused features, on the card and on the CPU
     del trainer
     torch.cuda.empty_cache()
+    family = mesh_family_check(torch, ranks, card)
+    # the spectral clustering of fused features, on the card and on the CPU
     fusion = fusion_cluster_check(torch, model.item_raw_features, card)
-    totals = {k: one_launches[k] + fusion["launches"][k] + sum(r["launches"][k] for r in ranks) for k in one_launches}
+    totals = {k: one_launches[k] + fusion["launches"][k] + family["launches"][k]
+              + sum(r["launches"][k] for r in ranks) for k in one_launches}
     out = dict(
-        mesh_shape=MESH_SHAPE, world_s=world_s, ranks=[{k: v for k, v in r.items() if k != "k3_cases"} for r in ranks],
+        mesh_shape=MESH_SHAPE, world_s=world_s,
+        ranks=[{k: v for k, v in r.items() if k not in ("k3_cases", "family")} for r in ranks], family=family,
         batch=world["batch"], one_rank=dict(results=one, times=one_times, setup_s=setup_s, launches=one_launches),
         drift=drift, fusion_cluster={k: v for k, v in fusion.items() if k != "k3_cases"},
         phase_s=time.perf_counter() - phase_t0,
@@ -3900,6 +4079,75 @@ def mesh_path(torch, card):
     print(f"mesh_path phase done in {out['phase_s']:.1f} s [{card}]")
     k3 = [c for r in ranks for c in r["k3_cases"]] + fusion["k3_cases"]
     return out, dict(k1=[], k1_bwd=[], k3=k3), totals
+
+
+def mesh_family_check(torch, ranks, card) -> dict:
+    """The 20 models' checks of the world's ranks (``mesh_family_rank``):
+    MGCN's fit on the mesh against the same seed on one rank in this
+    process (every valid metric within MESH_METRIC_ATOL, every rank
+    launching K1 forward and backward); each model's batch (the loss within
+    MESH_BATCH_LOSS_RTOL of one rank's, every gradient element within
+    MESH_BATCH_GRAD_RTOL of its magnitude plus MESH_BATCH_GRAD_ATOL of its
+    tensor's largest (a layer of MESH_ON_TERMS within MESH_TERMS_ATOL of
+    its row terms' magnitudes), each rank launching K1 forward and backward if the
+    model propagates and K3 if its step takes a top-k). Returns the summary
+    with the launches of all of it."""
+    fam = [r["family"] for r in ranks]
+    cuda0 = torch.device("cuda:0")
+    t0 = time.perf_counter()
+    config, td, vd, model = mesh_mgcn_setup(torch, cuda0)
+    setup_s = time.perf_counter() - t0
+    one = mesh_mgcn_drive(torch, config, model, td, vd)
+    del model
+    torch.cuda.empty_cache()
+    launches = dict(one["launches"])
+    for r, f in enumerate(fam):
+        got = f["mgcn"]["launches"]
+        if got["segment_spmm"] <= 0 or got["segment_spmm_backward"] <= 0:
+            raise AssertionError(f"mesh rank {r}: MGCN's fit launched no K1 forward or backward: {got}")
+        launches = {k: v + got[k] for k, v in launches.items()}
+    mesh_valid = fam[0]["mgcn"]["valid"]
+    drift = {k: mesh_valid[k] - one["valid"][k] for k in one["valid"]}
+    off = {k: v for k, v in drift.items() if not abs(v) <= MESH_METRIC_ATOL}
+    if off:
+        raise AssertionError(f"MGCN/baby on {MESH_SHAPE} strays from one rank's by more than {MESH_METRIC_ATOL}: {off}")
+    worst = max(drift.items(), key=lambda kv: abs(kv[1]))
+    m0 = fam[0]["mgcn"]
+    print(f"MGCN/baby (embedding {config['embedding_size']}, knn_k {config['knn_k']}, batch "
+          f"{config['train_batch_size']}) on {MESH_SHAPE} against one rank: {len(drift)} valid metrics within "
+          f"{MESH_METRIC_ATOL} (largest {worst[0]} {worst[1]:+.5f}); Recall@20 {mesh_valid['recall@20']:.4f} / "
+          f"{one['valid']['recall@20']:.4f}; wall: the world's fit {m0['fit_s']:.2f} s (epoch {m0['epoch_s']:.2f} s, "
+          f"set-up {m0['setup_s']:.1f} s a rank), one rank's {one['fit_s']:.2f} s (epoch {one['epoch_s']:.2f} s, "
+          f"set-up {setup_s:.1f} s) [{card}]")
+    lines = []
+    for i, name in enumerate(MESH_FAMILY_MODELS):
+        per = [f["batches"][i] for f in fam]
+        main = per[0]
+        if main["name"] != name:
+            raise AssertionError(f"mesh batch {i}: rank 0 ran {main['name']}, not {name}")
+        need = (() if name in MESH_NO_PROPAGATION else ("segment_spmm", "segment_spmm_backward"))
+        need += ("grouped_topk",) if name in MESH_K3_IN_STEP else ()
+        for r, b in enumerate(per):
+            if any(b["launches"][k] <= 0 for k in need):
+                raise AssertionError(f"mesh batch {name}, rank {r}: one of {need} not launched: {b['launches']}")
+            launches = {k: v + b["launches"].get(k, 0) for k, v in launches.items()}
+        if not main["loss_rel"] <= MESH_BATCH_LOSS_RTOL or not main["worst_share_of_bound"] <= 1.0:
+            raise AssertionError(f"mesh batch {name}: loss {main['loss']} against one rank's {main['loss_one_rank']}, "
+                                 f"gradient {main['worst_param']} at {main['worst_share_of_bound']:.3f} of its bound")
+        per_rank = "; ".join(f"rank {r} K1 {b['launches']['segment_spmm']} + {b['launches']['segment_spmm_backward']}, "
+                             f"K3 {b['launches']['grouped_topk']}" for r, b in enumerate(per))
+        print(f"mesh batch {name} at baby ({main['rows']} of {2 * main['rows']} rows a data rank): loss over the data "
+              f"axis {main['loss']:.8g}, one rank {main['loss_one_rank']:.8g} (relative {main['loss_rel']:.2e}); "
+              f"{main['n_params']} gradients, largest relative error {main['largest_rel_err']:.2e}, worst element at "
+              f"{main['worst_share_of_bound']:.3f} of its bound ({main['worst_param']}); launches {per_rank}; set-up "
+              f"{max(b['setup_s'] for b in per):.2f} s (slowest rank) [{card}]")
+        lines.append(dict(name=name, loss=main["loss"], loss_one_rank=main["loss_one_rank"], loss_rel=main["loss_rel"],
+                          largest_rel_err=main["largest_rel_err"], worst_share_of_bound=main["worst_share_of_bound"],
+                          launches=[b["launches"] for b in per], setup_s=[b["setup_s"] for b in per]))
+    phase = max(f["batches_s"] for f in fam)
+    print(f"mesh batches of {len(MESH_FAMILY_MODELS)} models done in {phase:.1f} s a rank (set-ups included) [{card}]")
+    return dict(mgcn=dict(mesh=fam[0]["mgcn"], one_rank=dict(one, setup_s=setup_s), drift=drift),
+                batches=lines, batches_s=phase, launches=launches)
 
 
 def fusion_cluster_check(torch, feats, card, k: int = 20):

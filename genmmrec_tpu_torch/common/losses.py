@@ -15,11 +15,39 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 
-def _wmean(x: torch.Tensor, weights: Optional[torch.Tensor], rows=None) -> torch.Tensor:
-    if weights is None:
-        return x.mean()
+def weighted_mean(x: torch.Tensor, weights: torch.Tensor, rows=None) -> torch.Tensor:
+    """Σ x·w / max(Σw, 1) over the batch's rows; over ``rows`` this rank's
+    rows over the global batch's Σw."""
     den = weights.sum() if rows is None else rows.count(weights.sum())
     return (x * weights).sum() / den.clamp(min=1.0)
+
+
+def _wmean(x: torch.Tensor, weights: Optional[torch.Tensor], rows=None) -> torch.Tensor:
+    return x.mean() if weights is None else weighted_mean(x, weights, rows)
+
+
+def row_mean(x: torch.Tensor, rows=None) -> torch.Tensor:
+    """``x.mean()`` of a tensor of the batch's rows (on dim 0); over ``rows``
+    this rank's share: its entries' sum over the global batch's count."""
+    return x.mean() if rows is None else x.sum() / (x.numel() * rows.mesh.data)
+
+
+def global_mean(x: torch.Tensor, rows=None) -> torch.Tensor:
+    """The mean of a tensor of the batch's rows over the global batch, the
+    same on every rank; over ``rows`` it carries no gradient."""
+    return x.mean() if rows is None else rows.count(x.sum()) / (x.numel() * rows.mesh.data)
+
+
+def table_share(x: torch.Tensor, rows=None) -> torch.Tensor:
+    """A term over whole tables, not the batch's rows; over ``rows`` this
+    rank's share of it."""
+    return x if rows is None else x * rows.share
+
+
+def batch_rows(x: torch.Tensor, rows=None) -> torch.Tensor:
+    """The batch's rows of a per-row tensor: over ``rows`` every rank's, in
+    the global order, carrying the gradient (in-batch negatives)."""
+    return x if rows is None else rows.gather(x)
 
 
 def bpr_loss(pos_score, neg_score, weights=None, gamma: float = 1e-10, rows=None) -> torch.Tensor:

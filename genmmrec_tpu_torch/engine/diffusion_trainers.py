@@ -107,7 +107,8 @@ class _DiffusionTrainer(Trainer):
                 opt = self.optimizers[name]
                 opt.zero_grad(set_to_none=True)
                 loss.backward()
-                pm.reduce_grads(self._step_params([name]), self.mesh)
+                if rows is not None:
+                    pm.reduce_grads(self._step_params([name]), self.mesh)
                 opt.step()
                 opt.zero_grad(set_to_none=True)
                 step.append(loss.detach())

@@ -77,7 +77,17 @@ from genmmrec_tpu_torch.utils.misc import dict2str, early_stopping
 MASK_GROUP = 128
 # the models whose losses take a batch split over the data axis: each of
 # their batch-coupled terms sees the global batch
-DATA_AXIS_MODELS = ("BPR", "LightGCN", "DiffMM", "GenRecV1", "DiffRec")
+DATA_AXIS_MODELS = (
+    "BPR", "LightGCN", "DiffMM", "GenRecV1", "DiffRec",
+    # graph-CF
+    "LayerGCN", "SELFCFED_LGN",
+    # multimodal
+    "VBPR", "BM3", "FREEDOM", "ItemKNNCBF",
+    # message passing
+    "MMGCN", "GRCN", "DualGNN", "DRAGON", "COHESION", "MVGAE",
+    # multimodal graph
+    "GUME", "LATTICE", "MGCN", "LGMRec", "SMORE", "PGL", "SLMRec", "DAMRS",
+)
 
 
 class ChainOptimizer(torch.optim.Optimizer):
@@ -379,7 +389,9 @@ class Trainer:
         On a data axis every rank draws the global batch and keeps its rows
         (``batch["rows"]``; a plan's draws are the global batch's), the
         gradients are summed over the axis, and the losses returned are the
-        global batch's.
+        global batch's. A batch that does not split over the axis
+        (``data_sharding`` gives None) stays whole on every rank, and
+        nothing is summed.
         """
         model, td = self.model, self._td
         opts = [self.optimizers[k] for k in self._batch_steps]
@@ -387,7 +399,8 @@ class Trainer:
         zero = lambda: [o.zero_grad(set_to_none=True) for o in opts]
         step = lambda: [o.step() for o in opts]
         rows = pm.data_sharding(self.mesh, self.train_batch_size)
-        backward = lambda loss: (loss.backward(), pm.reduce_grads(params, self.mesh))
+        # a batch that does not split stays whole on every rank: nothing to sum
+        backward = lambda loss: (loss.backward(), rows is not None and pm.reduce_grads(params, self.mesh))
         B, nb, n_inter = self.train_batch_size, self._num_batches, td.n_inter
         dev = td.users.device
         if plan is not None:

@@ -13,7 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from genmmrec_tpu_torch.common.init import init_linear, xavier_normal, xavier_uniform
-from genmmrec_tpu_torch.common.losses import emb_loss
+from genmmrec_tpu_torch.common.losses import emb_loss, table_share, weighted_mean
 from genmmrec_tpu_torch.models.base import RecModel, scalar
 from genmmrec_tpu_torch.ops.graph import bipartite_norm_adj, spmm
 
@@ -21,10 +21,10 @@ from genmmrec_tpu_torch.ops.graph import bipartite_norm_adj, spmm
 DROPPED = ("user", "item", "text", "image")
 
 
-def _cos_loss(a, b, weights):
+def _cos_loss(a, b, weights, rows=None):
     """1 - cosine(a, b), rows weighted."""
     cos = (F.normalize(a, dim=-1, eps=1e-8) * F.normalize(b, dim=-1, eps=1e-8)).sum(-1)
-    return ((1.0 - cos) * weights).sum() / weights.sum().clamp(min=1.0)
+    return weighted_mean(1.0 - cos, weights, rows)
 
 
 class BM3(RecModel):
@@ -83,7 +83,9 @@ class BM3(RecModel):
 
     def loss(self, state, batch, generator=None, keep=None):
         """``keep``: optional dict of the bool dropout masks by ``DROPPED``
-        name, in place of the draws."""
+        name, in place of the draws. Over a data axis (``batch["rows"]``)
+        the masks, over whole tables, are the same on every rank, and the
+        regularizer of the whole tables is shared."""
         keep = keep or {}
         drop = lambda name, x: self._drop(x.detach(), generator, keep.get(name))
         u_online_ori, i_online_ori = self.propagate()
@@ -92,6 +94,8 @@ class BM3(RecModel):
         u_online, i_online = self.predictor(u_online_ori), self.predictor(i_online_ori)
 
         users, items, w = batch["users"], batch["pos"], batch["weight"]
+        rows = batch.get("rows")
+        cos = lambda a, b: _cos_loss(a, b, w, rows)
         cl = 0.0
         for name, table, trs in (("text", "text_embedding", "text_trs"), ("image", "image_embedding", "image_trs")):
             if not hasattr(self, table):
@@ -99,11 +103,12 @@ class BM3(RecModel):
             online = getattr(self, trs)(getattr(self, table))
             target = drop(name, online)
             on = self.predictor(online)[items]
-            cl = cl + _cos_loss(on, i_target[items], w) + _cos_loss(on, target[items], w)
+            cl = cl + cos(on, i_target[items]) + cos(on, target[items])
 
-        loss_ui = _cos_loss(u_online[users], i_target[items], w)
-        loss_iu = _cos_loss(i_online[items], u_target[users], w)
-        total = loss_ui + loss_iu + self.reg_weight * emb_loss(u_online_ori, i_online_ori) + self.cl_weight * cl
+        loss_ui = cos(u_online[users], i_target[items])
+        loss_iu = cos(i_online[items], u_target[users])
+        reg = table_share(emb_loss(u_online_ori, i_online_ori), rows)
+        total = loss_ui + loss_iu + self.reg_weight * reg + self.cl_weight * cl
         return total, (total,)
 
     def full_embeddings(self, state):

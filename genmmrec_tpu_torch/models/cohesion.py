@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from genmmrec_tpu_torch.common.init import init_linear, xavier_normal
-from genmmrec_tpu_torch.common.losses import bpr_loss
+from genmmrec_tpu_torch.common.losses import bpr_loss, row_mean, table_share
 from genmmrec_tpu_torch.common.norm import l2n
 from genmmrec_tpu_torch.models.base import RecModel, scalar
 from genmmrec_tpu_torch.models.dualgnn import build_user_graph
@@ -127,12 +127,13 @@ class COHESION(RecModel):
 
     def loss(self, state, batch, generator=None):
         users, pos, neg, w = batch["users"], batch["pos"], batch["neg"], batch["weight"]
+        rows = batch.get("rows")
         user_rep, item_rep = self.forward(state)
         pos_s, neg_s = self._adaptive_scores(user_rep[users], item_rep[pos], item_rep[neg])
-        bpr = bpr_loss(pos_s, neg_s, w, gamma=1e-12) / math.log(2.0)
+        bpr = bpr_loss(pos_s, neg_s, w, gamma=1e-12, rows=rows) / math.log(2.0)
         reg = (
-            (self.v_gcn.preference[users] ** 2).mean() + (self.t_gcn.preference[users] ** 2).mean()
-            + (self.weight_u**2).mean()
+            row_mean(self.v_gcn.preference[users] ** 2, rows) + row_mean(self.t_gcn.preference[users] ** 2, rows)
+            + table_share((self.weight_u**2).mean(), rows)
         )
         total = bpr + self.reg_weight * reg
         return total, (total,)

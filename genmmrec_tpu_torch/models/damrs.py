@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from genmmrec_tpu_torch.common.init import xavier_uniform
+from genmmrec_tpu_torch.common.losses import batch_rows, global_mean, row_mean, weighted_mean
 from genmmrec_tpu_torch.common.norm import l2n
 from genmmrec_tpu_torch.models.base import RecModel, scalar
 from genmmrec_tpu_torch.ops.graph import SparseGraph, bipartite_norm_adj, layer_mean, sorted_graph, spmm
@@ -170,13 +171,13 @@ class DAMRS(RecModel):
         return mm_pos, s_pos
 
     @staticmethod
-    def _neighbor_disc(mm_pos, s_pos, emb, aug, weights, temperature=0.2):
+    def _neighbor_disc(mm_pos, s_pos, emb, aug, weights, temperature=0.2, rows=None):
         n_aug, n_emb = l2n(aug), l2n(emb)
         score = lambda idx: torch.exp(torch.einsum("bd,bkd->bk", n_emb, n_aug[idx]) / temperature).sum(1)
         mm_score, s_score = score(mm_pos), score(s_pos)
         ttl = torch.exp(n_emb @ n_aug.T / temperature).sum(1)
         per = -torch.log(mm_score / ttl + 1e-9) - torch.log(s_score / (ttl - mm_score).clamp(min=1e-9) + 1e-9)
-        return (per * weights).sum() / weights.sum().clamp(min=1.0)
+        return weighted_mean(per, weights, rows)
 
     @staticmethod
     def _kl(p1, p2, eps=1e-8):
@@ -184,7 +185,12 @@ class DAMRS(RecModel):
         return p1 * (torch.log(p1) - torch.log(p2)) + (1 - p1) * (torch.log(1 - p1) - torch.log(1 - p2))
 
     def loss(self, state, batch, generator=None):
+        """Over a data axis (``batch["rows"]``): the label planes, their K3
+        top-k and the BPR weights are per row, on this rank's rows; the
+        user-item probability planes take every rank's items as columns; the
+        negatives' mean score is the global batch's."""
         users, pos, neg, w = batch["users"], batch["pos"], batch["neg"], batch["weight"]
+        rows = batch.get("rows")
         u_emb, i_emb, h_t, h_v, h_s = self.forward()
         w2 = torch.cat([w, w])
         i_id = torch.cat([pos, neg])
@@ -192,21 +198,23 @@ class DAMRS(RecModel):
         nd = 0.0
         for (a, b, c), h in (((p_t, p_v, p_s), h_s), ((p_t, p_s, p_v), h_v), ((p_v, p_s, p_t), h_t)):
             mm, s = self._pseudo_labels(a, b, c)
-            nd = nd + self._neighbor_disc(mm, s, h[i_id], h, w2)
+            nd = nd + self._neighbor_disc(mm, s, h[i_id], h, w2, rows=rows)
         nd_loss = nd / 3.0
 
         it = (h_t + h_s + h_v) / 3.0
         ue = u_emb[users]
-        p_g = torch.sigmoid(ue @ l2n(i_emb[i_id]).T)
-        p_m = torch.sigmoid(ue @ l2n(it[i_id]).T)
-        kl_loss = (self._kl(p_g, p_m) + self._kl(p_m, p_g)).mean()
+        # every rank's items are the planes' columns (in another order, which
+        # the mean does not see)
+        p_g = torch.sigmoid(ue @ batch_rows(l2n(i_emb[i_id]), rows).T)
+        p_m = torch.sigmoid(ue @ batch_rows(l2n(it[i_id]), rows).T)
+        kl_loss = row_mean(self._kl(p_g, p_m) + self._kl(p_m, p_g), rows)
 
         # modality-weighted BPR: the weights carry no gradient
         modal = lambda idx: torch.sigmoid(torch.stack([(ue * l2n(h[idx])).sum(1) for h in (h_t, h_s, h_v)]))
         p_scores, n_scores = modal(pos), modal(neg)
         p_mean = p_scores.mean(0).detach()
         p_var = p_scores.var(0, correction=0).detach()
-        n_mean = n_scores.mean().detach()
+        n_mean = global_mean(n_scores.detach(), rows)
         pos_weight = (p_mean * torch.exp(-p_var) ** 2.0).clamp(0.0, 1.0).detach()
         mask = (p_mean < n_mean).to(torch.float32)
         neg_weight = ((p_scores.amax(0) - n_mean) * mask).clamp(0.0, 1.0).detach()
@@ -215,7 +223,7 @@ class DAMRS(RecModel):
         pos_s, neg_s = (ue * ia[pos]).sum(1), (ue * ia[neg]).sum(1)
         per = -(torch.log(torch.sigmoid(pos_s - neg_s) + 1e-12) * pos_weight
                 + torch.log(torch.sigmoid(neg_s - pos_s) + 1e-12) * neg_weight)
-        mf = (per * w).sum() / w.sum().clamp(min=1.0)
+        mf = weighted_mean(per, w, rows)
         total = mf + self.neighbor_weight * nd_loss + self.kl_weight * kl_loss
         return total, (total,)
 

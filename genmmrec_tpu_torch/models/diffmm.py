@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from genmmrec_tpu_torch.common.init import xavier_uniform
-from genmmrec_tpu_torch.common.losses import exp_denominator_streamed
+from genmmrec_tpu_torch.common.losses import exp_denominator_streamed, table_share
 from genmmrec_tpu_torch.data.arrays import interaction_vectors
 from genmmrec_tpu_torch.models.base import RecModel, scalar
 from genmmrec_tpu_torch.models.diffusion.dnn import Denoise
@@ -234,9 +234,7 @@ class DiffMM(RecModel):
         pos_s = (anc * posE).sum(1)
         neg_s = (anc * negE).sum(1)
         bpr = -(torch.log(1e-10 + torch.sigmoid(pos_s - neg_s)) * w).sum() / den.clamp(min=1.0)
-        reg = ((self.uEmbeds**2).sum() + (self.iEmbeds**2).sum()) * self.reg_weight
-        if rows is not None:
-            reg = reg * rows.share
+        reg = table_share(((self.uEmbeds**2).sum() + (self.iEmbeds**2).sum()) * self.reg_weight, rows)
         if self.cl_method == 1:
             cl = (
                 self.contrast_loss(usrEmbeds, u1, users, w, den)

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from genmmrec_tpu_torch.common.losses import row_mean, table_share
 from genmmrec_tpu_torch.models.base import scalar
 from genmmrec_tpu_torch.models.dualgnn import DualGNN
 from genmmrec_tpu_torch.ops.graph import mixed_knn_graph, spmm
@@ -40,8 +41,12 @@ class DRAGON(DualGNN):
 
     def loss(self, state, batch, generator=None):
         users, pos, neg, w = batch["users"], batch["pos"], batch["neg"], batch["weight"]
+        rows = batch.get("rows")
         out = self.forward()
-        bpr = self._bpr_log2(out[users], out[pos + self.n_users], out[neg + self.n_users], w)
-        reg = (self.v_preference[users] ** 2).mean() + (self.t_preference[users] ** 2).mean() + (self.weight_u**2).mean()
+        bpr = self._bpr_log2(out[users], out[pos + self.n_users], out[neg + self.n_users], w, rows)
+        reg = (
+            row_mean(self.v_preference[users] ** 2, rows) + row_mean(self.t_preference[users] ** 2, rows)
+            + table_share((self.weight_u**2).mean(), rows)
+        )
         total = bpr + self.reg_weight * reg
         return total, (total,)

@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from genmmrec_tpu_torch.common.init import init_linear, kaiming_uniform_default, xavier_normal
-from genmmrec_tpu_torch.common.losses import bpr_loss
+from genmmrec_tpu_torch.common.losses import bpr_loss, row_mean, table_share
 from genmmrec_tpu_torch.common.norm import l2n
 from genmmrec_tpu_torch.models.base import RecModel, scalar
 from genmmrec_tpu_torch.ops.graph import SparseGraph, sorted_graph, spmm, unique_ui_pairs
@@ -154,17 +154,18 @@ class DualGNN(RecModel):
         user_rep = user_rep + spmm(self.user_graph, user_rep)
         return torch.cat([user_rep, representation[U:]])
 
-    def _bpr_log2(self, u, p_e, n_e, w):
+    def _bpr_log2(self, u, p_e, n_e, w, rows=None):
         """-mean(log₂ σ(pos − neg)) over the weighted rows."""
-        return bpr_loss((u * p_e).sum(1), (u * n_e).sum(1), w, gamma=1e-12) / math.log(2.0)
+        return bpr_loss((u * p_e).sum(1), (u * n_e).sum(1), w, gamma=1e-12, rows=rows) / math.log(2.0)
 
     def loss(self, state, batch, generator=None):
         users, pos, neg, w = batch["users"], batch["pos"], batch["neg"], batch["weight"]
+        rows = batch.get("rows")
         out = self.forward()
-        bpr = self._bpr_log2(out[users], out[pos + self.n_users], out[neg + self.n_users], w)
+        bpr = self._bpr_log2(out[users], out[pos + self.n_users], out[neg + self.n_users], w, rows)
         reg = (
-            (self.v_preference[users] ** 2).mean() + (self.t_preference[users] ** 2).mean()
-            + (self.weight_u**2).mean() + (self.weight_i**2).mean()
+            row_mean(self.v_preference[users] ** 2, rows) + row_mean(self.t_preference[users] ** 2, rows)
+            + table_share((self.weight_u**2).mean(), rows) + table_share((self.weight_i**2).mean(), rows)
         )
         total = bpr + self.reg_weight * reg
         return total, (total,)

@@ -88,7 +88,8 @@ class FREEDOM(RecModel):
         users, pos, neg, w = batch["users"], batch["pos"], batch["neg"], batch["weight"]
         ua, ia = self.propagate(state["masked_vals"])
         u = ua[users]
-        bpr = lambda items: bpr_loss((u * items[pos]).sum(dim=1), (u * items[neg]).sum(dim=1), w, gamma=0.0)
+        rows = batch.get("rows")
+        bpr = lambda items: bpr_loss((u * items[pos]).sum(dim=1), (u * items[neg]).sum(dim=1), w, gamma=0.0, rows=rows)
         modal = 0.0
         for trs, feats in (("text_trs", self.t_feat), ("image_trs", self.v_feat)):
             if feats is not None:

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from genmmrec_tpu_torch.common.init import normal, xavier_uniform
+from genmmrec_tpu_torch.common.losses import row_mean, table_share
 from genmmrec_tpu_torch.common.norm import Norm
 from genmmrec_tpu_torch.models.base import RecModel, scalar
 from genmmrec_tpu_torch.models.diffusion import flip
@@ -237,9 +238,7 @@ class GenRecV1(RecModel):
         usr, itm = content[:nu], content[nu:]
         anc, posE, negE = usr[users], itm[pos], itm[neg]
         bpr = -(F.logsigmoid((anc * posE).sum(-1) - (anc * negE).sum(-1)) * w).sum() / den.clamp(min=1.0)
-        reg = ((self.user_embedding**2).sum() + (self.item_id_embedding**2).sum()) * self.reg_weight
-        if rows is not None:
-            reg = reg * rows.share
+        reg = table_share(((self.user_embedding**2).sum() + (self.item_id_embedding**2).sum()) * self.reg_weight, rows)
         side_u, side_i = side[:nu], side[nu:]
         nce = lambda a, b: self._infonce(a, b, w, rows, den)
         cl1 = nce(side_i[pos], itm[pos]) + nce(side_u[users], usr[users])
@@ -322,9 +321,7 @@ class GenRecV1(RecModel):
                 cl = flip.infonce_rows(rows.gather(v1), rows.gather(v2), self.sparse_temp) * rows.share
         kl = flip.kl_to_posterior(x_start, ts, probs, self.steps, sparsity=sparsity)
         curriculum = (ts.to(torch.float32) / self.steps).clamp(0.0, 0.5)
-        if rows is None:
-            return bce.mean() + (curriculum * kl).mean() + 0.01 * cl
-        return bce.sum() / n + (curriculum * kl).sum() / rows.n + 0.01 * cl
+        return row_mean(bce, rows) + row_mean(curriculum * kl, rows) + 0.01 * cl
 
     @torch.no_grad()
     def generate(self, x_start, generator=None, draws: Optional[dict] = None):

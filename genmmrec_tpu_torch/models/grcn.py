@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from genmmrec_tpu_torch.common.init import init_linear, xavier_normal
-from genmmrec_tpu_torch.common.losses import bpr_loss
+from genmmrec_tpu_torch.common.losses import bpr_loss, row_mean, table_share
 from genmmrec_tpu_torch.common.norm import l2n
 from genmmrec_tpu_torch.models.base import RecModel, scalar
 from genmmrec_tpu_torch.ops.graph import unique_ui_pairs
@@ -101,14 +101,16 @@ class GRCN(RecModel):
 
     def loss(self, state, batch, generator=None):
         users, pos, neg, w = batch["users"], batch["pos"], batch["neg"], batch["weight"]
+        rows = batch.get("rows")
         out = self.forward()
         u, p_e, n_e = out[users], out[pos + self.n_users], out[neg + self.n_users]
-        bpr = bpr_loss((u * p_e).sum(1), (u * n_e).sum(1), w, gamma=1e-12)
+        bpr = bpr_loss((u * p_e).sum(1), (u * n_e).sum(1), w, gamma=1e-12, rows=rows)
         ids = self.id_embedding
+        sq = lambda x: row_mean(x**2, rows)
         reg = (
-            (ids[users] ** 2).mean() + (ids[pos + self.n_users] ** 2).mean() + (ids[neg + self.n_users] ** 2).mean()
-            + (self.v_preference**2).mean() + (self.v_preference[users] ** 2).mean()
-            + (self.t_preference[users] ** 2).mean()
+            sq(ids[users]) + sq(ids[pos + self.n_users]) + sq(ids[neg + self.n_users])
+            + table_share((self.v_preference**2).mean(), rows) + sq(self.v_preference[users])
+            + sq(self.t_preference[users])
         )
         total = bpr + self.reg_weight * reg
         return total, (total,)

@@ -31,7 +31,7 @@ import torch
 from torch import nn
 
 from genmmrec_tpu_torch.common.init import init_linear, xavier_uniform
-from genmmrec_tpu_torch.common.losses import bpr_loss
+from genmmrec_tpu_torch.common.losses import bpr_loss, table_share
 from genmmrec_tpu_torch.models.base import RecModel, scalar
 from genmmrec_tpu_torch.models.mgcn import batch_l2, infonce, l2n_max
 from genmmrec_tpu_torch.ops.graph import knn_graph_sparse, layer_mean, sorted_graph, spmm, spmm_multi
@@ -164,34 +164,39 @@ class GUME(RecModel):
         shape = (self.n_users, self.embedding_dim)
         return tuple(torch.rand(shape, generator=generator, device=self.device) for _ in range(4))
 
-    def _noise_cl(self, noise, ids, emb, temp, weights):
+    def _noise_cl(self, noise, ids, emb, temp, weights, rows=None):
         perturb = lambda u, x: x + torch.sign(x) * l2n_max(u) * 0.1
-        return infonce(perturb(noise[0], emb)[ids], perturb(noise[1], emb)[ids], temp, weights, eps=1e-8)
+        return infonce(perturb(noise[0], emb)[ids], perturb(noise[1], emb)[ids], temp, weights, eps=1e-8, rows=rows)
 
     def loss(self, state, batch, generator=None, noise=None):
         return self.loss_of(self.forward(train=True), batch, generator, noise)
 
     def loss_of(self, out, batch, generator=None, noise=None):
-        """The loss from ``forward(train=True)``'s output ``out``."""
+        """The loss from ``forward(train=True)``'s output ``out``. Over a data
+        axis (``batch["rows"]``) the noise planes, over whole tables, are the
+        same on every rank; the modal alignment, over whole tables, is shared;
+        the InfoNCE terms take every rank's rows as negatives."""
         users, pos, neg, w = batch["users"], batch["pos"], batch["neg"], batch["weight"]
+        rows = batch.get("rows")
         if noise is None:
             noise = self.draws(generator)
         all_e, (integration, extended_id, extended_it), (exp_img, exp_txt) = out
         nu = self.n_users
         u, p_e, n_e = all_e[:nu][users], all_e[nu:][pos], all_e[nu:][neg]
-        bpr = bpr_loss((u * p_e).sum(1), (u * n_e).sum(1), w, gamma=0.0)
+        bpr = bpr_loss((u * p_e).sum(1), (u * n_e).sum(1), w, gamma=0.0, rows=rows)
         reg1 = self.reg_weight_1 * batch_l2(u, p_e, n_e, self.batch_size)
-        vt = self.vt_loss * (
-            (exp_img.var(correction=0) - exp_txt.var(correction=0)).abs() + (exp_img.mean() - exp_txt.mean()).abs()
+        vt = self.vt_loss * table_share(
+            (exp_img.var(correction=0) - exp_txt.var(correction=0)).abs() + (exp_img.mean() - exp_txt.mean()).abs(),
+            rows,
         )
         int_u, int_i = integration[:nu], integration[nu:]
         ext_u, ext_i = extended_id[:nu], extended_id[nu:]
-        nce = lambda a, b, t: infonce(a, b, t, w, eps=1e-8)
+        nce = lambda a, b, t: infonce(a, b, t, w, eps=1e-8, rows=rows)
         bm = self.bm_loss * (nce(int_u[users], ext_u[users], self.bm_temp) + nce(int_i[pos], ext_i[pos], self.bm_temp))
         it_u, it_i = extended_it[:nu], extended_it[nu:]
         c_loss = nce(it_u[users], int_u[users], self.um_temp)
-        n1 = self._noise_cl(noise[:2], users, int_u, self.um_temp, w)
-        n2 = self._noise_cl(noise[2:], users, it_u, self.um_temp, w)
+        n1 = self._noise_cl(noise[:2], users, int_u, self.um_temp, w, rows)
+        n2 = self._noise_cl(noise[2:], users, it_u, self.um_temp, w, rows)
         um = self.um_loss * (c_loss + n1 + n2)
         reg2 = self.reg_weight_2 * 0.5 * (it_i[pos] ** 2).sum() / self.batch_size
         total = bpr + vt + bm + um + reg1 + reg2

@@ -118,7 +118,9 @@ class LATTICE(RecModel):
         users, pos, neg, w = batch["users"], batch["pos"], batch["neg"], batch["weight"]
         ua, ia = self.propagate()
         u, p_e, n_e = ua[users], ia[pos], ia[neg]
-        mf = bpr_loss((u * p_e).sum(1), (u * n_e).sum(1), w, gamma=0.0)
+        # over a data axis the learned graph (K3 over every item) is the same
+        # on every rank; batch_l2 sums the batch's rows
+        mf = bpr_loss((u * p_e).sum(1), (u * n_e).sum(1), w, gamma=0.0, rows=batch.get("rows"))
         total = mf + self.reg_weight * batch_l2(u, p_e, n_e, self.batch_size)
         return total, (total,)
 

@@ -74,6 +74,8 @@ class LayerGCN(RecModel):
         return acc[: self.n_users], acc[self.n_users :]
 
     def loss(self, state, batch, generator=None):
+        """Every term is a sum over the batch's rows: over a data axis
+        (``batch["rows"]``) this rank's rows give its share as they are."""
         users, pos, neg, w = batch["users"], batch["pos"], batch["neg"], batch["weight"]
         ua, ia = self.propagate(state["masked_vals"])
         u = ua[users]

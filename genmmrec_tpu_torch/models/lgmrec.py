@@ -125,11 +125,14 @@ class LGMRec(RecModel):
 
     def loss(self, state, batch, generator=None, draws=None):
         users, pos, neg, w = batch["users"], batch["pos"], batch["neg"], batch["weight"]
+        rows = batch.get("rows")
+        # over a data axis the draws, over whole tables, are the same on every
+        # rank, and the contrast's terms are sums over the batch's rows
         ua, ia, (uv_e, iv_e, ut_e, it_e) = self.forward(draws if draws is not None else self.draws(generator))
         u, p_e, n_e = ua[users], ia[pos], ia[neg]
-        bpr = bpr_loss((u * p_e).sum(1), (u * n_e).sum(1), w, gamma=0.0)
+        bpr = bpr_loss((u * p_e).sum(1), (u * n_e).sum(1), w, gamma=0.0, rows=rows)
         hcl = self._ssl_triple(uv_e[users], ut_e[users], ut_e, w) + self._ssl_triple(iv_e[pos], it_e[pos], it_e, w)
-        total = bpr + self.cl_weight * hcl + self.reg_weight * emb_loss(u, p_e, n_e)
+        total = bpr + self.cl_weight * hcl + self.reg_weight * emb_loss(u, p_e, n_e, rows=rows)
         return total, (total,)
 
     def full_embeddings(self, state, draws=None):

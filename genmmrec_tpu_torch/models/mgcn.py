@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from genmmrec_tpu_torch.common.init import init_linear, xavier_uniform
-from genmmrec_tpu_torch.common.losses import bpr_loss
+from genmmrec_tpu_torch.common.losses import batch_rows, bpr_loss, weighted_mean
 from genmmrec_tpu_torch.models.base import RecModel, scalar
 from genmmrec_tpu_torch.ops.graph import _from_host, knn_graph_sparse, layer_mean, spmm, spmm_multi
 
@@ -53,14 +53,15 @@ def sym_ui_adj(users: np.ndarray, items: np.ndarray, n_users: int, n_items: int,
     return adj, R
 
 
-def infonce(v1, v2, temp: float, weights, eps: float = 0.0) -> torch.Tensor:
+def infonce(v1, v2, temp: float, weights, eps: float = 0.0, rows=None) -> torch.Tensor:
     """Weighted mean of -log(exp(n1·n2/T) / Σ_j exp(n1·n2_j/T) + eps) over
-    the rows, with ``l2n_max`` views (MGCN's, SMORE's and GUME's form)."""
+    the rows, with ``l2n_max`` views (MGCN's, SMORE's and GUME's form). Over
+    ``rows`` the j run over every rank's rows."""
     n1, n2 = l2n_max(v1), l2n_max(v2)
     pos = torch.exp((n1 * n2).sum(-1) / temp)
-    ttl = torch.exp(n1 @ n2.T / temp).sum(1)
+    ttl = torch.exp(n1 @ batch_rows(n2, rows).T / temp).sum(1)
     per = -torch.log(pos / ttl + eps)
-    return (per * weights).sum() / weights.sum().clamp(min=1.0)
+    return weighted_mean(per, weights, rows)
 
 
 def batch_l2(u, p_e, n_e, batch_size: int) -> torch.Tensor:
@@ -124,12 +125,15 @@ class MGCN(RecModel):
 
     def loss(self, state, batch, generator=None):
         users, pos, neg, w = batch["users"], batch["pos"], batch["neg"], batch["weight"]
+        rows = batch.get("rows")
         ua, ia, side, content = self.forward(train=True)
         u, p_e, n_e = ua[users], ia[pos], ia[neg]
-        mf = bpr_loss((u * p_e).sum(1), (u * n_e).sum(1), w, gamma=0.0)
+        mf = bpr_loss((u * p_e).sum(1), (u * n_e).sum(1), w, gamma=0.0, rows=rows)
+        # a sum over the batch's rows over the configured batch size
         reg = self.reg_weight * batch_l2(u, p_e, n_e, self.batch_size)
         nu = self.n_users
-        cl = infonce(side[nu:][pos], content[nu:][pos], 0.2, w) + infonce(side[:nu][users], content[:nu][users], 0.2, w)
+        nce = lambda a, b: infonce(a, b, 0.2, w, rows=rows)
+        cl = nce(side[nu:][pos], content[nu:][pos]) + nce(side[:nu][users], content[:nu][users])
         total = mf + reg + self.cl_loss * cl
         return total, (total,)
 

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from genmmrec_tpu_torch.common.init import init_linear, uniform, xavier_normal
+from genmmrec_tpu_torch.common.losses import table_share
 from genmmrec_tpu_torch.common.norm import l2n
 from genmmrec_tpu_torch.models.base import RecModel, scalar
 from genmmrec_tpu_torch.ops.graph import unique_ui_pairs
@@ -161,7 +162,11 @@ class MVGAE(RecModel):
         return -0.5 * (1 + logvar - mu**2 - torch.exp(logvar)).sum(1).mean()
 
     def loss(self, state, batch, generator=None, keep=None, noise=None):
+        """Over a data axis (``batch["rows"]``) the draws, over whole tables,
+        are the same on every rank; the reconstruction sums this rank's rows
+        and the KL, over every node, is shared."""
         users, pos, neg, w = batch["users"], batch["pos"], batch["neg"], batch["weight"]
+        rows = batch.get("rows")
         if keep is None or noise is None:
             drawn_keep, drawn_noise = self.draws(generator)
             keep, noise = keep or drawn_keep, noise or drawn_noise
@@ -169,7 +174,7 @@ class MVGAE(RecModel):
         total = 0.0
         for name, (mu, lv) in (("z", (pd_mu, pd_lv)), *((m, towers[m]) for m in TOWERS)):
             z = self._reparam(mu, lv, noise[name])
-            total = total + self._recon(z, users, pos, neg, w) + self.beta * self._kl(mu, lv)
+            total = total + self._recon(z, users, pos, neg, w) + self.beta * table_share(self._kl(mu, lv), rows)
         return total, (total,)
 
     def full_embeddings(self, state):

@@ -27,7 +27,7 @@ import torch
 from torch import nn
 
 from genmmrec_tpu_torch.common.init import init_linear, xavier_normal, xavier_uniform
-from genmmrec_tpu_torch.common.losses import bpr_loss
+from genmmrec_tpu_torch.common.losses import batch_rows, bpr_loss, weighted_mean
 from genmmrec_tpu_torch.common.norm import l2n
 from genmmrec_tpu_torch.models.base import RecModel, scalar
 from genmmrec_tpu_torch.ops.graph import SampledUIGraph, _from_host, layer_mean, mixed_knn_graph, spmm
@@ -121,11 +121,11 @@ class PGL(RecModel):
         return out[: self.n_users], out[self.n_users :] + h
 
     @staticmethod
-    def _infonce(v1, v2, temp, weights):
+    def _infonce(v1, v2, temp, weights, rows=None):
         n1, n2 = l2n(v1), l2n(v2)
         pos = torch.exp((n1 * n2).sum(-1) / temp)
-        ttl = torch.exp(n1 @ n2.T / temp).sum(1)
-        return (-torch.log(pos / ttl) * weights).sum() / weights.sum().clamp(min=1.0)
+        ttl = torch.exp(n1 @ batch_rows(n2, rows).T / temp).sum(1)
+        return weighted_mean(-torch.log(pos / ttl), weights, rows)
 
     def draws(self, generator, batch_size: int):
         """The loss's four dropout masks: two over the batch's users, two
@@ -134,15 +134,21 @@ class PGL(RecModel):
         return tuple(torch.rand(s, generator=generator, device=self.device) < 1.0 - self.dropout for s in shapes)
 
     def loss(self, state, batch, generator=None, keep=None):
+        """``keep``: the four dropout masks (``draws``) in place of the
+        generator's. Over a data axis (``batch["rows"]``) they are the global
+        batch's, given or drawn, and this rank takes its rows of them."""
         users, pos, neg, w = batch["users"], batch["pos"], batch["neg"], batch["weight"]
+        rows = batch.get("rows")
         ua, ia = self.forward(self._train_graph(state))
         u, p_e, n_e = ua[users], ia[pos], ia[neg]
-        mf = bpr_loss((u * p_e).sum(1), (u * n_e).sum(1), w, gamma=0.0)
+        mf = bpr_loss((u * p_e).sum(1), (u * n_e).sum(1), w, gamma=0.0, rows=rows)
         if keep is None:
-            keep = self.draws(generator, users.shape[0])
+            keep = self.draws(generator, users.shape[0] if rows is None else rows.n)
+        if rows is not None:
+            keep = rows.local(keep)
         drop = lambda m, x: torch.where(m, x / (1.0 - self.dropout), 0.0)
-        cl = (self._infonce(drop(keep[0], u), drop(keep[1], u), 0.2, w)
-              + self._infonce(drop(keep[2], p_e), drop(keep[3], p_e), 0.2, w)) / 2.0
+        cl = (self._infonce(drop(keep[0], u), drop(keep[1], u), 0.2, w, rows)
+              + self._infonce(drop(keep[2], p_e), drop(keep[3], p_e), 0.2, w, rows)) / 2.0
         total = mf + self.reg_weight * cl
         return total, (total,)
 

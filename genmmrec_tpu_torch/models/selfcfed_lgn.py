@@ -14,7 +14,7 @@ from torch import nn
 
 from genmmrec_tpu_torch.common.encoders import LightGCNEncoder
 from genmmrec_tpu_torch.common.init import init_linear, xavier_normal
-from genmmrec_tpu_torch.common.losses import l2_loss
+from genmmrec_tpu_torch.common.losses import l2_loss, table_share, weighted_mean
 from genmmrec_tpu_torch.models.base import RecModel, scalar
 
 
@@ -43,18 +43,20 @@ class SELFCFED_LGN(RecModel):
 
     def loss(self, state, batch, generator=None, keep=None):
         """``keep``: optional (user mask (n_users, d), item mask (n_items, d))
-        in place of the two dropout draws."""
+        in place of the two dropout draws. Over a data axis (``batch["rows"]``)
+        the masks, over whole tables, are the same on every rank."""
         users, items, w = batch["users"], batch["pos"], batch["weight"]
+        rows = batch.get("rows")
         keep_u, keep_i = keep if keep is not None else (None, None)
         u_online, i_online = self.encoder.propagate()
         u_target = self._drop(u_online.detach(), generator, keep_u)
         i_target = self._drop(i_online.detach(), generator, keep_i)
-        reg = l2_loss(u_online, i_online)
+        reg = table_share(l2_loss(u_online, i_online), rows)
         u_on, i_on = self.predictor(u_online), self.predictor(i_online)
 
         def neg_cos(p, z):
             per = -(F.normalize(p, dim=-1, eps=1e-8) * F.normalize(z, dim=-1, eps=1e-8)).sum(-1)
-            return (per * w).sum() / w.sum().clamp(min=1.0)
+            return weighted_mean(per, w, rows)
 
         loss_ui = neg_cos(u_on[users], i_target[items]) / 2
         loss_iu = neg_cos(i_on[items], u_target[users]) / 2

@@ -31,6 +31,7 @@ import torch
 from torch import nn
 
 from genmmrec_tpu_torch.common.init import init_linear, xavier_uniform
+from genmmrec_tpu_torch.common.losses import batch_rows, weighted_mean
 from genmmrec_tpu_torch.common.norm import l2n
 from genmmrec_tpu_torch.models.base import RecModel, scalar
 from genmmrec_tpu_torch.ops.graph import bipartite_norm_adj, spmm
@@ -41,11 +42,12 @@ MASK_ID = (2, 0, 1)
 HEADS = (("g_i_iv", 1), ("g_v_iv", 1), ("g_iv_iva", 1), ("g_a_iva", 1), ("g_iva_ivat", 2), ("g_t_ivat", 2))
 
 
-def in_batch_ce(v1, v2, temp: float, weights) -> torch.Tensor:
+def in_batch_ce(v1, v2, temp: float, weights, rows=None) -> torch.Tensor:
     """Weighted mean over the rows of the cross-entropy of ``v1 @ v2ᵀ / T``
-    with the diagonal as labels."""
-    logp = torch.log_softmax(v1 @ v2.T / temp, dim=1)
-    return (-logp.diagonal() * weights).sum() / weights.sum().clamp(min=1.0)
+    with the diagonal as labels. Over ``rows`` the columns are every rank's
+    rows of ``v2``, and row i's label is its global row."""
+    logp = torch.log_softmax(v1 @ batch_rows(v2, rows).T / temp, dim=1)
+    return weighted_mean(-logp.diagonal(0 if rows is None else rows.lo), weights, rows)
 
 
 class SLMRec(RecModel):
@@ -123,27 +125,27 @@ class SLMRec(RecModel):
         user, item = self._heads(reps)
         return user, item, tuple(r[self.n_users :] for r in reps)
 
-    def _view_loss(self, reps1, reps2, users, items, weights):
+    def _view_loss(self, reps1, reps2, users, items, weights, rows=None):
         u1, i1 = self._heads(reps1)
         u2, i2 = self._heads(reps2)
-        return in_batch_ce(l2n(u1[users]), l2n(u2[users]), self.ssl_temp, weights) + in_batch_ce(
-            l2n(i1[items]), l2n(i2[items]), self.ssl_temp, weights
+        return in_batch_ce(l2n(u1[users]), l2n(u2[users]), self.ssl_temp, weights, rows) + in_batch_ce(
+            l2n(i1[items]), l2n(i2[items]), self.ssl_temp, weights, rows
         )
 
-    def _fac(self, tower_items, idx, weights):
+    def _fac(self, tower_items, idx, weights, rows=None):
         i_i, v_i, t_i = tower_items
         x_i_iv = self.g_i_iv(i_i[idx])
-        v_loss = in_batch_ce(x_i_iv, self.g_v_iv(v_i[idx]), self.ssl_temp, weights)
+        v_loss = in_batch_ce(x_i_iv, self.g_v_iv(v_i[idx]), self.ssl_temp, weights, rows)
         x_iva_ivat = self.g_iva_ivat(self.g_iv_iva(x_i_iv))
-        t_loss = in_batch_ce(x_iva_ivat, self.g_t_ivat(t_i[idx]), self.ssl_temp, weights)
+        t_loss = in_batch_ce(x_iva_ivat, self.g_t_ivat(t_i[idx]), self.ssl_temp, weights, rows)
         return v_loss + t_loss
 
-    def _fd(self, keep, users, items, weights):
+    def _fd(self, keep, users, items, weights, rows=None):
         towers = self._towers()
         return self._view_loss(self._propagate(towers, keep[0]), self._propagate(towers, keep[1]), users, items,
-                               weights)
+                               weights, rows)
 
-    def _fm(self, fm_idx, keep, users, items, weights):
+    def _fm(self, fm_idx, keep, users, items, weights, rows=None):
         """Each view zeroes the item side of its drawn modality; view 1
         accumulates view 2's propagated layers and view 2 view 1's."""
         d, u = self.latent_dim, self.embedding_user
@@ -160,7 +162,7 @@ class SLMRec(RecModel):
             acc1 = acc1 + e2
         reps1 = torch.split(acc1 / (self.n_layers + 1), d, dim=1)
         reps2 = torch.split(acc2 / (self.n_layers + 1), d, dim=1)
-        return self._view_loss(reps1, reps2, users, items, weights)
+        return self._view_loss(reps1, reps2, users, items, weights, rows)
 
     def draws(self, generator) -> dict:
         """The draws of this ``ssl_task``: FD's and FD+FM's dropout planes,
@@ -178,19 +180,23 @@ class SLMRec(RecModel):
         return out
 
     def loss(self, state, batch, generator=None, draws=None):
+        """Over a data axis (``batch["rows"]``) the draws, over whole tables
+        or of the batch as a whole, are the same on every rank, and every
+        in-batch cross-entropy takes every rank's rows as its columns."""
         users, pos, w = batch["users"], batch["pos"], batch["weight"]
+        rows = batch.get("rows")
         if draws is None:
             draws = self.draws(generator)
         all_u, all_i, tower_items = self.compute()
-        main = in_batch_ce(l2n(all_u[users]), l2n(all_i[pos]), self.temp, w)
+        main = in_batch_ce(l2n(all_u[users]), l2n(all_i[pos]), self.temp, w, rows)
         if self.ssl_task == "FAC":
-            ssl = self._fac(tower_items, pos, w)
+            ssl = self._fac(tower_items, pos, w, rows)
         elif self.ssl_task == "FM":
-            ssl = self._fm(draws["fm_idx"], None, users, pos, w)
+            ssl = self._fm(draws["fm_idx"], None, users, pos, w, rows)
         elif self.ssl_task == "FD+FM":
-            ssl = self._fm(draws["fm_idx"], draws["keep"], users, pos, w)
+            ssl = self._fm(draws["fm_idx"], draws["keep"], users, pos, w, rows)
         else:
-            ssl = self._fd(draws["keep"], users, pos, w)
+            ssl = self._fd(draws["keep"], users, pos, w, rows)
         total = main + self.ssl_alpha * ssl
         return total, (total,)
 

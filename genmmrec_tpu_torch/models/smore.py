@@ -145,12 +145,15 @@ class SMORE(RecModel):
         users, pos, neg, w = batch["users"], batch["pos"], batch["neg"], batch["weight"]
         if keep is None and self.dropout_rate > 0:
             keep = self.draws(generator)
+        rows = batch.get("rows")
         ua, ia, side, content = self.forward(train=True, keep=keep)
         u, p_e, n_e = ua[users], ia[pos], ia[neg]
-        mf = bpr_loss((u * p_e).sum(1), (u * n_e).sum(1), w, gamma=0.0)
+        mf = bpr_loss((u * p_e).sum(1), (u * n_e).sum(1), w, gamma=0.0, rows=rows)
+        # a sum over the batch's rows over the configured batch size
         reg = self.reg_weight * batch_l2(u, p_e, n_e, self.batch_size)
         nu = self.n_users
-        cl = infonce(side[nu:][pos], content[nu:][pos], 0.2, w) + infonce(side[:nu][users], content[:nu][users], 0.2, w)
+        nce = lambda a, b: infonce(a, b, 0.2, w, rows=rows)
+        cl = nce(side[nu:][pos], content[nu:][pos]) + nce(side[:nu][users], content[:nu][users])
         total = mf + reg + self.cl_loss * cl
         return total, (total,)
 

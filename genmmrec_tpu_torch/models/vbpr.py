@@ -39,8 +39,9 @@ class VBPR(RecModel):
         item_emb = self._item_embeddings()
         u = self.u_embedding[batch["users"]]
         pos, neg = item_emb[batch["pos"]], item_emb[batch["neg"]]
-        mf = bpr_loss((u * pos).sum(dim=1), (u * neg).sum(dim=1), batch["weight"])
-        total = mf + self.reg_weight * emb_loss(u, pos, neg)
+        rows = batch.get("rows")
+        mf = bpr_loss((u * pos).sum(dim=1), (u * neg).sum(dim=1), batch["weight"], rows=rows)
+        total = mf + self.reg_weight * emb_loss(u, pos, neg, rows=rows)
         return total, (total,)
 
     def full_embeddings(self, state):

@@ -8,9 +8,10 @@ one rank; every valid metric must agree within ``METRIC_ATOL``.
 
 ``mesh_checks`` is the entry of the ranks that ``tests/test_torch_mesh.py``
 starts on the CPU (it lives here, so that the spawned ranks import ``torch``
-and this package alone): BPR and LightGCN fits, DiffMM's and GenRecV1's
-batch gradients from the parameters, state and batch a file gives, and
-one training batch of FREEDOM and RFBM3 under a model axis alone.
+and this package alone): fits on a 2 × 2 mesh and on a data axis alone,
+each model's batch gradients from the parameters, state, graphs and batch
+its case gives (``batch_grads``), and one training batch under a model
+axis alone.
 """
 
 from __future__ import annotations
@@ -85,23 +86,51 @@ def dryrun_multigpu(n: int, device="cuda", names=("DiffMM", "GenRecV1")) -> dict
 
 
 # -- the ranks of tests/test_torch_mesh.py -----------------------------------
-def batch_grads(case: dict, device, mesh) -> dict:
-    """One batch of ``case`` split over the data axis: the loss (summed over
-    the axis) and every parameter's gradient (summed), by name. ``case``
-    holds the model, its config overrides, its JAX parameters (numpy, for
-    ``interop.from_jax_params``), its state's graphs as ``rebuild_ui_graph``
-    arguments, the global batch and the loss's keyword draws."""
-    from genmmrec_tpu_torch.interop import from_jax_params
+def _on(x, device):
+    """``x`` (arrays, tensors, and dicts, tuples and lists of them) on ``device``."""
+    if isinstance(x, dict):
+        return {k: _on(v, device) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_on(v, device) for v in x)
+    if isinstance(x, (np.ndarray, np.generic)) or torch.is_tensor(x):
+        return torch.as_tensor(x, device=device)
+    return x
+
+
+def case_model(case: dict, device):
+    """The model of a ``batch_grads`` case and its state: the model on its
+    tiny data with the case's graphs in place of its own (``graphs``: name ->
+    ``rows``, ``cols``, ``vals``, ``n_rows``, ``n_cols`` of the JAX graph, in
+    its order) and its JAX parameters (numpy, ``interop.from_jax_params``);
+    the state from the JAX state's arrays (``jax_state``,
+    ``interop.from_jax_state``) and from ``rebuild_ui_graph`` arguments
+    (``state``: name -> (top, keywords))."""
+    from genmmrec_tpu_torch.interop import from_jax_params, from_jax_state
+    from genmmrec_tpu_torch.ops.graph import sorted_graph
 
     config = Config(case["model"], "tiny", dict(case["overrides"]))
     train = RecDataset(config).split()[0]
     model = get_model(case["model"])(config, build_train_data(train, device))
+    for name, g in case.get("graphs", {}).items():
+        edges = (torch.as_tensor(g[k], device=device) for k in ("rows", "cols", "vals"))
+        setattr(model, name, sorted_graph(*edges, g["n_rows"], g["n_cols"]))
     from_jax_params(model, case["params"])
-    state = {k: model.rebuild_ui_graph(torch.as_tensor(top, device=device), **kw)
-             for k, (top, kw) in case["state"].items()}
+    state = from_jax_state(model, case["jax_state"]) if "jax_state" in case else {}
+    state.update({k: model.rebuild_ui_graph(torch.as_tensor(top, device=device), **_on(kw, device))
+                  for k, (top, kw) in case.get("state", {}).items()})
+    return model, state
+
+
+def batch_grads(case: dict, device, mesh) -> dict:
+    """One batch of ``case`` split over the data axis: the loss (summed over
+    the axis) and every parameter's gradient (summed), by name. ``case``
+    holds the model, its config overrides, what ``case_model`` builds it
+    from, the global batch and the loss's keyword draws (the global
+    batch's)."""
+    model, state = case_model(case, device)
     batch = {k: torch.as_tensor(v, device=device) for k, v in case["batch"].items()}
     rows = pm.DataRows(mesh, batch["users"].shape[0])
-    total, _ = model.loss(state, {**rows.local(batch), "rows": rows}, **case["draws"])
+    total, _ = model.loss(state, {**rows.local(batch), "rows": rows}, **_on(case["draws"], device))
     total.backward()
     params = dict(model.named_parameters())
     pm.reduce_grads(params.values(), mesh)
@@ -145,8 +174,9 @@ def mesh_checks(device, spec: dict) -> dict:
     """The scenarios of ``spec`` on a 4-rank world: ``fits`` (model ->
     overrides) on a 2 × 2 mesh, ``resumes`` (``fit_and_resume``) and
     ``batches`` (``batch_grads`` cases) on it, ``steps`` (model ->
-    overrides) on a ``{data: 1, model: 2}`` mesh of the first two ranks.
-    Returns global rank 0's results."""
+    overrides) on a ``{data: 1, model: 2}`` mesh of the first two ranks,
+    ``data_fits`` (model -> overrides) on a ``{data: 2}`` mesh of the first
+    two ranks. Returns global rank 0's results."""
     mesh = pm.build_mesh({"mesh_shape": {"data": 2, "model": 2}})
     out = {f"fit_{name}": fit(name, over, device, mesh) for name, over in spec["fits"].items()}
     out.update({f"resume_{name}": fit_and_resume(name, over, device, mesh) for name, over in spec["resumes"].items()})
@@ -154,4 +184,8 @@ def mesh_checks(device, spec: dict) -> dict:
     model_axis = pm.build_mesh({"mesh_shape": {"data": 1, "model": 2}})
     if model_axis.member:
         out.update({f"step_{name}": one_batch(name, over, device, model_axis) for name, over in spec["steps"].items()})
+    data_axis = pm.build_mesh({"mesh_shape": {"data": 2}})
+    if data_axis.member:
+        out.update({f"data_fit_{name}": fit(name, over, device, data_axis)
+                    for name, over in spec.get("data_fits", {}).items()})
     return out

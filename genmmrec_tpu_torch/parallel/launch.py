@@ -9,6 +9,13 @@ Otherwise the ranks are spawned (start method ``spawn``: a child imports
 over ``tcp://localhost`` on a free port. Rank ``r`` takes ``cuda:(r %
 device_count)``. If one rank fails, the others are stopped and ``run``
 raises.
+
+Rank 0 hands its result over as a file: ``torch.save`` into a temporary
+directory of the parent's, which the parent reads with ``torch.load``
+once every rank has exited. A result so passed holds no live resource of
+the rank (a tensor sent through a queue is a handle to the sender's
+memory, gone once it exits), and no rank blocks on a pipe however large
+the result is.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ from __future__ import annotations
 import datetime
 import os
 import socket
+import tempfile
 import time
 from typing import Callable
 
@@ -54,12 +62,14 @@ def _join(rank: int, world: int, init_method: str, device) -> torch.device:
     return dev
 
 
-def _rank_main(rank: int, world: int, init_method: str, device, fn, args, results) -> None:
+def _rank_main(rank: int, world: int, init_method: str, device, fn, args, result_path: str) -> None:
     dev = _join(rank, world, init_method, device)
     try:
         out = fn(dev, *args)
         if rank == 0:
-            results.put(out)
+            part = result_path + ".part"
+            torch.save(out, part)
+            os.replace(part, result_path)
     finally:
         dist.destroy_process_group()
 
@@ -77,32 +87,30 @@ def run(fn: Callable, mesh_shape: dict, device="cuda", args: tuple = ()):
     d, m = shape_dims(mesh_shape)
     world = d * m
     ctx = mp.get_context("spawn")
-    results = ctx.SimpleQueue()
     init = f"tcp://localhost:{_free_port()}"
-    procs = [
-        ctx.Process(target=_rank_main, args=(r, world, init, str(device), fn, args, results), daemon=False)
-        for r in range(world)
-    ]
-    for p in procs:
-        p.start()
-    out, got = None, False
-    try:
-        while True:
-            if not got and not results.empty():
-                out, got = results.get(), True
-            codes = [p.exitcode for p in procs]
-            failed = [r for r, c in enumerate(codes) if c not in (None, 0)]
-            if failed:
-                raise RuntimeError(f"rank {failed[0]} of {world} exited with code {codes[failed[0]]}")
-            if all(c == 0 for c in codes):
-                break
-            time.sleep(0.05)
-        if not got:
-            out, got = results.get(), True
-    finally:
+    with tempfile.TemporaryDirectory(prefix="genmmrec_launch_") as tmp:
+        result_path = os.path.join(tmp, "rank0.pt")
+        procs = [
+            ctx.Process(target=_rank_main, args=(r, world, init, str(device), fn, args, result_path), daemon=False)
+            for r in range(world)
+        ]
         for p in procs:
-            if p.is_alive():
-                p.terminate()
-        for p in procs:
-            p.join(timeout=30)
-    return out
+            p.start()
+        try:
+            while True:
+                codes = [p.exitcode for p in procs]
+                failed = [r for r, c in enumerate(codes) if c not in (None, 0)]
+                if failed:
+                    raise RuntimeError(f"rank {failed[0]} of {world} exited with code {codes[failed[0]]}")
+                if all(c == 0 for c in codes):
+                    break
+                time.sleep(0.05)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+            for p in procs:
+                p.join(timeout=30)
+        if not os.path.exists(result_path):
+            raise RuntimeError(f"rank 0 of {world} exited without a result")
+        return torch.load(result_path, weights_only=False)

@@ -304,8 +304,15 @@ class DataRows:
 
 def data_sharding(mesh: Optional[Mesh], n: int) -> Optional[DataRows]:
     """The rows of a global batch of ``n`` that this rank owns, or None off
-    a data axis."""
+    a data axis. A batch that does not split over the axis stays whole on
+    every rank, with a warning (the JAX trainer's rule): every rank then
+    trains the whole batch, and the caller reduces nothing over the axis."""
     if mesh is None or mesh.data == 1:
+        return None
+    if n % mesh.data:
+        getLogger().warning(
+            "train_batch_size %d not divisible by data axis %d — batch sharding DISABLED for this run", n, mesh.data
+        )
         return None
     return DataRows(mesh, n)
 

@@ -11,14 +11,17 @@ the gradient-carrying collectives in a world of one rank; the models that a
 data axis refuses.
 
 In one spawned world of 4 gloo ranks a session (``parallel.dryrun.
-mesh_checks``, which imports neither JAX nor these tests): BPR, LightGCN
-and, one epoch each, DiffMM, GenRecV1 and DiffRec fitted on a
-2 × 2 mesh against one rank (parameters within 2e-4, metrics within 2e-3,
-the JAX package's bounds), a BPR checkpoint and resume on the mesh against
-one rank, one DiffMM and one GenRecV1 batch split over
-the data axis against ``jax.grad`` at the global batch (the bounds of
-their parity tests), and one training batch of FREEDOM and RFBM3 on a
-model axis alone against one rank. Then ``dryrun_multigpu(4)``.
+mesh_checks``, which imports neither JAX nor these tests): BPR, LightGCN,
+LayerGCN, BM3, DualGNN, MGCN and, one epoch each, DiffMM, GenRecV1 and
+DiffRec fitted on a 2 × 2 mesh against one rank (parameters within 2e-4,
+metrics within 2e-3, the JAX package's bounds), a BPR checkpoint and
+resume on the mesh against one rank, a BPR fit whose batch does not split
+over a ``{data: 2}`` mesh against one rank, one batch split over the data
+axis of DiffMM, GenRecV1 and each of the 20 graph-CF, multimodal,
+message-passing and multimodal graph models against ``jax.grad`` at the
+global batch (built, and held, as their parity tests build and hold it),
+and one training batch of FREEDOM and RFBM3 on a model axis alone against
+one rank. Then ``dryrun_multigpu(4)``.
 """
 
 import jax
@@ -186,7 +189,7 @@ def test_gradient_collectives_in_a_world_of_one():
     assert torch.equal(g_sum, 6.0 * x)
 
 
-@pytest.mark.parametrize("name", ["FREEDOM", "MVDiff", "VBPR"])
+@pytest.mark.parametrize("name", ["MCDRec", "MVDiff", "RFMRec"])
 def test_data_axis_refuses_models_not_split(name):
     assert name not in DATA_AXIS_MODELS
     config = TConfig(name, "tiny", {"save_recommended_topk": False})
@@ -236,6 +239,134 @@ def _genrecv1_case():
     return case, float(ref), jax_tree_by_name(_np_tree(grads))
 
 
+def _reference(name, jm, params, jstate, key, overrides, draws=None, graphs=None):
+    """A ``batch_grads`` case of ``name`` at the global batch of the models'
+    parity tests (96 rows, 7 of them padding), and a function that takes
+    ``jax.grad`` of the JAX loss there → (case, () → (loss, gradients by
+    JAX name))."""
+    from test_torch_cf import _batch, _np_tree
+
+    users, pos, neg, w = _batch(jm.n_users, jm.n_items)
+    jb = {"users": jnp.asarray(users, jnp.int32), "pos": jnp.asarray(pos, jnp.int32),
+          "neg": jnp.asarray(neg, jnp.int32), "weight": jnp.asarray(w)}
+    case = dict(model=name, overrides=dict(overrides), params=_np_tree(params), jax_state=_np_tree(jstate),
+                graphs=graphs or {}, batch={"users": users, "pos": pos, "neg": neg, "weight": w}, draws=draws or {})
+
+    def grad():
+        (ref, _), grads = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(params, jstate, jb, key)
+        return float(ref), jax_tree_by_name(_np_tree(grads))
+
+    return case, grad
+
+
+def _jax_model(name, overrides):
+    """The JAX model on the tiny data of ``overrides`` and its parameters
+    from key 0 and initial state from key 1, as the parity tests draw them."""
+    jc = JConfig(name, "tiny", dict(overrides))
+    jm = j_get_model(name)(jc, j_train(JDataset(jc).split()[0]))
+    return jm, jax.jit(jm.init_params)(jax.random.PRNGKey(0)), jm.init_state(jax.random.PRNGKey(1))
+
+
+def _graph_edges(rows, cols, vals, n_rows, n_cols):
+    return dict(rows=np.asarray(rows), cols=np.asarray(cols), vals=np.asarray(vals), n_rows=n_rows, n_cols=n_cols)
+
+
+def _cf_case(name):
+    """As ``test_torch_cf`` builds it: LayerGCN on its even epoch's pruned
+    graph, SELFCFED_LGN's dropout masks from the loss key."""
+    import test_torch_cf as cf
+
+    jm, params, jstate = _jax_model(name, cf.SLICE)
+    key, draws = jax.random.PRNGKey(7), {}
+    if name == "LayerGCN":
+        jstate = jm.pre_epoch(params, jstate, jax.random.PRNGKey(40), 0)
+    if name == "SELFCFED_LGN":
+        k_u, k_i = jax.random.split(key)
+        draws["keep"] = tuple(cf._t(np.asarray(jax.random.bernoulli(k, 1.0 - jm.dropout, (n, jm.latent_size))))
+                              for k, n in ((k_u, jm.n_users), (k_i, jm.n_items)))
+    return _reference(name, jm, params, jstate, key, cf.SLICE, draws)
+
+
+def _mm_case(name):
+    """As ``test_torch_mm_models`` builds it: FREEDOM on one pruned graph,
+    BM3's four dropout masks from the loss key."""
+    import test_torch_mm_models as mm
+
+    jm, params, jstate = _jax_model(name, mm.SLICE)
+    key, draws = jax.random.PRNGKey(7), {}
+    if name == "FREEDOM":
+        jstate = jm.pre_epoch(params, jstate, jax.random.PRNGKey(40), 0)
+    if name == "BM3":
+        d = jm.embedding_dim
+        shapes = {"user": (jm.n_users, d), "item": (jm.n_items, d), "text": (jm.n_items, d), "image": (jm.n_items, d)}
+        keys = dict(zip(("user", "item", "text", "image"), jax.random.split(key, 4)))
+        draws["keep"] = {m: mm._below(keys[m], shapes[m], 1.0 - jm.dropout) for m in shapes}
+    return _reference(name, jm, params, jstate, key, mm.SLICE, draws)
+
+
+def _mp_case(name):
+    """As ``test_torch_mp_models`` builds it: the JAX user graph in the
+    port, COHESION on one pruned graph, MVGAE's draws from the loss key."""
+    import test_torch_mp_models as mp
+
+    jm, params, jstate = _jax_model(name, mp.SLICE)
+    key, draws, graphs = jax.random.PRNGKey(7), {}, {}
+    if name in mp.USER_GRAPH_MODELS:
+        nbrs, w = np.asarray(jm.user_nbrs), np.asarray(jm.user_nbr_w)
+        rows = np.repeat(np.arange(jm.n_users), nbrs.shape[1])
+        graphs["user_graph"] = _graph_edges(rows, nbrs.reshape(-1), w.reshape(-1), jm.n_users, jm.n_users)
+    if name == "COHESION":
+        jm.dropout = 0.3
+        jstate = jm.pre_epoch(params, jstate, jax.random.PRNGKey(40), 0)
+        jm.dropout = 0.0
+    if name == "MVGAE":
+        draws = mp._mvgae_draws(jm, key)
+    return _reference(name, jm, params, jstate, key, mp.SLICE, draws, graphs)
+
+
+def _mmg_case(name):
+    """As ``test_torch_mm_graph_models`` builds it: the widened attention
+    layers, DAMRS on the JAX item graphs, PGL on one pruned graph, every
+    JAX draw of the loss key."""
+    import test_torch_mm_graph_models as mmg
+
+    jm, params, jstate = _jax_model(name, mmg.SLICE)
+    params = mmg._widened(name, params)
+    if name == "PGL":
+        jstate = jm.pre_epoch(params, jstate, jax.random.PRNGKey(40), 0)
+    graphs = {}
+    if name == "DAMRS":
+        for g in ("image_adj", "text_adj", "session_adj"):
+            jg = getattr(jm, g)
+            graphs[g] = _graph_edges(jg.rows, jg.cols, jg.vals, jg.n_rows, jg.n_cols)
+    key = jax.random.PRNGKey(7)
+    draws = mmg._draws(name, jm, key, 96)
+    return _reference(name, jm, params, jstate, key, mmg.SLICE, draws, graphs)
+
+
+# the four families whose losses split over the data axis
+FAMILIES = {
+    **{name: _cf_case for name in ("LayerGCN", "SELFCFED_LGN")},
+    **{name: _mm_case for name in ("VBPR", "BM3", "FREEDOM", "ItemKNNCBF")},
+    **{name: _mp_case for name in ("MMGCN", "GRCN", "DualGNN", "DRAGON", "COHESION", "MVGAE")},
+    **{name: _mmg_case for name in ("GUME", "LATTICE", "MGCN", "LGMRec", "SMORE", "PGL", "SLMRec", "DAMRS")},
+}
+
+
+def _family_zero_grads():
+    """The gradients that are zero but for rounding, each with its weight's,
+    as the families' parity tests list them."""
+    import test_torch_mm_graph_models as mmg
+    import test_torch_mm_models as mm
+
+    return {**mm.ZERO_GRADS, **mmg.ZERO_GRADS}
+
+
+# one 2 x 2 fit of each family against one rank
+FAMILY_FITS = ("LayerGCN", "BM3", "DualGNN", "MGCN")
+# a batch that does not split over a {data: 2} mesh
+ODD_BATCH = {**FIT, "train_batch_size": 63}
+
 STEPS = {"FREEDOM": {"save_recommended_topk": False}, "RFBM3": {"save_recommended_topk": False}}
 # fitted one epoch (dryrun.DRYRUN) on the 2 x 2 mesh: phase 1, the
 # regeneration and the loss history over the data axis
@@ -243,11 +374,21 @@ DIFFUSION = ("DiffMM", "GenRecV1", "DiffRec")
 
 
 def _world(tmp):
+    """The world's results, and each batch case with its JAX loss and
+    gradients. The families' JAX gradients are taken while the world runs."""
+    from concurrent.futures import ThreadPoolExecutor
+
     cases = {"DiffMM": _diffmm_case(), "GenRecV1": _genrecv1_case()}
-    spec = {"fits": {"BPR": FIT, "LightGCN": FIT, **{name: dryrun.DRYRUN for name in DIFFUSION}},
+    family = {name: make(name) for name, make in FAMILIES.items()}
+    spec = {"fits": {"BPR": FIT, "LightGCN": FIT, **{name: dryrun.DRYRUN for name in DIFFUSION},
+                     **{name: FIT for name in FAMILY_FITS}},
             "resumes": {"BPR": {**FIT, "checkpoint_dir": str(tmp)}},
-            "batches": {k: c[0] for k, c in cases.items()}, "steps": STEPS}
-    out = launch.run(dryrun.mesh_checks, {"data": 2, "model": 2}, "cpu", (spec,))
+            "batches": {**{k: c[0] for k, c in cases.items()}, **{k: c[0] for k, c in family.items()}},
+            "steps": STEPS, "data_fits": {"BPR": ODD_BATCH}}
+    with ThreadPoolExecutor(1) as pool:
+        running = pool.submit(launch.run, dryrun.mesh_checks, {"data": 2, "model": 2}, "cpu", (spec,))
+        cases.update({name: (case, *grad()) for name, (case, grad) in family.items()})
+        out = running.result()
     return out, cases
 
 
@@ -267,14 +408,14 @@ def world(tmp_path_factory, worker_id):
         return torch.load(path, weights_only=False)
 
 
-@pytest.mark.parametrize("name", ["BPR", "LightGCN", *DIFFUSION])
+@pytest.mark.parametrize("name", ["BPR", "LightGCN", *DIFFUSION, *FAMILY_FITS])
 def test_mesh_fit_matches_one_rank(world, name):
     """The parameters within the JAX test's 2e-4 and the metrics within its
     2e-3. A bias that feeds a batch norm (GenRecV1's) has a gradient that
     is zero but for rounding, which Adam turns into full steps: it is left
     out of the parameters, its function held by the metrics."""
     out, _ = world
-    s_ref, v_ref, t_ref, p_ref = dryrun.fit(name, FIT if name in ("BPR", "LightGCN") else dryrun.DRYRUN, CPU)
+    s_ref, v_ref, t_ref, p_ref = dryrun.fit(name, dryrun.DRYRUN if name in DIFFUSION else FIT, CPU)
     s_sh, v_sh, t_sh, p_sh = out[f"fit_{name}"]
     assert p_ref.keys() == p_sh.keys()
     for k in p_ref:
@@ -329,6 +470,42 @@ def test_data_axis_batch_gradients_match_jax(world, name):
             np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-5 * np.abs(r).max(), err_msg=jname)
         checked += 1
     assert checked >= 5
+
+
+@pytest.mark.parametrize("name", sorted(FAMILIES))
+def test_data_axis_batches_of_four_families_match_jax(world, name):
+    """Each model of the graph-CF, multimodal, message-passing and
+    multimodal graph families: the loss summed over the data axis and the
+    summed gradients equal ``jax.grad`` of the JAX loss at the global batch
+    (the tolerances of the models' parity tests). A gradient that is zero
+    but for rounding stays within 1e-5 of its weight's largest; one the loss
+    does not read is zero."""
+    out, cases = world
+    got = out[f"grad_{name}"]
+    case, ref_loss, ref_grads = cases[name]
+    np.testing.assert_allclose(got["loss"], ref_loss, rtol=1e-5)
+    config = TConfig(name, "tiny", dict(case["overrides"]))
+    tm = t_get_model(name)(config, t_train(TDataset(config).split()[0], CPU))
+    names = dict(zip(params_by_jax_name(tm), dict(tm.named_parameters())))
+    assert names.keys() == ref_grads.keys()
+    zero = _family_zero_grads().get(name, {})
+    for jname, pname in names.items():
+        g, r = got["grads"][pname], ref_grads[jname]
+        if jname in zero:
+            assert np.abs(g).max() <= 1e-5 * np.abs(ref_grads[zero[jname]]).max(), jname
+            continue
+        np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-5 * np.abs(r).max(), err_msg=jname)
+
+
+def test_batch_that_does_not_split_trains_as_one_rank(world):
+    """``train_batch_size`` 63 on a ``{data: 2}`` mesh: the batch stays whole
+    on both ranks, nothing is summed over the axis, and the fit ends where
+    one rank's does."""
+    _, _, _, p_sh = world[0]["data_fit_BPR"]
+    _, _, _, p_ref = dryrun.fit("BPR", ODD_BATCH, CPU)
+    assert p_ref.keys() == p_sh.keys()
+    for k in p_ref:
+        np.testing.assert_allclose(p_sh[k], p_ref[k], atol=2e-4, rtol=2e-4, err_msg=k)
 
 
 @pytest.mark.parametrize("name", sorted(STEPS))
