@@ -134,16 +134,17 @@ bfloat16 (K3 on each rank's item shard, ``sharded_topk``); one batch's
 gradients summed over the data axis against the same batch on one rank;
 each rank's K3 on its shard against its plain version; the layer's
 collectives timed. The same seed on one rank in this process: every metric
-within ``MESH_METRIC_ATOL``. The same world then fits MGCN on baby at its
-published width (embedding 64, ``knn_k`` 10) one epoch and evaluates the
-valid split in float32, against one rank's fit (every metric within
-``MESH_METRIC_ATOL``), and runs one training batch of each of the 20
-graph-CF, multimodal, message-passing and multimodal graph models whose
-batches split over the data axis (``MESH_FAMILY_MODELS``), on baby, the
-same parameters, batch and draws on every rank: the loss summed over the
-data axis and the summed gradients against the global batch on one rank,
-and each rank's launches (K1 forward and backward for every model that
-propagates, K3 in LATTICE's and DAMRS's steps). Then the spectral
+within ``MESH_METRIC_ATOL``. The same world then fits MGCN and MVDiff
+(its four phases through ``MVDiffTrainer``, each timed beside one rank's)
+on baby at their published configs one epoch and evaluates the valid split
+in float32, each against one rank's fit (every metric within
+``MESH_METRIC_ATOL``), and runs one training batch of each of the 45
+models besides BPR, LightGCN, DiffMM, GenRecV1 and DiffRec
+(``MESH_FAMILY_MODELS``), on baby, the same parameters, batch and draws on
+every rank: the loss summed over the data axis and the summed gradients
+against the global batch on one rank, and each rank's launches (K1
+forward and backward for every model that propagates, K3 in LATTICE's,
+DAMRS's and RFLATTICE's steps). Then the spectral
 clustering of baby's fused features (``multimodal_fusion_cluster``, K3 on
 the 7,050² similarity) on the card against the CPU. ``--mesh-only`` builds
 the kernels and runs this phase alone.
@@ -196,6 +197,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -3796,15 +3798,31 @@ def mesh_batch_check(torch, trainer, model, mesh):
 
 # the models whose batches split over the data axis besides BPR, LightGCN,
 # DiffMM, GenRecV1 and DiffRec: graph-CF, multimodal, message passing,
-# multimodal graph
+# multimodal graph; then the diffusion recommenders, MVDiff and the
+# Rectified-Flow family
 MESH_FAMILY_MODELS = (
     "LayerGCN", "SELFCFED_LGN", "VBPR", "BM3", "FREEDOM", "ItemKNNCBF", "MMGCN", "GRCN", "DualGNN", "DRAGON",
     "COHESION", "MVGAE", "GUME", "LATTICE", "MGCN", "LGMRec", "SMORE", "PGL", "SLMRec", "DAMRS",
+    "LD4MRec", "DDRM", "DiffGraph", "MCDRec", "CoDMR", "MVDiff",
+    "RFGUME", "RFGUMETime", "GenRecBM3", "RFMRec", "RFBM3", "RFBPR_remove", "RFLightGCN_remove",
+    "RFLayerGCN_remove", "RFVBPR", "RFFREEDOM", "RFLATTICE", "RFMMGCN", "RFGRCN", "RFDualGNN", "RFCOHESION",
+    "RFMGCN", "RFSMORE", "RFLGMRec", "RFPGL",
 )
-# the models whose loss reads no graph, and so launches no K1
-MESH_NO_PROPAGATION = ("VBPR", "ItemKNNCBF")
+# the models whose loss reads no graph (the RF hosts' conditions are built
+# once at set-up), and so launches no K1
+MESH_NO_PROPAGATION = ("VBPR", "ItemKNNCBF", "LD4MRec", "RFBPR_remove", "RFVBPR")
 # the models whose training step launches K3
-MESH_K3_IN_STEP = ("LATTICE", "DAMRS")
+MESH_K3_IN_STEP = ("LATTICE", "DAMRS", "RFLATTICE")
+# gradients that are zero but for rounding (a bias in front of a batch
+# norm; an attention key bias, which adds one constant to a query's logits,
+# and, over the self-attention's one key, the query and key projections),
+# each held within MESH_BATCH_GRAD_ATOL of its weight's largest gradient:
+# model -> [(pattern of the parameter, the weight's name by re.sub)]
+MESH_ZERO_GRADS = {
+    "MCDRec": [(r"^(unet\.(enc1|enc2|dec1)\.c[12]\.)bias$", r"\1weight")],
+    "RFMRec": [(r"^(velocity\.cross\.\d+\.attn\.)bk$", r"\1wv"),
+               (r"^(velocity\.selfa\.\d+\.attn\.)(wq|wk|bq|bk)$", r"\1wv")],
+}
 # the layers whose gradients are sums of row terms that cancel, held on the
 # scale of the terms (the sum of their magnitudes, where the rounding of
 # such a sum lies): the loss cancels a bias exactly (FREEDOM's projections
@@ -3814,8 +3832,20 @@ MESH_K3_IN_STEP = ("LATTICE", "DAMRS")
 # the same layers into a softmax over the two)
 MESH_ON_TERMS = {
     "FREEDOM": ("image_trs", "text_trs"), "SLMRec": ("g_v_iv", "g_t_ivat"), "MGCN": ("query1", "query2"),
-    "GUME": ("separate1", "separate2"),
+    "GUME": ("separate1", "separate2"), "RFFREEDOM": ("image_trs", "text_trs"), "RFMGCN": ("query1", "query2"),
+    "RFGUME": ("separate1", "separate2"), "RFGUMETime": ("separate1", "separate2"),
+    # the linear layers in front of MVDiff's batch norms (over whole
+    # tables): their biases' gradients cancel to rounding
+    "MVDiff": tuple(f"{m}_{part}.{i}.lin" for m in ("image", "text") for part, n in (("residual", 3), ("modal", 2))
+                    for i in range(n)) + ("gate_image.lin", "gate_text.lin", "common1.lin"),
 }
+# the same for weights that enter a product ``x @ W.T`` and biases added
+# after it (parameters that are not an ``nn.Linear``'s), by a pattern of
+# their names: RFMRec's attention projections at the published 6 × 512,
+# whose deepest layers' gradients carry float32 rounding past
+# MESH_BATCH_GRAD_ATOL of their largest on one device too
+# (``tests/test_torch_rfmrec_width.py`` holds them in float64)
+MESH_ON_PROJECTIONS = {"RFMRec": r"^velocity\.(cross|selfa)\.\d+\.attn\.[wb][qkvo]$"}
 # a batch split over the data axis against the global batch on one rank; a
 # gradient of MESH_ON_TERMS within MESH_TERMS_ATOL of its terms' scale
 MESH_BATCH_LOSS_RTOL = 1e-5
@@ -3825,35 +3855,42 @@ MESH_TERMS_ATOL = 1e-4
 STEP_KERNELS = ("segment_spmm", "segment_spmm_backward", "grouped_topk")
 
 
-def mesh_mgcn_setup(torch, dev):
-    """MGCN on Amazon-baby at its published width through ``get_model``,
-    one epoch: (config, train data, valid, model)."""
+# the models fitted one epoch on the mesh against one rank: MGCN, and
+# MVDiff (its four phases through MVDiffTrainer, then the BPR epoch), each
+# at its published config
+MESH_FITS = ("MGCN", "MVDiff")
+
+
+def mesh_fit_setup(torch, dev, name):
+    """``name`` on Amazon-baby at its published width through
+    ``get_model``, one epoch: (config, train data, valid, model)."""
     from genmmrec_tpu_torch.config import Config
     from genmmrec_tpu_torch.data.arrays import build_eval_data, build_train_data
     from genmmrec_tpu_torch.data.dataset import RecDataset
     from genmmrec_tpu_torch.engine.evaluator import group_masks
     from genmmrec_tpu_torch.models import get_model
 
-    config = Config("MGCN", "baby", {"save_recommended_topk": False, "epochs": 1, "eval_step": 1})
+    config = Config(name, "baby", {"save_recommended_topk": False, "epochs": 1, "eval_step": 1})
     train, valid, _ = RecDataset(config).split()
     td = build_train_data(train, dev)
     vd = build_eval_data(valid, train, int(config["eval_batch_size"]), dev)
     config["pop_mask"], config["warm_mask"] = group_masks(train, dev)
-    return config, td, vd, get_model("MGCN")(config, td)
+    return config, td, vd, get_model(name)(config, td)
 
 
-def mesh_mgcn_drive(torch, config, model, td, vd, mesh=None) -> dict:
+def mesh_fit_drive(torch, name, config, model, td, vd, mesh=None) -> dict:
     """``fit`` of one epoch with evaluate(valid) in float32, timed, its
-    launches counted."""
+    launches counted; a multi-phase trainer's phase times beside."""
     from genmmrec_tpu_torch.engine.trainer import get_trainer
 
-    trainer = get_trainer("MGCN")(config, model, mesh=mesh)
+    trainer = get_trainer(name)(config, model, mesh=mesh)
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, valid, _ = trainer.fit(td, vd, verbose=False)
     torch.cuda.synchronize()
-    return dict(valid=valid, fit_s=time.perf_counter() - t0, epoch_s=trainer.epoch_times[0],
+    phases = {k: v for k, v in getattr(trainer, "prelude_log", {}).items() if k.endswith("_s")}
+    return dict(valid=valid, fit_s=time.perf_counter() - t0, epoch_s=trainer.epoch_times[0], phases=phases,
                 launches=launch_counts())
 
 
@@ -3908,6 +3945,8 @@ def mesh_family_batch(torch, name, td, mesh) -> dict:
 
         def keep_terms(layer):
             def hook(module, inputs, output):
+                if not output.requires_grad:  # a call without an autograd graph (an RF host's conditions)
+                    return
                 x = inputs[0].detach().abs().reshape(-1, inputs[0].shape[-1])
 
                 def add(g):
@@ -3918,14 +3957,27 @@ def mesh_family_batch(torch, name, td, mesh) -> dict:
                 output.register_hook(add)
             return hook
 
-        hooks = [getattr(model, l).register_forward_hook(keep_terms(l)) for l in MESH_ON_TERMS.get(name, ())]
-        ref, _ = model.loss(state, batch, seeded(52))
-        ref.backward()
+        hooks = [model.get_submodule(l).register_forward_hook(keep_terms(l)) for l in MESH_ON_TERMS.get(name, ())]
+        watched = {id(p): k for k, p in params.items() if re.match(MESH_ON_PROJECTIONS.get(name, "$^"), k)}
+        with projection_terms(torch, watched, terms):
+            ref, _ = model.loss(state, batch, seeded(52))
+            ref.backward()
         for h in hooks:
             h.remove()
     grads = {k: torch.zeros_like(p) if p.grad is None else p.grad for k, p in params.items()}
+    zero = {}
+    for k in grads:
+        for pattern, weight in MESH_ZERO_GRADS.get(name, ()):
+            if re.match(pattern, k):
+                zero[k] = re.sub(pattern, weight, k)
     share, rel = {}, {}
     for k, r in grads.items():
+        if k in zero:
+            # zero but for rounding: within MESH_BATCH_GRAD_ATOL of its weight's largest
+            scale = grads[zero[k]].abs().max()
+            share[k] = (summed[k].abs().max() / (MESH_BATCH_GRAD_ATOL * scale).clamp(min=1e-30)).item()
+            rel[k] = (summed[k].abs().max() / scale.clamp(min=1e-30)).item()
+            continue
         scale = terms[k] if k in terms else r.abs().max()
         err = (summed[k] - r).abs()
         bound = MESH_BATCH_GRAD_RTOL * r.abs() + (MESH_TERMS_ATOL if k in terms else MESH_BATCH_GRAD_ATOL) * scale
@@ -3938,22 +3990,56 @@ def mesh_family_batch(torch, name, td, mesh) -> dict:
     return out
 
 
+def projection_terms(torch, watched: dict, terms: dict):
+    """A function mode that adds to ``terms[name]``, in the backward, the
+    magnitudes of the row terms of each parameter of ``watched`` (id ->
+    name): |δ|ᵀ|x| for a weight W of a product ``x @ W.T``, Σ|δ| over the
+    rows for a bias b of a sum ``y + b`` (δ the cotangent of the result)."""
+
+    class Mode(torch.overrides.TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = getattr(func, "__name__", "")
+            if len(args) != 2 or not torch.is_tensor(args[1]) or not torch.is_tensor(out) or not out.requires_grad:
+                return out
+            if name in ("matmul", "__matmul__") and args[1]._base is not None and id(args[1]._base) in watched:
+                key, x = watched[id(args[1]._base)], args[0].detach().abs().reshape(-1, args[0].shape[-1])
+                term = lambda g: g.abs().reshape(-1, g.shape[-1]).T @ x
+            elif name in ("add", "__add__") and id(args[1]) in watched:
+                key, term = watched[id(args[1])], lambda g: g.abs().reshape(-1, g.shape[-1]).sum(0)
+            else:
+                return out
+
+            def add(g, key=key, term=term):
+                terms[key] = terms.get(key, 0) + term(g)
+
+            out.register_hook(add)
+            return out
+
+    return Mode()
+
+
 def mesh_family_rank(torch, dev, mesh) -> dict:
-    """The checks of the 20 models on one rank of the ``MESH_SHAPE`` world:
-    MGCN's fit (``mesh_mgcn_drive``), then one batch of each model of
-    ``MESH_FAMILY_MODELS`` (``mesh_family_batch``) on MGCN's train data."""
-    t0 = time.perf_counter()
-    config, td, vd, model = mesh_mgcn_setup(torch, dev)
-    setup_s = time.perf_counter() - t0
-    mgcn = dict(setup_s=setup_s, **mesh_mgcn_drive(torch, config, model, td, vd, mesh))
-    del model, vd
-    torch.cuda.empty_cache()
+    """The checks of the 45 models on one rank of the ``MESH_SHAPE`` world:
+    the fits of ``MESH_FITS`` (``mesh_fit_drive``), then one batch of each
+    model of ``MESH_FAMILY_MODELS`` (``mesh_family_batch``) on MGCN's train
+    data."""
+    fits = {}
+    for name in MESH_FITS:
+        t0 = time.perf_counter()
+        config, fit_td, vd, model = mesh_fit_setup(torch, dev, name)
+        setup_s = time.perf_counter() - t0
+        fits[name] = dict(setup_s=setup_s, **mesh_fit_drive(torch, name, config, model, fit_td, vd, mesh))
+        if name == "MGCN":
+            td = fit_td
+        del model, vd
+        torch.cuda.empty_cache()
     t0 = time.perf_counter()
     batches = []
     for name in MESH_FAMILY_MODELS:
         batches.append(mesh_family_batch(torch, name, td, mesh))
         torch.cuda.empty_cache()
-    return dict(mgcn=mgcn, batches=batches, batches_s=time.perf_counter() - t0)
+    return dict(fits=fits, batches=batches, batches_s=time.perf_counter() - t0)
 
 
 def mesh_rank(dev, card):
@@ -4082,43 +4168,57 @@ def mesh_path(torch, card):
 
 
 def mesh_family_check(torch, ranks, card) -> dict:
-    """The 20 models' checks of the world's ranks (``mesh_family_rank``):
-    MGCN's fit on the mesh against the same seed on one rank in this
-    process (every valid metric within MESH_METRIC_ATOL, every rank
-    launching K1 forward and backward); each model's batch (the loss within
-    MESH_BATCH_LOSS_RTOL of one rank's, every gradient element within
-    MESH_BATCH_GRAD_RTOL of its magnitude plus MESH_BATCH_GRAD_ATOL of its
-    tensor's largest (a layer of MESH_ON_TERMS within MESH_TERMS_ATOL of
-    its row terms' magnitudes), each rank launching K1 forward and backward if the
-    model propagates and K3 if its step takes a top-k). Returns the summary
-    with the launches of all of it."""
+    """The 45 models' checks of the world's ranks (``mesh_family_rank``):
+    each fit of ``MESH_FITS`` on the mesh against the same seed on one rank
+    in this process (every valid metric within MESH_METRIC_ATOL, every rank
+    launching K1 forward and backward, and K3 for MVDiff's phases 2 and 4);
+    each model's batch (the loss within MESH_BATCH_LOSS_RTOL of one rank's,
+    every gradient element within MESH_BATCH_GRAD_RTOL of its magnitude
+    plus MESH_BATCH_GRAD_ATOL of its tensor's largest (a layer of
+    MESH_ON_TERMS within MESH_TERMS_ATOL of its row terms' magnitudes, a
+    gradient of MESH_ZERO_GRADS within MESH_BATCH_GRAD_ATOL of its weight's
+    largest), each rank launching K1 forward and backward if the model
+    propagates and K3 if its step takes a top-k). Returns the summary with
+    the launches of all of it."""
     fam = [r["family"] for r in ranks]
     cuda0 = torch.device("cuda:0")
-    t0 = time.perf_counter()
-    config, td, vd, model = mesh_mgcn_setup(torch, cuda0)
-    setup_s = time.perf_counter() - t0
-    one = mesh_mgcn_drive(torch, config, model, td, vd)
-    del model
-    torch.cuda.empty_cache()
-    launches = dict(one["launches"])
-    for r, f in enumerate(fam):
-        got = f["mgcn"]["launches"]
-        if got["segment_spmm"] <= 0 or got["segment_spmm_backward"] <= 0:
-            raise AssertionError(f"mesh rank {r}: MGCN's fit launched no K1 forward or backward: {got}")
-        launches = {k: v + got[k] for k, v in launches.items()}
-    mesh_valid = fam[0]["mgcn"]["valid"]
-    drift = {k: mesh_valid[k] - one["valid"][k] for k in one["valid"]}
-    off = {k: v for k, v in drift.items() if not abs(v) <= MESH_METRIC_ATOL}
-    if off:
-        raise AssertionError(f"MGCN/baby on {MESH_SHAPE} strays from one rank's by more than {MESH_METRIC_ATOL}: {off}")
-    worst = max(drift.items(), key=lambda kv: abs(kv[1]))
-    m0 = fam[0]["mgcn"]
-    print(f"MGCN/baby (embedding {config['embedding_size']}, knn_k {config['knn_k']}, batch "
-          f"{config['train_batch_size']}) on {MESH_SHAPE} against one rank: {len(drift)} valid metrics within "
-          f"{MESH_METRIC_ATOL} (largest {worst[0]} {worst[1]:+.5f}); Recall@20 {mesh_valid['recall@20']:.4f} / "
-          f"{one['valid']['recall@20']:.4f}; wall: the world's fit {m0['fit_s']:.2f} s (epoch {m0['epoch_s']:.2f} s, "
-          f"set-up {m0['setup_s']:.1f} s a rank), one rank's {one['fit_s']:.2f} s (epoch {one['epoch_s']:.2f} s, "
-          f"set-up {setup_s:.1f} s) [{card}]")
+    launches = None
+    fits = {}
+    # every check is printed before the first failure is raised
+    failures = []
+    for name in MESH_FITS:
+        t0 = time.perf_counter()
+        config, td, vd, model = mesh_fit_setup(torch, cuda0, name)
+        setup_s = time.perf_counter() - t0
+        one = mesh_fit_drive(torch, name, config, model, td, vd)
+        del model, td, vd
+        torch.cuda.empty_cache()
+        launches = dict(one["launches"]) if launches is None else {k: v + one["launches"][k] for k, v in launches.items()}
+        need = ("segment_spmm", "segment_spmm_backward") + (("grouped_topk",) if name == "MVDiff" else ())
+        for r, f in enumerate(fam):
+            got = f["fits"][name]["launches"]
+            if any(got[k] <= 0 for k in need):
+                failures.append(f"mesh rank {r}: {name}'s fit launched none of one of {need}: {got}")
+            launches = {k: v + got[k] for k, v in launches.items()}
+        mesh_valid = fam[0]["fits"][name]["valid"]
+        drift = {k: mesh_valid[k] - one["valid"][k] for k in one["valid"]}
+        off = {k: v for k, v in drift.items() if not abs(v) <= MESH_METRIC_ATOL}
+        if off:
+            failures.append(f"{name}/baby on {MESH_SHAPE} strays from one rank's by more than {MESH_METRIC_ATOL}: {off}")
+        worst = max(drift.items(), key=lambda kv: abs(kv[1]))
+        m0 = fam[0]["fits"][name]
+        phases = "; ".join(f"{k} {v:.2f} s / {one['phases'][k]:.2f} s" for k, v in m0["phases"].items())
+        per_rank = "; ".join(f"rank {r} K1 {f['fits'][name]['launches']['segment_spmm']} + "
+                             f"{f['fits'][name]['launches']['segment_spmm_backward']}, K3 "
+                             f"{f['fits'][name]['launches']['grouped_topk']}" for r, f in enumerate(fam))
+        print(f"{name}/baby (embedding {config['embedding_size']}, batch {config['train_batch_size']}) on {MESH_SHAPE} "
+              f"against one rank: {len(drift) - len(off)} of {len(drift)} valid metrics within {MESH_METRIC_ATOL} "
+              f"(largest {worst[0]} "
+              f"{worst[1]:+.5f}); Recall@20 {mesh_valid['recall@20']:.4f} / {one['valid']['recall@20']:.4f}; wall: "
+              f"the world's fit {m0['fit_s']:.2f} s (epoch {m0['epoch_s']:.2f} s, set-up {m0['setup_s']:.1f} s a rank), "
+              f"one rank's {one['fit_s']:.2f} s (epoch {one['epoch_s']:.2f} s, set-up {setup_s:.1f} s)"
+              + (f"; phases, rank 0 / one rank: {phases}" if phases else "") + f"; launches {per_rank} [{card}]")
+        fits[name] = dict(mesh=m0, one_rank=dict(one, setup_s=setup_s), drift=drift)
     lines = []
     for i, name in enumerate(MESH_FAMILY_MODELS):
         per = [f["batches"][i] for f in fam]
@@ -4129,11 +4229,11 @@ def mesh_family_check(torch, ranks, card) -> dict:
         need += ("grouped_topk",) if name in MESH_K3_IN_STEP else ()
         for r, b in enumerate(per):
             if any(b["launches"][k] <= 0 for k in need):
-                raise AssertionError(f"mesh batch {name}, rank {r}: one of {need} not launched: {b['launches']}")
+                failures.append(f"mesh batch {name}, rank {r}: one of {need} not launched: {b['launches']}")
             launches = {k: v + b["launches"].get(k, 0) for k, v in launches.items()}
         if not main["loss_rel"] <= MESH_BATCH_LOSS_RTOL or not main["worst_share_of_bound"] <= 1.0:
-            raise AssertionError(f"mesh batch {name}: loss {main['loss']} against one rank's {main['loss_one_rank']}, "
-                                 f"gradient {main['worst_param']} at {main['worst_share_of_bound']:.3f} of its bound")
+            failures.append(f"mesh batch {name}: loss {main['loss']} against one rank's {main['loss_one_rank']}, "
+                            f"gradient {main['worst_param']} at {main['worst_share_of_bound']:.3f} of its bound")
         per_rank = "; ".join(f"rank {r} K1 {b['launches']['segment_spmm']} + {b['launches']['segment_spmm_backward']}, "
                              f"K3 {b['launches']['grouped_topk']}" for r, b in enumerate(per))
         print(f"mesh batch {name} at baby ({main['rows']} of {2 * main['rows']} rows a data rank): loss over the data "
@@ -4146,8 +4246,9 @@ def mesh_family_check(torch, ranks, card) -> dict:
                           launches=[b["launches"] for b in per], setup_s=[b["setup_s"] for b in per]))
     phase = max(f["batches_s"] for f in fam)
     print(f"mesh batches of {len(MESH_FAMILY_MODELS)} models done in {phase:.1f} s a rank (set-ups included) [{card}]")
-    return dict(mgcn=dict(mesh=fam[0]["mgcn"], one_rank=dict(one, setup_s=setup_s), drift=drift),
-                batches=lines, batches_s=phase, launches=launches)
+    if failures:
+        raise AssertionError(f"{len(failures)} mesh checks failed: " + " | ".join(failures))
+    return dict(fits=fits, batches=lines, batches_s=phase, launches=launches)
 
 
 def fusion_cluster_check(torch, feats, card, k: int = 20):

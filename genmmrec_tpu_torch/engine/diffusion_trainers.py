@@ -25,11 +25,12 @@ feature denoisers' epoch over the items, the item-item graphs' rebuild,
 the sparsity denoisers' epoch over the users and the user-item graphs'
 rebuild (K3 for every top-k).
 
-On a data axis (DiffMM and GenRecV1) phase 1's batches split over the
-ranks as the BPR batches do, and phase 2 deals its user chunks whole, chunk
-``i`` to data rank ``i % data``; every rank still makes every chunk's
-draws, in the order one rank makes them, so that the generator stays in
-step with the one-device run, and the chunks' top items are gathered.
+On a data axis phase 1's batches (MVDiff's phases 1 and 3) split over the
+ranks as the BPR batches do, and phase 2 (MVDiff's phase 4) deals its user
+chunks whole, chunk ``i`` to data rank ``i % data`` (``dealt_chunks``);
+every rank still makes every chunk's draws, in the order one rank makes
+them, so that the generator stays in step with the one-device run, and the
+chunks' top items are gathered.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from genmmrec_tpu_torch.common.interest_cluster import (
     build_debias_tables,
     interest_debias,
 )
+from genmmrec_tpu_torch.common.losses import weighted_mean
 from genmmrec_tpu_torch.data.arrays import interaction_vectors
 from genmmrec_tpu_torch.engine.trainer import ChainOptimizer, Trainer
 from genmmrec_tpu_torch.models.base import scalar
@@ -54,6 +56,24 @@ from genmmrec_tpu_torch.parallel import mesh as pm
 from genmmrec_tpu_torch.ops.topk import grouped_topk
 
 MODALITIES = ("image", "text")
+
+
+def dealt_chunks(mesh, chunks: list, chunk_topk, width: int, chunk_draws=None) -> torch.Tensor:
+    """(Σ rows of the chunks, width) int64: ``chunk_topk(c, users)`` over
+    the chunks of users, in chunk order. On a data axis each rank takes its
+    dealt chunks (``pm.deal``), with the draws ``chunk_draws(n_rows)`` makes
+    for every chunk in turn (so that the generator stays in step with one
+    rank's), and the chunks' rows are gathered: every rank then holds every
+    chunk's."""
+    if pm.axis_size(mesh, pm.DATA_AXIS) == 1:
+        return torch.cat([chunk_topk(c, users) for c, users in enumerate(chunks)])
+    mine, dealt = [], set(pm.deal(len(chunks), mesh))
+    for c, users in enumerate(chunks):
+        drawn = chunk_draws(users.shape[0]) if chunk_draws is not None else {}
+        if c in dealt:
+            mine.append(chunk_topk(c, users, **drawn))
+    like = torch.empty(chunks[0].shape[0], width, dtype=torch.int64, device=chunks[0].device)
+    return pm.gather_chunks(mine, len(chunks), mesh, like).reshape(-1, width)
 
 
 class _DiffusionTrainer(Trainer):
@@ -126,21 +146,10 @@ class _DiffusionTrainer(Trainer):
         return [users[c * B : (c + 1) * B] for c in range(n_chunks)]
 
     def _top_items(self, chunk_topk, chunk_draws=None) -> torch.Tensor:
-        """(n_users, k) items: ``chunk_topk(c, users)`` over the chunks. On a
-        data axis each rank takes its dealt chunks, with the draws
-        ``chunk_draws(n_rows)`` makes for every chunk in turn, and the
-        chunks' items are gathered."""
-        chunks = self._user_chunks()
-        if pm.axis_size(self.mesh, pm.DATA_AXIS) == 1:
-            return torch.cat([chunk_topk(c, users) for c, users in enumerate(chunks)])[: self.model.n_users]
-        mine, dealt = [], set(pm.deal(len(chunks), self.mesh))
-        for c, users in enumerate(chunks):
-            drawn = chunk_draws(users.shape[0]) if chunk_draws is not None else {}
-            if c in dealt:
-                mine.append(chunk_topk(c, users, **drawn))
-        like = torch.empty(chunks[0].shape[0], self.model.rebuild_k, dtype=torch.int64, device=self.model.device)
-        top = pm.gather_chunks(mine, len(chunks), self.mesh, like)
-        return top.reshape(-1, top.shape[-1])[: self.model.n_users]
+        """(n_users, k) items: ``chunk_topk(c, users)`` over the chunks
+        (``dealt_chunks``)."""
+        top = dealt_chunks(self.mesh, self._user_chunks(), chunk_topk, self.model.rebuild_k, chunk_draws)
+        return top[: self.model.n_users]
 
     @torch.no_grad()
     def regenerate(self, generator: Optional[torch.Generator] = None, plan: Optional[dict] = None) -> dict:
@@ -339,7 +348,16 @@ class MVDiffTrainer(Trainer):
     Each epoch's batches are a permutation of the padded slots; a slot past
     the last item or user repeats the last one (weight 0 in the loss, but
     in the batch norms, as in the JAX package). A ``plan`` may give each
-    phase's draws."""
+    phase's draws.
+
+    On a data axis the batches of phases 1 and 3 split over the ranks as
+    the BPR batches do (every draw made at the global batch and sliced, a
+    plan's draws the global batch's): the weighted means take the global
+    valid count, the batch norms and phase 3's sparsity and InfoNCE every
+    rank's rows, and each denoiser's Adam steps on gradients summed over
+    the axis. Phase 4 deals its user chunks over the ranks
+    (``dealt_chunks``) and every rank builds the graphs from every chunk's
+    picks; phase 2 runs whole on every rank."""
 
     # the parameter groups trained in phases 1 and 3, one Adam each
     DENOISERS = ("feat_denoise_image", "feat_denoise_text", "denoise_image", "denoise_text")
@@ -363,17 +381,17 @@ class MVDiffTrainer(Trainer):
         nb = -(-n // B)
         return torch.randperm(nb * B, generator=generator, device=self.model.device).reshape(nb, B)
 
-    def _step(self, name: str, loss) -> torch.Tensor:
+    def _step(self, name: str, loss, rows=None) -> torch.Tensor:
+        """One step of denoiser ``name``'s Adam; over ``rows`` on gradients
+        summed over the data axis."""
         opt = self.optimizers[name]
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        if rows is not None:
+            pm.reduce_grads(self._step_params([name]), self.mesh)
         opt.step()
         opt.zero_grad(set_to_none=True)
         return loss.detach()
-
-    @staticmethod
-    def _wmean(v, valid):
-        return (v * valid).sum() / valid.sum().clamp(min=1.0)
 
     @torch.enable_grad()
     def feature_epoch(self, generator: Optional[torch.Generator] = None, plan: Optional[dict] = None):
@@ -387,8 +405,10 @@ class MVDiffTrainer(Trainer):
         full_precision_matmuls()
         model = self.model
         I = model.n_items
+        rows = pm.data_sharding(self.mesh, self.train_batch_size)
         losses = []
-        for b, idx in enumerate(self._slots(I, generator, plan)):
+        for b, slots in enumerate(self._slots(I, generator, plan)):
+            idx = slots if rows is None else rows.local(slots)
             valid = (idx < I).to(torch.float32)
             ii = idx.clamp(max=I - 1)
             x_img, x_txt = model.v_feat[ii], model.t_feat[ii]
@@ -398,12 +418,15 @@ class MVDiffTrainer(Trainer):
                 if plan is not None:
                     ts, noise = (t.to(model.device) for t in plan["draws"][b][j])
                 else:
-                    ts = torch.randint(0, model.steps, idx.shape, generator=generator, device=model.device)
-                    noise = torch.randn(idx.shape[0], dim, generator=generator, device=model.device)
-                per = model.feat_diffusion_loss(m, x_img, x_txt, ts, noise)
-                step.append(self._step(f"feat_denoise_{m}", self._wmean(per, valid)))
+                    ts = torch.randint(0, model.steps, slots.shape, generator=generator, device=model.device)
+                    noise = torch.randn(slots.shape[0], dim, generator=generator, device=model.device)
+                if rows is not None:
+                    ts, noise = rows.local((ts, noise))
+                per = model.feat_diffusion_loss(m, x_img, x_txt, ts, noise, rows)
+                step.append(self._step(f"feat_denoise_{m}", weighted_mean(per, valid, rows), rows))
             losses.append(torch.stack(step))
-        return torch.stack(losses)
+        losses = torch.stack(losses)
+        return losses if rows is None else pm.all_reduce(losses, self.mesh, pm.DATA_AXIS)
 
     @torch.no_grad()
     def regenerate_items(self) -> dict:
@@ -432,8 +455,10 @@ class MVDiffTrainer(Trainer):
         with torch.no_grad():
             i_emb = model.item_id_embedding.detach().clone()
             feats = {m: model.modal_feats(m) for m in MODALITIES}
+        rows = pm.data_sharding(self.mesh, self.train_batch_size)
         losses = []
-        for b, users in enumerate(self._slots(U, generator, plan)):
+        for b, slots in enumerate(self._slots(U, generator, plan)):
+            users = slots if rows is None else rows.local(slots)
             valid = (users < U).to(torch.float32)
             x = interaction_vectors(model.data, users.clamp(max=U - 1)) * valid[:, None]
             step = []
@@ -441,13 +466,17 @@ class MVDiffTrainer(Trainer):
                 if plan is not None:
                     draws = _to_device(plan["draws"][b][j], model.device)
                 else:
-                    draws = model.sparsity_draws(generator, users.shape[0])
-                diff, gc, contra = model.sparsity_losses(getattr(model, f"denoise_{m}"), x, i_emb, feats[m], draws)
-                loss = (self._wmean(diff, valid) + model.e_loss * self._wmean(gc, valid)
-                        + model.ssl_reg * self._wmean(contra, valid))
-                step.append(self._step(f"denoise_{m}", loss))
+                    draws = model.sparsity_draws(generator, slots.shape[0])
+                if rows is not None:
+                    draws = rows.local(draws)
+                diff, gc, contra = model.sparsity_losses(
+                    getattr(model, f"denoise_{m}"), x, i_emb, feats[m], draws, rows)
+                wmean = lambda v: weighted_mean(v, valid, rows)
+                loss = wmean(diff) + model.e_loss * wmean(gc) + model.ssl_reg * wmean(contra)
+                step.append(self._step(f"denoise_{m}", loss, rows))
             losses.append(torch.stack(step))
-        return torch.stack(losses)
+        losses = torch.stack(losses)
+        return losses if rows is None else pm.all_reduce(losses, self.mesh, pm.DATA_AXIS)
 
     @torch.no_grad()
     def regenerate_users(self, generator: Optional[torch.Generator] = None, plan: Optional[dict] = None) -> dict:
@@ -463,7 +492,9 @@ class MVDiffTrainer(Trainer):
         keep = {} if plan is None else _to_device(plan["keep"], model.device)
         graphs = {}
         for m in MODALITIES:
-            items = torch.cat([model.ui_topk(self.state, m, users) for users in chunks])[:U]
+            width = model.rebuild_k + (model.high_order_topk if m == "image" else 0)
+            picks = lambda c, users: model.ui_topk(self.state, m, users)
+            items = dealt_chunks(self.mesh, list(chunks), picks, width)[:U]
             graphs[f"{m}_ui"] = model.rebuild_ui_graph(items, generator, keep.get(m))
         self.state = {**self.state, **graphs}
         return self.state

@@ -43,13 +43,14 @@ suite. A chunk takes one of three routes:
 
 On a mesh (``config["mesh_shape"]`` in a process group, ``parallel/``):
 every rank starts from rank 0's parameters and state; each batch's rows
-are split over the data axis (``DataRows``) and the gradients summed over
-it, for the models of ``DATA_AXIS_MODELS``; the optimizers step only this
-model rank's rows of the tables ``shard_model_params`` names and gather
-them. The evaluation deals whole user chunks over the data axis and
-gathers their lists; over a model axis the fused and K4 routes stand aside
-and each chunk takes ``sharded_topk`` (K3 on each item shard). Only global
-rank 0 writes the log, checkpoints, top-k files and wandb.
+are split over the data axis (``DataRows``: every batch-coupled term of
+every model sees the global batch) and the gradients of every optimizer
+group summed over it; the optimizers step only this model rank's rows of
+the tables ``shard_model_params`` names and gather them. The evaluation
+deals whole user chunks over the data axis and gathers their lists; over a
+model axis the fused and K4 routes stand aside and each chunk takes
+``sharded_topk`` (K3 on each item shard). Only global rank 0 writes the
+log, checkpoints, top-k files and wandb.
 """
 
 from __future__ import annotations
@@ -75,19 +76,6 @@ from genmmrec_tpu_torch.utils.misc import dict2str, early_stopping
 # width granularity of the packed mask: rows are padded to a multiple of
 # this many columns, with the pad columns marked as excluded
 MASK_GROUP = 128
-# the models whose losses take a batch split over the data axis: each of
-# their batch-coupled terms sees the global batch
-DATA_AXIS_MODELS = (
-    "BPR", "LightGCN", "DiffMM", "GenRecV1", "DiffRec",
-    # graph-CF
-    "LayerGCN", "SELFCFED_LGN",
-    # multimodal
-    "VBPR", "BM3", "FREEDOM", "ItemKNNCBF",
-    # message passing
-    "MMGCN", "GRCN", "DualGNN", "DRAGON", "COHESION", "MVGAE",
-    # multimodal graph
-    "GUME", "LATTICE", "MGCN", "LGMRec", "SMORE", "PGL", "SLMRec", "DAMRS",
-)
 
 
 class ChainOptimizer(torch.optim.Optimizer):
@@ -247,16 +235,6 @@ def adamw(params, lr: float, weight_decay: float = 1e-4) -> ChainOptimizer:
     return ChainOptimizer(params, "adam", lambda step: lr, decoupled_weight_decay=weight_decay)
 
 
-def check_data_axis(model_class: str, data: int) -> None:
-    """A data axis of more than one rank takes only the models whose
-    batch-coupled terms see the global batch (``DATA_AXIS_MODELS``)."""
-    if data > 1 and model_class not in DATA_AXIS_MODELS:
-        raise NotImplementedError(
-            f"{model_class}: its batch-coupled loss terms are not split over the data axis yet; "
-            f"run it with mesh_shape data 1 (models with a data axis: {', '.join(DATA_AXIS_MODELS)})"
-        )
-
-
 def seeded_generator(device, seed: int, *path) -> torch.Generator:
     """A generator on ``device`` seeded from ``seed`` and a path of names
     and numbers: the same path gives the same draws, different paths give
@@ -291,9 +269,6 @@ class Trainer:
         self.logger = getLogger()
         # the mesh of config["mesh_shape"]; None on one device
         self.mesh = mesh if mesh is not None else pm.build_mesh(config)
-        check_data_axis(type(model).__name__, pm.axis_size(self.mesh, pm.DATA_AXIS))
-        if self.mesh is not None and self.mesh.data_group is None and self.mesh.model_group is None:
-            raise ValueError(f"mesh {self.mesh.shape} needs a process group of its ranks (parallel.launch.run)")
         self.is_main = self.mesh is None or self.mesh.is_main
         self.mg = mg
         self.alpha1 = scalar(config["alpha1"] or 1.0) if mg else 1.0
@@ -349,7 +324,11 @@ class Trainer:
         """Batch plan, the main optimizer over the model's ``rec``
         parameters and one optimizer for each group the model's
         ``label_transforms`` names (the JAX package's ``multi_transform``
-        labels), all stepped after each batch's backward."""
+        labels), all stepped after each batch's backward. A mesh must have
+        the process groups of its ranks (a layout alone builds a trainer to
+        inspect, not to train)."""
+        if self.mesh is not None and self.mesh.data_group is None and self.mesh.model_group is None:
+            raise ValueError(f"mesh {self.mesh.shape} needs a process group of its ranks (parallel.launch.run)")
         self._td = train_data
         self._num_batches = -(-train_data.n_inter // self.train_batch_size)
         groups = self.model.param_groups()

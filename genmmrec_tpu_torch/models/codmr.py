@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from genmmrec_tpu_torch.common.init import normal, xavier_normal, xavier_uniform
+from genmmrec_tpu_torch.common.losses import table_share, weighted_mean
 from genmmrec_tpu_torch.common.norm import Norm, l2n
 from genmmrec_tpu_torch.models.base import RecModel, scalar
 from genmmrec_tpu_torch.models.diffusion.dnn import timestep_embedding
@@ -218,13 +219,17 @@ class CoDMR(RecModel):
         return out
 
     @staticmethod
-    def _bpr(u, p, n, w):
-        return -(F.logsigmoid((u * p).sum(1) - (u * n).sum(1)) * w).sum() / w.sum().clamp(min=1.0)
+    def _bpr(u, p, n, w, rows=None):
+        return weighted_mean(-F.logsigmoid((u * p).sum(1) - (u * n).sum(1)), w, rows)
 
     def loss(self, state, batch, generator=None, draws=None):
-        """``draws`` (``draws()``'s list) replace the draws."""
+        """``draws`` (``draws()``'s list) replace the draws. Over a data axis
+        (``batch["rows"]``) the six diffusions and the reconstruction, over
+        whole tables, are the same on every rank and shared; the batch's
+        terms are this rank's rows' share of the global batch's."""
         users, pos, neg, w = batch["users"], batch["pos"], batch["neg"], batch["weight"]
-        B = users.shape[0]
+        rows = batch.get("rows")
+        B = users.shape[0] if rows is None else rows.n
         if draws is None:
             draws = self.draws(generator)
         enc = self.encode()
@@ -242,22 +247,22 @@ class CoDMR(RecModel):
         elbo_txu, rec_txu = two_stage(enc["tx_user"].detach(), cond_u, draws[4], draws[5])
 
         recon = spmm(self.uiMat, torch.cat([cond_u, cond_i])) / (self.uinorm[:, None] + 1e-8)
-        mse = 2.0 * ((recon - enc["ui_full"]) ** 2).sum(1).mean()
+        mse = table_share(2.0 * ((recon - enc["ui_full"]) ** 2).sum(1).mean(), rows)
 
         sq = lambda *xs: sum((x**2).sum() for x in xs) / B
         u_e, p_e, n_e = enc["ui_user"][users], enc["ui_item"][pos], enc["ui_item"][neg]
-        bpr, reg = self._bpr(u_e, p_e, n_e, w), sq(u_e, p_e, n_e)
+        bpr, reg = self._bpr(u_e, p_e, n_e, w, rows), sq(u_e, p_e, n_e)
         du, dp, dn = rec_txu[users], rec_txi[pos], rec_txi[neg]
         pre_u, d1p, d1n = self.uinterest_emb[users], rec_ii[pos], rec_ii[neg]
-        loss_diff = (0.95 * (self._bpr(du, dp, dn, w) + sq(du, dp, dn) * self.reg)
-                     + 0.95 * (self._bpr(pre_u, d1p, d1n, w) + sq(pre_u, d1p, d1n) * self.reg)) / 2.0
-        elbo = (elbo_txi + elbo_txu) + elbo_ii
+        loss_diff = (0.95 * (self._bpr(du, dp, dn, w, rows) + sq(du, dp, dn) * self.reg)
+                     + 0.95 * (self._bpr(pre_u, d1p, d1n, w, rows) + sq(pre_u, d1p, d1n) * self.reg)) / 2.0
+        elbo = table_share((elbo_txi + elbo_txu) + elbo_ii, rows)
 
         def ssl(a, b, idx):
             na, nb = l2n(a[idx]), l2n(b[idx])
             pos_s = torch.exp((na * nb).sum(1) / self.ssl_temp)
             ttl = torch.exp(na @ l2n(b).T / self.ssl_temp).sum(1)
-            return -(torch.log(pos_s / ttl) * w).sum() / w.sum().clamp(min=1.0)
+            return weighted_mean(-torch.log(pos_s / ttl), w, rows)
 
         ssloss = (ssl(rec_txi, rec_ii, pos) + ssl(rec_txu, self.uinterest_emb, users)) / 2.0
         total = (0.95 * (bpr + reg * self.reg) + elbo * self.elbo_w + loss_diff * self.di_pre_w

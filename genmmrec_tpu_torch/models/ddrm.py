@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from genmmrec_tpu_torch.common.init import normal
+from genmmrec_tpu_torch.common.losses import weighted_mean
 from genmmrec_tpu_torch.models.base import RecModel, scalar
 from genmmrec_tpu_torch.models.diffusion.dnn import timestep_embedding
 from genmmrec_tpu_torch.models.diffusion.schedule import make_schedule, q_posterior_mean, q_sample
@@ -136,22 +137,29 @@ class DDRM(RecModel):
         )
 
     def loss(self, state, batch, generator=None, ts=None, noise_u=None, noise_i=None):
-        """``ts`` (B,) and ``noise_u``/``noise_i`` (B, latent) replace the draws."""
+        """``ts`` (B,) and ``noise_u``/``noise_i`` (B, latent) replace the
+        draws. Over a data axis (``batch["rows"]``) the draws (given or
+        made) are the global batch's and this rank takes its rows; the L2
+        term that every row carries is the global batch's."""
         users, pos, neg, w = batch["users"], batch["pos"], batch["neg"], batch["weight"]
+        rows = batch.get("rows")
         all_users, all_items = self.encode()
         u_e, p_e, n_e = all_users[users], all_items[pos], all_items[neg]
-        B = users.shape[0]
+        B = users.shape[0] if rows is None else rows.n
         if ts is None:
             ts, noise_u, noise_i = self.draws(generator, B)
+        if rows is not None:
+            ts, noise_u, noise_i = rows.local((ts, noise_u, noise_i))
         out_u = self.user_reverse(q_sample(self.sched, u_e, ts, noise_u), p_e, ts)
         out_i = self.item_reverse(q_sample(self.sched, p_e, ts, noise_i), u_e, ts)
         recon = (((u_e - out_u) ** 2).mean(1) + ((p_e - out_i) ** 2).mean(1)) / 2.0
         u0, p0, n0 = self.user_emb[users], self.item_emb[pos], self.item_emb[neg]
-        reg = 0.5 * ((u0**2).sum() + (p0**2).sum() + (n0**2).sum()) / B
+        sq = (u0**2).sum() + (p0**2).sum() + (n0**2).sum()
+        reg = 0.5 * (sq if rows is None else rows.sum(sq)) / B
         pos_s, neg_s = (u_e * p_e).sum(1), (u_e * n_e).sum(1)
         weight = torch.sigmoid(pos_s.detach()) ** self.beta
         loss_el = (1 - self.alpha) * (F.softplus(neg_s - pos_s) + reg * self.reg_weight) + self.alpha * recon
-        total = (loss_el * weight * w).sum() / w.sum().clamp(min=1.0)
+        total = weighted_mean(loss_el * weight, w, rows)
         return total, (total,)
 
     def eval_artifacts(self, state):

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from genmmrec_tpu_torch.common.init import xavier_uniform
+from genmmrec_tpu_torch.common.losses import weighted_mean
 from genmmrec_tpu_torch.common.norm import l2n
 from genmmrec_tpu_torch.models.base import RecModel, scalar
 from genmmrec_tpu_torch.models.diffusion.dnn import Denoise
@@ -104,27 +105,31 @@ class DiffGraph(RecModel):
             ))
         return tuple(out)
 
-    def _diff_losses(self, dn, target, x_start, batch_idx, weights, ts, noise, keep):
+    def _diff_losses(self, dn, target, x_start, batch_idx, weights, ts, noise, keep, rows=None):
         x_t = q_sample(self.sched, x_start, ts, noise)
         out = dn(x_t, ts, dropout=DIFF_DROPOUT, keep=keep)
         mse = ((target - out) ** 2).mean(1)
         w = torch.where(ts == 0, 1.0, snr(self.sched, ts - 1) - snr(self.sched, ts))
         diff = (w * mse)[batch_idx]
-        return (diff * weights).sum() / weights.sum().clamp(min=1.0), out
+        return weighted_mean(diff, weights, rows), out
 
     def loss(self, state, batch, generator=None, draws=None):
-        """``draws`` (``draws()``'s two triples) replace the draws."""
+        """``draws`` (``draws()``'s two triples) replace the draws. Over a
+        data axis (``batch["rows"]``) the diffusions, over whole tables,
+        are the same on every rank, and each term is this rank's rows'
+        share of the global batch's."""
         users, pos, neg, w = batch["users"], batch["pos"], batch["neg"], batch["weight"]
+        rows = batch.get("rows")
         if draws is None:
             draws = self.draws(generator)
         usr, itm = self.forward()
-        u_diff, diff_usr = self._diff_losses(self.usr_denoiser, usr, usr, users, w, *draws[0])
-        i_diff, diff_itm = self._diff_losses(self.item_denoiser, itm, itm, pos, w, *draws[1])
+        u_diff, diff_usr = self._diff_losses(self.usr_denoiser, usr, usr, users, w, *draws[0], rows)
+        i_diff, diff_itm = self._diff_losses(self.item_denoiser, itm, itm, pos, w, *draws[1], rows)
         usr, itm = usr + diff_usr, itm + diff_itm
         anc, p_e, n_e = usr[users], itm[pos], itm[neg]
-        bpr = -(torch.log(torch.sigmoid((anc * p_e).sum(1) - (anc * n_e).sum(1)) + 1e-12) * w).sum()
-        bpr = bpr / w.sum().clamp(min=1.0)
-        reg = ((anc**2).sum() + (p_e**2).sum() + (n_e**2).sum()) * self.reg_weight / users.shape[0]
+        bpr = weighted_mean(-torch.log(torch.sigmoid((anc * p_e).sum(1) - (anc * n_e).sum(1)) + 1e-12), w, rows)
+        B = users.shape[0] if rows is None else rows.n
+        reg = ((anc**2).sum() + (p_e**2).sum() + (n_e**2).sum()) * self.reg_weight / B
         total = bpr + reg + u_diff + i_diff
         return total, (total,)
 

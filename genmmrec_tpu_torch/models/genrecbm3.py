@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from genmmrec_tpu_torch.common.losses import table_share
 from genmmrec_tpu_torch.models import rf_modules as rf
 from genmmrec_tpu_torch.models.base import scalar
 from genmmrec_tpu_torch.models.bm3 import BM3
@@ -48,13 +49,15 @@ class GenRecBM3(RFHostMixin, BM3):
         return self._denoised if self._denoised is not None else self._denoise()[0]
 
     def loss(self, state, batch, generator=None, rf_draws=None, keep=None):
+        """Over a data axis (``batch["rows"]``) the denoiser's ``ps_loss``,
+        over every train edge, is shared."""
         denoised, ps_loss = self._denoise()
         self._denoised = denoised
         try:
             total, _ = super().loss(state, batch, generator, rf_draws=rf_draws, keep=keep)
         finally:
             self._denoised = None
-        total = total + self.ps_loss_weight * ps_loss
+        total = total + self.ps_loss_weight * table_share(ps_loss, batch.get("rows"))
         return total, (total,)
 
     def full_embeddings(self, state, start_noise=None):

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from genmmrec_tpu_torch.common.init import xavier_normal
+from genmmrec_tpu_torch.common.losses import weighted_mean
 from genmmrec_tpu_torch.common.norm import Norm
 from genmmrec_tpu_torch.data.arrays import interaction_vectors
 from genmmrec_tpu_torch.models.base import RecModel, scalar
@@ -173,10 +174,16 @@ class LD4MRec(RecModel):
     def loss_and_update(self, state, batch, generator=None, t=None, noise=None, keep=None):
         """The loss and the EMA history with the batch recorded. ``t`` (B,),
         ``noise`` (B, n_items) and ``keep`` (a (B, hidden) bool mask a
-        block) replace the draws."""
+        block) replace the draws. Over a data axis (``batch["rows"]``) the
+        draws (given or made) are the global batch's and this rank takes
+        its rows; the history records every rank's rows in the global
+        batch's order, so every rank holds the same history."""
         users, w = batch["users"], batch["weight"]
+        rows = batch.get("rows")
         if t is None:
-            t, noise, keep = self.draws(generator, state, users.shape[0])
+            t, noise, keep = self.draws(generator, state, users.shape[0] if rows is None else rows.n)
+        if rows is not None:
+            t, noise, keep = rows.local((t, noise, keep))
         x_in = interaction_vectors(self.data, users)
         gamma = self.smoothing_gamma
         x0_target = x_in * (1 - gamma) + (1 - x_in) * gamma
@@ -189,8 +196,10 @@ class LD4MRec(RecModel):
         upd = 0.9 * hist[t] + 0.1 * per.detach()
         # a padding row writes one spare entry past the history, cut off after
         index = torch.where(w > 0, t, self.steps)
+        if rows is not None:
+            index, upd = rows.gather(index), rows.gather(upd)
         new_hist = scatter_last(torch.cat([hist, hist.new_zeros(1)]), index, upd)[:-1]
-        total = (per * w).sum() / w.sum().clamp(min=1.0)
+        total = weighted_mean(per, w, rows)
         return total, ((total,), {"loss_history": new_hist})
 
     def loss(self, state, batch, generator=None, t=None, noise=None, keep=None):

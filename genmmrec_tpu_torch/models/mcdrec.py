@@ -33,7 +33,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from genmmrec_tpu_torch.common.init import normal, uniform, xavier_normal
-from genmmrec_tpu_torch.common.norm import EPS, Norm
+from genmmrec_tpu_torch.common.losses import weighted_mean
+from genmmrec_tpu_torch.common.norm import EPS, Norm, batch_stats
 from genmmrec_tpu_torch.models.base import RecModel, scalar
 from genmmrec_tpu_torch.models.diffusion.dnn import timestep_embedding
 from genmmrec_tpu_torch.models.diffusion.schedule import _bcast, make_schedule, q_posterior_mean, q_sample
@@ -60,10 +61,10 @@ def conv_gemm(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return (out + conv.bias[:, None]).reshape(B, conv.out_channels, H, W)
 
 
-def bn2d(x: torch.Tensor, norm: Norm) -> torch.Tensor:
-    """Batch norm of (B, C, H, W) maps over (B, H, W), population variance."""
-    mu = x.mean(dim=(0, 2, 3), keepdim=True)
-    var = x.var(dim=(0, 2, 3), keepdim=True, correction=0)
+def bn2d(x: torch.Tensor, norm: Norm, rows=None) -> torch.Tensor:
+    """Batch norm of (B, C, H, W) maps over (B, H, W), population variance;
+    over ``rows`` the statistics of every rank's maps."""
+    mu, var = batch_stats(x, (0, 2, 3), rows)
     return (x - mu) / torch.sqrt(var + EPS) * norm.g[None, :, None, None] + norm.bias[None, :, None, None]
 
 
@@ -75,9 +76,9 @@ class ConvBlock(nn.Module):
         self.c2 = nn.Conv2d(out_c, out_c, 3, padding=1, device=device)
         self.bn2 = Norm(out_c).to(device)
 
-    def forward(self, x):
-        x = F.silu(bn2d(conv_gemm(self.c1, x), self.bn1))
-        return F.silu(bn2d(conv_gemm(self.c2, x), self.bn2))
+    def forward(self, x, rows=None):
+        x = F.silu(bn2d(conv_gemm(self.c1, x), self.bn1, rows))
+        return F.silu(bn2d(conv_gemm(self.c2, x), self.bn2, rows))
 
 
 class UNet(nn.Module):
@@ -90,14 +91,16 @@ class UNet(nn.Module):
         self.time1 = nn.Linear(latent_dim, latent_dim, device=device)
         self.time2 = nn.Linear(latent_dim, latent_dim, device=device)
 
-    def forward(self, x, t, h_v, h_t):
+    def forward(self, x, t, h_v, h_t, rows=None):
+        """``rows``: the batch norms over every rank's rows of a batch split
+        over the data axis."""
         B, d = x.shape
         H = math.isqrt(d)
         img = torch.stack([x.reshape(B, H, H), h_v.reshape(B, H, H), h_t.reshape(B, H, H)], dim=1)
         t_emb = self.time2(F.silu(self.time1(timestep_embedding(t, d)))).reshape(B, 1, H, H)
-        e1 = self.enc1(img + t_emb)
-        e2 = self.enc2(e1)
-        d1 = self.dec1(torch.cat([e2, e1], dim=1))
+        e1 = self.enc1(img + t_emb, rows)
+        e2 = self.enc2(e1, rows)
+        d1 = self.dec1(torch.cat([e2, e1], dim=1), rows)
         return conv_gemm(self.final, d1).reshape(B, d)
 
 
@@ -216,18 +219,23 @@ class MCDRec(RecModel):
         return t, torch.randn(batch_size, self.latent_dim, generator=generator, device=self.device)
 
     def loss(self, state, batch, generator=None, ts=None, noise=None):
-        """``ts`` (B,) and ``noise`` (B, d) replace the draws."""
+        """``ts`` (B,) and ``noise`` (B, d) replace the draws. Over a data
+        axis (``batch["rows"]``) the draws (given or made) are the global
+        batch's and this rank takes its rows; the U-Net's batch norms take
+        every rank's rows."""
         users, pos, neg, w = batch["users"], batch["pos"], batch["neg"], batch["weight"]
+        rows = batch.get("rows")
         all_users, all_items = self.encode(state)
         u_e, p_e, n_e = all_users[users], all_items[pos], all_items[neg]
-        denom = w.sum().clamp(min=1.0)
-        bpr = -(torch.log(torch.sigmoid((u_e * p_e).sum(1) - (u_e * n_e).sum(1)) + 1e-12) * w).sum() / denom
+        bpr = weighted_mean(-torch.log(torch.sigmoid((u_e * p_e).sum(1) - (u_e * n_e).sum(1)) + 1e-12), w, rows)
         if ts is None:
-            ts, noise = self.draws(generator, pos.shape[0])
+            ts, noise = self.draws(generator, pos.shape[0] if rows is None else rows.n)
+        if rows is not None:
+            ts, noise = rows.local((ts, noise))
         x0 = self.item_emb[pos]
         h_v, h_t = self._modal_cond(pos)
-        pred = self.unet(q_sample(self.sched, x0, ts, noise), ts, h_v, h_t)
-        dm = (((pred - x0) ** 2).mean(1) * w).sum() / denom
+        pred = self.unet(q_sample(self.sched, x0, ts, noise), ts, h_v, h_t, rows)
+        dm = weighted_mean(((pred - x0) ** 2).mean(1), w, rows)
         total = bpr + self.lambda_dm * dm
         return total, (total,)
 

@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from genmmrec_tpu_torch.common.init import normal, xavier_uniform
+from genmmrec_tpu_torch.common.losses import batch_rows, global_mean, table_share, weighted_mean
 from genmmrec_tpu_torch.common.norm import Norm, l2n
 from genmmrec_tpu_torch.data.arrays import interaction_vectors
 from genmmrec_tpu_torch.models.base import RecModel, scalar
@@ -73,14 +74,15 @@ class LinBN(nn.Module):
         self.lin = nn.Linear(d_in, d_out, device=device)
         self.bn = Norm(d_out).to(device)
 
-    def forward(self, x):
-        return self.bn.batch_norm(self.lin(x))
+    def forward(self, x, rows=None):
+        return self.bn.batch_norm(self.lin(x), rows)
 
 
-def apply_stack(stack, x, act, keep: Optional[Sequence[torch.Tensor]] = None):
-    """Each layer's ``act(bn(lin(x)))``, then dropout by ``keep[i]``."""
+def apply_stack(stack, x, act, keep: Optional[Sequence[torch.Tensor]] = None, rows=None):
+    """Each layer's ``act(bn(lin(x)))``, then dropout by ``keep[i]``; over
+    ``rows`` the batch norms take every rank's rows."""
     for i, layer in enumerate(stack):
-        x = act(layer(x))
+        x = act(layer(x, rows))
         if keep is not None:
             x = torch.where(keep[i], x / (1.0 - STACK_DROPOUT), torch.zeros_like(x))
     return x
@@ -210,17 +212,19 @@ class MVDiff(RecModel):
         return torch.sigmoid(layer(x))
 
     # -- sparsity (UI) denoisers ---------------------------------------
-    def modal_denoise_apply(self, dn, x, t, keep=None):
+    def modal_denoise_apply(self, dn, x, t, keep=None, rows=None):
         """``keep`` ({"input", "down": [...], "up": [...]}) applies the
-        training dropout: the input at keep rate 0.9, each layer at 0.1."""
+        training dropout: the input at keep rate 0.9, each layer at 0.1.
+        ``rows``: the batch norms over every rank's rows of a batch split
+        over the data axis."""
         emb = dn["emb"](timestep_embedding(t, self.d_emb_size))
         if self.norm:
             x = l2n(x)
         if keep is not None:
             x = torch.where(keep["input"], x / INPUT_KEEP, torch.zeros_like(x))
         h = torch.cat([x, emb], dim=-1)
-        h = apply_stack(dn["down"], h, _lrelu, None if keep is None else keep["down"])
-        return apply_stack(dn["up"], h, _lrelu, None if keep is None else keep["up"])
+        h = apply_stack(dn["down"], h, _lrelu, None if keep is None else keep["down"], rows)
+        return apply_stack(dn["up"], h, _lrelu, None if keep is None else keep["up"], rows)
 
     def sparsity_draws(self, generator, batch_size: int) -> dict:
         """One sparsity loss's draws: timesteps, unit noise and the dropout masks."""
@@ -241,22 +245,26 @@ class MVDiff(RecModel):
         acp = self.sched.alphas_cumprod[t].to(torch.float32)
         return acp / (1 - acp)
 
-    def sparsity_losses(self, dn, x_start, item_embeds, modal_feats, draws):
-        """Per row: the SNR-weighted eps MSE, ``gc`` and the InfoNCE term."""
+    def sparsity_losses(self, dn, x_start, item_embeds, modal_feats, draws, rows=None):
+        """Per row: the SNR-weighted eps MSE, ``gc`` and the InfoNCE term.
+        Over ``rows`` (this rank's rows of a batch split over the data axis)
+        the sparsity and the batch norms are the global batch's, and the
+        InfoNCE takes every rank's rows as negatives."""
         ts = draws["ts"]
-        coe = self.alpha_sparity * (1.0 + (1.0 - x_start.mean())) * torch.exp(-self.beta_sparity * ts.to(torch.float32))
+        sparsity = global_mean(x_start, rows)
+        coe = self.alpha_sparity * (1.0 + (1.0 - sparsity)) * torch.exp(-self.beta_sparity * ts.to(torch.float32))
         mask = torch.where(x_start == 0, 1.0, self.postive_gain_degree * x_start)
         noise = draws["noise"] * (coe[:, None] * mask)
         ab = self.sched.alphas_cumprod[ts].to(torch.float32)[:, None]
         x_t = torch.sqrt(ab) * x_start + torch.sqrt(1 - ab) * noise
-        out = self.modal_denoise_apply(dn, x_t, ts, draws["keep"])
+        out = self.modal_denoise_apply(dn, x_t, ts, draws["keep"], rows)
         mse = ((noise - out) ** 2).mean(1)
         w = torch.where(ts == 0, 1.0, self._snr(ts - 1) - self._snr(ts))
         gc = ((out @ modal_feats - x_start @ item_embeds) ** 2).mean(1)
         mfe = item_embeds * modal_feats
         v1, v2 = l2n(x_start @ mfe), l2n(out @ mfe)
         contra = -torch.log(torch.exp((v1 * v2).sum(1) / self.sparse_temp)
-                            / torch.exp(v1 @ v2.T / self.sparse_temp).sum(1))
+                            / torch.exp(v1 @ batch_rows(v2, rows).T / self.sparse_temp).sum(1))
         return w * mse, gc, contra
 
     @torch.no_grad()
@@ -267,24 +275,27 @@ class MVDiff(RecModel):
         return x
 
     # -- feature denoisers ---------------------------------------------
-    def feat_denoise_apply(self, p, x_img, x_txt, t):
+    def feat_denoise_apply(self, p, x_img, x_txt, t, rows=None):
+        """``rows``: the batch norms over every rank's rows of a batch split
+        over the data axis."""
         emb = timestep_embedding(t, self.d_emb_size)
-        hi = _lrelu(p["img_bn1"].batch_norm(p["img_enc1"](torch.cat([x_img, emb], -1))))
-        hi = _lrelu(p["img_bn2"].batch_norm(p["img_enc2"](hi))) + hi
-        ht = _lrelu(p["txt_bn1"].batch_norm(p["txt_enc1"](torch.cat([x_txt, emb], -1))))
-        ht = _lrelu(p["txt_bn2"].batch_norm(p["txt_enc2"](ht))) + ht
+        hi = _lrelu(p["img_bn1"].batch_norm(p["img_enc1"](torch.cat([x_img, emb], -1)), rows))
+        hi = _lrelu(p["img_bn2"].batch_norm(p["img_enc2"](hi), rows)) + hi
+        ht = _lrelu(p["txt_bn1"].batch_norm(p["txt_enc1"](torch.cat([x_txt, emb], -1)), rows))
+        ht = _lrelu(p["txt_bn2"].batch_norm(p["txt_enc2"](ht), rows)) + ht
         fusion = p["fusion"](torch.cat([hi, ht], -1))
         # a one-token cross attention in closed form: out_proj(value_proj(x))
         return fusion + p["att_o"](p["att_v"](fusion))
 
-    def feat_diffusion_loss(self, m: str, x_img, x_txt, ts, noise):
+    def feat_diffusion_loss(self, m: str, x_img, x_txt, ts, noise, rows=None):
         """Per row: the MSE of modality ``m``'s denoiser reconstructing its
-        features from their noisy copy (the other modality clean)."""
+        features from their noisy copy (the other modality clean); over
+        ``rows`` its batch norms take every rank's rows."""
         target = x_img if m == "image" else x_txt
         ab = self.sched.alphas_cumprod[ts].to(torch.float32)[:, None]
         noisy = torch.sqrt(ab) * target + torch.sqrt(1 - ab) * noise
         p = getattr(self, f"feat_denoise_{m}")
-        out = self.feat_denoise_apply(p, noisy if m == "image" else x_img, noisy if m == "text" else x_txt, ts)
+        out = self.feat_denoise_apply(p, noisy if m == "image" else x_img, noisy if m == "text" else x_txt, ts, rows)
         return ((target - out) ** 2).mean(1)
 
     @torch.no_grad()
@@ -429,25 +440,30 @@ class MVDiff(RecModel):
         }
 
     @staticmethod
-    def _infonce(v1, v2, temp, weights):
+    def _infonce(v1, v2, temp, weights, rows=None):
+        """Over ``rows`` the negatives are every rank's rows of ``v2``."""
         n1, n2 = l2n(v1), l2n(v2)
-        per = -torch.log(torch.exp((n1 * n2).sum(-1) / temp) / torch.exp(n1 @ n2.T / temp).sum(1))
-        return (per * weights).sum() / weights.sum().clamp(min=1.0)
+        per = -torch.log(torch.exp((n1 * n2).sum(-1) / temp) / torch.exp(n1 @ batch_rows(n2, rows).T / temp).sum(1))
+        return weighted_mean(per, weights, rows)
 
     def loss(self, state, batch, generator=None, keep=None):
-        """``keep`` (``loss_draws()``) replaces the dropout draws."""
+        """``keep`` (``loss_draws()``) replaces the dropout draws. Over a data
+        axis (``batch["rows"]``) the draws, over whole tables, are the same
+        on every rank, the L2 term is shared and the InfoNCE heads take
+        every rank's rows as negatives."""
         users, pos, neg, w = batch["users"], batch["pos"], batch["neg"], batch["weight"]
+        rows = batch.get("rows")
         if keep is None:
             keep = self.loss_draws(generator)
         usr, itm, side, content = self.forward(state, keep)
         anc, p_e, n_e = usr[users], itm[pos], itm[neg]
-        bpr = -(F.logsigmoid((anc * p_e).sum(1) - (anc * n_e).sum(1)) * w).sum() / w.sum().clamp(min=1.0)
-        reg = ((self.user_embedding**2).sum() + (self.item_id_embedding**2).sum()) * self.reg_weight
+        bpr = weighted_mean(-F.logsigmoid((anc * p_e).sum(1) - (anc * n_e).sum(1)), w, rows)
+        reg = table_share(((self.user_embedding**2).sum() + (self.item_id_embedding**2).sum()) * self.reg_weight, rows)
         side_u, side_i = side[: self.n_users], side[self.n_users :]
         cont_u, cont_i = content[: self.n_users], content[self.n_users :]
-        cl1 = self._infonce(side_i[pos], cont_i[pos], self.temp, w) + self._infonce(
-            side_u[users], cont_u[users], self.temp, w)
-        cl2 = self._infonce(anc, cont_i[pos], self.temp, w) + self._infonce(anc, side_i[pos], self.temp, w)
+        nce = lambda a, b: self._infonce(a, b, self.temp, w, rows)
+        cl1 = nce(side_i[pos], cont_i[pos]) + nce(side_u[users], cont_u[users])
+        cl2 = nce(anc, cont_i[pos]) + nce(anc, side_i[pos])
         total = bpr + reg + (cl1 + cl2) * self.ssl_reg
         return total, (total,)
 

@@ -93,6 +93,9 @@ class RFHostMixin:
         return rf.rf_draws(self.rf_cfg, generator, self.n_users + self.n_items, batch_size, self.device, epoch)
 
     def loss(self, state, batch, generator=None, rf_draws=None, **host_draws):
+        """Over a data axis (``batch["rows"]``) the host's loss splits as its
+        own does, and the RF draws (given or made) are the global batch's:
+        ``rf_losses`` takes this rank's rows of the negatives."""
         total, parts = super().loss(state, batch, generator, **host_draws)
         if not self.use_rf:
             return total, parts
@@ -100,10 +103,12 @@ class RFHostMixin:
             target = self.rf_host_repr(state)
         conditions = self._rf_conditions()
         epoch = state["rf_epoch"]
+        rows = batch.get("rows")
         if rf_draws is None:
-            rf_draws = self.rf_draws(generator, batch["users"].shape[0], epoch)
+            rf_draws = self.rf_draws(generator, batch["users"].shape[0] if rows is None else rows.n, epoch)
         rf_total, rf_flow, rf_cl = rf.rf_losses_staged(
-            self.rf, epoch, target, conditions, None, batch["users"], batch["pos"], batch["weight"], rf_draws
+            self.rf, epoch, target, conditions, None, batch["users"], batch["pos"], batch["weight"], rf_draws,
+            rows=rows,
         )
         return total + rf_total, tuple(parts) + (rf_flow, rf_cl)
 

@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from genmmrec_tpu_torch.common.init import init_linear, xavier_normal, xavier_uniform
+from genmmrec_tpu_torch.common.losses import table_share, weighted_mean
 from genmmrec_tpu_torch.common.norm import Norm
 from genmmrec_tpu_torch.ops.graph import sorted_graph, spmm
 
@@ -218,10 +219,11 @@ def rf_draws(cfg: RFConfig, generator, n_rows: int, batch_size: int, device, epo
     return out
 
 
-def infonce_sampled(rf_embeds, target_embeds, pos_indices, cfg: RFConfig, neg_idx, weights) -> torch.Tensor:
+def infonce_sampled(rf_embeds, target_embeds, pos_indices, cfg: RFConfig, neg_idx, weights, rows=None) -> torch.Tensor:
     """Sampled-negative InfoNCE: each row's positive against ``neg_idx``'s
     rows of the normalized target; a negative equal to its positive moves
-    to ``(idx + 1) % N``. The weighted mean is over ``max(Σw, 1)``."""
+    to ``(idx + 1) % N``. The weighted mean is over ``max(Σw, 1)``, over
+    ``rows`` the global batch's Σw."""
     N = target_embeds.shape[0]
     rf_pos = _l2n(rf_embeds[pos_indices])
     tgt = _l2n(target_embeds)
@@ -230,23 +232,28 @@ def infonce_sampled(rf_embeds, target_embeds, pos_indices, cfg: RFConfig, neg_id
     tgt_neg = tgt[neg_idx]  # (B, n_neg, d)
     neg_scores = torch.exp(torch.bmm(tgt_neg, rf_pos[:, :, None])[:, :, 0] / cfg.contrast_temp)
     per = -torch.log(pos_score / (pos_score + neg_scores.sum(1)))
-    return (per * weights).sum() / weights.sum().clamp(min=1.0)
+    return weighted_mean(per, weights, rows)
 
 
-def rf_losses(net: VelocityNet, target, conditions, user_prior, users, pos, weights, draws: dict, fixed_noise=None):
+def rf_losses(net: VelocityNet, target, conditions, user_prior, users, pos, weights, draws: dict, fixed_noise=None,
+              rows=None):
     """(total, flow loss, InfoNCE) over every row of ``target`` (users
-    then items, detached by the caller)."""
+    then items, detached by the caller). Over ``rows`` (this rank's rows of
+    a batch split over the data axis) the draws are the global batch's: the
+    flow, over every table row, is this rank's share, and each row of the
+    batch takes its row of the negatives."""
     cfg = net.cfg
     X1 = target
     X0 = fixed_noise if fixed_noise is not None else draws["x0"]
     t = draws["t"]
     X_t = t * X1 + (1.0 - t) * X0
     v = net(X_t, t, conditions, train=True, keep=draws["keep"], user_prior=user_prior, x_1=X1)
-    flow = ((v - (X1 - X0)) ** 2).mean()
+    flow = table_share(((v - (X1 - X0)) ** 2).mean(), rows)
     pred_x1 = X_t + (1.0 - t) * v
     n_u = cfg.n_users
-    cl = infonce_sampled(pred_x1[n_u:], X1[n_u:], pos, cfg, draws["neg_items"], weights) + infonce_sampled(
-        pred_x1[:n_u], X1[:n_u], users, cfg, draws["neg_users"], weights
+    neg_items, neg_users = (draws[k] if rows is None else rows.local(draws[k]) for k in ("neg_items", "neg_users"))
+    cl = infonce_sampled(pred_x1[n_u:], X1[n_u:], pos, cfg, neg_items, weights, rows) + infonce_sampled(
+        pred_x1[:n_u], X1[:n_u], users, cfg, neg_users, weights, rows
     )
     return flow + cfg.contrast_weight * cl, flow, cl
 
@@ -291,13 +298,15 @@ def generate_staged(net: VelocityNet, conditions, epoch: int, start_noise=None, 
 
 
 def rf_losses_staged(net: VelocityNet, epoch: int, target, conditions, user_prior, users, pos, weights, draws: dict,
-                     fixed_noise=None):
+                     fixed_noise=None, rows=None):
     """``rf_losses`` on the target before the 2-RF switch; past it on the
-    reflow pair from ``draws["z0"]`` (the field frozen for the pair)."""
+    reflow pair from ``draws["z0"]`` (the field frozen for the pair; over
+    the table's rows, the same on every rank of a data axis)."""
     if net.cfg.reflows(epoch):
         z0, z1 = prepare_reflow(net, conditions, draws["z0"])
-        return rf_losses(net, z1, conditions, user_prior, users, pos, weights, draws, fixed_noise=z0)
-    return rf_losses(net, target, conditions, user_prior, users, pos, weights, draws, fixed_noise=fixed_noise)
+        return rf_losses(net, z1, conditions, user_prior, users, pos, weights, draws, fixed_noise=z0, rows=rows)
+    return rf_losses(net, target, conditions, user_prior, users, pos, weights, draws, fixed_noise=fixed_noise,
+                     rows=rows)
 
 
 def mix_embeddings(cfg: RFConfig, original, generated, training: bool, epoch: int):

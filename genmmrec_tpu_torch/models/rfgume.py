@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from genmmrec_tpu_torch.common.losses import table_share
 from genmmrec_tpu_torch.engine.trainer import adamw
 from genmmrec_tpu_torch.models import rf_modules as rf
 from genmmrec_tpu_torch.models.base import scalar
@@ -76,6 +77,9 @@ class RFGUME(GUME):
         return rf.rf_draws(self.rf_cfg, generator, self.n_users + self.n_items, batch_size, self.device, epoch)
 
     def loss(self, state, batch, generator=None, noise=None, rf_draws=None):
+        """Over a data axis (``batch["rows"]``) GUME's loss splits as its own
+        does, the RF draws (given or made) are the global batch's, and the
+        denoiser's ``ps_loss``, over every train edge, is shared."""
         out = self.forward(train=True)
         total, _ = self.loss_of(out, batch, generator, noise)
         if not self.use_rf:
@@ -93,15 +97,16 @@ class RFGUME(GUME):
         with torch.no_grad():
             x0 = self._rf_x0()
         epoch = state["epoch"]
+        rows = batch.get("rows")
         if rf_draws is None:
-            rf_draws = self.rf_draws(generator, batch["users"].shape[0], epoch)
+            rf_draws = self.rf_draws(generator, batch["users"].shape[0] if rows is None else rows.n, epoch)
         rf_total, _, _ = rf.rf_losses_staged(
             self.rf, epoch, target, conditions, prior, batch["users"], batch["pos"], batch["weight"], rf_draws,
-            fixed_noise=x0,
+            fixed_noise=x0, rows=rows,
         )
         total = total + rf_total
         if self.use_denoise:
-            total = total + self.ps_loss_weight * ps_loss
+            total = total + self.ps_loss_weight * table_share(ps_loss, rows)
         return total, (total,)
 
     def full_embeddings(self, state, start_noise=None):

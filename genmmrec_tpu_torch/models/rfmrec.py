@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from genmmrec_tpu_torch.common.init import init_linear, kaiming_uniform_default, uniform, xavier_uniform
+from genmmrec_tpu_torch.common.losses import weighted_mean
 from genmmrec_tpu_torch.common.norm import Norm
 from genmmrec_tpu_torch.models.base import RecModel, scalar
 from genmmrec_tpu_torch.models.rf_modules import sinusoidal_time_embedding
@@ -285,19 +286,26 @@ class RFMRec(RecModel):
                 "keep": self.velocity_draws(generator, B)}
 
     def loss(self, state, batch, generator=None, draws=None):
+        """``draws`` (``draws()``'s dict) replace the draws. Over a data axis
+        (``batch["rows"]``) the draws (given or made) are the global
+        batch's and this rank takes its rows; each term is this rank's
+        rows' share of the global batch's."""
         users, pos, neg, w = batch["users"], batch["pos"], batch["neg"], batch["weight"]
+        rows = batch.get("rows")
+        B = users.shape[0] if rows is None else rows.n
         if draws is None:
-            draws = self.draws(generator, users.shape[0])
+            draws = self.draws(generator, B)
+        if rows is not None:
+            draws = rows.local(draws)
         conds = self.conditions(users, pos)
         X1 = torch.cat([self.user_embedding[users], self.item_embedding[pos]], dim=-1)
         X0, t = draws["x0"], draws["t"]
         X_t = t * X1 + (1 - t) * X0
         v_pred = self.velocity_of(X_t, t, conds, draws["keep"])
-        denom = w.sum().clamp(min=1.0)
-        rf = (((v_pred - (X1 - X0)) ** 2).mean(1) * w).sum() / denom
+        rf = weighted_mean(((v_pred - (X1 - X0)) ** 2).mean(1), w, rows)
         u, p_e, n_e = self.user_embedding[users], self.item_embedding[pos], self.item_embedding[neg]
-        bpr = -(F.logsigmoid((u * p_e).sum(1) - (u * n_e).sum(1)) * w).sum() / denom
-        reg = self.reg_weight * ((u**2).sum() + (p_e**2).sum() + (n_e**2).sum()) / users.shape[0]
+        bpr = weighted_mean(-F.logsigmoid((u * p_e).sum(1) - (u * n_e).sum(1)), w, rows)
+        reg = self.reg_weight * ((u**2).sum() + (p_e**2).sum() + (n_e**2).sum()) / B
         total = self.lambda_rf * rf + self.lambda_rec * bpr + reg
         return total, (total,)
 

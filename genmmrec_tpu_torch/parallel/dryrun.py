@@ -10,11 +10,15 @@ one rank; every valid metric must agree within ``METRIC_ATOL``.
 starts on the CPU (it lives here, so that the spawned ranks import ``torch``
 and this package alone): fits on a 2 × 2 mesh and on a data axis alone,
 each model's batch gradients from the parameters, state, graphs and batch
-its case gives (``batch_grads``), and one training batch under a model
-axis alone.
+its case gives (``batch_grads``; the cases may be handed over in a file
+while the ranks fit, ``handed_over``), and one training batch under a
+model axis alone.
 """
 
 from __future__ import annotations
+
+import os
+import time
 
 import numpy as np
 import torch
@@ -101,10 +105,13 @@ def case_model(case: dict, device):
     """The model of a ``batch_grads`` case and its state: the model on its
     tiny data with the case's graphs in place of its own (``graphs``: name ->
     ``rows``, ``cols``, ``vals``, ``n_rows``, ``n_cols`` of the JAX graph, in
-    its order) and its JAX parameters (numpy, ``interop.from_jax_params``);
-    the state from the JAX state's arrays (``jax_state``,
-    ``interop.from_jax_state``) and from ``rebuild_ui_graph`` arguments
-    (``state``: name -> (top, keywords))."""
+    its order), the case's tables or draws in place of other attributes
+    (``attrs``: name -> arrays, as the model holds them) and its JAX
+    parameters (numpy, ``interop.from_jax_params``); the state from the JAX
+    state's arrays (``jax_state``, ``interop.from_jax_state``), or the
+    model's own ``init_state()`` (``init_state``), with the values of
+    ``state_values`` in place of its own, and from ``rebuild_ui_graph``
+    arguments (``state``: name -> (top, keywords))."""
     from genmmrec_tpu_torch.interop import from_jax_params, from_jax_state
     from genmmrec_tpu_torch.ops.graph import sorted_graph
 
@@ -114,28 +121,46 @@ def case_model(case: dict, device):
     for name, g in case.get("graphs", {}).items():
         edges = (torch.as_tensor(g[k], device=device) for k in ("rows", "cols", "vals"))
         setattr(model, name, sorted_graph(*edges, g["n_rows"], g["n_cols"]))
+    for name, value in case.get("attrs", {}).items():
+        setattr(model, name, _on(value, device))
     from_jax_params(model, case["params"])
-    state = from_jax_state(model, case["jax_state"]) if "jax_state" in case else {}
+    if case.get("init_state"):
+        state = model.init_state()
+    else:
+        state = from_jax_state(model, case["jax_state"]) if "jax_state" in case else {}
+    state.update(case.get("state_values", {}))
     state.update({k: model.rebuild_ui_graph(torch.as_tensor(top, device=device), **_on(kw, device))
                   for k, (top, kw) in case.get("state", {}).items()})
     return model, state
 
 
-def batch_grads(case: dict, device, mesh) -> dict:
-    """One batch of ``case`` split over the data axis: the loss (summed over
-    the axis) and every parameter's gradient (summed), by name. ``case``
-    holds the model, its config overrides, what ``case_model`` builds it
-    from, the global batch and the loss's keyword draws (the global
-    batch's)."""
+def batch_grads(case: dict, device, mesh=None) -> dict:
+    """One batch of ``case`` split over the data axis of ``mesh`` (on one
+    rank without it): the loss (summed over the axis), every parameter's
+    gradient (summed; zero where the loss reads none), by name, the JAX
+    names of the parameters in the same order (``interop.params_by_jax_name``)
+    and the floating tensors of the state that the batch writes anew
+    (``loss_and_update``). ``case`` holds the model, its config overrides,
+    what ``case_model`` builds it from, the global batch and the loss's
+    keyword draws (the global batch's)."""
     model, state = case_model(case, device)
     batch = {k: torch.as_tensor(v, device=device) for k, v in case["batch"].items()}
-    rows = pm.DataRows(mesh, batch["users"].shape[0])
-    total, _ = model.loss(state, {**rows.local(batch), "rows": rows}, **_on(case["draws"], device))
+    if mesh is not None:
+        rows = pm.DataRows(mesh, batch["users"].shape[0])
+        batch = {**rows.local(batch), "rows": rows}
+    total, (_, new_state) = model.loss_and_update(state, batch, **_on(case["draws"], device))
     total.backward()
     params = dict(model.named_parameters())
-    pm.reduce_grads(params.values(), mesh)
-    loss = pm.all_reduce(total.detach().clone(), mesh, pm.DATA_AXIS)
-    return {"loss": float(loss), "grads": {k: p.grad.cpu().numpy() for k, p in params.items()}}
+    loss = total.detach().clone()
+    if mesh is not None:
+        pm.reduce_grads(params.values(), mesh)
+        pm.all_reduce(loss, mesh, pm.DATA_AXIS)
+    grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad).cpu().numpy() for k, p in params.items()}
+    written = {k: v.detach().cpu().numpy() for k, v in (new_state or {}).items()
+               if torch.is_tensor(v) and v.is_floating_point() and v is not state.get(k)}
+    from genmmrec_tpu_torch.interop import params_by_jax_name
+
+    return {"loss": float(loss), "grads": grads, "jax_names": list(params_by_jax_name(model)), "state": written}
 
 
 def one_batch(model_name: str, overrides: dict, device, mesh=None) -> dict:
@@ -170,17 +195,37 @@ def fit_and_resume(model_name: str, overrides: dict, device, mesh=None) -> tuple
     return states, resumed[3]
 
 
+def handed_over(path: str, timeout_s: float = 600.0):
+    """What the file at ``path`` holds once it appears (its writer saves it
+    whole, then renames it into place); raises if it holds None or does
+    not appear within ``timeout_s``."""
+    t0 = time.time()
+    while not os.path.exists(path):
+        if time.time() - t0 > timeout_s:
+            raise TimeoutError(f"{path} did not appear within {timeout_s} s")
+        time.sleep(0.1)
+    value = torch.load(path, weights_only=False)
+    if value is None:
+        raise RuntimeError(f"the writer of {path} failed")
+    return value
+
+
 def mesh_checks(device, spec: dict) -> dict:
     """The scenarios of ``spec`` on a 4-rank world: ``fits`` (model ->
     overrides) on a 2 × 2 mesh, ``resumes`` (``fit_and_resume``) and
-    ``batches`` (``batch_grads`` cases) on it, ``steps`` (model ->
-    overrides) on a ``{data: 1, model: 2}`` mesh of the first two ranks,
-    ``data_fits`` (model -> overrides) on a ``{data: 2}`` mesh of the first
-    two ranks. Returns global rank 0's results."""
+    ``batches`` (``batch_grads`` cases, or the path of a file that will
+    hold them: the caller may build them while the ranks fit,
+    ``handed_over``) on it, ``steps`` (model -> overrides) on a ``{data:
+    1, model: 2}`` mesh of the first two ranks, ``data_fits`` (model ->
+    overrides) on a ``{data: 2}`` mesh of the first two ranks. Returns
+    global rank 0's results."""
     mesh = pm.build_mesh({"mesh_shape": {"data": 2, "model": 2}})
     out = {f"fit_{name}": fit(name, over, device, mesh) for name, over in spec["fits"].items()}
     out.update({f"resume_{name}": fit_and_resume(name, over, device, mesh) for name, over in spec["resumes"].items()})
-    out.update({f"grad_{name}": batch_grads(case, device, mesh) for name, case in spec["batches"].items()})
+    batches = spec["batches"]
+    if isinstance(batches, str):
+        batches = handed_over(batches)
+    out.update({f"grad_{name}": batch_grads(case, device, mesh) for name, case in batches.items()})
     model_axis = pm.build_mesh({"mesh_shape": {"data": 1, "model": 2}})
     if model_axis.member:
         out.update({f"step_{name}": one_batch(name, over, device, model_axis) for name, over in spec["steps"].items()})

@@ -34,7 +34,7 @@ from genmmrec_tpu_torch.config import Config
 from genmmrec_tpu_torch.data.arrays import build_eval_data, build_train_data
 from genmmrec_tpu_torch.data.dataset import RecDataset
 from genmmrec_tpu_torch.engine.evaluator import group_masks
-from genmmrec_tpu_torch.engine.trainer import check_data_axis, get_trainer
+from genmmrec_tpu_torch.engine.trainer import get_trainer
 from genmmrec_tpu_torch.models import get_model
 from genmmrec_tpu_torch.parallel import launch
 from genmmrec_tpu_torch.parallel.mesh import build_mesh, shape_dims
@@ -99,7 +99,6 @@ def quick_start(model, dataset, config_dict=None, save_model=True, mg=False, max
         config["epochs"] = max_epochs
     if not dist.is_initialized() and config["mesh_shape"]:
         d, m = shape_dims(config["mesh_shape"])
-        check_data_axis(get_model(config["model"]).__name__, d)
         if d * m > 1:
             args = (model, dataset, config_dict, save_model, mg, max_epochs)
             return launch.run(_quick_start_rank, config["mesh_shape"], device, args)

@@ -7,21 +7,24 @@ conftest): ``local_topk`` + ``merge_topk`` over 4 item shards against JAX's
 width; tie-heavy and masked planes against ``lax.top_k`` and K3's plain
 version; the qualifying parameters of ``shard_model_params`` against the
 JAX leaves that come out sharded; ``build_mesh``'s shapes and its error;
-the gradient-carrying collectives in a world of one rank; the models that a
-data axis refuses.
+the gradient-carrying collectives in a world of one rank; the trainer of
+each of the last 25 models to take a data axis on a ``{data: 2}`` layout.
 
 In one spawned world of 4 gloo ranks a session (``parallel.dryrun.
 mesh_checks``, which imports neither JAX nor these tests): BPR, LightGCN,
-LayerGCN, BM3, DualGNN, MGCN and, one epoch each, DiffMM, GenRecV1 and
-DiffRec fitted on a 2 × 2 mesh against one rank (parameters within 2e-4,
-metrics within 2e-3, the JAX package's bounds), a BPR checkpoint and
-resume on the mesh against one rank, a BPR fit whose batch does not split
-over a ``{data: 2}`` mesh against one rank, one batch split over the data
-axis of DiffMM, GenRecV1 and each of the 20 graph-CF, multimodal,
-message-passing and multimodal graph models against ``jax.grad`` at the
-global batch (built, and held, as their parity tests build and hold it),
-and one training batch of FREEDOM and RFBM3 on a model axis alone against
-one rank. Then ``dryrun_multigpu(4)``.
+LayerGCN, BM3, DualGNN, MGCN and, one epoch each, DiffMM, GenRecV1,
+DiffRec, MVDiff and RFBM3 fitted on a 2 × 2 mesh against one rank
+(parameters within 2e-4, metrics within 2e-3, the JAX package's bounds), a
+BPR checkpoint and resume on the mesh against one rank, a BPR fit whose
+batch does not split over a ``{data: 2}`` mesh against one rank, one batch
+split over the data axis of DiffMM, GenRecV1 and each of the 20
+graph-CF, multimodal, message-passing and multimodal graph models against
+``jax.grad`` at the global batch (built, and held, as their parity tests
+build and hold it), one batch of each of the diffusion recommenders,
+MVDiff and the 19 RF models against one rank of the port (13 of them also
+against ``jax.grad``), and one training batch of FREEDOM and RFBM3 on a
+model axis alone against one rank. Spawned processes build the batch
+cases while the ranks fit. Then ``dryrun_multigpu(4)``.
 """
 
 import jax
@@ -39,13 +42,13 @@ from genmmrec_tpu.parallel import mesh as jmesh
 from genmmrec_tpu_torch.config import Config as TConfig
 from genmmrec_tpu_torch.data.arrays import build_train_data as t_train
 from genmmrec_tpu_torch.data.dataset import RecDataset as TDataset
-from genmmrec_tpu_torch.engine.trainer import DATA_AXIS_MODELS, Trainer
+from genmmrec_tpu_torch.engine.trainer import get_trainer
 from genmmrec_tpu_torch.interop import jax_tree_by_name, params_by_jax_name
 from genmmrec_tpu_torch.models import get_model as t_get_model
 from genmmrec_tpu_torch.ops.topk import grouped_topk_plain
 from genmmrec_tpu_torch.parallel import dryrun, launch
 from genmmrec_tpu_torch.parallel import mesh as pm
-from genmmrec_tpu_torch.quick_start import quick_start
+from test_torch_rf_hosts import _one_torch_thread  # noqa: F401 (autouse: one torch thread a test worker)
 
 CPU = torch.device("cpu")
 FIT = {
@@ -189,15 +192,25 @@ def test_gradient_collectives_in_a_world_of_one():
     assert torch.equal(g_sum, 6.0 * x)
 
 
-@pytest.mark.parametrize("name", ["MCDRec", "MVDiff", "RFMRec"])
-def test_data_axis_refuses_models_not_split(name):
-    assert name not in DATA_AXIS_MODELS
+# the diffusion recommenders, MVDiff and the RF family: the last 25 models
+# to take a data axis
+DIFF_MODELS = ("LD4MRec", "DDRM", "DiffGraph", "MCDRec", "CoDMR")
+RF_MODELS = ("RFGUME", "RFGUMETime", "GenRecBM3", "RFMRec")
+RF_HOSTS = ("RFBM3", "RFBPR_remove", "RFLightGCN_remove", "RFLayerGCN_remove", "RFVBPR", "RFFREEDOM", "RFLATTICE",
+            "RFMMGCN", "RFGRCN", "RFDualGNN", "RFCOHESION", "RFMGCN", "RFSMORE", "RFLGMRec", "RFPGL")
+LAST_MODELS = (*DIFF_MODELS, "MVDiff", *RF_MODELS, *RF_HOSTS)
+
+
+@pytest.mark.parametrize("name", LAST_MODELS)
+def test_data_axis_admits_every_model(name):
+    """Every model builds its trainer on a ``{data: 2}`` layout; training
+    on a layout without the process groups of its ranks raises."""
     config = TConfig(name, "tiny", {"save_recommended_topk": False})
-    model = t_get_model(name)(config, t_train(TDataset(config).split()[0], CPU))
-    with pytest.raises(NotImplementedError, match=name):
-        Trainer(config, model, mesh=pm.Mesh(2, 1))
-    with pytest.raises(NotImplementedError, match=name):
-        quick_start(name, "tiny", {"mesh_shape": {"data": 2}}, save_model=False, device="cpu")
+    td = t_train(TDataset(config).split()[0], CPU)
+    trainer = get_trainer(name)(config, t_get_model(name)(config, td), mesh=pm.Mesh(2, 1))
+    assert trainer.mesh.shape == {"data": 2, "model": 1}
+    with pytest.raises(ValueError, match="process group"):
+        trainer._build_train_step(td)
 
 
 # -- the 4-rank world ---------------------------------------------------------
@@ -344,6 +357,92 @@ def _mmg_case(name):
     return _reference(name, jm, params, jstate, key, mmg.SLICE, draws, graphs)
 
 
+def _diff_case(name):
+    """As ``test_torch_diffusion_models`` builds it: MCDRec at 20 steps,
+    LD4MRec on the JAX ``svds`` table, every JAX draw of the loss key."""
+    import test_torch_diffusion_models as dm
+
+    over = {**dm.SLICE, **dm.OVERRIDES.get(name, {})}
+    jm, params, jstate = _jax_model(name, over)
+    key = jax.random.PRNGKey(7)
+    case, grad = _reference(name, jm, params, jstate, key, over, dm._draws(name, jm, jstate, key, 96))
+    if name == "LD4MRec":
+        case["attrs"] = {"user_svd_emb": np.asarray(jm.user_svd_emb)}
+    return case, grad
+
+
+def _mvdiff_case(name):
+    """As ``test_torch_mvdiff`` builds it: the dropout masks of the four
+    projection stacks from the loss key."""
+    import test_torch_mvdiff as mv
+
+    jm, params, jstate = _jax_model(name, mv.SLICE)
+    key = jax.random.PRNGKey(7)
+    keep = {m: {part: [mv._bern(jax.random.fold_in(key, i), 0.9, (jm.n_items, layer["lin"]["w"].shape[0]))
+                       for i, layer in enumerate(params["rec"][f"{m}_{part}"])] for part in ("residual", "modal")}
+            for m in ("image", "text")}
+    return _reference(name, jm, params, jstate, key, mv.SLICE, {"keep": keep})
+
+
+def _rf_case(name, extra=None):
+    """As the RF parity tests build it: the widened attention layers, the
+    JAX user graph, RFLGMRec's target draws of ``PRNGKey(0)``, RFMRec at 2
+    × 64, the model's own initial state, the host's draws and the RF
+    draws of the loss key; ``extra`` overrides the config."""
+    import test_torch_rf_hosts as rh
+    import test_torch_rf_models as rm
+
+    over = {**rh.SLICE, **rm.NARROW.get(name, {}), **(extra or {})}
+    jm, params, jstate = _jax_model(name, over)
+    params = rh.widened(name, params)
+    key, B, N = jax.random.PRNGKey(7), 96, jm.n_users + jm.n_items
+    if name in RF_MODELS:
+        draws = rm._port_draws({"name": name, "jm": jm, "tm": jm})(key, B)
+    else:
+        draws = {**rh.host_draws(name, jm, key, B), "rf_draws": rh.rf_draws(jm.rf_cfg, jax.random.fold_in(key, 1317), N, B)}
+    graphs = {}
+    if name in rh.USER_GRAPH_HOSTS:
+        nbrs, w = np.asarray(jm.user_nbrs), np.asarray(jm.user_nbr_w)
+        rows = np.repeat(np.arange(jm.n_users), nbrs.shape[1])
+        graphs["user_graph"] = _graph_edges(rows, nbrs.reshape(-1), w.reshape(-1), jm.n_users, jm.n_users)
+    case, grad = _reference(name, jm, params, jstate, key, over, draws, graphs)
+    del case["jax_state"]
+    case["init_state"] = True
+    if name == "RFLGMRec":
+        case["attrs"] = {"repr_draws": rh.lgmrec_draws(jm, jax.random.PRNGKey(0))}
+    return case, grad
+
+
+def _reflow_case(name):
+    """RFBM3 (``_rf_case``) in epoch 1 of a 2-RF switch at epoch 1: the flow
+    learns the reflow pair of the RF draws' start noise, ``(z0,
+    generate(z0))``, which every rank builds alike. No JAX reference."""
+    case = _rf_case("RFBM3", {"use_2rf": True, "rf_2rf_transition_epoch": 1})[0]
+    case["state_values"] = {"rf_epoch": 1}
+    rf_draws = case["draws"]["rf_draws"]
+    rf_draws["z0"] = rf_draws.pop("x0")
+    return case, None
+
+
+# the last 25 models' cases, and RFBM3 past the 2-RF switch; the 13 held
+# against jax.grad too (the six diffusion models, the four standalone RF
+# models and one host of each RF host file: the 15 hosts share one mixin,
+# and each host's one-rank loss is held to JAX by its parity test)
+LAST_CASES = {**{name: _diff_case for name in DIFF_MODELS}, "MVDiff": _mvdiff_case,
+              **{name: _rf_case for name in (*RF_MODELS, *RF_HOSTS)}, "RFBM3_2rf": _reflow_case}
+LAST_AGAINST_JAX = (*DIFF_MODELS, "MVDiff", *RF_MODELS, "RFBM3", "RFDualGNN", "RFLGMRec")
+
+
+def _last_zero_grads(name):
+    """The gradients that are zero but for rounding, each with its weight's,
+    as the models' parity tests list them."""
+    import test_torch_diffusion_models as dm
+    import test_torch_mvdiff as mv
+    import test_torch_rf_hosts as rh
+
+    return mv.ZERO_GRADS if name == "MVDiff" else {**dm.ZERO_GRADS, **rh.ZERO_GRADS}.get(name, {})
+
+
 # the four families whose losses split over the data axis
 FAMILIES = {
     **{name: _cf_case for name in ("LayerGCN", "SELFCFED_LGN")},
@@ -368,27 +467,102 @@ FAMILY_FITS = ("LayerGCN", "BM3", "DualGNN", "MGCN")
 ODD_BATCH = {**FIT, "train_batch_size": 63}
 
 STEPS = {"FREEDOM": {"save_recommended_topk": False}, "RFBM3": {"save_recommended_topk": False}}
-# fitted one epoch (dryrun.DRYRUN) on the 2 x 2 mesh: phase 1, the
-# regeneration and the loss history over the data axis
+# fitted one epoch on the 2 x 2 mesh: phase 1, the regeneration and the
+# loss history over the data axis (dryrun.DRYRUN); MVDiff's four phases,
+# with every pick of phase 4 kept (its order among the picks whose
+# self-similarity products tie near 1.0 follows float32 rounding, and at
+# keep_rate < 1 the slot order decides which picks the dropout keeps:
+# ROADMAP Queue 3); RFBM3 with no warm-up, so that the flow reaches the
+# scores and the "rf" AdamW steps
 DIFFUSION = ("DiffMM", "GenRecV1", "DiffRec")
+ONE_EPOCH = {**{name: dryrun.DRYRUN for name in DIFFUSION}, "MVDiff": {**dryrun.DRYRUN, "keep_rate": 1.0},
+             "RFBM3": {**dryrun.DRYRUN, "rf_warmup_epochs": 0, "rf_loss_weight": 0.2}}
+# parameters whose gradients are zero but for rounding: biases in front of
+# a batch norm, and MVDiff's time-embedding layers and first feature
+# layers, whose nearly constant time-embedding inputs reach a batch norm.
+# Adam turns their rounding into steps of the learning rate, so their
+# function is held by the metrics
+BN_FED_BIAS = ("lin.bias", "common1.bias", "enc1.bias", "enc2.bias")
+CANCELLED = {"MVDiff": ("emb.weight", "emb.bias", "enc1.weight")}
+
+
+# the processes that build the batch cases and their JAX references
+CASE_PROCESSES = 3
+
+
+def _case_process(names, queue):
+    """One process of the world's set-up (spawned): puts each case of
+    ``names`` on ``queue`` as it is built, then the JAX loss and gradients
+    of each (None for a case held against one rank alone)."""
+    import conftest  # noqa: F401 (this session's JAX settings)
+
+    torch.set_num_threads(1)
+    makers = {**FAMILIES, **LAST_CASES}
+    grads = {}
+    for name in names:
+        case, grads[name] = makers[name](name)
+        queue.put(("case", name, case))
+    for name, grad in grads.items():
+        queue.put(("ref", name, grad() if name in FAMILIES or name in LAST_AGAINST_JAX else (None, None)))
+
+
+def _pump(queue, procs, got: dict, until) -> None:
+    """Messages of ``queue`` into ``got`` (kind -> name -> value) until
+    ``until()``; raises if a process of ``procs`` fails."""
+    import queue as q
+
+    while not until():
+        try:
+            kind, name, value = queue.get(timeout=5)
+        except q.Empty:
+            failed = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+            if failed:
+                raise RuntimeError(f"a case process exited with code {failed[0]}")
+            continue
+        got[kind][name] = value
 
 
 def _world(tmp):
     """The world's results, and each batch case with its JAX loss and
-    gradients. The families' JAX gradients are taken while the world runs."""
+    gradients. The ranks start at once; ``CASE_PROCESSES`` processes build
+    the families' and the last 25 models' cases while the ranks fit, hand
+    them over in a file (``dryrun.handed_over``), and take their JAX
+    gradients while the ranks run the batches."""
+    import multiprocessing
+    import os
     from concurrent.futures import ThreadPoolExecutor
 
-    cases = {"DiffMM": _diffmm_case(), "GenRecV1": _genrecv1_case()}
-    family = {name: make(name) for name, make in FAMILIES.items()}
-    spec = {"fits": {"BPR": FIT, "LightGCN": FIT, **{name: dryrun.DRYRUN for name in DIFFUSION},
-                     **{name: FIT for name in FAMILY_FITS}},
-            "resumes": {"BPR": {**FIT, "checkpoint_dir": str(tmp)}},
-            "batches": {**{k: c[0] for k, c in cases.items()}, **{k: c[0] for k, c in family.items()}},
+    names = [*FAMILIES, *LAST_CASES]
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_case_process, args=(names[i::CASE_PROCESSES], queue))
+             for i in range(CASE_PROCESSES)]
+    for p in procs:
+        p.start()
+    got = {"case": {}, "ref": {}}
+    handover = str(tmp / "batches.pt")
+    spec = {"fits": {"BPR": FIT, "LightGCN": FIT, **ONE_EPOCH, **{name: FIT for name in FAMILY_FITS}},
+            "resumes": {"BPR": {**FIT, "checkpoint_dir": str(tmp)}}, "batches": handover,
             "steps": STEPS, "data_fits": {"BPR": ODD_BATCH}}
     with ThreadPoolExecutor(1) as pool:
         running = pool.submit(launch.run, dryrun.mesh_checks, {"data": 2, "model": 2}, "cpu", (spec,))
-        cases.update({name: (case, *grad()) for name, (case, grad) in family.items()})
+        batches = None
+        try:
+            cases = {"DiffMM": _diffmm_case(), "GenRecV1": _genrecv1_case()}
+            _pump(queue, procs, got, lambda: len(got["case"]) == len(names))
+            batches = {**{k: c[0] for k, c in cases.items()}, **got["case"]}
+        finally:
+            # the ranks wait for this file; None tells them the cases failed
+            torch.save(batches, handover + ".part")
+            os.replace(handover + ".part", handover)
+            if batches is None:
+                for p in procs:
+                    p.kill()
+        _pump(queue, procs, got, lambda: len(got["ref"]) == len(names))
         out = running.result()
+    for p in procs:
+        p.join()
+    cases.update({name: (got["case"][name], *got["ref"][name]) for name in names})
     return out, cases
 
 
@@ -408,18 +582,19 @@ def world(tmp_path_factory, worker_id):
         return torch.load(path, weights_only=False)
 
 
-@pytest.mark.parametrize("name", ["BPR", "LightGCN", *DIFFUSION, *FAMILY_FITS])
+@pytest.mark.parametrize("name", ["BPR", "LightGCN", *ONE_EPOCH, *FAMILY_FITS])
 def test_mesh_fit_matches_one_rank(world, name):
     """The parameters within the JAX test's 2e-4 and the metrics within its
-    2e-3. A bias that feeds a batch norm (GenRecV1's) has a gradient that
-    is zero but for rounding, which Adam turns into full steps: it is left
-    out of the parameters, its function held by the metrics."""
+    2e-3. A bias that feeds a batch norm (GenRecV1's and MVDiff's,
+    ``BN_FED_BIAS``) and MVDiff's layers of ``CANCELLED`` have gradients
+    that are zero but for rounding, which Adam turns into full steps: they
+    are left out of the parameters, their function held by the metrics."""
     out, _ = world
-    s_ref, v_ref, t_ref, p_ref = dryrun.fit(name, dryrun.DRYRUN if name in DIFFUSION else FIT, CPU)
+    s_ref, v_ref, t_ref, p_ref = dryrun.fit(name, ONE_EPOCH.get(name, FIT), CPU)
     s_sh, v_sh, t_sh, p_sh = out[f"fit_{name}"]
     assert p_ref.keys() == p_sh.keys()
     for k in p_ref:
-        if k.endswith("lin.bias") or k == "common1.bias":
+        if k.endswith(BN_FED_BIAS + CANCELLED.get(name, ())):
             continue
         np.testing.assert_allclose(p_sh[k], p_ref[k], atol=2e-4, rtol=2e-4, err_msg=k)
     assert abs(s_ref - s_sh) < 2e-3
@@ -495,6 +670,41 @@ def test_data_axis_batches_of_four_families_match_jax(world, name):
             assert np.abs(g).max() <= 1e-5 * np.abs(ref_grads[zero[jname]]).max(), jname
             continue
         np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-5 * np.abs(r).max(), err_msg=jname)
+
+
+@pytest.mark.parametrize("name", LAST_CASES)
+def test_data_axis_batches_of_last_25_match_one_rank(world, name):
+    """The diffusion recommenders, MVDiff and the RF family (and RFBM3 past
+    the 2-RF switch): the loss summed over the data axis within rtol 1e-5
+    of the same batch on one rank of the port (in this process), every
+    summed gradient within rtol 1e-4 plus 1e-5 of its tensor's largest, the
+    state the batch writes (LD4MRec's loss history) within 1e-6 of its
+    largest. A gradient that is zero but for rounding stays within 1e-5 of
+    its weight's largest. The 13 models of ``LAST_AGAINST_JAX`` are held to
+    ``jax.grad`` of the JAX loss at the global batch within the same
+    bounds."""
+    out, cases = world
+    got = out[f"grad_{name}"]
+    case, ref_loss, ref_grads = cases[name]
+    one = dryrun.batch_grads(case, CPU)
+    names = dict(zip(one["jax_names"], one["grads"]))
+    zero = _last_zero_grads(case["model"])
+    np.testing.assert_allclose(got["loss"], one["loss"], rtol=1e-5)
+    assert got["state"].keys() == one["state"].keys()
+    for k, v in one["state"].items():
+        np.testing.assert_allclose(got["state"][k], v, rtol=0, atol=1e-6 * np.abs(v).max(), err_msg=k)
+    refs = [one["grads"]]
+    if name in LAST_AGAINST_JAX:
+        np.testing.assert_allclose(got["loss"], ref_loss, rtol=1e-5)
+        assert names.keys() == ref_grads.keys()
+        refs.append({pname: ref_grads[jname] for jname, pname in names.items()})
+    for ref in refs:
+        for jname, pname in names.items():
+            g, r = got["grads"][pname], ref[pname]
+            if jname in zero:
+                assert np.abs(g).max() <= 1e-5 * np.abs(ref[names[zero[jname]]]).max(), jname
+                continue
+            np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-5 * np.abs(r).max(), err_msg=jname)
 
 
 def test_batch_that_does_not_split_trains_as_one_rank(world):
