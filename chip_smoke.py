@@ -80,6 +80,25 @@ Rᵀ`` and K3's top-40) against its build on the CPU and against scipy's
 sparse counts; K3 on a block of counts against its plain version.
 ``--mp-only`` builds the kernels and runs this phase alone.
 
+The host tools after them (``prep_path``): a raw ratings CSV and a gzipped
+meta file written from a seed (the synthetic baby table topped up to a
+5-core of 19,445 users and 7,050 items, with several times its rows of
+noise that the 5-core drops in its first or second round, repeats and
+blank timestamps), then the port's preprocessing CLI ``rating2inter`` →
+``split`` → ``reindex-feat`` → ``encode-feat`` → ``uu-graph`` (its counts
+as products of a sparse R and dense blocks on the card and K3's top-200),
+each step timed on the host; the
+5-core against the core and a plain k-core; the user graph against the
+port's build on the CPU over 2,048 users and scipy's counts over all, K3 on
+a (2,048, 19,445) block at k = 200 against its plain version; the
+``.inter`` read back by the native parser and by ``csv`` (equal, times in
+step with the rows, both timed); the train history built by the native
+library and by numpy (equal, both timed); DualGNN/baby through ``quick_start`` from
+those files alone (no synthetic fallback), its user graph read from the
+file against ``cooccurrence_topk``; ``data_utils`` on the card
+(``ImageResize`` against the CPU, the MLM masking's shares).
+``--prep-only`` builds the kernels and runs this phase alone.
+
 The last multimodal graph models after them (``mmg_path``), the same way:
 GUME, LATTICE, MGCN (float32, then bfloat16: K5a and K5b), LGMRec, SMORE,
 PGL, SLMRec and DAMRS. LATTICE's per-step top-k of its learned
@@ -2057,6 +2076,7 @@ def graph_cf_setup(torch, dev, model_name="LightGCN", dataset="elec", overrides=
     small sizes; on a CPU device such a run skips the launch checks."""
     from types import SimpleNamespace
 
+    from genmmrec_tpu_torch import native
     from genmmrec_tpu_torch.config import Config
     from genmmrec_tpu_torch.data.arrays import build_eval_data, build_train_data
     from genmmrec_tpu_torch.data.dataset import RecDataset
@@ -2247,6 +2267,7 @@ def genrecv1_path(torch, dev, card, profile_dir=None):
     the path's shapes, two epochs of its three phases, one batch against the
     CPU with the dropout masks injected, and the evaluation in float32 and
     bfloat16. Returns (summary, kernel cases by kernel, launches)."""
+    from genmmrec_tpu_torch import native
     from genmmrec_tpu_torch.config import Config
     from genmmrec_tpu_torch.data.arrays import build_eval_data, build_train_data
     from genmmrec_tpu_torch.data.dataset import RecDataset
@@ -2865,8 +2886,8 @@ def check_user_graph(torch, model, train_ds, card):
     import numpy as np
     import scipy.sparse as sp
 
-    from genmmrec_tpu_torch.models.dualgnn import USER_GRAPH_BLOCK, build_user_graph
-    from genmmrec_tpu_torch.ops.graph import unique_ui_pairs
+    from genmmrec_tpu_torch.models.dualgnn import build_user_graph
+    from genmmrec_tpu_torch.ops.graph import USER_GRAPH_BLOCK, unique_ui_pairs
 
     users, items = unique_ui_pairs(train_ds.table.users, train_ds.table.items)
     k, n_items = model.k, model.n_items
@@ -3707,6 +3728,7 @@ MESH_TOPK_SHAPE = (4096, 50)
 def mesh_setup(torch, dev):
     """DiffMM on Amazon-baby at its published width through ``get_model``,
     one epoch: (config, train data, valid, test, model)."""
+    from genmmrec_tpu_torch import native
     from genmmrec_tpu_torch.config import Config
     from genmmrec_tpu_torch.data.arrays import build_eval_data, build_train_data
     from genmmrec_tpu_torch.data.dataset import RecDataset
@@ -3864,6 +3886,7 @@ MESH_FITS = ("MGCN", "MVDiff")
 def mesh_fit_setup(torch, dev, name):
     """``name`` on Amazon-baby at its published width through
     ``get_model``, one epoch: (config, train data, valid, model)."""
+    from genmmrec_tpu_torch import native
     from genmmrec_tpu_torch.config import Config
     from genmmrec_tpu_torch.data.arrays import build_eval_data, build_train_data
     from genmmrec_tpu_torch.data.dataset import RecDataset
@@ -4328,6 +4351,480 @@ def adjusted_rand(a, b) -> float:
     return 1.0 if top == expected else float((index - expected) / (top - expected))
 
 
+# -- the host tools: raw ratings → the preprocessing CLI → DualGNN/baby ----
+# the raw ratings' noise around the core, in rows: users with one row (gone
+# in the 5-core's first round), items with one row, users of four core items
+# and one item of their own (gone in the second round), exact repeats of
+# core rows, repeated (user, item) pairs with another rating and time after
+# the row they repeat, and rows with a blank timestamp
+PREP_ONE_OFF_USERS = 150_000
+PREP_ONE_OFF_ITEMS = 100_000
+PREP_ROUND_TWO_USERS = 20_000
+PREP_EXACT_REPEATS = 60_000
+PREP_PAIR_REPEATS = 60_000
+PREP_BLANK_TIMES = 500
+PREP_UNMAPPED_ASINS = 500
+# the users of the user graph built on both devices for its check
+PREP_CHECK_USERS = 2048
+PREP_TOP_K = 200
+
+
+def prep_raw_files(np, root, seed):
+    """The raw ratings CSV (``user,item,rating,ts``, no header, as Amazon's
+    dumps) and a gzipped meta file of Python-dict lines, from the synthetic
+    baby table topped up so that every user and item has at least 5 rows
+    (the core), and noise around it (``PREP_*``). Returns (ratings path,
+    meta path, the core rows as a set of (user, asin, rating, time),
+    summary)."""
+    from genmmrec_tpu_torch.config import Config
+    from genmmrec_tpu_torch.data.dataset import RecDataset
+
+    t0 = time.perf_counter()
+    empty = os.path.join(root, "none")
+    os.makedirs(empty, exist_ok=True)
+    ds = RecDataset(Config("DualGNN", "baby", {"data_path": empty}))
+    n_users, n_items = ds.user_num, ds.item_num
+    rng = np.random.default_rng(seed)
+    pairs = np.unique(np.stack([ds.table.users, ds.table.items], 1).astype(np.int64), axis=0)
+    have = [set() for _ in range(n_users)]
+    for u, i in pairs.tolist():
+        have[u].add(i)
+    for u in range(n_users):  # every user at least 5 items
+        while len(have[u]) < 5:
+            have[u].add(int(rng.integers(n_items)))
+    users_of = [[] for _ in range(n_items)]
+    for u in range(n_users):
+        for i in have[u]:
+            users_of[i].append(u)
+    for i in range(n_items):  # every item at least 5 users
+        while len(users_of[i]) < 5:
+            u = int(rng.integers(n_users))
+            if i not in have[u]:
+                have[u].add(i)
+                users_of[i].append(u)
+    cu = np.fromiter((u for u in range(n_users) for _ in have[u]), np.int64)
+    ci = np.fromiter((i for u in range(n_users) for i in sorted(have[u])), np.int64)
+    n_core = len(cu)
+    uname = np.array([f"A{u:013d}X" for u in range(n_users)], dtype=object)
+    iname = np.array([f"B{i:09d}" for i in range(n_items)], dtype=object)
+    rating = rng.integers(1, 6, n_core).astype(np.float64)
+    ts = 1_300_000_000 + rng.integers(0, 100_000_000, n_core)
+    rows = [list(zip(uname[cu], iname[ci], rating.tolist(), ts.tolist()))]
+    core = set(rows[0])
+    new_ts = lambda n: (1_300_000_000 + rng.integers(0, 100_000_000, n)).tolist()
+    new_r = lambda n: rng.integers(1, 6, n).astype(np.float64).tolist()
+    n = PREP_ONE_OFF_USERS
+    rows.append(list(zip((f"AX{j:012d}" for j in range(n)), iname[rng.integers(0, n_items, n)], new_r(n), new_ts(n))))
+    n = PREP_ONE_OFF_ITEMS
+    rows.append(list(zip(uname[rng.integers(0, n_users, n)], (f"BN{j:08d}" for j in range(n)), new_r(n), new_ts(n))))
+    n = PREP_ROUND_TWO_USERS
+    r2 = []
+    for j in range(n):
+        name = f"AR{j:012d}"
+        r2 += [(name, iname[i], 4.0, 1_350_000_000 + j) for i in rng.choice(n_items, 4, replace=False)]
+        r2.append((name, f"BR{j:08d}", 5.0, 1_350_000_000 + j))
+    rows.append(r2)
+    n = PREP_BLANK_TIMES
+    src = rng.integers(0, n_core, n)
+    rows.append([(uname[cu[s]], iname[ci[s]], 3.0, None) for s in src.tolist()])
+    base = [r for part in rows for r in part]
+    order = rng.permutation(len(base))
+    key = np.empty(len(base))
+    key[order] = np.arange(len(base), dtype=np.float64)
+    # the repeats, each after the core row it repeats
+    src = rng.integers(0, n_core, PREP_EXACT_REPEATS + PREP_PAIR_REPEATS)
+    after = key[src] + rng.random(len(src)) * (len(base) - key[src])
+    reps = [base[s] for s in src[:PREP_EXACT_REPEATS].tolist()]
+    m = PREP_PAIR_REPEATS
+    reps += list(zip(uname[cu[src[-m:]]], iname[ci[src[-m:]]], new_r(m), new_ts(m)))
+    allrows = base + reps
+    allkey = np.concatenate([key, after])
+    fmt = lambda r: f"{r[0]},{r[1]},{r[2]},{'' if r[3] is None else r[3]}"
+    ratings_csv = os.path.join(root, "ratings_baby.csv")
+    with open(ratings_csv, "w") as f:
+        f.write("\n".join(fmt(allrows[j]) for j in np.argsort(allkey, kind="stable").tolist()) + "\n")
+    meta = os.path.join(root, "meta_baby.json.gz")
+    import gzip
+
+    with gzip.open(meta, "wt") as f:
+        names = list(iname) + [f"BU{j:08d}" for j in range(PREP_UNMAPPED_ASINS)]
+        for j in rng.permutation(len(names)).tolist():
+            rec = {"asin": names[j]}
+            if j % 9:
+                rec["title"] = "" if j % 13 == 0 else f"baby item {j} soft {j % 17}"
+            if j % 4:
+                rec["brand"] = f"brand{j % 97}"
+            if j % 6:
+                rec["categories"] = [["Baby", f"Sub{j % 23}", f"Leaf{j % 5}"], ["Other"]]
+            if j % 5:
+                rec["description"] = "" if j % 11 == 0 else f"a description of {j}\nwith words {j % 31}"
+            f.write(repr(rec) + "\n")
+    summary = dict(
+        raw_rows=len(allrows), core_rows=n_core, core_users=n_users, core_items=n_items,
+        noise_rows=len(allrows) - n_core, write_s=time.perf_counter() - t0,
+    )
+    return ratings_csv, meta, core, summary
+
+
+def plain_kcore(path, min_u=5, min_i=5):
+    """A plain k-core of a raw ratings CSV: rows with a blank user, item or
+    time go, then exact (user, item, time) repeats, then repeated (user,
+    item) pairs (the first stays), then users and items below the floor,
+    counted in dicts, until none is left. Returns the kept rows as a set of
+    (user, item, rating, time) with numbers as floats."""
+    rows, seen_uit, seen_ui = [], set(), set()
+    with open(path) as f:
+        for line in f:
+            u, i, r, t = line.rstrip("\n").split(",")
+            if not (u and i and t) or (u, i, t) in seen_uit:
+                continue
+            seen_uit.add((u, i, t))
+            if (u, i) in seen_ui:
+                continue
+            seen_ui.add((u, i))
+            rows.append((u, i, float(r), float(t)))
+    while True:
+        cu, ci = {}, {}
+        for u, i, _, _ in rows:
+            cu[u] = cu.get(u, 0) + 1
+            ci[i] = ci.get(i, 0) + 1
+        kept = [x for x in rows if cu[x[0]] >= min_u and ci[x[1]] >= min_i]
+        if len(kept) == len(rows):
+            return set(kept)
+        rows = kept
+
+
+def check_prep_user_graph(torch, np, graph, users, items, n_users, n_items, card):
+    """The user graph file against the port's build on both devices over the
+    first PREP_CHECK_USERS users' train rows (sorted counts and the
+    neighbours above each row's least count equal), against scipy's ``M @
+    Bᵀ`` (M the (user, item) rows with multiplicity, B their 0/1 matrix) for
+    every user, and K3 on one (PREP_CHECK_USERS, n_users) block of counts at
+    k = PREP_TOP_K against its plain version."""
+    import scipy.sparse as sp
+
+    from genmmrec_tpu_torch.ops.graph import cooccurrence_topk
+    from genmmrec_tpu_torch.preprocessing import user_graph_dict
+
+    def sorted_strict(d):
+        ws, strict = [], []
+        for u in range(len(d)):
+            n, w = d[u]
+            ws.append(sorted(w, reverse=True))
+            strict.append(frozenset(a for a, b in zip(n, w) if b > min(w, default=0.0)))
+        return ws, strict
+
+    sel = users < PREP_CHECK_USERS
+    sub = [user_graph_dict(users[sel], items[sel], PREP_CHECK_USERS, n_items, PREP_TOP_K, dev) for dev in ("cuda", "cpu")]
+    if sorted_strict(sub[0]) != sorted_strict(sub[1]):
+        raise AssertionError("uu-graph: the card's build on a subset differs from the CPU's")
+    m = sp.csr_matrix((np.ones(len(users), np.float32), (users, items)), shape=(n_users, n_items))
+    m.sum_duplicates()
+    b = m.copy()
+    b.data[:] = 1.0
+    co = (m @ b.T).tocsr()
+    co.setdiag(0)
+    co.eliminate_zeros()
+    got_w, got_s = sorted_strict(graph)
+    bad = 0
+    for u in range(n_users):
+        cnt, nb = co.data[co.indptr[u] : co.indptr[u + 1]], co.indices[co.indptr[u] : co.indptr[u + 1]]
+        top = (-np.sort(-cnt)[:PREP_TOP_K]).tolist()
+        cut = top[-1] if len(top) else 0
+        if got_w[u] != top or got_s[u] != frozenset(nb[cnt > cut].tolist()):
+            bad += 1
+    if bad:
+        raise AssertionError(f"uu-graph: {bad} users' lists differ from scipy's counts")
+    full = sum(len(w) == PREP_TOP_K for w in got_w)
+    rt = torch.zeros(n_users, n_items, device="cuda")
+    u_t, i_t = torch.as_tensor(users, device="cuda"), torch.as_tensor(items, device="cuda")
+    rt[u_t, i_t] = 1.0
+    left = torch.zeros(PREP_CHECK_USERS, n_items, device="cuda")
+    s = u_t < PREP_CHECK_USERS
+    left.index_put_((u_t[s], i_t[s]), torch.ones(int(s.sum()), device="cuda"), accumulate=True)
+    block = left @ rt.T
+    rows = torch.arange(PREP_CHECK_USERS, device="cuda")
+    block[rows, rows] = 0.0
+    k3 = check_k3(torch, [("uu_graph_cooccurrence_top200", block, PREP_TOP_K, None)], card)["cases"]
+    # the whole build on the card (its blocks' sparse products and K3), and
+    # one block's product as a dense GEMM of the 0/1 matrix, for scale
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cooccurrence_topk(users, items, n_users, n_items, PREP_TOP_K, "cuda", repeats=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    dense_ms = cuda_ms(torch, lambda: left @ rt.T, iters=5, warmup=1)
+    print(
+        f"uu-graph ({n_users} users, top-{PREP_TOP_K}): against the CPU's build on {PREP_CHECK_USERS} users and scipy's "
+        f"counts on all: sorted counts and strict sets equal ({full} full rows); cooccurrence_topk on the card "
+        f"{build_s:.4f} s (host, synchronized); one block as a dense f32 GEMM {dense_ms:.3f} ms [{card}]"
+    )
+    return dict(full_rows=full, users=n_users, cooccurrence_topk_s=build_s, dense_block_gemm_ms=dense_ms), k3
+
+
+def check_prep_model_graph(torch, np, model, train_ds, card):
+    """DualGNN's user graph, read from ``user_graph_dict.npy``, against
+    ``build_user_graph`` from ``cooccurrence_topk`` on the same train rows:
+    on each user with at least k neighbours the sorted weights within 1e-6
+    and the strict sets equal; a user with fewer has them cycled from the
+    file (no zero weight), and the same set of neighbours."""
+    from genmmrec_tpu_torch.models.dualgnn import build_user_graph
+    from genmmrec_tpu_torch.ops.graph import unique_ui_pairs
+
+    users, items = unique_ui_pairs(train_ds.table.users, train_ds.table.items)
+    k = model.k
+    config = _ConfigView(model.config, {"user_graph_dict_file": "no_such_file.npy"})
+    built = build_user_graph(config, users, items, model.n_users, model.n_items, k, "cuda")
+    as_rows = lambda g: (g.cols.cpu().numpy().reshape(-1, k), g.vals.cpu().numpy().reshape(-1, k))
+    (fn, fw), (bn, bw) = as_rows(model.user_graph), as_rows(built)
+    full = (bw > 0).all(1)
+    (fws, fs), (bws, bs) = (_sorted_and_strict(np, n[full], w[full]) for n, w in ((fn, fw), (bn, bw)))
+    err = float(np.abs(fws - bws).max()) if full.any() else 0.0
+    if err > 1e-6 or fs != bs:
+        raise AssertionError(f"DualGNN's file graph differs from cooccurrence_topk's on full rows ({err:.3e})")
+    short = np.flatnonzero(~full & (bw > 0).any(1))
+    for u in short.tolist():
+        if not (fw[u] > 0).all() or set(fn[u].tolist()) != set(bn[u][bw[u] > 0].tolist()):
+            raise AssertionError(f"DualGNN's file graph: user {u} of fewer than {k} neighbours differs")
+    print(
+        f"DualGNN user graph read from user_graph_dict.npy: {int(full.sum())} full rows equal to cooccurrence_topk's "
+        f"(sorted weights within {err:.1e}, strict sets equal), {len(short)} shorter rows cycled from the file with "
+        f"the same neighbours [{card}]"
+    )
+    return dict(full_rows=int(full.sum()), short_rows=len(short), max_abs_err=err)
+
+
+class _ConfigView:
+    """A config with some keys overridden, for a build that must not read a file."""
+
+    def __init__(self, config, over):
+        self.config, self.over = config, over
+
+    def __getitem__(self, key):
+        return self.over[key] if key in self.over else self.config[key]
+
+
+def check_data_utils(torch, card):
+    """``ImageResize`` of a batch of 0–255 images on the card against the
+    CPU (shrunk and enlarged, within 1e-4 of the range; both against a
+    float64 resize) and ``mask_batch_text_tokens`` on a
+    (256, 128) batch from a card generator: the share selected within 4σ of
+    15%, the [MASK] / random / kept split within 4σ of 80/10/10, labels -100
+    exactly off the selection, special tokens never selected."""
+    import torch.nn.functional as F
+
+    from genmmrec_tpu_torch.data import data_utils as du
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    # 8-bit images on the 0–255 scale; the two devices' float32 rounding
+    # grows with the values, so the limit is relative to the range: 1e-4 of
+    # it, 0.0255 (an H100 read 3.4e-3 when enlarging, 1.3e-5 of the range; a
+    # missing antialias when shrinking is about 100)
+    imgs = torch.randint(0, 256, (16, 3, 240, 180), generator=gen, device="cuda").float()
+    limit = 1e-4 * 255
+    err, err64 = {}, {}
+    for size in (112, 400):
+        card_out = du.ImageResize(size)(imgs)
+        cpu_out = du.ImageResize(size)(imgs.cpu())
+        exact = F.interpolate(imgs.cpu().double(), size=tuple(card_out.shape[-2:]), mode="bilinear",
+                              align_corners=False, antialias=True)
+        err[size] = float((card_out.cpu() - cpu_out).abs().max())
+        err64[size] = (float((card_out.cpu().double() - exact).abs().max()), float((cpu_out.double() - exact).abs().max()))
+        if err[size] > limit or card_out.device.type != "cuda":
+            raise AssertionError(f"ImageResize({size}) on the card differs from the CPU by {err[size]:.3e}")
+    b, s, mask_id, vocab = 256, 128, 103, 30522
+    inputs = torch.randint(1000, 2000, (b, s), generator=gen, device="cuda")
+    special = torch.zeros_like(inputs)
+    special[:, 0] = special[:, -1] = 1
+    out, lab = du.mask_batch_text_tokens(inputs, mask_id, vocab, gen, special)
+    sel = lab != -100
+    n, m = b * (s - 2), int(sel.sum())
+    p = m / n
+    masked = float((out[sel] == mask_id).float().mean())
+    kept = float((out[sel] == inputs[sel]).float().mean())
+    ok = (
+        abs(p - 0.15) < 4 * (0.15 * 0.85 / n) ** 0.5
+        and abs(masked - 0.8) < 4 * (0.16 / m) ** 0.5
+        and abs(kept - 0.1) < 4 * (0.09 / m) ** 0.5 + 1.0 / vocab
+        and torch.equal(lab[sel], inputs[sel]) and torch.equal(out[~sel], inputs[~sel])
+        and not sel[:, 0].any() and not sel[:, -1].any()
+    )
+    if not ok:
+        raise AssertionError(f"mask_batch_text_tokens: share {p:.4f}, [MASK] {masked:.4f}, kept {kept:.4f}")
+    print(
+        f"data_utils on the card: ImageResize of {tuple(imgs.shape)} in 0–255 to 112 and 400 against the CPU "
+        f"within {err[112]:.1e} and {err[400]:.1e} (limit {limit:.4f}) (card, CPU against float64: {err64[112][0]:.1e}, "
+        f"{err64[112][1]:.1e}; {err64[400][0]:.1e}, {err64[400][1]:.1e}); mask_batch_text_tokens ({b}, {s}): {p:.4f} selected, {masked:.4f} [MASK], "
+        f"{kept:.4f} kept, labels -100 exactly off the selection [{card}]"
+    )
+    return dict(resize_max_abs_err=err, resize_against_float64=err64, mlm_share=p, mlm_masked=masked, mlm_kept=kept)
+
+
+def history_builds(np, users, items, n_users, n_items):
+    """The padded train history (``build_train_data``'s rows, sorted and
+    padded with ``n_items``) built by the native library and by the numpy
+    route, on these train rows and on 1.28 M uniform rows at the elec
+    geometry (192,124 × 63,001): equal, each timed on the host, the best of
+    three."""
+    from genmmrec_tpu_torch import native
+    from genmmrec_tpu_torch.data.arrays import _pad_group_matrix
+
+    def numpy_route(u, i, n_rows, pad):
+        m, lens = _pad_group_matrix(u, i, n_rows, pad)
+        return np.sort(m, axis=1), lens
+
+    rng = np.random.default_rng(SEED + 20)
+    sets = {
+        "baby": (users, items, n_users, n_items),
+        "elec_uniform": (rng.integers(0, 192_124, 1_280_000).astype(np.int32),
+                         rng.integers(0, 63_001, 1_280_000).astype(np.int32), 192_124, 63_001),
+    }
+    out = {}
+    for name, (u, i, n_rows, pad) in sets.items():
+        got, times = {}, {}
+        for route, fn in (("native", native.padded_history), ("numpy", numpy_route)):
+            best = float("inf")
+            for _ in range(3):
+                t0 = time.perf_counter()
+                got[route] = fn(u, i, n_rows, pad)
+                best = min(best, time.perf_counter() - t0)
+            times[route] = best
+        if not all(np.array_equal(a, b) for a, b in zip(got["native"], got["numpy"])):
+            raise AssertionError(f"history build, {name}: the native rows differ from numpy's")
+        out[name] = dict(rows=len(u), native_s=times["native"], numpy_s=times["numpy"])
+    print(f"prep_path train history, native against numpy (host s, best of 3; equal): {json.dumps(out)}")
+    return out
+
+
+def prep_path(torch, card):
+    """The host tools on the card (``--prep-only`` runs it alone after the
+    build): raw ratings and meta written from a seed at the Amazon-baby
+    geometry (``prep_raw_files``), the port's preprocessing CLI
+    ``rating2inter`` (5-core) → ``split`` → ``reindex-feat`` →
+    ``encode-feat`` → ``uu-graph`` on the card, each step's host seconds;
+    the 5-core against the core and a plain k-core; the user graph against
+    the CPU, scipy and K3's plain version (``check_prep_user_graph``); the
+    ``.inter`` read back by the native parser and by ``_read_inter_csv``
+    (equal, times in step with the rows, both timed); the train history
+    built natively and by numpy (``history_builds``); DualGNN/baby through
+    ``quick_start_runs`` from these files alone (no synthetic fallback),
+    its user graph read from the file (``check_prep_model_graph``);
+    ``data_utils`` on the card (``check_data_utils``). Returns (summary,
+    kernel cases by kernel, launches)."""
+    import tempfile
+
+    import numpy as np
+
+    from genmmrec_tpu_torch import native
+    from genmmrec_tpu_torch.config import Config
+    from genmmrec_tpu_torch.data.dataset import RecDataset, _read_inter_csv
+    from genmmrec_tpu_torch.preprocessing import pipeline
+    from genmmrec_tpu_torch.preprocessing.__main__ import main as prep_main
+
+    phase_t0 = time.perf_counter()
+    cases = dict(k1=[], k1_bwd=[], k3=[])
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        ratings, meta, core, out["raw"] = prep_raw_files(np, root, SEED + 18)
+        print(f"prep_path raw files: {json.dumps(out['raw'])}")
+        d = os.path.join(root, "baby")
+        steps = [
+            ("rating2inter", ["rating2inter", "--ratings", ratings, "--out", d, "--dataset", "baby"]),
+            ("split", ["split", "--inter", f"{d}/baby-indexed.inter", "--out", f"{d}/baby.inter"]),
+            ("reindex-feat", ["reindex-feat", "--meta", meta, "--mapping", f"{d}/i_id_mapping.csv", "--out", f"{d}/meta-baby.csv"]),
+            ("encode-feat", ["encode-feat", "--meta", f"{d}/meta-baby.csv", "--out", f"{d}/text_feat.npy"]),
+            ("uu-graph", ["uu-graph", "--inter", f"{d}/baby.inter", "--out", f"{d}/user_graph_dict.npy"]),
+        ]
+        step_s = {}
+        for name, argv in steps:
+            if name == "uu-graph":
+                reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prep_main(argv)
+            torch.cuda.synchronize()
+            step_s[name] = time.perf_counter() - t0
+        uu_launches = launch_counts()
+        out["step_s"] = step_s
+        print(f"prep_path CLI steps (host seconds): {json.dumps(step_s)}; uu-graph launches {json.dumps(uu_launches)} [{card}]")
+        if uu_launches["grouped_topk"] <= 0:
+            raise AssertionError("uu-graph did not launch K3")
+
+        # the 5-core: exactly the core, and a plain k-core's rows
+        inter = pipeline.read_table(f"{d}/baby-indexed.inter", "\t")
+        umap = pipeline.read_table(f"{d}/u_id_mapping.csv", "\t")
+        imap = pipeline.read_table(f"{d}/i_id_mapping.csv", "\t")
+        names_u, names_i = umap["user_id"], imap["asin"]
+        kept = set(zip(names_u[inter["userID"]].tolist(), names_i[inter["itemID"]].tolist(),
+                       inter["rating"].astype(float).tolist(), inter["timestamp"].astype(float).tolist()))
+        n_u, n_i = len(names_u), len(names_i)
+        core_f = {(u, i, float(r), float(t)) for u, i, r, t in core}
+        if (n_u, n_i) != (out["raw"]["core_users"], out["raw"]["core_items"]) or kept != core_f:
+            raise AssertionError(f"the 5-core kept {n_u} users, {n_i} items, {len(kept)} rows; the core has "
+                                 f"{out['raw']['core_users']}, {out['raw']['core_items']}, {len(core_f)}")
+        t0 = time.perf_counter()
+        plain = plain_kcore(ratings)
+        plain_s = time.perf_counter() - t0
+        if plain != kept:
+            raise AssertionError(f"the 5-core's {len(kept)} rows differ from the plain k-core's {len(plain)}")
+        if not open(f"{d}/baby-indexed.inter").readlines()[1].rstrip("\n").split("\t")[3].endswith(".0"):
+            raise AssertionError("the blank timestamps did not make the time column float, as pandas reads it")
+        print(f"prep_path 5-core: {n_u} users, {n_i} items, {len(kept)} rows: the core's rows, equal to a plain "
+              f"k-core's ({plain_s:.2f} s in dicts)")
+
+        # the user graph
+        split = pipeline.read_table(f"{d}/baby.inter", "\t")
+        train = split["x_label"] == 0
+        graph = np.load(f"{d}/user_graph_dict.npy", allow_pickle=True).item()
+        t0 = time.perf_counter()
+        out["user_graph"], k3 = check_prep_user_graph(
+            torch, np, graph, split["userID"][train], split["itemID"][train], n_u, n_i, card
+        )
+        check_s = dict(plain_kcore=plain_s, user_graph=time.perf_counter() - t0)
+        cases["k3"] += k3
+
+        # the .inter read back by both readers, and the train history built both ways
+        np.save(f"{d}/image_feat.npy", np.abs(np.random.default_rng(SEED + 19).normal(0.0, 0.3, (n_i, 4096))).astype(np.float32))
+        over = {"data_path": root, "synthetic_fallback": False}
+        config = Config("DualGNN", "baby", dict(over))
+        cols = (open(f"{d}/baby.inter").readline().rstrip("\n").split("\t"), "userID", "itemID", "x_label", "rating", "timestamp")
+        t0 = time.perf_counter()
+        nat = native.parse_inter_tsv(f"{d}/baby.inter", *cols)
+        nat_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cs = _read_inter_csv(f"{d}/baby.inter", "\t", *cols)
+        csv_s = time.perf_counter() - t0
+        for f, a, b in zip(("users", "items", "labels", "ratings", "times"), nat, cs):
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError(f".inter readers: {f} differ")
+        if not np.array_equal(nat[4], split["timestamp"]):
+            raise AssertionError(".inter readers: the times are out of step with the rows")
+        out["load_s"] = dict(native=nat_s, csv=csv_s, rows=len(nat[0]))
+        print(f"prep_path .inter read back: {len(nat[0])} rows, native {nat_s:.3f} s, csv {csv_s:.3f} s "
+              f"(host), tables, labels and times equal, times in step with the rows")
+        out["history_s"] = history_builds(np, nat[0][nat[2] == 0], nat[1][nat[2] == 0], n_u, n_i)
+        train_ds = RecDataset(config).split()[0]
+
+        # DualGNN/baby from these files
+        def after(key, r, o):
+            t0 = time.perf_counter()
+            o["user_graph_file"] = check_prep_model_graph(torch, np, r["model"], train_ds, card)
+            check_s["model_graph"] = time.perf_counter() - t0
+
+        runs = (("DualGNN_prep", "DualGNN", over, dict(max_epochs=1), MP_NEED),)
+        fit, fit_launches = quick_start_runs(torch, runs, card, "prep_path", after)
+        out["dualgnn"] = fit["DualGNN_prep"]
+        t0 = time.perf_counter()
+        out["data_utils"] = check_data_utils(torch, card)
+        check_s["data_utils"] = time.perf_counter() - t0
+        out["check_s"] = check_s
+    launches = {k: uu_launches[k] + fit_launches["DualGNN_prep"][k] for k in uu_launches}
+    out["launches"] = dict(uu_graph=uu_launches, dualgnn=fit_launches["DualGNN_prep"])
+    out["phase_s"] = time.perf_counter() - phase_t0
+    print(f"prep_path phase done in {out['phase_s']:.1f} s (checks {json.dumps(check_s)} s); launches {json.dumps(launches)}")
+    return out, cases, launches
+
+
 def main() -> int:
     import torch
 
@@ -4347,6 +4844,10 @@ def main() -> int:
     parser.add_argument(
         "--mp-only", action="store_true",
         help="only build the kernels and run the message-passing phase (mp_path), and stop",
+    )
+    parser.add_argument(
+        "--prep-only", action="store_true",
+        help="only build the kernels and run the host tools' phase (prep_path), and stop",
     )
     parser.add_argument(
         "--mmg-only", action="store_true",
@@ -4374,6 +4875,7 @@ def main() -> int:
         args.profile = os.path.abspath(args.profile)
     smoke_t0 = time.perf_counter()
 
+    from genmmrec_tpu_torch import native
     from genmmrec_tpu_torch.config import Config
     from genmmrec_tpu_torch.data.arrays import build_eval_data, build_train_data
     from genmmrec_tpu_torch.data.dataset import RecDataset
@@ -4394,6 +4896,9 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     path, build_s, log = _build.build()
     print(f"built {path} in {build_s:.1f} s")
+    t0 = time.perf_counter()
+    native.get_lib()
+    print(f"built and loaded {native.library_path()} in {time.perf_counter() - t0:.1f} s (g++)")
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
@@ -4403,6 +4908,10 @@ def main() -> int:
     if args.mp_only:
         mp, mp_cases, mp_launches = mp_path(torch, card, args.profile)
         print(json.dumps({"mp_path": dict(**mp, launches_total=mp_launches), "kernel_cases": mp_cases}))
+        return 0
+    if args.prep_only:
+        prep, prep_cases, prep_launches = prep_path(torch, card)
+        print(json.dumps({"prep_path": dict(**prep, launches_total=prep_launches), "kernel_cases": prep_cases}))
         return 0
     if args.mmg_only:
         mmg, mmg_cases, mmg_launches = mmg_path(torch, card, args.profile)
@@ -4690,6 +5199,8 @@ def main() -> int:
     cli, cli_cases, cli_launches = cli_path(torch, card)
     # -- phase 9: the message-passing models -------------------------------
     mp, mp_cases, mp_launches = mp_path(torch, card, args.profile)
+    # -- phase 9b: the host tools, raw ratings to DualGNN/baby -------------
+    prep, prep_cases, prep_launches = prep_path(torch, card)
     # -- phase 10: the last multimodal graph models ------------------------
     mmg, mmg_cases, mmg_launches = mmg_path(torch, card, args.profile)
     # -- phase 11: the diffusion recommenders ------------------------------
@@ -4698,14 +5209,14 @@ def main() -> int:
     rfp, rf_cases, rf_launches = rf_path(torch, card, args.profile)
     # -- phase 13: the multi-device layer ------------------------------------
     mesh, mesh_cases, mesh_launches = mesh_path(torch, card)
-    for cs in (cli_cases, mp_cases, mmg_cases, diff_cases, rf_cases, mesh_cases):
+    for cs in (cli_cases, mp_cases, prep_cases, mmg_cases, diff_cases, rf_cases, mesh_cases):
         k1["cases"] += cs["k1"]
         k1_bwd["cases"] += cs["k1_bwd"]
         k3["cases"] += cs["k3"]
 
     launches = {
         k: serving_launches[k] + switched_launches[k] + bf16_launches[k] + training_launches[k] + wide_launches[k]
-        + elec_launches[k] + genrec_launches[k] + cli_launches[k] + mp_launches[k] + mmg_launches[k]
+        + elec_launches[k] + genrec_launches[k] + cli_launches[k] + mp_launches[k] + prep_launches[k] + mmg_launches[k]
         + diff_launches[k] + rf_launches[k] + mesh_launches[k]
         for k in serving_launches
     }
@@ -4770,6 +5281,7 @@ def main() -> int:
         launches_lightgcn_baby_d192=wide_calls, lightgcn_elec=elec_res, launches_lightgcn_elec=elec_calls,
         genrecv1_baby=dict(**genrec, launches_total=genrec_launches),
         cli=dict(**cli, launches_total=cli_launches), mp_path=dict(**mp, launches_total=mp_launches),
+        prep_path=dict(**prep, launches_total=prep_launches),
         mmg_path=dict(**mmg, launches_total=mmg_launches), diff_path=dict(**diff, launches_total=diff_launches),
         rf_path=dict(**rfp, launches_total=rf_launches),
         mesh_path=dict(**mesh, launches_total=mesh_launches),

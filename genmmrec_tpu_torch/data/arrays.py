@@ -17,18 +17,25 @@ with numpy and moved to the device:
 from __future__ import annotations
 
 import dataclasses
+from logging import getLogger
 from typing import Optional
 
 import numpy as np
 import torch
 
+from genmmrec_tpu_torch import native
 from genmmrec_tpu_torch.data.dataset import RecDataset
 
 
 def _pad_group_matrix(
     ids: np.ndarray, values: np.ndarray, n_rows: int, pad_value: int, sort_rows=False
 ):
-    """Group ``values`` by ``ids`` into a dense (n_rows, max_len) matrix."""
+    """Group ``values`` by ``ids`` into a dense (n_rows, max_len) matrix.
+    Sorted rows come from the native library when it can be built."""
+    if sort_rows:
+        if native.get_lib() is not None:
+            return native.padded_history(ids, values, n_rows, pad_value)
+        getLogger().warning("no g++ for the native history build; grouping with numpy")
     order = np.argsort(ids, kind="stable")
     ids_s, vals_s = ids[order], values[order]
     counts = np.bincount(ids_s, minlength=n_rows)

@@ -6,7 +6,9 @@ timestamp); ``n_users``/``n_items`` are ``max id + 1``; ``split()``
 partitions on ``x_label`` ∈ {0: train, 1: valid, 2: test} and optionally
 drops valid/test users unseen in train.
 
-The file is read with the ``csv`` module. When it is absent and
+A tab-separated file is read by the port's native parser
+(``genmmrec_tpu_torch/native``), any other by the ``csv`` module; both
+give the same table. When the file is absent and
 ``synthetic_fallback`` is set, the same deterministic synthetic dataset as
 the JAX package's is generated: the same numpy code and seed, so the two
 packages see bit-identical tables.
@@ -22,6 +24,8 @@ from logging import getLogger
 from typing import Optional
 
 import numpy as np
+
+from genmmrec_tpu_torch import native
 
 
 @dataclass
@@ -47,6 +51,37 @@ class InterTable:
             ratings=self.ratings[keep] if self.ratings is not None else None,
             times=self.times[keep] if self.times is not None else None,
         )
+
+
+def _number(x: str) -> float:
+    try:
+        return float(x)
+    except ValueError:
+        return float("nan")
+
+
+def _read_inter_csv(path, sep, header, uid_field, iid_field, label_field, rating_field=None, time_field=None):
+    """The ``csv`` route of ``RecDataset._load_inter``, with the native
+    parser's rules: (users, items, labels, ratings or None, times or None)."""
+    with open(path, "r", newline="", encoding="utf-8") as f:
+        reader = csv.reader(f, delimiter=sep)
+        next(reader, None)
+        rows = [r for r in reader if r]
+    col = {name: i for i, name in enumerate(header)}
+
+    def column(name):
+        i = col[name]
+        return np.array([_number(r[i]) if i < len(r) else np.nan for r in rows], np.float64)
+
+    u, it = column(uid_field), column(iid_field)
+    keep = np.isfinite(u) & np.isfinite(it)
+    keep[keep] = (u[keep] > -1) & (it[keep] > -1)
+    labels = column(label_field)[keep]
+    labels = np.where(np.isfinite(labels), labels, 0)
+    ratings = column(rating_field)[keep].astype(np.float32) if rating_field else None
+    times = column(time_field)[keep] if time_field else None
+    as_i32 = lambda a: np.trunc(a).astype(np.int32)
+    return as_i32(u[keep]), as_i32(it[keep]), as_i32(labels), ratings, times
 
 
 class RecDataset:
@@ -88,36 +123,28 @@ class RecDataset:
         self.table.n_items = self.item_num
 
     def _load_inter(self, inter_file: str) -> None:
-        rating_field = self.config["RATING_FIELD"]
-        time_field = self.config["TIME_FIELD"]
+        """Read the ``.inter`` file: a tab-separated one by the native parser,
+        any other separator by the ``csv`` module (``_read_inter_csv``). Both
+        give the same table and labels: blank lines are no rows, a row with a
+        negative or empty user or item id is dropped whole (its time too), an
+        empty rating or time is NaN."""
         sep = self.config["field_separator"] or "\t"
         with open(inter_file, "r", newline="", encoding="utf-8") as f:
-            reader = csv.reader(f, delimiter=sep)
-            header = next(reader)
-            # a blank line yields an empty row; the JAX loader skips it
-            rows = [r for r in reader if r]
-        col = {name: i for i, name in enumerate(header)}
-        missing = [
-            c for c in (self.uid_field, self.iid_field, self.splitting_label) if c not in col
-        ]
+            header = next(csv.reader(f, delimiter=sep), [])
+        missing = [c for c in (self.uid_field, self.iid_field, self.splitting_label) if c not in header]
         if missing:
-            raise ValueError(
-                f"File {inter_file} lost some required columns: {', '.join(missing)}."
-            )
-
-        def column(name, dtype):
-            i = col[name]
-            return np.array([float(r[i]) for r in rows], np.float64).astype(dtype)
-
-        self.table = InterTable(
-            users=column(self.uid_field, np.int32),
-            items=column(self.iid_field, np.int32),
-            n_users=0,
-            n_items=0,
-            ratings=column(rating_field, np.float32) if rating_field in col else None,
-            times=column(time_field, np.float64) if time_field in col else None,
-        )
-        self.labels = column(self.splitting_label, np.int32)
+            raise ValueError(f"File {inter_file} lost some required columns: {', '.join(missing)}.")
+        rating_field = self.config["RATING_FIELD"] if self.config["RATING_FIELD"] in header else None
+        time_field = self.config["TIME_FIELD"] if self.config["TIME_FIELD"] in header else None
+        cols = (header, self.uid_field, self.iid_field, self.splitting_label, rating_field, time_field)
+        if sep == "\t" and native.get_lib() is not None:
+            users, items, labels, ratings, times = native.parse_inter_tsv(inter_file, *cols)
+        else:
+            if sep == "\t":
+                self.logger.warning("no g++ for the native .inter parser; reading %s with csv", inter_file)
+            users, items, labels, ratings, times = _read_inter_csv(inter_file, sep, *cols)
+        self.table = InterTable(users=users, items=items, n_users=0, n_items=0, ratings=ratings, times=times)
+        self.labels = labels
 
     def _generate_synthetic(self) -> None:
         """Zipf-like item popularity, log-normal user activity, 80/10/10

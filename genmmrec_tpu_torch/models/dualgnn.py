@@ -37,14 +37,8 @@ from genmmrec_tpu_torch.common.init import init_linear, kaiming_uniform_default,
 from genmmrec_tpu_torch.common.losses import bpr_loss, row_mean, table_share
 from genmmrec_tpu_torch.common.norm import l2n
 from genmmrec_tpu_torch.models.base import RecModel, scalar
-from genmmrec_tpu_torch.ops.graph import SparseGraph, sorted_graph, spmm, unique_ui_pairs
+from genmmrec_tpu_torch.ops.graph import SparseGraph, cooccurrence_topk, sorted_graph, spmm, unique_ui_pairs
 from genmmrec_tpu_torch.ops.mp import degree, message_graph, propagate, sort_edges_by_dst
-from genmmrec_tpu_torch.ops.precision import full_precision_matmuls
-from genmmrec_tpu_torch.ops.topk import grouped_topk
-
-# the rows of R of one co-occurrence block
-USER_GRAPH_BLOCK = 2048
-
 
 def _neighbours_from_file(path: str, n_users: int, k: int):
     """The file's (nbrs, counts) of each user, cut or cycled to k; -inf
@@ -63,25 +57,6 @@ def _neighbours_from_file(path: str, n_users: int, k: int):
         nbrs[u] = ns
         wts[u] = ws
     return nbrs, wts
-
-
-def cooccurrence_topk(users, items, n_users: int, n_items: int, k: int, device):
-    """Each user's k users of most shared items, on ``device``: (nbrs (U, k)
-    int64, counts (U, k) float64, -inf where the count is 0), counts
-    descending, ties to the lower user id (K3's order)."""
-    full_precision_matmuls()
-    r = torch.zeros(n_users, n_items, device=device)
-    r[torch.as_tensor(users, device=device).long(), torch.as_tensor(items, device=device).long()] = 1.0
-    nbrs, wts = [], []
-    for lo in range(0, n_users, USER_GRAPH_BLOCK):
-        # 0/1 entries: every count is an integer far below 2^24, exact in float32
-        co = r[lo : lo + USER_GRAPH_BLOCK] @ r.T
-        rows = torch.arange(co.shape[0], device=device)
-        co[rows, rows + lo] = 0.0
-        v, i = grouped_topk(co, k)
-        nbrs.append(i)
-        wts.append(torch.where(v > 0, v.to(torch.float64), -torch.inf))
-    return torch.cat(nbrs), torch.cat(wts)
 
 
 def build_user_graph(config, users, items, n_users: int, n_items: int, k: int, device) -> SparseGraph:

@@ -25,7 +25,9 @@ DiffMM and GenRecV1 (``regenerated_ui_graph``, its stand-in before the
 first regeneration ``placeholder_ui_graph``), and LATTICE's dense KNN
 planes (``build_sim``, ``knn_graph_dense``, ``norm_laplacian_dense``),
 whose top-k is K3's on the detached plane and whose values carry the
-gradient.
+gradient, and the user co-occurrence lists of DualGNN and of the
+preprocessing's user graph (``cooccurrence_topk``: count blocks from the
+sparse interaction matrix and K3's top-k).
 """
 
 from __future__ import annotations
@@ -225,6 +227,46 @@ def unique_ui_pairs(users: np.ndarray, items: np.ndarray):
     """Deduplicated (user, item) interaction pairs, sorted by (user, item)."""
     pairs = np.unique(np.stack([users.astype(np.int64), items.astype(np.int64)], axis=1), axis=0)
     return pairs[:, 0], pairs[:, 1]
+
+
+# the left rows of one co-occurrence block
+USER_GRAPH_BLOCK = 2048
+
+
+def cooccurrence_topk(users, items, n_users: int, n_items: int, k: int, device, repeats: bool = False):
+    """Each user's k users of most shared items, on ``device``: (nbrs (U, k)
+    int64, counts (U, k) float64, -inf where the count is 0), counts
+    descending, ties to the lower user id (K3's order). The counts are
+    blocks of ``USER_GRAPH_BLOCK`` rows of ``L @ Rᵀ``, the diagonal zeroed:
+    R is the 0/1 user-item matrix, kept sparse (a product of sparse R and
+    the block's dense Lᵀ), and L is R too or, with ``repeats``, the count of
+    each (user, item) row, so that a user's repeated rows count once each on
+    its own side and once on the other's. A block's planes hold (n_items +
+    2 n_users) × ``USER_GRAPH_BLOCK`` float32s: 0.38 GB at baby, 3.7 GB at
+    elec."""
+    full_precision_matmuls()
+    u = torch.as_tensor(users, device=device).long()
+    i = torch.as_tensor(items, device=device).long()
+    pairs = torch.unique(u * n_items + i)
+    r = torch.sparse_coo_tensor(
+        torch.stack([pairs // n_items, pairs % n_items]), torch.ones(len(pairs), device=device),
+        (n_users, n_items), is_coalesced=True, check_invariants=True,
+    )
+    nbrs, wts = [], []
+    for lo in range(0, n_users, USER_GRAPH_BLOCK):
+        hi = min(lo + USER_GRAPH_BLOCK, n_users)
+        sel = (u >= lo) & (u < hi)
+        left_t = torch.zeros(n_items, hi - lo, device=device)
+        ones = torch.ones(1, device=device).expand(int(sel.sum()))
+        left_t.index_put_((i[sel], u[sel] - lo), ones, accumulate=repeats)
+        # integer counts far below 2^24, exact in float32
+        co = (r @ left_t).T.contiguous()
+        rows = torch.arange(hi - lo, device=device)
+        co[rows, rows + lo] = 0.0
+        v, idx = grouped_topk(co, k)
+        nbrs.append(idx)
+        wts.append(torch.where(v > 0, v.to(torch.float64), -torch.inf))
+    return torch.cat(nbrs), torch.cat(wts)
 
 
 class SampledUIGraph:
