@@ -8,6 +8,7 @@
     python3 chip_smoke.py --diff-only [--profile DIR]
     python3 chip_smoke.py --rf-only [--profile DIR]
     python3 chip_smoke.py --mesh-only
+    python3 chip_smoke.py --elec-only [--profile DIR]
 
 Drives DiffMM, GenRecV1 and LightGCN at full width, parameters from a
 seeded generator.
@@ -38,6 +39,24 @@ propagations run K2 forward and backward on the 255,404-row adjacency, then
 evaluate(valid) three ways: float32 (K3), float32 with
 ``GENMMREC_PALLAS_TOPK`` set (the two-stage route, K4) and bfloat16 (the
 fused route, K5); one batch against the CPU.
+
+DiffRec, LD4MRec, GenRecV1 and DiffMM at the Amazon-elec tier after it
+(``elec_path``), on the same interactions and the tier's seeded features,
+each through ``get_model`` and ``get_trainer`` at its published YAML: the
+set-up timed apart (LD4MRec's ``svds`` of R, GenRecV1's two KNN graphs
+over 63,001 items and its clustering), one epoch of every phase (GenRecV1's
+and DiffMM's phase 3 cut to ``ELEC_PHASE3_BATCHES`` of its 627 batches by a
+batch plan; their denoisers' phase and the regeneration whole) and
+evaluate(valid) and evaluate(test) in float32, with finite losses and
+metrics and no train positive in a top-50; K3 on GenRecV1's KNN block
+(8,192 x 63,001, k = 10) and regeneration planes (k = 5 and 10) and on
+DiffMM's top-1 plane, K1 on both KNN graphs and R (192,403 rows), K2 on
+GenRecV1's generated graph and DiffMM's two modal graphs (255,404 rows)
+and K2's backward on one, each against its plain version; DiffMM's
+``remat_gcn`` on at elec, one batch with remat on against remat off (the
+loss equal, the gradients within the card-vs-CPU bound, both peak
+memories) and one batch against the CPU. ``--elec-only`` builds the
+kernels and runs this phase alone.
 
 LightGCN at embedding width 192 on the DiffMM paths' baby data, wider than
 the fused kernels: evaluate(valid) in float32 and in bfloat16, which takes
@@ -1676,6 +1695,22 @@ def batch_optimizers(model, trainer):
     return opts
 
 
+def seeded_batch(torch, trainer, td, seed):
+    """One training batch of the trainer's size from a seeded permutation of
+    the interactions, its negatives drawn, the last eighth padding weighted
+    0 (as the epoch's last batch has)."""
+    from genmmrec_tpu_torch.data.arrays import sample_negatives
+
+    gen = torch.Generator(device=td.device).manual_seed(seed)
+    B = trainer.train_batch_size
+    idx = torch.randperm(td.n_inter, generator=gen, device=td.device)[:B]
+    users, pos = td.users[idx], td.items[idx]
+    neg = sample_negatives(users, td.hist, td.item_pool, td.n_pool, trainer.neg_rounds, gen)
+    weight = torch.ones(B, device=td.device)
+    weight[-B // 8 :] = 0.0
+    return {"users": users, "pos": pos, "neg": neg, "weight": weight}
+
+
 def check_batch_against_cpu(
     torch, trainer, td, train_ds, config, card, loss_kwargs=None, zero_grads=None, card_graphs=(), replay_branches=False,
     card_tensors=(), replay_topk=False, groups=("rec",), step=False, card_derived=(),
@@ -1720,18 +1755,12 @@ def check_batch_against_cpu(
     rounding difference). Such an entry must lie within FLIP_RTOL of its
     tensor's largest magnitude on both devices, and such entries may be at
     most FLIP_SHARE of all."""
-    from genmmrec_tpu_torch.data.arrays import build_train_data, sample_negatives
+    from genmmrec_tpu_torch.data.arrays import build_train_data
     from genmmrec_tpu_torch.ops.graph import SparseGraph
 
-    model, dev, cpu = trainer.model, td.device, torch.device("cpu")
-    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    model, cpu = trainer.model, torch.device("cpu")
     B = trainer.train_batch_size
-    idx = torch.randperm(td.n_inter, generator=gen, device=dev)[:B]
-    users, pos = td.users[idx], td.items[idx]
-    neg = sample_negatives(users, td.hist, td.item_pool, td.n_pool, trainer.neg_rounds, gen)
-    weight = torch.ones(B, device=dev)
-    weight[-B // 8 :] = 0.0  # a padded tail, as the epoch's last batch has
-    batch = {"users": users, "pos": pos, "neg": neg, "weight": weight}
+    batch = seeded_batch(torch, trainer, td, SEED + 2)
     cpu_model = type(model)(config, build_train_data(train_ds, cpu))
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     cpu_state = {k: g.to(cpu) if hasattr(g, "to") else g for k, g in trainer.state.items()}
@@ -2068,12 +2097,64 @@ def synthetic_tables(config, seed: int):
     ]
 
 
-def graph_cf_setup(torch, dev, model_name="LightGCN", dataset="elec", overrides=None):
+def generate_once():
+    """Make ``RecDataset``'s synthetic generator run once for each tier's
+    sizes in this process: its table and labels are kept, and every later
+    ``RecDataset`` of the same name and sizes takes copies of them. The
+    generator is deterministic, so the copies are its tables; its per-user
+    loop takes seconds at baby, and the paths build baby's data set some
+    sixty times. Returns the kept tables by (name, users, items,
+    interactions)."""
+    from genmmrec_tpu_torch.data.dataset import InterTable, RecDataset
+
+    generate, kept = RecDataset._generate_synthetic, {}
+
+    def once(self):
+        key = (self.dataset_name, *(self.config[f"synthetic_n_{k}"] for k in ("users", "items", "inters")))
+        if key not in kept:
+            generate(self)
+            kept[key] = (self.table, self.labels)
+        t, labels = kept[key]
+        self.table = InterTable(t.users.copy(), t.items.copy(), t.n_users, t.n_items, times=t.times.copy())
+        self.labels = labels.copy()
+
+    RecDataset._generate_synthetic = once
+    return kept
+
+
+def elec_data(torch, dev, dataset="elec", overrides=None):
+    """One data set of a tier's sizes for the elec phases: ``synthetic_tables``
+    (drawn in bulk), the train and eval data on ``dev``, the group masks,
+    and a dict that the trainers share as their packed-mask cache."""
+    from types import SimpleNamespace
+
+    from genmmrec_tpu_torch.config import Config
+    from genmmrec_tpu_torch.data.arrays import build_eval_data, build_train_data
+    from genmmrec_tpu_torch.data.dataset import RecDataset
+    from genmmrec_tpu_torch.engine.evaluator import group_masks
+
+    t0 = time.perf_counter()
+    over = {"save_recommended_topk": False, **(overrides or {})}
+    config = Config("DiffMM", dataset, over)
+    train_ds, valid_ds, test_ds = (RecDataset(config, t) for t in synthetic_tables(config, SEED))
+    eval_bs = int(config["eval_batch_size"])
+    td = build_train_data(train_ds, dev)
+    vd = build_eval_data(valid_ds, train_ds, eval_bs, dev)
+    ted = build_eval_data(test_ds, train_ds, eval_bs, dev)
+    return SimpleNamespace(
+        dataset=dataset, overrides=over, config=config, train_ds=train_ds, valid_ds=valid_ds, test_ds=test_ds, td=td, vd=vd,
+        ted=ted, pop_warm=group_masks(train_ds, dev), masks={}, data_s=time.perf_counter() - t0,
+    )
+
+
+def graph_cf_setup(torch, dev, model_name="LightGCN", dataset="elec", overrides=None, data=None):
     """A graph-CF model at a dataset tier's full width: synthetic tables of
-    the tier's sizes, ``get_model``, parameters from the seeded generator,
-    the trainer with its batch plan, and the valid split's packed mask.
-    ``overrides`` change the config, for a dry run of the control flow at
-    small sizes; on a CPU device such a run skips the launch checks."""
+    the tier's sizes (or ``data``, an ``elec_data`` of the same tier, whose
+    packed masks the trainer shares), ``get_model``, parameters from the
+    seeded generator, the trainer with its batch plan, and the valid split's
+    packed mask. ``overrides`` change the config, for a dry run of the
+    control flow at small sizes; on a CPU device such a run skips the launch
+    checks."""
     from types import SimpleNamespace
 
     from genmmrec_tpu_torch import native
@@ -2086,13 +2167,18 @@ def graph_cf_setup(torch, dev, model_name="LightGCN", dataset="elec", overrides=
     t0 = time.perf_counter()
     over = {"save_recommended_topk": False, "n_layers": 2, **(overrides or {})}
     config = Config(model_name, dataset, over)
-    train_ds, valid_ds, _ = (RecDataset(config, t) for t in synthetic_tables(config, SEED))
     eval_bs = int(config["eval_batch_size"])
-    td = build_train_data(train_ds, dev)
-    vd = build_eval_data(valid_ds, train_ds, eval_bs, dev)
+    if data is None:
+        train_ds, valid_ds, _ = (RecDataset(config, t) for t in synthetic_tables(config, SEED))
+        td = build_train_data(train_ds, dev)
+        vd = build_eval_data(valid_ds, train_ds, eval_bs, dev)
+    else:
+        train_ds, td, vd = data.train_ds, data.td, data.vd
     model = get_model(model_name)(config, td)
     model.init_params(torch.Generator(device=dev).manual_seed(SEED))
     trainer = Trainer(config, model)
+    if data is not None:
+        trainer._mask_cache = data.masks
     trainer._build_train_step(td)
     mask = trainer._dense_mask(vd)  # built once per eval set
     g = model.norm_adj
@@ -4825,6 +4911,312 @@ def prep_path(torch, card):
     return out, cases, launches
 
 
+# the elec path's models, in the order it drives them (scripts/elec_scale_torch.py's)
+ELEC_MODELS = ("DiffRec", "LD4MRec", "GenRecV1", "DiffMM")
+# of GenRecV1's and DiffMM's 627 phase-3 batches (the BPR + InfoNCE epoch)
+# at elec, elec_path runs this many by a smoke-side batch plan; their phases 1
+# and 2 (the regeneration builds whole graphs), DiffRec's and LD4MRec's
+# epochs and every evaluation run whole. scripts/elec_scale_torch.py runs
+# the whole epochs.
+ELEC_PHASE3_BATCHES = 60
+# the kernels each model's drive must launch, and must not
+ELEC_NEED = {
+    "DiffRec": (("grouped_topk",), K1_BOTH + ("segment_spmm_blocked",)),
+    "LD4MRec": (("grouped_topk",), K1_BOTH + ("segment_spmm_blocked",)),
+    "GenRecV1": (
+        ("grouped_topk", "segment_spmm_blocked", "segment_spmm_blocked_backward") + K1_BOTH, ("fused_group_max",)
+    ),
+    "DiffMM": (("grouped_topk", "segment_spmm_blocked", "segment_spmm_blocked_backward"), K1_BOTH),
+}
+
+
+def check_remat(torch, trainer, td, card):
+    """One DiffMM BPR batch on the card with ``remat`` on (the elec default)
+    and off: the loss equal (the forward is the same), every ``rec``
+    gradient within GRAD_RTOL of its magnitude plus GRAD_ATOL of its
+    tensor's largest (the backward's scatters add in another order), and
+    each run's peak memory over what was allocated before it and its time
+    (the second of two runs)."""
+    model = trainer.model
+    batch = seeded_batch(torch, trainer, td, SEED + 7)
+    names = [n for n, p in model.named_parameters() if any(p is q for q in model.param_groups()["rec"])]
+    params = dict(model.named_parameters())
+    runs = {}
+    for remat in (True, False):
+        model.remat = remat
+        for _ in range(2):
+            model.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            with torch.enable_grad():
+                total, _ = model.loss(trainer.state, batch)
+                total.backward()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+        runs[remat] = dict(loss=total.item(), grads={n: params[n].grad.detach().clone() for n in names},
+                           peak_gb=peak / 2**30, ms=wall * 1e3)
+    model.remat = True
+    model.zero_grad(set_to_none=True)
+    on, off = runs[True], runs[False]
+    share = {}
+    for n in names:
+        ref, got = off["grads"][n], on["grads"][n]
+        bound = GRAD_RTOL * ref.abs() + GRAD_ATOL * ref.abs().max()
+        share[n] = float(((got - ref).abs() / bound.clamp(min=1e-30)).max())
+    print(
+        f"DiffMM/elec one BPR batch, remat on vs off: loss {on['loss']:.7f} vs {off['loss']:.7f}; rec gradients, "
+        f"largest share of the bound ({GRAD_RTOL:.0e} of each entry + {GRAD_ATOL:.0e} of its tensor's largest) "
+        f"{json.dumps({k: round(v, 4) for k, v in share.items()})}; peak memory over the allocated "
+        f"{on['peak_gb']:.3f} GB on vs {off['peak_gb']:.3f} GB off; batch (forward + backward) {on['ms']:.1f} ms on "
+        f"vs {off['ms']:.1f} ms off [{card}]"
+    )
+    if on["loss"] != off["loss"] or not math.isfinite(on["loss"]):
+        raise AssertionError(f"DiffMM remat: loss {on['loss']} with remat, {off['loss']} without")
+    bad = [n for n, v in share.items() if not v <= 1.0]
+    if bad:
+        raise AssertionError(f"DiffMM remat: rec gradients with and without remat differ: {bad}")
+    for n in names:
+        del on["grads"][n], off["grads"][n]
+    return dict(loss=on["loss"], grad_bound_share=max(share.values()), peak_gb_remat=on["peak_gb"],
+                peak_gb_no_remat=off["peak_gb"], ms_remat=on["ms"], ms_no_remat=off["ms"])
+
+
+def graph_facts(**graphs) -> dict:
+    """Each named graph's rows, nnz, longest row and kernel (K1 or K2)."""
+    return {
+        name: dict(n_rows=g.n_rows, nnz=g.nnz, longest_row=int((g.row_ptr[1:] - g.row_ptr[:-1]).max()),
+                   kernel="K2" if g.blocked else "K1")
+        for name, g in graphs.items()
+    }
+
+
+def elec_path(torch, dev, card, data=None, profile_dir=None):
+    """DiffRec, LD4MRec, GenRecV1 and DiffMM at the Amazon-elec tier
+    (192,403 users x 63,001 items) through ``get_model`` and
+    ``get_trainer``, on one data set (``synthetic_tables``, drawn in bulk)
+    and the tier's seeded features (drawn once for the three multimodal
+    models). For each model: the set-up timed apart (LD4MRec's ``svds``,
+    GenRecV1's KNN graphs and clustering in it), one epoch of every phase
+    (phase 3 of GenRecV1 and DiffMM cut to ``ELEC_PHASE3_BATCHES`` by a
+    batch plan), ``evaluate`` of valid and test in float32; losses and
+    metrics finite, no train positive in any top-50, the launches of each
+    drive. On the card, after each drive, K1, K2 and K3 against their plain
+    versions at its shapes: GenRecV1's KNN block (8,192 x 63,001, k = 10),
+    regeneration planes (k = 5 and 10), both KNN graphs, R and its
+    generated graph; DiffMM's top-1 plane, both modal graphs and K2's
+    backward on one; DiffMM's remat on at elec, one batch with remat on
+    against off, and one batch against the CPU.
+    ``data`` is the ``elec_data`` to drive (built here when None; another
+    tier's gives a dry run of the control flow at a small size on the CPU,
+    where the kernel and launch checks are skipped). Returns (summary,
+    kernel cases by kernel, launches of the four drives)."""
+    from genmmrec_tpu_torch.config import Config
+    from genmmrec_tpu_torch.data.arrays import interaction_vectors
+    from genmmrec_tpu_torch.engine.trainer import get_trainer
+    from genmmrec_tpu_torch.models import base as model_base
+    from genmmrec_tpu_torch.models import get_model
+    from genmmrec_tpu_torch.ops.graph import KNN_BLOCK
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    out, launches = {}, {}
+    cases = dict(k1=[], k1_bwd=[], k2=[], k2_bwd=[], k3=[])
+    path_t0 = time.perf_counter()
+
+    # -- (a) one data set and one feature draw for the four models ----------
+    data = data or elec_data(torch, dev)
+    dataset, train_ds, td, vd, ted = data.dataset, data.train_ds, data.td, data.vd, data.ted
+    over = data.overrides
+    out["data_s"] = data.data_s
+    t0 = time.perf_counter()
+    feats = model_base.load_modal_features(data.config, td.n_items)
+    out["features_s"] = time.perf_counter() - t0
+    print(
+        f"set-up: elec_path data {dataset} users={td.n_users} items={td.n_items} train_inters={td.n_inter} "
+        f"valid_users={vd.n_users_eval} test_users={ted.n_users_eval} in {out['data_s']:.1f} s (host, tables "
+        f"drawn in bulk); the tier's features {tuple(feats[0].shape)} + {tuple(feats[1].shape)} in "
+        f"{out['features_s']:.1f} s (host) [{card}]"
+    )
+
+    loader = model_base.load_modal_features
+    model_base.load_modal_features = lambda config, n_items: feats
+    try:
+        for name in ELEC_MODELS:
+            res = {}
+            config = Config(name, dataset, over)
+            config["pop_mask"], config["warm_mask"] = data.pop_warm
+
+            def timed(label, fn):
+                sync()
+                t0 = time.perf_counter()
+                value = fn()
+                sync()
+                res[f"{label}_s"] = time.perf_counter() - t0
+                return value
+
+            # -- set-up ----------------------------------------------------
+            reset_counts()
+            model = timed("setup_model", lambda: get_model(name)(config, td))
+            model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+            trainer = timed("setup_trainer", lambda: get_trainer(name)(config, model))
+            trainer._mask_cache = data.masks  # shared: built once for each eval set
+            trainer._build_train_step(td)
+            if len(data.masks) < 2:
+                timed("packed_masks", lambda: (trainer._dense_mask(vd), trainer._dense_mask(ted)))
+            # -- one epoch of every phase -----------------------------------
+            B = trainer.train_batch_size
+            prelude = hasattr(trainer, "_diffusion_epoch")
+            if prelude:
+                gen = trainer.split("epoch", 0, "prelude")
+                losses = timed("phase1", lambda: trainer._diffusion_epoch(gen).cpu())
+                res["phase1_batches"] = losses.shape[0]
+                res["phase1_loss"] = trainer._loss_log(losses)
+                timed("phase2", lambda: trainer.regenerate(gen))
+                gen = trainer.split("epoch", 0, "train")
+                perm = torch.randperm(trainer._num_batches * B, generator=gen, device=dev).reshape(-1, B)
+                plan = {"idx": perm[:ELEC_PHASE3_BATCHES]}
+                losses = timed("phase3", lambda: trainer._train_epoch(gen, plan=plan).cpu())
+            else:
+                losses = timed("epoch", lambda: trainer._train_epoch(trainer.split("epoch", 0, "train")).cpu())
+            res.update(batches=losses.shape[0], of_batches=trainer._num_batches,
+                       loss_first=float(losses[0, 0]), loss_last=float(losses[-1, 0]))
+            finite = bool(torch.isfinite(losses).all()) and all(
+                math.isfinite(v) for v in res.get("phase1_loss", {}).values())
+            if not finite:
+                raise AssertionError(f"{name}/elec: a training loss is not finite: {res}")
+            # -- evaluate(valid), evaluate(test) in float32 -----------------
+            for split, ed, is_test in (("valid", vd, False), ("test", ted, True)):
+                top = timed(f"eval_{split}_topk", lambda: trainer.eval_topk(ed))
+                got = timed(f"eval_{split}_metrics", lambda: trainer.evaluator.evaluate(
+                    top, ed, pop_mask=trainer.pop_mask, warm_mask=trainer.warm_mask if is_test else None,
+                    is_test=is_test,
+                ))
+                res[f"eval_{split}_s"] = res.pop(f"eval_{split}_topk_s") + res.pop(f"eval_{split}_metrics_s")
+                bad = [k for k, v in got.items() if not math.isfinite(v)]
+                if bad:
+                    raise AssertionError(f"{name}/elec {split}: non-finite metrics {bad}")
+                mask = trainer._dense_mask(ed)
+                listed = (mask.gather(1, top >> 3) >> (top & 7).to(torch.uint8)) & 1
+                if top.min().item() < 0 or listed[ed.valid].any():
+                    raise AssertionError(f"{name}/elec {split}: a pad entry or a train positive is in the top-50")
+                res[split] = got
+            launches[name] = launch_counts()
+            if on_card:
+                need, stray = ELEC_NEED[name]
+                missing = [k for k in need if launches[name][k] <= 0]
+                extra = [k for k in stray if launches[name][k] > 0]
+                if missing or extra:
+                    raise AssertionError(f"{name}/elec: not launched {missing}, stray {extra}: {launches[name]}")
+            phases = (
+                f"phase 1 {res['phase1_s']:.2f} s ({res['phase1_batches']} batches, loss "
+                f"{json.dumps({k: round(v, 4) for k, v in res['phase1_loss'].items()})}), phase 2 (regenerate) "
+                f"{res['phase2_s']:.2f} s, phase 3 {res['phase3_s']:.2f} s"
+                if prelude else f"epoch {res['epoch_s']:.2f} s"
+            )
+            print(
+                f"elec_path {name}: set-up model {res['setup_model_s']:.2f} s + trainer {res['setup_trainer_s']:.2f} s"
+                f"{'; packed masks %.2f s' % res['packed_masks_s'] if 'packed_masks_s' in res else ''}; {phases} "
+                f"({res['batches']} of {res['of_batches']} batches of {B}, loss first {res['loss_first']:.5f} last "
+                f"{res['loss_last']:.5f}); evaluate(valid) {res['eval_valid_s']:.2f} s, evaluate(test) "
+                f"{res['eval_test_s']:.2f} s; Recall@20 valid {res['valid']['recall@20']:.4f} test "
+                f"{res['test']['recall@20']:.4f}; losses and metrics finite, no train positive in any top-50; "
+                f"launches {json.dumps(launches[name])} [{card}]"
+            )
+
+            # -- the kernels at the drive's shapes, against their plain versions
+            if name == "GenRecV1":
+                res["graphs"] = graph_facts(
+                    adjacency=model.norm_adj, R=model.R, image_knn=model.image_II, text_knn=model.text_II,
+                    generated=trainer.state["image_ui"],
+                )
+                res["clusters"] = {m: int(trainer.debias_tables[f"{m}_labels"].max()) + 1 for m in ("img", "txt")}
+                res["cluster_s"] = trainer.cluster_s
+                print(f"elec_path GenRecV1 graphs {json.dumps(res['graphs'])}, clusters {json.dumps(res['clusters'])} "
+                      f"in {res['cluster_s']:.2f} s of the trainer's set-up")
+            if name == "DiffMM":
+                if dataset == "elec" and not model.remat:
+                    raise AssertionError("DiffMM at elec: remat_gcn absent, yet remat is off")
+                res["remat"] = model.remat
+                res["graphs"] = graph_facts(
+                    adjacency=model.norm_adj, image_ui=trainer.state["image_ui"], text_ui=trainer.state["text_ui"]
+                )
+                print(f"elec_path DiffMM: remat {'on' if model.remat else 'off'} ({td.n_users + td.n_items} nodes, "
+                      f"remat_gcn absent); graphs {json.dumps(res['graphs'])}")
+            if on_card and name == "GenRecV1":
+                f = torch.nn.functional.normalize(model.v_feat, dim=1, eps=1e-12)
+                cases["k3"] += check_k3(
+                    torch, [("elec_genrecv1_knn_block_top10", f[:KNN_BLOCK] @ f.T, model.knn_k, None)], card
+                )["cases"]
+                del f
+                users0 = torch.arange(B, device=dev)
+                blended, probs = trainer.generate_chunk(users0, torch.Generator(device=dev).manual_seed(SEED + 3))
+                cases["k3"] += check_k3(
+                    torch,
+                    [("elec_genrecv1_gen_top5", probs, model.gen_topk, None),
+                     ("elec_genrecv1_rebuild_top10", blended * probs, model.rebuild_k, None)],
+                    card,
+                )["cases"]
+                del blended, probs
+                cases["k1"] += check_spmm(
+                    torch,
+                    [("elec_genrecv1_image_knn_d64", model.image_II, model.latdim),
+                     ("elec_genrecv1_text_knn_d64", model.text_II, model.latdim),
+                     ("elec_genrecv1_R_d128", model.R, 2 * model.latdim)],
+                    card,
+                )["cases"]
+                cases["k2"] += check_spmm(
+                    torch, [("elec_genrecv1_generated_d64", trainer.state["image_ui"], model.latdim)], card,
+                    blocked=True,
+                )["cases"]
+            if on_card and name == "DiffMM":
+                users0 = torch.arange(B, device=dev)
+                plane = model.p_sample_users(model.denoise_image, interaction_vectors(td, users0))
+                cases["k3"] += check_k3(torch, [("elec_diffmm_regenerate_top1", plane, model.rebuild_k, None)],
+                                        card)["cases"]
+                del plane
+                modal = [(f"elec_diffmm_{m}_d128", trainer.state[m], 2 * model.latdim) for m in ("image_ui", "text_ui")]
+                cases["k2"] += check_spmm(torch, modal, card, blocked=True)["cases"]
+                cases["k2_bwd"] += check_spmm_backward(torch, modal[:1], card, blocked=True)["cases"]
+                res["remat_check"] = check_remat(torch, trainer, td, card)
+                res["batch_vs_cpu"] = check_batch_against_cpu(
+                    torch, trainer, td, train_ds, config, card, replay_branches=True
+                )
+                if profile_dir:
+                    profile_batches(torch, trainer, perm[ELEC_PHASE3_BATCHES : ELEC_PHASE3_BATCHES + 10], profile_dir,
+                                    "DiffMM_elec", card)
+            if on_card and name == "GenRecV1" and profile_dir:
+                profile_batches(torch, trainer, perm[ELEC_PHASE3_BATCHES : ELEC_PHASE3_BATCHES + 10], profile_dir,
+                                "GenRecV1_elec", card)
+            out[name] = res
+            del trainer, model
+            if on_card:
+                torch.cuda.empty_cache()
+    finally:
+        model_base.load_modal_features = loader
+    out["phase_s"] = time.perf_counter() - path_t0
+    total = {k: sum(l[k] for l in launches.values()) for k in launch_counts()}
+    print(f"elec_path phase done in {out['phase_s']:.1f} s; launches of the four drives {json.dumps(total)} [{card}]")
+    return dict(**out, launches=launches), cases, total
+
+
+def profile_batches(torch, trainer, idx, profile_dir, label, card):
+    """``idx``'s batches of the BPR epoch under ``torch.profiler``, their
+    kernel table into ``profile_dir``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer._train_epoch(trainer.split("smoke", "profile"), plan={"idx": idx})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    write_profile(torch, prof, profile_dir, f"{label}_{idx.shape[0]}_batches", wall, card)
+
+
 def main() -> int:
     import torch
 
@@ -4866,6 +5258,10 @@ def main() -> int:
         help="only build the kernels and run the multi-device layer's phase (mesh_path), and stop",
     )
     parser.add_argument(
+        "--elec-only", action="store_true",
+        help="only build the kernels and run the elec-scale diffusion models' phase (elec_path), and stop",
+    )
+    parser.add_argument(
         "--k5a-against", nargs="+", metavar="DIR",
         help="only time this checkout's K5a against the K5a of each other checkout DIR, in turns, and stop",
     )
@@ -4905,6 +5301,7 @@ def main() -> int:
     if args.k5a_against:
         print(json.dumps({"k5a_against": k5a_against(torch, args.k5a_against, card)}))
         return 0
+    generate_once()
     if args.mp_only:
         mp, mp_cases, mp_launches = mp_path(torch, card, args.profile)
         print(json.dumps({"mp_path": dict(**mp, launches_total=mp_launches), "kernel_cases": mp_cases}))
@@ -4928,6 +5325,10 @@ def main() -> int:
     if args.mesh_only:
         mesh, mesh_cases, mesh_launches = mesh_path(torch, card)
         print(json.dumps({"mesh_path": dict(**mesh, launches_total=mesh_launches), "kernel_cases": mesh_cases}))
+        return 0
+    if args.elec_only:
+        elec_d, elec_cases, elec_d_launches = elec_path(torch, torch.device("cuda:0"), card, profile_dir=args.profile)
+        print(json.dumps({"elec_path": dict(**elec_d, launches_total=elec_d_launches), "kernel_cases": elec_cases}))
         return 0
 
     # -- the slice's data and model (set-up) ------------------------------
@@ -5175,7 +5576,8 @@ def main() -> int:
     # two-stage top-k (K4): both kernels against their plain versions at the
     # path's shapes first, then the path
     elec_t0 = time.perf_counter()
-    elec = graph_cf_setup(torch, dev)
+    elec_set = elec_data(torch, dev)  # LightGCN's and elec_path's
+    elec = graph_cf_setup(torch, dev, data=elec_set)
     adj = elec.model.norm_adj
     if not adj.blocked or elec.td.n_items != ELEC_ITEMS:
         raise AssertionError(f"the elec adjacency ({adj.n_rows} rows) must take K2 over a catalog of {ELEC_ITEMS}")
@@ -5193,6 +5595,15 @@ def main() -> int:
     elec_res, elec_calls, elec_launches = graph_cf_path(torch, elec, card, profile_dir=args.profile)
     print(f"LightGCN/elec phase done in {time.perf_counter() - elec_t0:.1f} s")
     del elec, adj
+    torch.cuda.empty_cache()
+
+    # -- phase 7b: DiffRec, LD4MRec, GenRecV1 and DiffMM at the elec tier ---
+    elec_d, elec_cases, elec_d_launches = elec_path(torch, dev, card, data=elec_set, profile_dir=args.profile)
+    del elec_set
+    k1["cases"] += elec_cases["k1"]
+    k2["cases"] += elec_cases["k2"]
+    k2_bwd["cases"] += elec_cases["k2_bwd"]
+    k3["cases"] += elec_cases["k3"]
     torch.cuda.empty_cache()
 
     # -- phase 8: the CLI, quick_start and python -m genmmrec_tpu_torch ----
@@ -5216,7 +5627,7 @@ def main() -> int:
 
     launches = {
         k: serving_launches[k] + switched_launches[k] + bf16_launches[k] + training_launches[k] + wide_launches[k]
-        + elec_launches[k] + genrec_launches[k] + cli_launches[k] + mp_launches[k] + prep_launches[k] + mmg_launches[k]
+        + elec_launches[k] + elec_d_launches[k] + genrec_launches[k] + cli_launches[k] + mp_launches[k] + prep_launches[k] + mmg_launches[k]
         + diff_launches[k] + rf_launches[k] + mesh_launches[k]
         for k in serving_launches
     }
@@ -5279,6 +5690,7 @@ def main() -> int:
         fused_grouped_topk=k5["fused_grouped_topk"], batch_vs_cpu=batch_check,
         nonsymmetric_grad=nonsymmetric, unsorted_spmm=unsorted, lightgcn_baby_d192=wide_res,
         launches_lightgcn_baby_d192=wide_calls, lightgcn_elec=elec_res, launches_lightgcn_elec=elec_calls,
+        elec_path=dict(**elec_d, launches_total=elec_d_launches),
         genrecv1_baby=dict(**genrec, launches_total=genrec_launches),
         cli=dict(**cli, launches_total=cli_launches), mp_path=dict(**mp, launches_total=mp_launches),
         prep_path=dict(**prep, launches_total=prep_launches),

@@ -7,6 +7,13 @@ with its contrastive towers, the BPR + InfoNCE loss, the per-modality
 denoisers with their SNR-weighted diffusion loss, the reverse-diffusion of
 users' interaction vectors, and the static-nnz rebuild of the modal graphs.
 
+With ``remat`` (the ``remat_gcn`` key; absent, on past 100,000 nodes, as
+in the JAX package) the training forward's two propagation regions, the
+modal passes and each main-adjacency layer, run under
+``torch.utils.checkpoint`` and are recomputed in the backward (K1 or K2
+launched again). ``_Spmm`` keeps only the graph for its backward, so the
+regions hold little that a recompute could free.
+
 Parameter names follow the JAX pytree ``{"rec": {uEmbeds, iEmbeds,
 modal_weight, image_trans, text_trans}, "denoise_image", "denoise_text"}``
 with the ``rec`` level dropped (``genmmrec_tpu_torch.interop``).
@@ -19,6 +26,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from genmmrec_tpu_torch.common.init import xavier_uniform
 from genmmrec_tpu_torch.common.losses import exp_denominator_streamed, table_share
@@ -35,6 +43,10 @@ from genmmrec_tpu_torch.ops.graph import (
     spmm,
     spmm_multi,
 )
+
+
+# past this many nodes (users + items) ``remat`` is on by default
+REMAT_NODES = 100_000
 
 
 def _l2norm(x, eps=1e-12):
@@ -80,6 +92,10 @@ class DiffMM(RecModel):
         self.in_dims = self.out_dims[::-1]
         self.image_feat_dim = self.v_feat.shape[1] if self.v_feat is not None else 0
         self.text_feat_dim = self.t_feat.shape[1] if self.t_feat is not None else 0
+        # the JAX package's rule: recompute the propagation in the backward
+        # past 100,000 nodes, unless the remat_gcn key says otherwise
+        remat_cfg = config["remat_gcn"]
+        self.remat = (self.n_users + self.n_items) > REMAT_NODES if remat_cfg is None else bool(remat_cfg)
 
         empty = lambda *shape: nn.Parameter(torch.empty(*shape, device=self.device))
         self.uEmbeds = empty(self.n_users, self.latdim)
@@ -173,36 +189,48 @@ class DiffMM(RecModel):
         """``forward_MM`` and the two contrastive towers with batched
         propagations: each modal graph is touched once at d = 2·latdim (the
         main branch's ego and its CL tower), and each main-adjacency layer
-        carries the rec tower and both CL towers in one d = 3·latdim pass."""
+        carries the rec tower and both CL towers in one d = 3·latdim pass.
+        With ``remat`` and autograd on, the modal passes and each layer are
+        checkpointed regions (``jax.checkpoint`` in the JAX package)."""
         adj = self.norm_adj
+        nu = self.n_users
+        img_adj, txt_adj = state["image_ui"], state["text_ui"]
+        if self.remat and torch.is_grad_enabled():
+            region = lambda f, *xs: checkpoint(f, *xs, use_reentrant=False)
+        else:
+            region = lambda f, *xs: f(*xs)
+
+        def modal_passes(ego, u_img, u_txt, i_embeds):
+            # one pass per modal graph feeds both the main branch and its CL tower
+            e_img_adj, cl1 = spmm_multi(img_adj, [ego, u_img])
+            e_txt_adj, cl2 = spmm_multi(txt_adj, [ego, u_txt])
+            e_img, e_txt = spmm_multi(adj, [u_img, u_txt])
+            e_img_, e_txt_ = spmm_multi(
+                adj, [torch.cat([e_img[:nu], i_embeds]), torch.cat([e_txt[:nu], i_embeds])]
+            )
+            return e_img + e_img_, e_txt + e_txt_, e_img_adj, e_txt_adj, cl1, cl2
+
+        def layer(rec_e, cl1, cl2):
+            # the rec tower's layer and both CL towers' ride one d = 3·latdim pass
+            return tuple(spmm_multi(adj, [rec_e, cl1, cl2]))
+
         weight = torch.softmax(self.modal_weight, dim=0)
         ego = torch.cat([self.uEmbeds, self.iEmbeds])
         u_img = torch.cat([self.uEmbeds, _l2norm(self.get_image_feats())])
         u_txt = torch.cat([self.uEmbeds, _l2norm(self.get_text_feats())])
-
-        e_img_adj, cl1 = spmm_multi(state["image_ui"], [ego, u_img])
-        e_txt_adj, cl2 = spmm_multi(state["text_ui"], [ego, u_txt])
-        e_img, e_txt = spmm_multi(adj, [u_img, u_txt])
-        e_img_, e_txt_ = spmm_multi(
-            adj,
-            [
-                torch.cat([e_img[: self.n_users], self.iEmbeds]),
-                torch.cat([e_txt[: self.n_users], self.iEmbeds]),
-            ],
-        )
-        embedsImage = e_img + e_img_ + self.ris_adj_lambda * e_img_adj
-        embedsText = e_txt + e_txt_ + self.ris_adj_lambda * e_txt_adj
+        ei, et, e_img_adj, e_txt_adj, cl1, cl2 = region(modal_passes, ego, u_img, u_txt, self.iEmbeds)
+        embedsImage = ei + self.ris_adj_lambda * e_img_adj
+        embedsText = et + self.ris_adj_lambda * e_txt_adj
         embedsModal = weight[0] * embedsImage + weight[1] * embedsText
 
         rec_e, acc = embedsModal, embedsModal
         acc1, acc2 = cl1, cl2
         for _ in range(self.gnn_layer):
-            rec_e, cl1, cl2 = spmm_multi(adj, [rec_e, cl1, cl2])
+            rec_e, cl1, cl2 = region(layer, rec_e, cl1, cl2)
             acc = acc + rec_e
             acc1 = acc1 + cl1
             acc2 = acc2 + cl2
         out = acc + self.ris_lambda * _l2norm(embedsModal)
-        nu = self.n_users
         return out[:nu], out[nu:], acc1[:nu], acc1[nu:], acc2[:nu], acc2[nu:]
 
     def contrast_loss(self, e1, e2, nodes, weights, den=None):
