@@ -9,6 +9,7 @@
     python3 chip_smoke.py --rf-only [--profile DIR]
     python3 chip_smoke.py --mesh-only
     python3 chip_smoke.py --elec-only [--profile DIR]
+    python3 chip_smoke.py --zoo-only
 
 Drives DiffMM, GenRecV1 and LightGCN at full width, parameters from a
 seeded generator.
@@ -162,7 +163,7 @@ the ``"rf"`` parameters moved by the epoch and untouched by the main
 optimizer alone. ``--rf-only`` builds the kernels and runs this phase
 alone.
 
-The multi-device layer last (``mesh_path``): four ranks of a ``{data: 2,
+The multi-device layer after them (``mesh_path``): four ranks of a ``{data: 2,
 model: 2}`` mesh share the card over gloo (``parallel.launch.run``), each
 running DiffMM on Amazon-baby through ``get_model`` and ``get_trainer``:
 one ``fit`` epoch (phase 1 and the BPR epoch split over the data axis, the
@@ -186,6 +187,16 @@ DAMRS's and RFLATTICE's steps). Then the spectral
 clustering of baby's fused features (``multimodal_fusion_cluster``, K3 on
 the 7,050² similarity) on the card against the CPU. ``--mesh-only`` builds
 the kernels and runs this phase alone.
+
+The zoo sweep last (``zoo_path``): ``scripts/zoo_sweep_torch.py`` trains
+LightGCN, FREEDOM and DiffMM one epoch each on Amazon-baby through ``python
+-m genmmrec_tpu_torch``, three child processes at once: every row OK, its
+Recall@20 finite, each child's K1 and K3 launched. Then
+``scripts/make_structured_dataset_torch.py`` at its default size (4,000 ×
+2,000) with its user graph on the card: the files byte-equal to a numpy
+re-derivation, the user graph against scipy's counts and K3 at k = 200
+against its plain version; then ``scripts/zoo_report_torch.py`` on the
+journal. ``--zoo-only`` builds the kernels and runs this phase alone.
 
 Before the paths it builds the CUDA kernels from ``genmmrec_tpu_torch/csrc``
 and holds each one (K1 forward and backward, K2 forward and backward, K3,
@@ -4580,7 +4591,7 @@ def plain_kcore(path, min_u=5, min_i=5):
         rows = kept
 
 
-def check_prep_user_graph(torch, np, graph, users, items, n_users, n_items, card):
+def check_prep_user_graph(torch, np, graph, users, items, n_users, n_items, card, case="uu_graph_cooccurrence_top200"):
     """The user graph file against the port's build on both devices over the
     first PREP_CHECK_USERS users' train rows (sorted counts and the
     neighbours above each row's least count equal), against scipy's ``M @
@@ -4631,7 +4642,7 @@ def check_prep_user_graph(torch, np, graph, users, items, n_users, n_items, card
     block = left @ rt.T
     rows = torch.arange(PREP_CHECK_USERS, device="cuda")
     block[rows, rows] = 0.0
-    k3 = check_k3(torch, [("uu_graph_cooccurrence_top200", block, PREP_TOP_K, None)], card)["cases"]
+    k3 = check_k3(torch, [(case, block, PREP_TOP_K, None)], card)["cases"]
     # the whole build on the card (its blocks' sparse products and K3), and
     # one block's product as a dense GEMM of the 0/1 matrix, for scale
     torch.cuda.synchronize()
@@ -4909,6 +4920,158 @@ def prep_path(torch, card):
     out["phase_s"] = time.perf_counter() - phase_t0
     print(f"prep_path phase done in {out['phase_s']:.1f} s (checks {json.dumps(check_s)} s); launches {json.dumps(launches)}")
     return out, cases, launches
+
+
+# the zoo sweep's smoke: one epoch at baby of a model of each kind of
+# path (K1 alone; K1 and K3 on an item graph; the multi-phase trainer),
+# three children at once, and the kernels each must launch
+ZOO_MODELS = ("LightGCN", "FREEDOM", "DiffMM")
+ZOO_NEED = ("grouped_topk",) + K1_BOTH
+ZOO_BUDGET_S = 90.0
+
+
+def structured_reference(np, n_users=4000, n_items=2000, k=24, mean_degree=25.0, pop_scale=0.25, tau=0.35,
+                         noise=1.0, v_dim=4096, t_dim=384):
+    """The structured generator's three files as bytes, derived again from
+    its seeds with numpy: the same draws in the same order, the split's
+    labels set by a rank table, the rows and the ``.npy`` files formatted
+    in memory."""
+    import io
+
+    rng = np.random.default_rng(0x57A7)
+    U = rng.normal(0.0, 1.0 / np.sqrt(k), (n_users, k))
+    V = rng.normal(0.0, 1.0 / np.sqrt(k), (n_items, k))
+    pop = pop_scale * rng.normal(0.0, 1.0, n_items)
+    scores = U @ V.T + pop[None, :] + tau * rng.gumbel(0.0, 1.0, (n_users, n_items))
+    degree = np.clip(rng.poisson(mean_degree, n_users), 5, 120)
+    order = np.argsort(-scores, axis=1)
+    split = np.random.default_rng(0x5717)
+    users = np.repeat(np.arange(n_users), degree)
+    items = np.concatenate([order[u, : degree[u]] for u in range(n_users)])
+    labels = []
+    for m in degree.tolist():
+        rank = np.empty(m, np.int64)
+        rank[split.permutation(m)] = np.arange(m)
+        cut = max(1, m // 10)
+        labels.append(np.where(rank < cut, 2, np.where(rank < 2 * cut, 1, 0)))
+    labels = np.concatenate(labels)
+    ratings = rng.choice([3.0, 4.0, 5.0], size=len(users), p=[0.15, 0.35, 0.5])
+    text = "userID\titemID\trating\ttimestamp\tx_label\n" + "".join(
+        f"{u}\t{i}\t{r:.1f}\t{t}\t{x}\n" for t, (u, i, r, x) in
+        enumerate(zip(users.tolist(), items.tolist(), ratings.tolist(), labels.tolist()))
+    )
+    frng = np.random.default_rng(0xF3A7)
+    Wv, Wt = frng.normal(0.0, 1.0, (k, v_dim)), frng.normal(0.0, 1.0, (k, t_dim))
+    v_sig, t_sig = V @ Wv, V @ Wt
+    v = np.maximum(0.0, v_sig + noise * v_sig.std() * frng.normal(size=v_sig.shape)).astype(np.float32)
+    t = (t_sig + noise * t_sig.std() * frng.normal(size=t_sig.shape)).astype(np.float32)
+    files = {"baby.inter": text.encode()}
+    for name, a in (("image_feat.npy", v), ("text_feat.npy", t)):
+        buf = io.BytesIO()
+        np.save(buf, a)
+        files[name] = buf.getvalue()
+    return files
+
+
+def zoo_path(torch, card):
+    """The zoo sweep on the card (``--zoo-only`` runs it alone after the
+    build, budget ``ZOO_BUDGET_S``): ``scripts/zoo_sweep_torch.py`` trains
+    ``ZOO_MODELS`` one epoch each at baby through ``python -m
+    genmmrec_tpu_torch``, three children at once, into a journal of a
+    temporary directory; each row OK (finite losses and Recall@20, a BEST
+    block) and each child's kernels launched. Then
+    ``scripts/make_structured_dataset_torch.py`` at its default size (4,000
+    × 2,000) with its user graph on the card: its files byte-equal to
+    ``structured_reference``, its user graph against scipy's counts and K3
+    against its plain version (``check_prep_user_graph``). Then
+    ``scripts/zoo_report_torch.py`` on the journal: the three rows OK in
+    the report. Returns (summary, kernel cases by kernel, launches)."""
+    import importlib.util
+    import tempfile
+
+    import numpy as np
+
+    def script(name):
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", f"{name}.py")
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    sweep, gen, report = (script(n) for n in ("zoo_sweep_torch", "make_structured_dataset_torch", "zoo_report_torch"))
+    phase_t0 = time.perf_counter()
+    cases = dict(k1=[], k1_bwd=[], k3=[])
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        journal = os.path.join(root, "zoo_sweep_torch_baby.json")
+        t0 = time.perf_counter()
+        rc = sweep.main(["-d", "baby", "--epochs", "1", "--models", *ZOO_MODELS, "--timeout", "300",
+                         "--jobs", str(len(ZOO_MODELS)), "--out", journal, "--workdir", root])
+        out["sweep_s"] = time.perf_counter() - t0
+        with open(journal) as f:
+            rows = json.load(f)
+        launches = {}
+        for m in ZOO_MODELS:
+            r = rows.get(m, {})
+            child = r.get("child") or {}
+            if not r.get("ok") or not math.isfinite(r.get("valid_recall@20") or float("nan")):
+                raise AssertionError(f"zoo sweep: {m} failed (rc {r.get('returncode')}):\n{r.get('tail', '')[-3000:]}")
+            launches[m] = child.get("launches", {})
+            never = [k for k in ZOO_NEED if launches[m].get(k, 0) <= 0]
+            if never:
+                raise AssertionError(f"zoo sweep: {m} did not launch {never}: {launches[m]}")
+            out[m] = {k: r.get(k) for k in ("seconds", "valid_recall@20", "test_recall@20", "epochs_run", "train_s")}
+            out[m].update(setup_s=child.get("setup_s"), import_s=child.get("import_s"),
+                          peak_allocated_bytes=child.get("peak_allocated_bytes"))
+        if rc != 0:
+            raise AssertionError(f"zoo sweep returned {rc}")
+        print(f"zoo_path sweep: {len(ZOO_MODELS)} models at once in {out['sweep_s']:.1f} s: "
+              f"{json.dumps({m: out[m] for m in ZOO_MODELS})} [{card}]")
+
+        # the structured generator at its default size, its user graph on the card
+        d = os.path.join(root, "data_struct", "baby")
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen.main(["--out", d])
+        torch.cuda.synchronize()
+        out["generator_s"] = time.perf_counter() - t0
+        gen_launches = launch_counts()
+        if gen_launches["grouped_topk"] <= 0:
+            raise AssertionError("the structured generator's user graph did not launch K3")
+        t0 = time.perf_counter()
+        ref = structured_reference(np)
+        out["reference_s"] = time.perf_counter() - t0
+        for name, want in ref.items():
+            with open(os.path.join(d, name), "rb") as f:
+                if f.read() != want:
+                    raise AssertionError(f"the structured generator's {name} differs from its numpy re-derivation")
+        from genmmrec_tpu_torch.preprocessing import pipeline
+
+        t = pipeline.read_table(os.path.join(d, "baby.inter"), "\t")
+        train = t["x_label"] == 0
+        graph = np.load(os.path.join(d, "user_graph_dict.npy"), allow_pickle=True).item()
+        n_u, n_i = len(np.unique(t["userID"])), int(t["itemID"].max()) + 1
+        out["user_graph"], k3 = check_prep_user_graph(
+            torch, np, graph, t["userID"][train], t["itemID"][train], n_u, n_i, card, case="struct_cooccurrence_top200"
+        )
+        cases["k3"] += k3
+        print(f"zoo_path structured generator: {len(t['userID'])} rows, {n_u} x {n_i}, in {out['generator_s']:.1f} s "
+              f"(re-derived in {out['reference_s']:.1f} s): baby.inter, image_feat.npy, text_feat.npy byte-equal; "
+              f"launches {json.dumps(gen_launches)} [{card}]")
+
+        # the report on the journal
+        doc = os.path.join(root, "ZOO_RESULTS_TORCH.md")
+        report.main(["baby", "--logs", root, "--out", doc])
+        text = open(doc).read()
+        missing = [m for m in ZOO_MODELS if not re.search(rf"^\| {m} \| OK \|", text, re.M)]
+        if missing or card.split(",")[0] not in text:
+            raise AssertionError(f"zoo report: rows of {missing} not OK, or the card absent")
+    total = {k: sum(l.get(k, 0) for l in launches.values()) + gen_launches[k] for k in gen_launches}
+    out["launches"] = dict(**launches, structured_generator=gen_launches)
+    out["phase_s"] = time.perf_counter() - phase_t0
+    print(f"zoo_path phase done in {out['phase_s']:.1f} s (budget {ZOO_BUDGET_S:.0f} s); launches {json.dumps(total)}")
+    return out, cases, total
 
 
 # the elec path's models, in the order it drives them (scripts/elec_scale_torch.py's)
@@ -5262,6 +5425,10 @@ def main() -> int:
         help="only build the kernels and run the elec-scale diffusion models' phase (elec_path), and stop",
     )
     parser.add_argument(
+        "--zoo-only", action="store_true",
+        help="only build the kernels and run the zoo sweep's phase (zoo_path), and stop",
+    )
+    parser.add_argument(
         "--k5a-against", nargs="+", metavar="DIR",
         help="only time this checkout's K5a against the K5a of each other checkout DIR, in turns, and stop",
     )
@@ -5325,6 +5492,10 @@ def main() -> int:
     if args.mesh_only:
         mesh, mesh_cases, mesh_launches = mesh_path(torch, card)
         print(json.dumps({"mesh_path": dict(**mesh, launches_total=mesh_launches), "kernel_cases": mesh_cases}))
+        return 0
+    if args.zoo_only:
+        zoo, zoo_cases, zoo_launches = zoo_path(torch, card)
+        print(json.dumps({"zoo_path": dict(**zoo, launches_total=zoo_launches), "kernel_cases": zoo_cases}))
         return 0
     if args.elec_only:
         elec_d, elec_cases, elec_d_launches = elec_path(torch, torch.device("cuda:0"), card, profile_dir=args.profile)
@@ -5620,7 +5791,9 @@ def main() -> int:
     rfp, rf_cases, rf_launches = rf_path(torch, card, args.profile)
     # -- phase 13: the multi-device layer ------------------------------------
     mesh, mesh_cases, mesh_launches = mesh_path(torch, card)
-    for cs in (cli_cases, mp_cases, prep_cases, mmg_cases, diff_cases, rf_cases, mesh_cases):
+    # -- phase 14: the zoo sweep, its structured data and its report -------
+    zoo, zoo_cases, zoo_launches = zoo_path(torch, card)
+    for cs in (cli_cases, mp_cases, prep_cases, mmg_cases, diff_cases, rf_cases, mesh_cases, zoo_cases):
         k1["cases"] += cs["k1"]
         k1_bwd["cases"] += cs["k1_bwd"]
         k3["cases"] += cs["k3"]
@@ -5628,7 +5801,7 @@ def main() -> int:
     launches = {
         k: serving_launches[k] + switched_launches[k] + bf16_launches[k] + training_launches[k] + wide_launches[k]
         + elec_launches[k] + elec_d_launches[k] + genrec_launches[k] + cli_launches[k] + mp_launches[k] + prep_launches[k] + mmg_launches[k]
-        + diff_launches[k] + rf_launches[k] + mesh_launches[k]
+        + diff_launches[k] + rf_launches[k] + mesh_launches[k] + zoo_launches[k]
         for k in serving_launches
     }
     never = [k for k, v in launches.items() if v <= 0]
@@ -5697,6 +5870,7 @@ def main() -> int:
         mmg_path=dict(**mmg, launches_total=mmg_launches), diff_path=dict(**diff, launches_total=diff_launches),
         rf_path=dict(**rfp, launches_total=rf_launches),
         mesh_path=dict(**mesh, launches_total=mesh_launches),
+        zoo_path=dict(**zoo, launches_total=zoo_launches),
         card=card,
         total_s=time.perf_counter() - smoke_t0,
     )
