@@ -4234,8 +4234,10 @@ def mesh_path(torch, card):
     MESH_METRIC_ATOL. Every rank must launch K1 and K3, and K3 in both
     evaluations (the sharded route; the fused and K4 routes stand aside).
     Then the spectral clustering of fused features (``MultimodalCluster.
-    multimodal_fusion_cluster``) at baby on the card against the CPU.
-    Returns (summary, kernel cases by kernel, launches)."""
+    multimodal_fusion_cluster``) at baby on the card against the CPU, and
+    DiffMM's item split over the model axis at elec's width
+    (``item_split_check``). Returns (summary, kernel cases by kernel,
+    launches)."""
     from genmmrec_tpu_torch.engine.trainer import get_trainer
     from genmmrec_tpu_torch.parallel import launch
 
@@ -4273,13 +4275,16 @@ def mesh_path(torch, card):
     family = mesh_family_check(torch, ranks, card)
     # the spectral clustering of fused features, on the card and on the CPU
     fusion = fusion_cluster_check(torch, model.item_raw_features, card)
-    totals = {k: one_launches[k] + fusion["launches"][k] + family["launches"][k]
+    del model
+    torch.cuda.empty_cache()
+    split = item_split_check(torch, card)
+    totals = {k: one_launches[k] + fusion["launches"][k] + family["launches"][k] + split["launches"][k]
               + sum(r["launches"][k] for r in ranks) for k in one_launches}
     out = dict(
         mesh_shape=MESH_SHAPE, world_s=world_s,
         ranks=[{k: v for k, v in r.items() if k not in ("k3_cases", "family")} for r in ranks], family=family,
         batch=world["batch"], one_rank=dict(results=one, times=one_times, setup_s=setup_s, launches=one_launches),
-        drift=drift, fusion_cluster={k: v for k, v in fusion.items() if k != "k3_cases"},
+        drift=drift, fusion_cluster={k: v for k, v in fusion.items() if k != "k3_cases"}, item_split=split,
         phase_s=time.perf_counter() - phase_t0,
     )
     print(f"mesh_path phase done in {out['phase_s']:.1f} s [{card}]")
@@ -4369,6 +4374,212 @@ def mesh_family_check(torch, ranks, card) -> dict:
     if failures:
         raise AssertionError(f"{len(failures)} mesh checks failed: " + " | ".join(failures))
     return dict(fits=fits, batches=lines, batches_s=phase, launches=launches)
+
+
+# -- the model axis's item split at elec's width -----------------------------
+# DiffMM as published (its YAML: dims [1000], d_emb_size 10, steps 5; the
+# overall train_batch_size 2,048) over elec's 63,001 items on {model: 2}: two
+# gloo ranks on the card against one rank in this process. The width is not
+# cut; the users are, to one phase-1 batch and one regeneration chunk.
+ITEM_SPLIT_SHAPE = {"data": 1, "model": 2}
+ITEM_SPLIT_USERS = 2048
+# a rank's top-1 may differ from one rank's only where one rank's denoised
+# values of the two items tie within this share of the row's largest
+ITEM_SPLIT_TIE_RTOL = 1e-6
+
+
+def item_split_setup(torch, dev, dataset="elec", users=ITEM_SPLIT_USERS):
+    """DiffMM's config at a dataset tier (elec) with the users cut to
+    ``users`` (and the interactions in proportion), its train table by
+    ``synthetic_tables``, on ``dev``: (config, train data)."""
+    from genmmrec_tpu_torch.config import Config
+    from genmmrec_tpu_torch.data.arrays import build_train_data
+    from genmmrec_tpu_torch.data.dataset import RecDataset
+
+    full = Config("DiffMM", dataset, {})
+    inters = round(int(full["synthetic_n_inters"]) * users / int(full["synthetic_n_users"]))
+    config = Config("DiffMM", dataset, {"save_recommended_topk": False, "synthetic_n_users": users,
+                                        "synthetic_n_inters": inters, "train_batch_size": users})
+    train_ds = RecDataset(config, synthetic_tables(config, SEED)[0])
+    return config, build_train_data(train_ds, dev)
+
+
+def item_split_drive(torch, dev, mesh=None, dataset="elec", users=ITEM_SPLIT_USERS) -> dict:
+    """DiffMM at elec's width (``item_split_setup``) from the seed, on
+    ``mesh`` (its model axis's item split) or on one rank: one phase-1 batch
+    of both denoisers, timed, with this process's peak memory over it; the
+    same batch again from the same start with each denoiser's gradient kept
+    whole (``dryrun.record_step_grads``, whose gathers stay out of the first
+    batch's peak); then one regeneration chunk, timed, its launches counted,
+    and each user's top-1 item per modality from the regenerated graphs.
+    One rank also keeps its denoised planes, to hold a rank's top-1 where
+    it differs. ``dataset`` and ``users`` other than elec's give a dry run
+    of the control flow at a small size on the CPU (no memory figures)."""
+    from genmmrec_tpu_torch.data.arrays import interaction_vectors
+    from genmmrec_tpu_torch.engine.trainer import get_trainer
+    from genmmrec_tpu_torch.models import get_model
+    from genmmrec_tpu_torch.parallel import dryrun
+    from genmmrec_tpu_torch.parallel import mesh as pm
+
+    on_card = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if on_card else (lambda: None)
+    memory = (lambda f: f(dev)) if on_card else (lambda f: 0)
+    t0 = time.perf_counter()
+    config, td = item_split_setup(torch, dev, dataset, users)
+    model = get_model("DiffMM")(config, td)
+    sync()
+    out = dict(setup_s=time.perf_counter() - t0, n_users=td.n_users, n_items=td.n_items,
+               batch=int(config["train_batch_size"]))
+
+    def start():
+        trainer = get_trainer("DiffMM")(config, model, mesh=mesh)
+        model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+        trainer.state = model.init_state(trainer.split("state"))
+        pm.replicated((list(model.parameters()), trainer.state), mesh)
+        trainer._build_train_step(td)
+        return trainer, trainer.split("epoch", 0, "prelude")
+
+    trainer, gen = start()
+    out["split"] = sorted(k for k, p in model.named_parameters() if getattr(p, "item_cols", None) is not None)
+    sync()
+    memory(torch.cuda.reset_peak_memory_stats)
+    before = memory(torch.cuda.memory_allocated)
+    t0 = time.perf_counter()
+    trainer._diffusion_epoch(gen)
+    sync()
+    out.update(phase1_s=time.perf_counter() - t0, allocated_before=before, peak=memory(torch.cuda.max_memory_allocated))
+    out["peak_rise"] = out["peak"] - before
+    trainer, gen = start()
+    grads = dryrun.record_step_grads(trainer)
+    out["losses"] = trainer._diffusion_epoch(gen)[0].cpu().tolist()
+    out["grads"] = grads
+    reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    state = trainer.regenerate(gen)
+    sync()
+    out.update(regenerate_s=time.perf_counter() - t0, launches=launch_counts())
+    top = {}
+    for m in ("image", "text"):
+        g = state[f"{m}_ui"]
+        to_item = (g.rows < td.n_users) & (g.cols >= td.n_users)
+        order = torch.argsort(g.rows[to_item])
+        top[m] = (g.cols[to_item][order] - td.n_users).cpu()
+    out["top1"] = top
+    if mesh is None:
+        with torch.no_grad():
+            x = interaction_vectors(td, torch.arange(td.n_users, device=dev))
+            out["denoised"] = {m: model.p_sample_users(getattr(model, f"denoise_{m}"), x).cpu() for m in top}
+    return out
+
+
+def item_split_rank(dev, card, dataset="elec", users=ITEM_SPLIT_USERS):
+    """One rank of the ``ITEM_SPLIT_SHAPE`` world: ``item_split_drive`` on
+    the item split. Returns every rank's results on global rank 0, with
+    rank 0's gradients."""
+    import torch
+    import torch.distributed as dist
+
+    from genmmrec_tpu_torch.ops.precision import full_precision_matmuls
+    from genmmrec_tpu_torch.parallel import mesh as pm
+
+    full_precision_matmuls()
+    mesh = pm.build_mesh({"mesh_shape": ITEM_SPLIT_SHAPE})
+    mine = item_split_drive(torch, dev, mesh, dataset, users)
+    grads = mine.pop("grads")
+    mine.update(rank=mesh.rank, cols=pm.item_bounds(mine["n_items"], mesh.model)[mesh.model_rank])
+    # the sum over the model axis that the in-projection's gradient takes once a denoiser
+    w_in = next(v for k, v in grads.items() if k.endswith("in_layers.0.weight"))
+    g = torch.zeros(w_in.shape, device=dev)
+    pm.all_reduce(g, mesh, pm.MODEL_AXIS)
+    reps = 3
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        pm.all_reduce(g, mesh, pm.MODEL_AXIS)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    mine["in_grad_sum_ms"] = (time.perf_counter() - t0) / reps * 1e3
+    mine["in_grad_bytes"] = g.numel() * 4
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return dict(ranks=every, grads=grads)
+
+
+def item_split_check(torch, card, dev="cuda", dataset="elec", users=ITEM_SPLIT_USERS) -> dict:
+    """``item_split_rank`` on a world of ``ITEM_SPLIT_SHAPE`` against
+    ``item_split_drive`` on one rank in this process: the phase-1 batch's
+    losses within MESH_BATCH_LOSS_RTOL, every denoiser gradient element
+    within MESH_BATCH_GRAD_RTOL of its magnitude plus MESH_BATCH_GRAD_ATOL
+    of its tensor's largest, each user's regenerated top-1 equal to one
+    rank's (or, where not, one rank's denoised values of the two items tied
+    within ITEM_SPLIT_TIE_RTOL of the row's largest), every rank launching
+    K3 on its shard; each rank's peak memory over the batch beside one
+    rank's. ``dev``, ``dataset`` and ``users`` give a dry run on the CPU
+    (``item_split_drive``), where the launch check is skipped."""
+    from genmmrec_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    world = launch.run(item_split_rank, ITEM_SPLIT_SHAPE, dev, (card, dataset, users))
+    world_s = time.perf_counter() - t0
+    one = item_split_drive(torch, torch.device("cuda:0" if dev == "cuda" else dev), None, dataset, users)
+    ranks, got = world["ranks"], world["grads"]
+    failures = []
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(ranks[0]["losses"], one["losses"]))
+    if not loss_rel <= MESH_BATCH_LOSS_RTOL:
+        failures.append(f"losses {ranks[0]['losses']} against one rank's {one['losses']}")
+    worst, worst_k = 0.0, None
+    if got.keys() != one["grads"].keys():
+        failures.append(f"gradients of {sorted(got)} against one rank's {sorted(one['grads'])}")
+    for k, r in one["grads"].items():
+        r_t, g_t = torch.as_tensor(r), torch.as_tensor(got.get(k, r * 0))
+        bound = MESH_BATCH_GRAD_RTOL * r_t.abs() + MESH_BATCH_GRAD_ATOL * r_t.abs().max()
+        share = ((g_t - r_t).abs() / bound.clamp(min=1e-30)).max().item()
+        if share > worst:
+            worst, worst_k = share, k
+    if worst > 1.0:
+        failures.append(f"gradient {worst_k} at {worst:.3f} of its bound")
+    ties = {}
+    for m, ref in one["top1"].items():
+        mine = ranks[0]["top1"][m]
+        off = (mine != ref).nonzero().flatten()
+        den = one["denoised"][m]
+        if len(off):
+            gap = (den[off, mine[off]] - den[off, ref[off]]).abs() / den[off].abs().max(dim=1).values
+            if not (gap <= ITEM_SPLIT_TIE_RTOL).all():
+                failures.append(f"{m}: {len(off)} users' top-1 differ, not tied: {gap.max().item():.2e}")
+        ties[m] = int(len(off))
+    for r in ranks:
+        if dev == "cuda" and r["launches"]["grouped_topk"] <= 0:
+            failures.append(f"rank {r['rank']} launched no K3 in the regeneration: {r['launches']}")
+        if r["split"] != ranks[0]["split"] or not r["split"]:
+            failures.append(f"rank {r['rank']} holds {r['split']} as its rows")
+    draw = one["batch"] * one["n_items"] * (4 + 1)
+    mib = lambda b: b / 2**20
+    for r in ranks:
+        print(f"item split rank {r['rank']} of {ITEM_SPLIT_SHAPE} (items {r['cols'][0]}-{r['cols'][1]} of "
+              f"{r['n_items']}): phase-1 batch {r['phase1_s']:.3f} s, peak {mib(r['peak']):.1f} MiB (rise "
+              f"{mib(r['peak_rise']):.1f} MiB over {mib(r['allocated_before']):.1f} MiB); regeneration chunk "
+              f"{r['regenerate_s']:.3f} s, K3 launches {r['launches']['grouped_topk']}; the in-projection gradient's "
+              f"sum over the axis ({mib(r['in_grad_bytes']):.1f} MiB) {r['in_grad_sum_ms']:.1f} ms; set-up "
+              f"{r['setup_s']:.1f} s [{card}]")
+    print(f"item split one rank: phase-1 batch {one['phase1_s']:.3f} s, peak {mib(one['peak']):.1f} MiB (rise "
+          f"{mib(one['peak_rise']):.1f} MiB over {mib(one['allocated_before']):.1f} MiB); regeneration chunk "
+          f"{one['regenerate_s']:.3f} s, K3 launches {one['launches']['grouped_topk']}; the global noise and keep "
+          f"draws each rank makes and slices: {mib(draw):.1f} MiB [{card}]")
+    print(f"item split DiffMM/elec width ({one['n_users']} users x {one['n_items']} items, batch {one['batch']}) on "
+          f"{ITEM_SPLIT_SHAPE} against one rank: losses {ranks[0]['losses']} / {one['losses']} (relative "
+          f"{loss_rel:.2e}); {len(one['grads'])} denoiser gradients, worst element at {worst:.3f} of its bound "
+          f"({worst_k}); top-1 equal but for {ties} tied users; held as rows: {ranks[0]['split']}; world "
+          f"{world_s:.1f} s [{card}]")
+    if failures:
+        raise AssertionError(f"{len(failures)} item split checks failed: " + " | ".join(failures))
+    strip = lambda d: {k: v for k, v in d.items() if k not in ("grads", "top1", "denoised")}
+    totals = {k: one["launches"][k] + sum(r["launches"][k] for r in ranks) for k in one["launches"]}
+    return dict(ranks=[strip(r) for r in ranks], one_rank=strip(one), loss_rel=loss_rel, worst_share_of_bound=worst,
+                worst_grad=worst_k, tied_top1=ties, draw_bytes=draw, world_s=world_s, launches=totals)
 
 
 def fusion_cluster_check(torch, feats, card, k: int = 20):

@@ -106,12 +106,20 @@ def build_train_data(train_ds: RecDataset, device) -> TrainData:
     )
 
 
-def interaction_vectors(td: TrainData, users: torch.Tensor) -> torch.Tensor:
+def interaction_vectors(td: TrainData, users: torch.Tensor, cols=None) -> torch.Tensor:
     """(B, n_items) 0/1 rows of the users' train items. The history pads
-    with ``n_items``: scatter into one spare column and drop it."""
+    with ``n_items``: scatter into one spare column and drop it. ``cols``
+    (an object with ``lo`` and ``hi``, ``parallel.mesh.ItemCols``) builds
+    the columns ``[lo, hi)`` alone, (B, hi − lo): an item outside them goes
+    to the spare column."""
     h = td.hist[users]
-    x = torch.zeros(users.shape[0], td.n_items + 1, device=h.device)
-    return x.scatter_(1, h, 1.0)[:, : td.n_items]
+    if cols is None:
+        x = torch.zeros(users.shape[0], td.n_items + 1, device=h.device)
+        return x.scatter_(1, h, 1.0)[:, : td.n_items]
+    w = cols.hi - cols.lo
+    at = torch.where((h >= cols.lo) & (h < cols.hi), h - cols.lo, w)
+    x = torch.zeros(users.shape[0], w + 1, device=h.device)
+    return x.scatter_(1, at, 1.0)[:, :w]
 
 
 def build_eval_data(eval_ds: RecDataset, train_ds: RecDataset, batch_size: int, device) -> EvalData:

@@ -31,6 +31,14 @@ chunks whole, chunk ``i`` to data rank ``i % data`` (``dealt_chunks``);
 every rank still makes every chunk's draws, in the order one rank makes
 them, so that the generator stays in step with the one-device run, and the
 chunks' top items are gathered.
+
+On a model axis the denoisers and every (B, n_items) vector of phases 1
+and 2 (MVDiff's phases 3 and 4) split over the items (``split_items``,
+``parallel.mesh.ItemCols``): each rank builds only its columns of the
+interaction vectors, slices its columns of each draw made whole, runs the
+denoisers on them and takes each top-k of the regeneration by K3 on its
+columns, merged over the axis (``ItemCols.topk``). The data axis deals its
+chunks whole as before.
 """
 
 from __future__ import annotations
@@ -56,6 +64,25 @@ from genmmrec_tpu_torch.parallel import mesh as pm
 from genmmrec_tpu_torch.ops.topk import grouped_topk
 
 MODALITIES = ("image", "text")
+
+
+def split_items(trainer) -> Optional[pm.ItemCols]:
+    """On a model axis, put ``trainer.model``'s denoisers on the item split
+    (once; ``model.split_items``); returns ``model.item_cols``, None off a
+    model axis."""
+    model = trainer.model
+    cols = pm.item_sharding(trainer.mesh, model.n_items)
+    if cols is not None and model.item_cols is None:
+        model.split_items(cols)
+    return model.item_cols
+
+
+def item_draws(draws: dict, cols, keys) -> dict:
+    """``draws`` with the (B, n_items) planes of ``keys`` cut to this rank's
+    columns (each plane, or each of a tuple or list of them)."""
+    if cols is None:
+        return draws
+    return {k: cols.local(v) if k in keys else v for k, v in draws.items()}
 
 
 def dealt_chunks(mesh, chunks: list, chunk_topk, width: int, chunk_draws=None) -> torch.Tensor:
@@ -85,6 +112,7 @@ class _DiffusionTrainer(Trainer):
 
     def _build_train_step(self, train_data) -> None:
         super()._build_train_step(train_data)
+        split_items(self)
         self._build_diffusion_phase()
         self._shard_optimizers()
 
@@ -104,10 +132,12 @@ class _DiffusionTrainer(Trainer):
         batch's) and the losses returned are the global batch's.
         """
         if "denoise_image" not in self.optimizers:
+            split_items(self)
             self._build_diffusion_phase()
             self._shard_optimizers()
         full_precision_matmuls()
         model = self.model
+        cols = model.item_cols
         U, B = model.n_users, self.train_batch_size
         nb = -(-U // B)
         if plan is not None:
@@ -121,9 +151,9 @@ class _DiffusionTrainer(Trainer):
         for b in range(nb):
             users = batches[b] if rows is None else rows.local(batches[b])
             valid = (users < U).to(torch.float32)
-            x_start = interaction_vectors(model.data, users.clamp(max=U - 1)) * valid[:, None]
+            x_start = interaction_vectors(model.data, users.clamp(max=U - 1), cols) * valid[:, None]
             step = []
-            for name, loss in self._batch_losses(x_start, valid, inputs, generator, plan, b, rows):
+            for name, loss in self._batch_losses(x_start, valid, inputs, generator, plan, b, rows, cols):
                 opt = self.optimizers[name]
                 opt.zero_grad(set_to_none=True)
                 loss.backward()
@@ -158,6 +188,7 @@ class _DiffusionTrainer(Trainer):
         ``keep_rate < 1`` and the sampling noise; ``plan`` may give the
         subclass's draws in their place."""
         full_precision_matmuls()
+        split_items(self)
         self.state = {**self.state, **self._regenerated_graphs(generator, plan)}
         return self.state
 
@@ -199,13 +230,15 @@ class DiffMMTrainer(_DiffusionTrainer):
             "text": model.get_text_feats(),
         }
 
-    def _batch_losses(self, x_start, valid, inputs, generator, plan, b, rows=None):
+    def _batch_losses(self, x_start, valid, inputs, generator, plan, b, rows=None, cols=None):
         model = self.model
         denom = (valid.sum() if rows is None else rows.count(valid.sum())).clamp(min=1.0)
         for m in MODALITIES:
             drawn = {} if plan is None else {k: plan[f"{k}_{m}"][b].to(model.device) for k in ("ts", "noise", "keep")}
             if rows is not None:
                 drawn = rows.local(drawn or model.diffusion_draws(rows.n, generator))
+            if cols is not None:
+                drawn = item_draws(drawn or model.diffusion_draws(x_start.shape[0], generator), cols, ("noise", "keep"))
             denoiser = getattr(model, f"denoise_{m}")
             diff, gc = model.diffusion_losses(
                 denoiser, x_start, inputs["i_embeds"], inputs[m], generator=generator, **drawn
@@ -214,17 +247,20 @@ class DiffMMTrainer(_DiffusionTrainer):
 
     def _regenerated_graphs(self, generator, plan) -> dict:
         """Each modality's graph from each user's top ``rebuild_k`` items of
-        the reverse-diffused vector (K3)."""
+        the reverse-diffused vector (K3; on the item split K3 on each rank's
+        columns, merged)."""
         if plan is not None:
             raise ValueError("DiffMM's phase 2 takes no plan")
         model = self.model
+        cols = model.item_cols
 
         def graph(denoiser):
             def chunk_topk(c, users, noise=None):
-                x = interaction_vectors(model.data, users)
-                return grouped_topk(model.p_sample_users(denoiser, x, generator, noise), model.rebuild_k)[1]
+                x = interaction_vectors(model.data, users, cols)
+                den = model.p_sample_users(denoiser, x, generator, noise)
+                return (grouped_topk(den, model.rebuild_k) if cols is None else cols.topk(den, model.rebuild_k))[1]
 
-            draws = lambda n: {"noise": model.sample_noise((n, model.n_items), generator)}
+            draws = lambda n: item_draws({"noise": model.sample_noise((n, model.n_items), generator)}, cols, ("noise",))
             return model.rebuild_ui_graph(self._top_items(chunk_topk, draws), generator)
 
         return {"image_ui": graph(model.denoise_image), "text_ui": graph(model.denoise_text)}
@@ -275,7 +311,7 @@ class GenRecV1Trainer(_DiffusionTrainer):
             "text": model.get_text_feats(),
         }
 
-    def _batch_losses(self, x_start, valid, inputs, generator, plan, b, rows=None):
+    def _batch_losses(self, x_start, valid, inputs, generator, plan, b, rows=None, cols=None):
         """The denoiser's loss over all B rows, padded ones included, as in
         the JAX package. ``plan`` may give, per batch, the draws of
         ``diffusion_losses`` (``draws``, a list of dicts)."""
@@ -283,6 +319,8 @@ class GenRecV1Trainer(_DiffusionTrainer):
         model = self.model
         if rows is not None:
             draws = rows.local(draws or model.diffusion_draws(rows.n, generator))
+        if cols is not None:
+            draws = item_draws(draws or model.diffusion_draws(x_start.shape[0], generator), cols, model.ITEM_PLANES)
         yield "denoise_image", model.diffusion_losses(
             x_start, inputs["i_embeds"], inputs["image"], inputs["text"], generator, draws, rows
         )
@@ -294,12 +332,20 @@ class GenRecV1Trainer(_DiffusionTrainer):
         ``draws`` and ``sampled`` are ``generate``'s and
         ``interest_debias``'s draws."""
         model = self.model
-        x_start = interaction_vectors(model.data, users)
+        cols = model.item_cols
+        x_start = interaction_vectors(model.data, users, cols)
         blended, probs = model.generate(x_start, generator, draws)
         if self.debias_tables is not None:
-            blended = interest_debias(
-                users, x_start, blended, self.debias_tables, self.sample_ratio, generator, sampled
-            )
+            tables = self.debias_tables
+            if cols is not None:
+                # this rank's items: their cluster labels, and its columns of the draw
+                tables = {**tables, **{k: cols.rows(tables[k]) for k in ("img_labels", "txt_labels")}}
+                if sampled is None:
+                    sampled = cols.local(
+                        torch.rand(users.shape[0], model.n_items, generator=generator, device=model.device)
+                        < self.sample_ratio
+                    )
+            blended = interest_debias(users, x_start, blended, tables, self.sample_ratio, generator, sampled)
         return blended, probs
 
     def _regenerated_graphs(self, generator, plan) -> dict:
@@ -309,19 +355,23 @@ class GenRecV1Trainer(_DiffusionTrainer):
         dropout's two masks), in place of the draws."""
 
         model = self.model
+        cols = model.item_cols
 
         def chunk_topk(c, users, draws=None, sampled=None):
             if plan is not None:
                 draws, sampled = plan["gen"][c], plan["sampled"][c]
+                if cols is not None:
+                    draws, sampled = cols.local(draws), cols.local(sampled)
             blended, probs = self.generate_chunk(users, generator, draws, sampled)
-            return grouped_topk(blended * probs, model.rebuild_k)[1]
+            scores = blended * probs
+            return (grouped_topk(scores, model.rebuild_k) if cols is None else cols.topk(scores, model.rebuild_k))[1]
 
         def chunk_draws(n):
             draws = model.generate_draws(n, generator)
             if self.debias_tables is None:
-                return {"draws": draws}
+                return item_draws({"draws": draws}, cols, ("draws",))
             sampled = torch.rand(n, model.n_items, generator=generator, device=model.device) < self.sample_ratio
-            return {"draws": draws, "sampled": sampled}
+            return item_draws({"draws": draws, "sampled": sampled}, cols, ("draws", "sampled"))
 
         keep = None if plan is None else plan["keep"]
         top = self._top_items(chunk_topk, None if plan is not None else chunk_draws)
@@ -357,13 +407,16 @@ class MVDiffTrainer(Trainer):
     rank's rows, and each denoiser's Adam steps on gradients summed over
     the axis. Phase 4 deals its user chunks over the ranks
     (``dealt_chunks``) and every rank builds the graphs from every chunk's
-    picks; phase 2 runs whole on every rank."""
+    picks; phase 2 runs whole on every rank. On a model axis phases 3 and 4
+    run on the item split (``MVDiff.split_items``); phases 1 and 2, over
+    the items' features, run whole on every rank."""
 
     # the parameter groups trained in phases 1 and 3, one Adam each
     DENOISERS = ("feat_denoise_image", "feat_denoise_text", "denoise_image", "denoise_text")
 
     def _build_train_step(self, train_data) -> None:
         super()._build_train_step(train_data)
+        split_items(self)
         self._build_phase_optimizers()
         self._shard_optimizers()
 
@@ -400,6 +453,7 @@ class MVDiffTrainer(Trainer):
         per batch and modality the timesteps and noise (``draws[b][j]``,
         a (ts, noise) pair)."""
         if "feat_denoise_image" not in self.optimizers:
+            split_items(self)
             self._build_phase_optimizers()
             self._shard_optimizers()
         full_precision_matmuls()
@@ -447,10 +501,12 @@ class MVDiffTrainer(Trainer):
         (``idx``) and per batch and modality ``sparsity_losses``' draws
         (``draws[b][j]``)."""
         if "denoise_image" not in self.optimizers:
+            split_items(self)
             self._build_phase_optimizers()
             self._shard_optimizers()
         full_precision_matmuls()
         model = self.model
+        cols = model.item_cols
         U = model.n_users
         with torch.no_grad():
             i_emb = model.item_id_embedding.detach().clone()
@@ -460,7 +516,7 @@ class MVDiffTrainer(Trainer):
         for b, slots in enumerate(self._slots(U, generator, plan)):
             users = slots if rows is None else rows.local(slots)
             valid = (users < U).to(torch.float32)
-            x = interaction_vectors(model.data, users.clamp(max=U - 1)) * valid[:, None]
+            x = interaction_vectors(model.data, users.clamp(max=U - 1), cols) * valid[:, None]
             step = []
             for j, m in enumerate(MODALITIES):
                 if plan is not None:
@@ -469,6 +525,8 @@ class MVDiffTrainer(Trainer):
                     draws = model.sparsity_draws(generator, slots.shape[0])
                 if rows is not None:
                     draws = rows.local(draws)
+                if cols is not None:
+                    draws = model.item_local_draws(draws, cols)
                 diff, gc, contra = model.sparsity_losses(
                     getattr(model, f"denoise_{m}"), x, i_emb, feats[m], draws, rows)
                 wmean = lambda v: weighted_mean(v, valid, rows)
@@ -486,6 +544,7 @@ class MVDiffTrainer(Trainer):
         two graphs' dropout masks (``keep``: {"image": (m_ui, m_loop),
         "text": ...})."""
         full_precision_matmuls()
+        split_items(self)
         model = self.model
         U, B = model.n_users, self.train_batch_size
         chunks = torch.arange(-(-U // B) * B, device=model.device).clamp_(max=U - 1).split(B)

@@ -96,8 +96,11 @@ class ChainOptimizer(torch.optim.Optimizer):
     ``shard_rows`` splits it over a mesh's model axis: for each parameter
     it names, this rank keeps the moments of, and updates, its rows alone
     (the gradients are whole on every rank), then gathers the rows of every
-    rank; the global-norm clip sums those rows' squares over the axis. Its
-    ``state_dict`` then holds the moments gathered whole."""
+    rank; the global-norm clip sums those rows' squares over the axis. A
+    parameter held as this rank's rows (``parallel.mesh.hold_item_rows``: a
+    denoiser's item-width out-projection) keeps its moments and takes its
+    update there, and is never gathered. Its ``state_dict`` holds the
+    moments gathered whole, and ``load_state_dict`` takes them whole."""
 
     LEARNERS = ("adam", "sgd", "adagrad", "rmsprop")
 
@@ -124,25 +127,31 @@ class ChainOptimizer(torch.optim.Optimizer):
         params = [p for group in self.param_groups for p in group["params"]]
         return [(i, p, self.rows[id(p)]) for i, p in enumerate(params) if id(p) in self.rows]
 
+    def _item_local(self):
+        """(index, parameter) of each parameter held as this rank's rows."""
+        params = [p for group in self.param_groups for p in group["params"]]
+        return [(i, p) for i, p in enumerate(params) if getattr(p, "item_cols", None) is not None]
+
     def state_dict(self):
         out = super().state_dict()
         out["count"] = self.count
-        for i, p, _ in self._sharded():
+        whole = {i: lambda v: pm.all_gather(v, self.mesh, pm.MODEL_AXIS) for i, _, _ in self._sharded()}
+        whole.update({i: lambda v, c=p.item_cols: c.gather(v, 0) for i, p in self._item_local()})
+        for i, gather in whole.items():
             if i in out["state"]:
-                out["state"][i] = {
-                    k: pm.all_gather(v, self.mesh, pm.MODEL_AXIS) if torch.is_tensor(v) else v
-                    for k, v in out["state"][i].items()
-                }
+                out["state"][i] = {k: gather(v) if torch.is_tensor(v) else v for k, v in out["state"][i].items()}
         return out
 
     def load_state_dict(self, state_dict):
         state_dict = dict(state_dict)
         self.count = int(state_dict.pop("count"))
         super().load_state_dict(state_dict)
-        for _, p, (lo, hi) in self._sharded():
+        cut = [(p, lo, hi, p.shape[0]) for _, p, (lo, hi) in self._sharded()]
+        cut += [(p, p.item_cols.lo, p.item_cols.hi, p.item_cols.n) for _, p in self._item_local()]
+        for p, lo, hi, n in cut:
             st = self.state[p]
             for k, v in list(st.items()):
-                if torch.is_tensor(v) and v.dim() and v.shape[0] == p.shape[0]:
+                if torch.is_tensor(v) and v.dim() and v.shape[0] == n:
                     st[k] = v[lo:hi].clone()
 
     @torch.no_grad()
@@ -155,10 +164,14 @@ class ChainOptimizer(torch.optim.Optimizer):
         views = [cut(p, r) for p, r in zip(params, rows)]
         grads = [cut(g, r) for g, r in zip(grads, rows)]
         if self.max_norm is not None:
-            if self.rows:
+            # the rows split over the model axis: row-sharded, or held as this rank's
+            local = [getattr(p, "item_cols", None) for p in params]
+            split = [r is not None or c is not None for r, c in zip(rows, local)]
+            if any(split):
+                mesh = self.mesh or next(c.mesh for c in local if c is not None)
                 zero = grads[0].new_zeros(())
-                sq = lambda sharded: sum(((g * g).sum() for g, r in zip(grads, rows) if (r is not None) == sharded), zero)
-                norm = (sq(False) + pm.all_reduce(sq(True), self.mesh, pm.MODEL_AXIS)).sqrt()
+                sq = lambda sharded: sum(((g * g).sum() for g, s in zip(grads, split) if s == sharded), zero)
+                norm = (sq(False) + pm.all_reduce(sq(True), mesh, pm.MODEL_AXIS)).sqrt()
             else:
                 norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
             scale = torch.where(norm < self.max_norm, 1.0, self.max_norm / norm)
@@ -325,9 +338,10 @@ class Trainer:
         parameters and one optimizer for each group the model's
         ``label_transforms`` names (the JAX package's ``multi_transform``
         labels), all stepped after each batch's backward. A mesh must have
-        the process groups of its ranks (a layout alone builds a trainer to
-        inspect, not to train)."""
-        if self.mesh is not None and self.mesh.data_group is None and self.mesh.model_group is None:
+        the process groups of its ranks, or an exchange in their place (a
+        layout alone builds a trainer to inspect, not to train)."""
+        mesh = self.mesh
+        if mesh is not None and mesh.data_group is None and mesh.model_group is None and mesh.exchange is None:
             raise ValueError(f"mesh {self.mesh.shape} needs a process group of its ranks (parallel.launch.run)")
         self._td = train_data
         self._num_batches = -(-train_data.n_inter // self.train_batch_size)
@@ -556,12 +570,13 @@ class Trainer:
         gathered from the model ranks); every rank takes part in the
         gathers and returns once the file is written."""
         optimizers = {k: opt.state_dict() for k, opt in self.optimizers.items()}
+        params = self.model.state_dict()  # item-split parameters gathered whole
         if not self.is_main:
             pm.barrier(self.mesh)
             return None
         path = save_checkpoint(
             self.checkpoint_path(),
-            params=self.model.state_dict(),
+            params=params,
             optimizers=optimizers,
             state=self.state,
             epoch=epoch,

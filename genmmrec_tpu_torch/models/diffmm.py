@@ -114,6 +114,8 @@ class DiffMM(RecModel):
         make_dnn = lambda: Denoise(self.in_dims, self.out_dims, self.d_emb_size, self.norm).to(self.device)
         self.denoise_image = make_dnn()
         self.denoise_text = make_dnn()
+        # the model axis's item split of the denoisers (``split_items``)
+        self.item_cols = None
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> None:
@@ -281,20 +283,34 @@ class DiffMM(RecModel):
         """Per-user SNR-weighted diffusion MSE and modal-alignment loss.
 
         ``ts``, ``noise`` and the dropout ``keep`` mask are drawn from
-        ``generator`` unless given."""
+        ``generator`` unless given. On the item split (``denoiser.cols``)
+        ``x_start``, ``noise`` and ``keep`` hold this rank's columns (a draw
+        not given is made whole and sliced): the MSE is the ranks' sums
+        over their columns, summed over the model axis, over ``n_items``,
+        and each product with the per-item tables takes this rank's rows
+        of them, summed over the axis."""
         B = x_start.shape[0]
         dev = x_start.device
+        c = denoiser.cols
         if ts is None:
             ts = torch.randint(0, self.steps, (B,), generator=generator, device=dev)
         if noise is None:
-            noise = torch.randn(x_start.shape, generator=generator, device=dev)
+            if c is None:
+                noise = torch.randn(x_start.shape, generator=generator, device=dev)
+            else:
+                noise = c.local(torch.randn((B, self.n_items), generator=generator, device=dev))
         x_t = q_sample(self.sched, x_start, ts, noise)
         model_output = denoiser(x_t, ts, dropout=0.5, keep=keep, generator=generator)
-        mse = ((x_start - model_output) ** 2).mean(dim=1)
+        if c is None:
+            mse = ((x_start - model_output) ** 2).mean(dim=1)
+            usr_model_embeds = model_output @ modal_feats
+            usr_id_embeds = x_start @ item_embeds
+        else:
+            mse = c.sum(((x_start - model_output) ** 2).sum(dim=1)) / self.n_items
+            usr_model_embeds = c.sum(model_output @ c.rows(modal_feats))
+            usr_id_embeds = c.sum(x_start @ c.rows(item_embeds))
         weight = torch.where(ts == 0, 1.0, snr(self.sched, ts - 1) - snr(self.sched, ts))
         diff_loss = weight * mse
-        usr_model_embeds = model_output @ modal_feats
-        usr_id_embeds = x_start @ item_embeds
         gc_loss = ((usr_model_embeds - usr_id_embeds) ** 2).mean(dim=1)
         return diff_loss, gc_loss
 
@@ -307,7 +323,12 @@ class DiffMM(RecModel):
 
     def p_sample_users(self, denoiser: Denoise, x_start, generator=None, noise=None):
         """Reverse-diffuse interaction vectors with the eval-mode denoiser;
-        ``noise`` may give the chain's draws (``sample_noise``)."""
+        ``noise`` may give the chain's draws (``sample_noise``). On the item
+        split (``denoiser.cols``) every vector is this rank's columns, and
+        draws not given are made whole and sliced."""
+        c = denoiser.cols
+        if c is not None and noise is None:
+            noise = c.local(self.sample_noise((x_start.shape[0], self.n_items), generator))
         return p_sample_loop(
             self.sched, denoiser, x_start, self.sampling_steps,
             generator=generator, sampling_noise=self.sampling_noise, noise=noise,
@@ -326,6 +347,13 @@ class DiffMM(RecModel):
         noise = torch.randn(shape, generator=generator, device=self.device)
         keep = torch.rand(shape, generator=generator, device=self.device) < 1.0 - 0.5
         return {"ts": ts, "noise": noise, "keep": keep}
+
+    def split_items(self, cols) -> None:
+        """Put both denoisers on the model axis's item split ``cols``
+        (``parallel.mesh.ItemCols``)."""
+        self.denoise_image.split_items(cols)
+        self.denoise_text.split_items(cols)
+        self.item_cols = cols
 
     def rebuild_ui_graph(self, topk_items: torch.Tensor, generator=None) -> SparseGraph:
         """The regenerated modal graph of ``topk_items`` (``regenerated_ui_graph``)."""

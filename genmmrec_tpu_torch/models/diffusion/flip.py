@@ -123,15 +123,17 @@ def true_posterior(x0, t, gamma_cum, epsilon_cum, eps: float = 1e-8) -> torch.Te
     return numerator / (denominator + eps)
 
 
-def kl_to_posterior(x0, t, probs, steps: int, eps: float = 1e-8, sparsity=None) -> torch.Tensor:
+def kl_to_posterior(x0, t, probs, steps: int, eps: float = 1e-8, sparsity=None, cols=None) -> torch.Tensor:
     """Per-row KL of the true flip posterior to the model's probabilities;
-    neither side carries a gradient, as in the reference."""
+    neither side carries a gradient, as in the reference. Over ``cols``
+    (``parallel.mesh.ItemCols``: this rank's columns of the rows) the mean
+    is the ranks' sums over their columns, summed, over the items."""
     gamma_cum, epsilon_cum = flip_schedules(x0, steps, sparsity)
     post = true_posterior(x0, t, gamma_cum, epsilon_cum).clamp(eps, 1 - eps).detach()
     p = probs.detach().clamp(eps, 1 - eps)
     kl = post * (torch.log(post + 1e-10) - torch.log(p + 1e-10))
     kl = kl + (1 - post) * (torch.log(1 - post + 1e-10) - torch.log(1 - p + 1e-10))
-    return kl.mean(dim=1)
+    return kl.mean(dim=1) if cols is None else cols.sum(kl.sum(dim=1)) / cols.n
 
 
 def infonce_rows(view1, view2, temperature: float) -> torch.Tensor:

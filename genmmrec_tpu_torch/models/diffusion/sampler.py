@@ -31,7 +31,9 @@ def p_sample_loop(
     start from ``x_start``); the reverse loop always runs all
     ``sched.steps``. The noise, when any is drawn, comes from ``generator``,
     unless ``noise`` gives the planes in the chain's order
-    (``chain_noise``).
+    (``chain_noise``). Every step is elementwise on the vectors, so the
+    chain runs on a model rank's item columns alike, given the columns of
+    the whole planes as ``noise``.
     """
     B = x_start.shape[0]
     noisy = q_steps > 0 or sampling_noise

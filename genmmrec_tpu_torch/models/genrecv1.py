@@ -56,6 +56,12 @@ from genmmrec_tpu_torch.ops.topk import grouped_topk
 DROPOUT = 0.1
 
 
+def _over(v, axis):
+    """``v`` summed over an axis's ranks (``rows`` or ``cols``, no
+    gradient), or ``v`` without one."""
+    return v if axis is None else axis.count(v)
+
+
 class _Block(nn.Module):
     """A linear layer and the batch norm after it."""
 
@@ -118,6 +124,8 @@ class GenRecV1(RecModel):
         self.gate_image = _Block(d, d)
         self.gate_text = _Block(d, d)
         self.denoise_image = ModalDenoise(self.n_items, self.n_items, self.d_emb_size, self.num_layers)
+        # the model axis's item split of the denoiser (``split_items``)
+        self.item_cols = None
         self.to(self.device)
 
     @torch.no_grad()
@@ -255,6 +263,9 @@ class GenRecV1(RecModel):
         return u[users] @ i.T
 
     # -- the diffusion phases (driven by GenRecV1Trainer) ------------------
+    # the (B, n_items) planes among the draws of ``diffusion_draws``
+    ITEM_PLANES = ("q_noise", "q_flip", "gen_init", "gen_steps")
+
     def diffusion_draws(self, batch_size: int, generator=None) -> dict:
         """The draws ``diffusion_losses`` makes for a batch, in its order."""
         shape, dev = (batch_size, self.n_items), self.device
@@ -289,19 +300,30 @@ class GenRecV1(RecModel):
         Over a data axis (``rows``) ``x_start`` and ``draws`` hold this
         rank's rows, and the loss is its share: the sparsity, ``pos_weight``
         and the means are the global batch's, and the InfoNCE (no gradient)
-        takes every rank's rows."""
+        takes every rank's rows.
+
+        On the item split (``item_cols``) ``x_start`` and the planes of
+        ``draws`` hold this rank's columns (draws not given are made whole
+        and sliced): the sums over the items add the ranks' partial sums
+        over the model axis, and the products with the per-item tables take
+        this rank's rows of them."""
         draws = draws or {}
         B, dev = x_start.shape[0], x_start.device
+        c = self.item_cols
+        if c is not None and "q_noise" not in draws:
+            whole = self.diffusion_draws(B, generator)
+            draws = {**whole, **c.local({k: whole[k] for k in self.ITEM_PLANES})}
         ts = draws.get("ts")
         if ts is None:
             ts = torch.randint(0, self.steps, (B,), generator=generator, device=dev)
         sparsity = None
-        if rows is None:
+        if rows is None and c is None:
             pos_weight = (1.0 - x_start).sum() / (x_start.sum() + 1e-8)
         else:
-            n = rows.n * x_start.shape[1]
-            sparsity = rows.count((x_start == 0).sum().to(torch.float32)) / n
-            pos_weight = rows.count((1.0 - x_start).sum()) / (rows.count(x_start.sum()) + 1e-8)
+            total = lambda v: _over(_over(v, c), rows)
+            n = (B if rows is None else rows.n) * self.n_items
+            sparsity = total((x_start == 0).sum().to(torch.float32)) / n
+            pos_weight = total((1.0 - x_start).sum()) / (total(x_start.sum()) + 1e-8)
         x_t = flip.q_sample(
             x_start, ts, self.steps, self.flip_temp, generator, draws.get("q_noise"), draws.get("q_flip"), sparsity
         )
@@ -314,29 +336,53 @@ class GenRecV1(RecModel):
                 generator, draws.get("gen_init"), draws.get("gen_steps"), sparsity,
             )
             modal_emb = item_embeds * img_feats
-            v1, v2 = x_start @ modal_emb, gen_output @ modal_emb
+            if c is None:
+                v1, v2 = x_start @ modal_emb, gen_output @ modal_emb
+            else:
+                v1, v2 = (c.sum(v @ c.rows(modal_emb)) for v in (x_start, gen_output))
             if rows is None:
                 cl = flip.infonce_rows(v1, v2, self.sparse_temp)
             else:
                 cl = flip.infonce_rows(rows.gather(v1), rows.gather(v2), self.sparse_temp) * rows.share
-        kl = flip.kl_to_posterior(x_start, ts, probs, self.steps, sparsity=sparsity)
+        kl = flip.kl_to_posterior(x_start, ts, probs, self.steps, sparsity=sparsity, cols=c)
         curriculum = (ts.to(torch.float32) / self.steps).clamp(0.0, 0.5)
-        return row_mean(bce, rows) + row_mean(curriculum * kl, rows) + 0.01 * cl
+        bce = row_mean(bce, rows) if c is None else row_mean(c.sum(bce.sum(1)) / self.n_items, rows)
+        return bce + row_mean(curriculum * kl, rows) + 0.01 * cl
 
     @torch.no_grad()
     def generate(self, x_start, generator=None, draws: Optional[dict] = None):
         """Phase 2: reverse-sample from ``x_start`` (``sampling_steps`` flips
         first), then take the sample at each row's top-``gen_topk``
         probabilities (K3) and the original elsewhere → (blended, probs).
-        ``draws`` may give ``gen_init`` and ``gen_steps``."""
+        ``draws`` may give ``gen_init`` and ``gen_steps``. On the item split
+        (``item_cols``) every plane is this rank's columns (draws not given
+        are made whole and sliced), the flip schedules take the chunk's
+        sparsity over every rank's columns, and the top-``gen_topk`` is K3
+        on each rank's columns, merged."""
         draws = draws or {}
+        c = self.item_cols
+        sparsity = None
+        if c is not None:
+            if "gen_steps" not in draws:
+                draws = c.local(self.generate_draws(x_start.shape[0], generator))
+            sparsity = c.count((x_start == 0).sum().to(torch.float32)) / (x_start.shape[0] * self.n_items)
         denoised, probs = flip.p_sample(
             self.denoise_image, x_start, self.steps, self.sampling_steps, self.flip_temp, self.bayesian,
-            generator, draws.get("gen_init"), draws.get("gen_steps"),
+            generator, draws.get("gen_init"), draws.get("gen_steps"), sparsity,
         )
-        _, idx = grouped_topk(probs, min(self.gen_topk, self.n_items))
-        chosen = torch.zeros_like(probs, dtype=torch.bool).scatter_(1, idx, True)
+        k = min(self.gen_topk, self.n_items)
+        if c is None:
+            _, idx = grouped_topk(probs, k)
+            chosen = torch.zeros_like(probs, dtype=torch.bool).scatter_(1, idx, True)
+        else:
+            chosen = c.holds(c.topk(probs, k)[1])
         return torch.where(chosen, denoised, x_start), probs
+
+    def split_items(self, cols) -> None:
+        """Put the denoiser on the model axis's item split ``cols``
+        (``parallel.mesh.ItemCols``)."""
+        self.denoise_image.split_items(cols)
+        self.item_cols = cols
 
     def rebuild_ui_graph(self, topk_items: torch.Tensor, generator=None, keep=None) -> SparseGraph:
         """The generated user-item graph of ``topk_items`` (``regenerated_ui_graph``)."""

@@ -15,6 +15,12 @@ Parameter names follow the JAX pytree: linear layers are ``nn.Linear``
 ``interop.from_jax_params`` copies the tree across by name. ``time_emb1``
 and ``time_emb2`` are part of that tree and, as in the JAX package, not of
 the forward.
+
+``split_items`` puts it on a model axis's item split
+(``parallel.mesh.ItemCols``): ``input_proj``'s item columns give a partial
+product summed over the axis (the time embedding's columns and the bias
+added once), ``out2`` holds its rows ``[lo, hi)`` alone, and the 512-wide
+layers and their norms stay whole on every rank.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from torch import nn
 from genmmrec_tpu_torch.common.init import xavier_uniform
 from genmmrec_tpu_torch.common.norm import Norm
 from genmmrec_tpu_torch.models.diffusion.dnn import timestep_embedding
+from genmmrec_tpu_torch.parallel import mesh as pm
 
 
 class _Layer(nn.Module):
@@ -58,14 +65,23 @@ class ModalDenoise(nn.Module):
         self.out_ln = Norm(d // 2)
         self.out2 = nn.Linear(d // 2, out_dims)
         self.layers = nn.ModuleList(_Layer(d) for _ in range(num_layers))
+        # the model axis's item split (``split_items``); None on one device
+        self.cols = None
+
+    def split_items(self, cols: "pm.ItemCols") -> None:
+        """Hold this rank's columns ``cols`` of the items: ``out2`` keeps its
+        rows ``[lo, hi)`` alone (``pm.hold_item_rows``)."""
+        pm.hold_item_rows(self.out2, cols)
+        self.cols = cols
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> None:
         """Xavier-uniform weights, 0.01 biases (and ``ca_bv``), unit layer
-        norms, all drawn from ``generator``."""
+        norms, all drawn from ``generator`` (drawn whole, and this rank's
+        rows kept where it holds them)."""
         for m in self.modules():
             if isinstance(m, nn.Linear):
-                m.weight.copy_(xavier_uniform(m.weight.shape, generator))
+                pm.copy_rows_(m.weight, xavier_uniform((m.out_features, m.in_features), generator))
                 m.bias.fill_(0.01)
             elif isinstance(m, Norm):
                 m.g.fill_(1.0)
@@ -75,10 +91,15 @@ class ModalDenoise(nn.Module):
 
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         time_emb = self.emb_layer(timestep_embedding(t, self.emb_layer.in_features))
-        h = self.input_proj(torch.cat([x, time_emb], dim=-1))
+        c = self.cols
+        if c is None:
+            h = self.input_proj(torch.cat([x, time_emb], dim=-1))
+        else:
+            w = self.input_proj.weight
+            h = c.sum(x @ c.columns(w).T) + time_emb @ w[:, c.n :].T + self.input_proj.bias
         shift, scale = self.adaLN(F.silu(time_emb)).chunk(2, dim=-1)
         h = h * (1.0 + scale) + shift
         for layer in self.layers:
             h = layer(h)
         out = F.gelu(self.out_ln.layer_norm(self.out1(h)), approximate="tanh")
-        return self.out2(out)
+        return self.out2(out if c is None else c.enter(out))

@@ -18,6 +18,13 @@
   modal alignment ``gc`` and an InfoNCE term; its reverse chain picks the
   items of the regenerated user-item graphs (``rebuild_ui_graph``, the
   static-nnz graph of DiffMM with its paired dropout).
+- On a model axis's item split (``split_items``, ``parallel.mesh.ItemCols``)
+  the sparsity denoisers take and give this rank's columns of the (B,
+  n_items) vectors: the first ``down`` layer (n + emb → n/2) is a partial
+  product over its item columns summed over the axis, the last ``up``
+  layer (n/2 → n) and its batch norm hold their rows ``[lo, hi)`` alone,
+  and the layers between, with their batch norms over hidden widths, stay
+  whole on every rank.
 - Forward: the content GCN over the normalized adjacency plus the two
   regenerated graphs, the gated modal item towers over each modality's
   item graph plus the fusion graph, lifted to the users by R, the
@@ -60,6 +67,7 @@ from genmmrec_tpu_torch.ops.graph import (
 )
 from genmmrec_tpu_torch.ops.precision import full_precision_matmuls
 from genmmrec_tpu_torch.ops.topk import grouped_topk
+from genmmrec_tpu_torch.parallel import mesh as pm
 
 # dropout of the modal projections and the sparsity denoisers' layers
 STACK_DROPOUT = 0.1
@@ -168,6 +176,17 @@ class MVDiff(RecModel):
         self.feat_denoise_image = feat_denoiser(self.v_dim)
         self.feat_denoise_text = feat_denoiser(self.t_dim)
         self._ii_original = None
+        # the model axis's item split of the sparsity denoisers (``split_items``)
+        self.item_cols = None
+
+    def split_items(self, cols) -> None:
+        """Put the two sparsity denoisers on the model axis's item split
+        ``cols``: the last ``up`` layer and its batch norm hold their rows
+        ``[lo, hi)`` alone (``pm.hold_item_rows``)."""
+        for dn in (self.denoise_image, self.denoise_text):
+            pm.hold_item_rows(dn["up"][-1].lin, cols)
+            pm.hold_item_rows(dn["up"][-1].bn, cols)
+        self.item_cols = cols
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> None:
@@ -180,9 +199,9 @@ class MVDiff(RecModel):
         for m in self.modules():
             if isinstance(m, nn.Linear):
                 if id(m) in sparse:
-                    d_out, d_in = m.weight.shape
-                    m.weight.copy_(normal(m.weight.shape, float(np.sqrt(2.0 / (d_in + d_out))), generator))
-                    m.bias.copy_(normal(m.bias.shape, 0.001, generator))
+                    d_out, d_in = m.out_features, m.in_features
+                    pm.copy_rows_(m.weight, normal((d_out, d_in), float(np.sqrt(2.0 / (d_in + d_out))), generator))
+                    pm.copy_rows_(m.bias, normal((d_out,), 0.001, generator))
                 else:
                     m.weight.copy_(xavier_uniform(m.weight.shape, generator))
                     if m.bias is not None:
@@ -218,13 +237,28 @@ class MVDiff(RecModel):
         ``rows``: the batch norms over every rank's rows of a batch split
         over the data axis."""
         emb = dn["emb"](timestep_embedding(t, self.d_emb_size))
+        c = self.item_cols
         if self.norm:
-            x = l2n(x)
+            x = l2n(x) if c is None else x / c.enter(torch.sqrt(c.sum((x * x).sum(-1, keepdim=True)) + 1e-12))
         if keep is not None:
             x = torch.where(keep["input"], x / INPUT_KEEP, torch.zeros_like(x))
-        h = torch.cat([x, emb], dim=-1)
-        h = apply_stack(dn["down"], h, _lrelu, None if keep is None else keep["down"], rows)
-        return apply_stack(dn["up"], h, _lrelu, None if keep is None else keep["up"], rows)
+        down = None if keep is None else keep["down"]
+        up = None if keep is None else keep["up"]
+        if c is None:
+            h = torch.cat([x, emb], dim=-1)
+            h = apply_stack(dn["down"], h, _lrelu, down, rows)
+            return apply_stack(dn["up"], h, _lrelu, up, rows)
+        # on this rank's item columns: the first down layer's partial product,
+        # summed, then the whole layers, then the last up layer's rows
+        first = dn["down"][0]
+        w = first.lin.weight
+        z = c.sum(x @ c.columns(w).T) + emb @ w[:, c.n :].T + first.lin.bias
+        h = _lrelu(first.bn.batch_norm(z, rows))
+        if keep is not None:
+            h = torch.where(down[0], h / (1.0 - STACK_DROPOUT), torch.zeros_like(h))
+        h = apply_stack(dn["down"][1:], h, _lrelu, None if keep is None else down[1:], rows)
+        h = apply_stack(dn["up"][:-1], h, _lrelu, None if keep is None else up[:-1], rows)
+        return apply_stack(dn["up"][-1:], c.enter(h), _lrelu, None if keep is None else up[-1:], rows)
 
     def sparsity_draws(self, generator, batch_size: int) -> dict:
         """One sparsity loss's draws: timesteps, unit noise and the dropout masks."""
@@ -241,6 +275,14 @@ class MVDiff(RecModel):
             ),
         )
 
+    @staticmethod
+    def item_local_draws(draws: dict, cols) -> dict:
+        """``sparsity_draws`` with its (B, n_items) planes (the noise, the
+        input keep mask and the last ``up`` layer's) cut to ``cols``."""
+        keep = draws["keep"]
+        return {**draws, "noise": cols.local(draws["noise"]),
+                "keep": {**keep, "input": cols.local(keep["input"]), "up": [*keep["up"][:-1], cols.local(keep["up"][-1])]}}
+
     def _snr(self, t):
         acp = self.sched.alphas_cumprod[t].to(torch.float32)
         return acp / (1 - acp)
@@ -249,20 +291,35 @@ class MVDiff(RecModel):
         """Per row: the SNR-weighted eps MSE, ``gc`` and the InfoNCE term.
         Over ``rows`` (this rank's rows of a batch split over the data axis)
         the sparsity and the batch norms are the global batch's, and the
-        InfoNCE takes every rank's rows as negatives."""
+        InfoNCE takes every rank's rows as negatives. On the item split
+        (``item_cols``) ``x_start`` and the draws' planes hold this rank's
+        columns (``item_local_draws``): each sum over the items adds the
+        ranks' partial sums, and the products with the per-item tables take
+        this rank's rows of them."""
         ts = draws["ts"]
-        sparsity = global_mean(x_start, rows)
+        c = self.item_cols
+        if c is None:
+            sparsity = global_mean(x_start, rows)
+        else:
+            total = c.count(x_start.sum())
+            total = total if rows is None else rows.count(total)
+            sparsity = total / (x_start.shape[0] * (1 if rows is None else rows.mesh.data) * self.n_items)
         coe = self.alpha_sparity * (1.0 + (1.0 - sparsity)) * torch.exp(-self.beta_sparity * ts.to(torch.float32))
         mask = torch.where(x_start == 0, 1.0, self.postive_gain_degree * x_start)
         noise = draws["noise"] * (coe[:, None] * mask)
         ab = self.sched.alphas_cumprod[ts].to(torch.float32)[:, None]
         x_t = torch.sqrt(ab) * x_start + torch.sqrt(1 - ab) * noise
         out = self.modal_denoise_apply(dn, x_t, ts, draws["keep"], rows)
-        mse = ((noise - out) ** 2).mean(1)
         w = torch.where(ts == 0, 1.0, self._snr(ts - 1) - self._snr(ts))
-        gc = ((out @ modal_feats - x_start @ item_embeds) ** 2).mean(1)
         mfe = item_embeds * modal_feats
-        v1, v2 = l2n(x_start @ mfe), l2n(out @ mfe)
+        if c is None:
+            mse = ((noise - out) ** 2).mean(1)
+            gc = ((out @ modal_feats - x_start @ item_embeds) ** 2).mean(1)
+            v1, v2 = l2n(x_start @ mfe), l2n(out @ mfe)
+        else:
+            mse = c.sum(((noise - out) ** 2).sum(1)) / self.n_items
+            gc = (c.sum(out @ c.rows(modal_feats) - x_start @ c.rows(item_embeds)) ** 2).mean(1)
+            v1, v2 = (l2n(c.sum(v @ c.rows(mfe))) for v in (x_start, out))
         contra = -torch.log(torch.exp((v1 * v2).sum(1) / self.sparse_temp)
                             / torch.exp(v1 @ batch_rows(v2, rows).T / self.sparse_temp).sum(1))
         return w * mse, gc, contra
@@ -490,9 +547,13 @@ class MVDiff(RecModel):
         """Modality ``m``'s picks for ``users``: the top ``rebuild_k`` of the
         reverse-diffused interaction vectors (K3), expanded by
         ``high_order_items`` for the image."""
-        den = self.sparsity_p_sample(getattr(self, f"denoise_{m}"), interaction_vectors(self.data, users))
+        x = interaction_vectors(self.data, users, self.item_cols)
+        den = self.sparsity_p_sample(getattr(self, f"denoise_{m}"), x)
         return self.select_ui_items(state, m, den)
 
     def select_ui_items(self, state, m: str, den) -> torch.Tensor:
-        _, top = grouped_topk(den, self.rebuild_k)
+        """On the item split ``den`` is this rank's columns, and the top
+        ``rebuild_k`` is K3 on each rank's columns, merged."""
+        c = self.item_cols
+        _, top = grouped_topk(den, self.rebuild_k) if c is None else c.topk(den, self.rebuild_k)
         return self.high_order_items(state, top) if m == "image" else top

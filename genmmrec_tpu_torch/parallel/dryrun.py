@@ -11,8 +11,11 @@ starts on the CPU (it lives here, so that the spawned ranks import ``torch``
 and this package alone): fits on a 2 × 2 mesh and on a data axis alone,
 each model's batch gradients from the parameters, state, graphs and batch
 its case gives (``batch_grads``; the cases may be handed over in a file
-while the ranks fit, ``handed_over``), and one training batch under a
-model axis alone.
+while the ranks fit, ``handed_over``), one training batch under a model
+axis alone, and the diffusion phases on the model axis's item split: one
+phase-1 batch of DiffMM, GenRecV1 and MVDiff (``phase1_batch``) on a model
+axis alone and DiffMM's phase 1 and regeneration on the 2 × 2 mesh
+(``regeneration``).
 """
 
 from __future__ import annotations
@@ -182,6 +185,81 @@ def one_batch(model_name: str, overrides: dict, device, mesh=None) -> dict:
     return {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
 
 
+def _diffusion_trainer(model_name: str, overrides: dict, device, mesh=None, params=None):
+    """``fit``'s start for a multi-phase trainer: the model from the seed
+    (or from the JAX parameters ``params``, ``interop.from_jax_params``),
+    its state, rank 0's values on every rank, and the optimizers on the
+    item split → (trainer, train data)."""
+    from genmmrec_tpu_torch.interop import from_jax_params
+
+    config = Config(model_name, "tiny", dict(overrides))
+    td = build_train_data(RecDataset(config).split()[0], device)
+    model = get_model(model_name)(config, td)
+    trainer = get_trainer(model_name)(config, model, mesh=mesh)
+    model.init_params(trainer.split("init"))
+    if params is not None:
+        from_jax_params(model, params)
+    trainer.state = model.init_state(trainer.split("state"))
+    pm.replicated((list(model.parameters()), trainer.state), mesh)
+    trainer._build_train_step(td)
+    return trainer, td
+
+
+def record_step_grads(trainer) -> dict:
+    """A dict that each optimizer step of ``trainer`` fills, before it
+    steps, with the gradient of every parameter it steps (name -> numpy on
+    the CPU, whole: an item-split one gathered over the model axis, so every
+    model rank must step)."""
+    names = {id(p): k for k, p in trainer.model.named_parameters()}
+    grads = {}
+    for opt in trainer.optimizers.values():
+        def recorded(closure=None, opt=opt, step=opt.step):
+            for p in (p for group in opt.param_groups for p in group["params"]):
+                g = torch.zeros_like(p) if p.grad is None else p.grad
+                cols = getattr(p, "item_cols", None)
+                grads[names[id(p)]] = (g if cols is None else cols.gather(g, 0)).cpu().numpy()
+            return step(closure)
+
+        opt.step = recorded
+    return grads
+
+
+def phase1_batch(model_name: str, overrides: dict, device, mesh=None, case=None) -> dict:
+    """``fit``'s start, then the first batch of the phase over (B, n_items)
+    vectors (phase 1; MVDiff's phase 3, after its phases 1 and 2) from the
+    prelude's generator, or from ``case`` (``params``, JAX parameters, and
+    ``plan``, the phase's draws) → its losses, each denoiser's gradient
+    before its step and every parameter after it, by name and whole."""
+    params = None if case is None else case["params"]
+    trainer, _ = _diffusion_trainer(model_name, overrides, device, mesh, params)
+    model = trainer.model
+    grads = record_step_grads(trainer)
+    gen = trainer.split("epoch", 0, "prelude")
+    plan = None if case is None else _on(case["plan"], device)
+    if model_name == "MVDiff":
+        trainer.feature_epoch(gen)
+        trainer.regenerate_items()
+        grads.clear()
+        losses = trainer.sparsity_epoch(gen, plan)
+    else:
+        losses = trainer._diffusion_epoch(gen, plan)
+    # the first batch's losses, as _diffusion_epoch gives them
+    params = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    return {"losses": losses[0].cpu().numpy(), "grads": grads, "params": params,
+            "split": sorted(k for k, p in model.named_parameters() if getattr(p, "item_cols", None) is not None)}
+
+
+def regeneration(model_name: str, overrides: dict, device, mesh=None) -> dict:
+    """``fit``'s start, phase 1 and the regeneration from the prelude's
+    generator → the generated graphs' edges (rows, cols, vals) by name."""
+    trainer, _ = _diffusion_trainer(model_name, overrides, device, mesh)
+    gen = trainer.split("epoch", 0, "prelude")
+    trainer._diffusion_epoch(gen)
+    state = trainer.regenerate(gen)
+    return {k: tuple(getattr(g, f).cpu().numpy() for f in ("rows", "cols", "vals"))
+            for k, g in state.items() if k.endswith("_ui")}
+
+
 def fit_and_resume(model_name: str, overrides: dict, device, mesh=None) -> tuple:
     """``fit`` with checkpoints into ``overrides["checkpoint_dir"]``, then a
     ``fit`` of one more epoch resumed from the last checkpoint → (the
@@ -217,18 +295,28 @@ def mesh_checks(device, spec: dict) -> dict:
     hold them: the caller may build them while the ranks fit,
     ``handed_over``) on it, ``steps`` (model -> overrides) on a ``{data:
     1, model: 2}`` mesh of the first two ranks, ``data_fits`` (model ->
-    overrides) on a ``{data: 2}`` mesh of the first two ranks. Returns
-    global rank 0's results."""
+    overrides) on a ``{data: 2}`` mesh of the first two ranks; on the item
+    split, ``regenerations`` (model -> overrides) on the 2 × 2 mesh and
+    ``phase1`` (model -> overrides, ``phase1_batch``) on the ``{data: 1,
+    model: 2}`` mesh, a model's case taken from the handed-over batches
+    under the key ``phase1_cases`` maps to it. Returns global rank 0's
+    results."""
     mesh = pm.build_mesh({"mesh_shape": {"data": 2, "model": 2}})
     out = {f"fit_{name}": fit(name, over, device, mesh) for name, over in spec["fits"].items()}
     out.update({f"resume_{name}": fit_and_resume(name, over, device, mesh) for name, over in spec["resumes"].items()})
+    out.update({f"regen_{name}": regeneration(name, over, device, mesh)
+                for name, over in spec.get("regenerations", {}).items()})
     batches = spec["batches"]
     if isinstance(batches, str):
         batches = handed_over(batches)
+    # a case of phase1_cases (model -> case) is phase 1 from JAX parameters and draws
+    phase1_cases = {name: batches.pop(key) for key, name in spec.get("phase1_cases", {}).items() if key in batches}
     out.update({f"grad_{name}": batch_grads(case, device, mesh) for name, case in batches.items()})
     model_axis = pm.build_mesh({"mesh_shape": {"data": 1, "model": 2}})
     if model_axis.member:
         out.update({f"step_{name}": one_batch(name, over, device, model_axis) for name, over in spec["steps"].items()})
+        out.update({f"phase1_{name}": phase1_batch(name, over, device, model_axis, phase1_cases.get(name))
+                    for name, over in spec.get("phase1", {}).items()})
     data_axis = pm.build_mesh({"mesh_shape": {"data": 2}})
     if data_axis.member:
         out.update({f"data_fit_{name}": fit(name, over, device, data_axis)

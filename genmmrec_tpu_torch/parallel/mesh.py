@@ -15,6 +15,29 @@ data index).
   ``model``, each rank keeps the optimizer moments, and takes the update,
   only for its rows of the tables ``shard_model_params`` names, then
   gathers the rows (``engine.trainer.ChainOptimizer``).
+- The diffusion phases of DiffMM, GenRecV1 and MVDiff split the item
+  catalog over ``model`` (``ItemCols``, the JAX package's ``item_sharded``
+  layout): each rank holds and computes only its columns ``[lo, hi)`` of
+  every (B, n_items) vector, and only its rows of each denoiser's
+  item-width out-projection and bias (``hold_item_rows``); the
+  in-projection is a partial product over its columns summed over
+  ``model``. The draws are made at the global width and sliced, so that
+  every rank's generator stays in step with one rank's.
+
+  The item split is one rule for the activations, the out-projections and
+  the regeneration's top-k (``item_bounds``): even widths ``n / S`` where
+  ``S`` divides ``n`` (the rows ``shard_model_params`` takes, 3,525 + 3,525
+  for baby's 7,050), else ``shard_bounds`` (31,504 + 31,497 for elec's
+  63,001). The masked evaluation keeps ``shard_bounds``, whose widths are
+  whole bytes of the packed mask.
+
+  Two sums cross the model axis (Megatron's g and f): ``ItemCols.sum``
+  adds the ranks' partial values into one that every rank holds alike, and
+  its backward passes the cotangent on as it is, since every rank's loss
+  is the whole loss; ``ItemCols.enter`` is the identity where such a
+  replicated tensor enters column-local work, and its backward sums the
+  ranks' partial cotangents. The data axis instead sums shares of a loss,
+  so its sum's backward sums the cotangents (``sum_over``).
 - Evaluation deals whole user chunks over ``data``; over ``model`` each
   rank scores its item shard and K3 takes its top-k there, and the shards'
   survivors merge (``sharded_topk``).
@@ -84,6 +107,10 @@ class Mesh:
     backend: Optional[str] = None
     data_group: Any = None
     model_group: Any = None
+    # in place of the process groups: an object whose ``all_reduce(t, mesh,
+    # axis)`` and ``all_gather(t, mesh, axis)`` do the axis's collectives
+    # (the ranks of a mesh as threads of one process, in the tests)
+    exchange: Any = None
 
     @property
     def shape(self) -> dict:
@@ -158,6 +185,8 @@ def _group(mesh: Mesh, axis: str):
 def all_reduce(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """Sum ``t`` over ``axis``, in place; returns ``t``."""
     if getattr(mesh, axis) > 1:
+        if mesh.exchange is not None:
+            return mesh.exchange.all_reduce(t, mesh, axis)
         dist.all_reduce(t, group=_group(mesh, axis))
     return t
 
@@ -168,19 +197,27 @@ def all_gather(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     size = getattr(mesh, axis)
     if size == 1:
         return t
+    if mesh.exchange is not None:
+        return mesh.exchange.all_gather(t, mesh, axis)
     src = t.contiguous()
     parts = [torch.empty_like(src) for _ in range(size)]
     dist.all_gather(parts, src, group=_group(mesh, axis))
     return torch.cat(parts)
 
 
-def broadcast_(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+def broadcast_(t: torch.Tensor, mesh: Mesh, model: bool = True) -> torch.Tensor:
     """``t`` of global rank 0 on every rank of the mesh, in place: down each
-    column from its row-0 rank, then along each row from its column-0 rank."""
-    if mesh.data > 1:
-        dist.broadcast(t, mesh.model_rank, group=mesh.data_group)
-    if mesh.model > 1:
-        dist.broadcast(t, mesh.data_rank * mesh.model, group=mesh.model_group)
+    column from its row-0 rank, then (with ``model``) along each row from
+    its column-0 rank. Without ``model``, each rank of row 0's tensor on
+    its column: what an item-split tensor (``hold_item_rows``) takes."""
+    axes = [a for a, on in ((DATA_AXIS, mesh.data > 1), (MODEL_AXIS, mesh.model > 1 and model)) if on]
+    for axis in axes:
+        if mesh.exchange is not None:
+            t.copy_(all_gather(t.reshape(1, -1), mesh, axis)[0].view_as(t))
+        elif axis == DATA_AXIS:
+            dist.broadcast(t, mesh.model_rank, group=mesh.data_group)
+        else:
+            dist.broadcast(t, mesh.data_rank * mesh.model, group=mesh.model_group)
     return t
 
 
@@ -189,21 +226,25 @@ def barrier(mesh: Optional[Mesh]) -> None:
     along each row (so each rank waits for global rank 0 too)."""
     if mesh is None:
         return
-    if mesh.data > 1:
-        dist.barrier(group=mesh.data_group)
-    if mesh.model > 1:
-        dist.barrier(group=mesh.model_group)
+    for axis in (DATA_AXIS, MODEL_AXIS):
+        if getattr(mesh, axis) > 1:
+            if mesh.exchange is not None:
+                all_reduce(torch.zeros(1), mesh, axis)
+            else:
+                dist.barrier(group=_group(mesh, axis))
 
 
 def replicated(tree, mesh: Optional[Mesh]):
     """Broadcast every tensor of ``tree`` (tensors, dicts, sequences and
     dataclasses such as ``SparseGraph``) from global rank 0, in place, so
-    that every rank holds rank 0's values bit for bit; returns ``tree``."""
+    that every rank holds rank 0's values bit for bit (an item-split
+    parameter: its column's row-0 rank's rows); returns ``tree``."""
     if mesh is None or mesh.data * mesh.model == 1:
         return tree
     if torch.is_tensor(tree):
         with torch.no_grad():
-            broadcast_(tree.data if isinstance(tree, torch.nn.Parameter) else tree, mesh)
+            t = tree.data if isinstance(tree, torch.nn.Parameter) else tree
+            broadcast_(t, mesh, model=getattr(tree, "item_cols", None) is None)
     elif isinstance(tree, dict):
         for v in tree.values():
             replicated(v, mesh)
@@ -217,18 +258,58 @@ def replicated(tree, mesh: Optional[Mesh]):
 
 
 class _SumOver(torch.autograd.Function):
-    """An all-reduce sum over the data axis that carries the gradient: every
-    rank's loss adds its share, so the cotangent of a rank's input is the
-    sum of every rank's cotangent of the output."""
+    """An all-reduce sum over ``axis`` that carries the gradient. Over the
+    data axis every rank's loss adds its share, so the cotangent of a
+    rank's input is the sum of every rank's cotangent of the output. Over
+    the model axis the sum is a value every rank holds alike and every
+    rank's loss is the whole loss, so the cotangent passes on as it is
+    (Megatron's g); summing it there would give S times the gradient."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return all_reduce(x.clone(), mesh, DATA_AXIS)
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return all_reduce(x.clone(), mesh, axis)
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce(g.clone(), ctx.mesh, DATA_AXIS), None
+        if ctx.axis == MODEL_AXIS:
+            return g, None, None
+        return all_reduce(g.clone(), ctx.mesh, ctx.axis), None, None
+
+
+class _EnterItems(torch.autograd.Function):
+    """The identity on a tensor that every model rank holds alike, where it
+    enters work on this rank's item columns; the backward sums the ranks'
+    partial cotangents over the model axis (Megatron's f)."""
+
+    @staticmethod
+    def forward(ctx, x, cols):
+        ctx.cols = cols
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.cols.mesh, MODEL_AXIS), None
+
+
+class _ItemColumns(torch.autograd.Function):
+    """Columns ``[lo, hi)`` of a weight every model rank holds whole (an
+    in-projection over the items): its gradient is this rank's columns set
+    into a whole zero tensor and summed over the model axis, so every rank
+    holds the whole gradient of those columns (each column from the one
+    rank that reads it, the zeros adding nothing)."""
+
+    @staticmethod
+    def forward(ctx, w, cols):
+        ctx.cols, ctx.shape = cols, w.shape
+        return w[:, cols.lo : cols.hi]
+
+    @staticmethod
+    def backward(ctx, g):
+        cols = ctx.cols
+        whole = g.new_zeros(ctx.shape)
+        whole[:, cols.lo : cols.hi] = g
+        return all_reduce(whole, cols.mesh, MODEL_AXIS), None
 
 
 class _GatherRows(torch.autograd.Function):
@@ -248,9 +329,9 @@ class _GatherRows(torch.autograd.Function):
         return g[i * ctx.rows : (i + 1) * ctx.rows], None
 
 
-def sum_over(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Differentiable all-reduce sum over the data axis."""
-    return _SumOver.apply(x, mesh)
+def sum_over(x: torch.Tensor, mesh: Mesh, axis: str = DATA_AXIS) -> torch.Tensor:
+    """Differentiable all-reduce sum over ``axis`` (``_SumOver``)."""
+    return _SumOver.apply(x, mesh, axis)
 
 
 def gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -361,7 +442,8 @@ def shard_model_params(model, mesh: Optional[Mesh]) -> dict:
     optimizer moments and update this model rank owns. The rule is the JAX
     package's: a 2-D leaf of ``n_users``, ``n_items`` or ``n_users +
     n_items`` rows, a 1-D leaf of ``n_items``, split evenly over the model
-    axis. Empty off a model axis."""
+    axis, but for a leaf held as this rank's rows (``hold_item_rows``).
+    Empty off a model axis."""
     m = model_axis_size(mesh)
     if m <= 1:
         return {}
@@ -369,6 +451,8 @@ def shard_model_params(model, mesh: Optional[Mesh]) -> dict:
     table_rows = {int(model.n_users), n_items, int(model.n_users) + n_items}
     out = {}
     for name, p in model.named_parameters():
+        if getattr(p, "item_cols", None) is not None:  # held as this rank's rows already
+            continue
         rows = p.shape[0] if p.dim() in (1, 2) else None
         if (p.dim() == 2 and rows in table_rows or p.dim() == 1 and rows == n_items) and rows % m == 0:
             per = rows // m
@@ -376,13 +460,140 @@ def shard_model_params(model, mesh: Optional[Mesh]) -> dict:
     return out
 
 
-def item_sharded(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
-    """The (B, n_items) vectors of the diffusion models, as they are: they
-    stay whole on each rank, since the tables are whole in the forward (in
-    the JAX package a layout hint over ``model`` with no effect on values).
-    Splitting the denoisers' projections over the model axis is later
-    work."""
-    return x
+def item_bounds(n: int, shards: int) -> list:
+    """[(lo, hi)] of the model axis's item split: ``n / shards`` columns a
+    rank where ``shards`` divides ``n`` (``shard_model_params``'s rows),
+    else ``shard_bounds``."""
+    if n % shards == 0:
+        w = n // shards
+        return [(s * w, (s + 1) * w) for s in range(shards)]
+    return shard_bounds(n, shards)
+
+
+class ItemCols:
+    """This model rank's columns ``[lo, hi)`` of ``n`` item columns split
+    over the model axis (``item_bounds``): the item-axis counterpart of
+    ``DataRows``, and of the JAX package's ``item_sharded``.
+
+    A (B, n) vector is held as its columns (``local``), a per-item table as
+    its rows (``rows``). A sum over the items is this rank's partial sum
+    over its columns, summed over the axis (``sum`` carries the gradient,
+    ``count`` does not); a tensor that every rank holds alike enters
+    column-local work through ``enter``; a whole weight over the items is
+    read through ``columns``. ``gather`` gives an item-split tensor whole,
+    and ``topk`` the exact top-k of a (B, n) vector from its columns."""
+
+    def __init__(self, mesh: Mesh, n: int):
+        self.mesh, self.n = mesh, n
+        self.bounds = item_bounds(n, mesh.model)
+        self.lo, self.hi = self.bounds[mesh.model_rank]
+        self.width = self.hi - self.lo
+
+    def local(self, x):
+        """This rank's columns (the last axis) of a global (..., n) tensor,
+        or of each tensor of a tuple, list or dict (None stays None): a copy,
+        so that the whole tensor is freed once its caller lets it go."""
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: self.local(v) for k, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            return type(x)(self.local(v) for v in x)
+        return x[..., self.lo : self.hi].contiguous()
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a per-item (n, ...) tensor."""
+        return x[self.lo : self.hi]
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of the ranks' partial ``x`` over the model axis, carrying
+        the gradient (``_SumOver``: the cotangent passes on unchanged)."""
+        return sum_over(x, self.mesh, MODEL_AXIS)
+
+    def count(self, x: torch.Tensor) -> torch.Tensor:
+        """A sum over the model axis without gradient."""
+        return all_reduce(x.detach().clone(), self.mesh, MODEL_AXIS)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, held alike by every rank, where it enters work on this
+        rank's columns (``_EnterItems``)."""
+        return _EnterItems.apply(x, self)
+
+    def columns(self, w: torch.Tensor) -> torch.Tensor:
+        """This rank's columns of a weight held whole (``_ItemColumns``)."""
+        return _ItemColumns.apply(w, self)
+
+    def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The whole of a tensor split over the items along ``dim`` (no
+        gradient): every rank's part, padded to the widest, gathered."""
+        x = x.detach().movedim(dim, 0)
+        wide = max(hi - lo for lo, hi in self.bounds)
+        padded = torch.cat([x, x.new_zeros((wide - x.shape[0], *x.shape[1:]))]).contiguous()
+        got = all_gather(padded, self.mesh, MODEL_AXIS)
+        parts = [got[s * wide : s * wide + hi - lo] for s, (lo, hi) in enumerate(self.bounds)]
+        return torch.cat(parts).movedim(0, dim)
+
+    def topk(self, x: torch.Tensor, k: int):
+        """(values, global item ids) of the top-k of each row of a (B, n)
+        vector held as this rank's columns ``x``: K3 on each rank's
+        columns, merged over the axis (``sharded_topk``)."""
+        return sharded_topk(lambda lo, hi: x.contiguous(), k, self.mesh, n=self.n, bounds=self.bounds)
+
+    def holds(self, ids: torch.Tensor) -> torch.Tensor:
+        """(B, width) bool: True at this rank's columns of the global item
+        ids ``ids`` (B, k)."""
+        inside = (ids >= self.lo) & (ids < self.hi)
+        at = torch.where(inside, ids - self.lo, self.width)
+        out = torch.zeros(ids.shape[0], self.width + 1, dtype=torch.bool, device=ids.device)
+        return out.scatter_(1, at, True)[:, : self.width]
+
+
+def item_sharding(mesh: Optional[Mesh], n: int) -> Optional[ItemCols]:
+    """This rank's columns of ``n`` items over the model axis, or None off a
+    model axis (every code path then the one device's)."""
+    if mesh is None or mesh.model == 1:
+        return None
+    return ItemCols(mesh, n)
+
+
+def _whole_item_rows(module, state_dict, prefix, local_metadata):
+    for name, p in module.named_parameters(recurse=False):
+        cols = getattr(p, "item_cols", None)
+        if cols is not None:
+            state_dict[prefix + name] = cols.gather(p, 0)
+
+
+def _local_item_rows(module, state_dict, prefix, *args):
+    for name, p in module.named_parameters(recurse=False):
+        cols, key = getattr(p, "item_cols", None), prefix + name
+        if cols is not None and key in state_dict and state_dict[key].shape[0] == cols.n:
+            state_dict[key] = cols.rows(state_dict[key])
+
+
+def hold_item_rows(module: torch.nn.Module, cols: ItemCols) -> None:
+    """Hold each parameter of ``module`` itself (not of its children) whose
+    first dimension is the ``cols.n`` items as this rank's rows, a new
+    parameter tagged ``item_cols`` (``shard_model_params``, ``replicated``
+    and ``ChainOptimizer`` read the tag). ``module.state_dict()`` then
+    gives them whole (every model rank must call it: it gathers) and
+    ``load_state_dict`` takes them whole. A parameter held so already is
+    left as it is."""
+    for name, p in list(module.named_parameters(recurse=False)):
+        if getattr(p, "item_cols", None) is None and p.shape[0] == cols.n:
+            local = torch.nn.Parameter(cols.rows(p.detach()).clone(), requires_grad=p.requires_grad)
+            local.item_cols = cols
+            setattr(module, name, local)
+    if not getattr(module, "_holds_item_rows", False):
+        module._register_state_dict_hook(_whole_item_rows)
+        module._register_load_state_dict_pre_hook(_local_item_rows, with_module=True)
+        module._holds_item_rows = True
+
+
+def copy_rows_(param: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
+    """Copy ``whole`` into ``param``, or its rows where ``param`` holds this
+    rank's rows (``hold_item_rows``)."""
+    cols = getattr(param, "item_cols", None)
+    return param.copy_(whole if cols is None else cols.rows(whole))
 
 
 # -- sharded_topk ----------------------------------------------------------
@@ -438,22 +649,27 @@ def sharded_topk(
     mesh: Mesh,
     packed_mask=None,
     n: Optional[int] = None,
+    bounds: Optional[list] = None,
 ):
     """Exact masked top-k over the item catalog, item-sharded over the model
     axis. ``scores_or_fn`` is the (B, n) plane, of which each rank takes its
     columns, or ``fn(lo, hi)`` giving the (B, hi − lo) scores of this
     rank's shard (``n`` then names the width). Each model rank takes K3's
     top-k of its shard with the shard's bytes of ``packed_mask``; the (B,
-    k) values and ids are gathered over the model axis and merged. Returns
-    (values, indices) as ``grouped_topk``."""
+    k) values and ids are gathered over the model axis and merged.
+    ``bounds`` gives the shards' columns (``item_bounds``), by default
+    ``shard_bounds``, whose widths are whole bytes of ``packed_mask``.
+    Returns (values, indices) as ``grouped_topk``."""
     if torch.is_tensor(scores_or_fn):
         n = scores_or_fn.shape[1]
         scores_fn = lambda lo, hi: scores_or_fn[:, lo:hi].contiguous()
     else:
         scores_fn = scores_or_fn
-    lo, hi = shard_bounds(n, mesh.model)[mesh.model_rank]
+    lo, hi = (bounds or shard_bounds(n, mesh.model))[mesh.model_rank]
     mask = None
     if packed_mask is not None:
+        if lo % 8:
+            raise ValueError(f"a shard from column {lo} does not start on a byte of the packed mask")
         mask = packed_mask[:, lo // 8 : lo // 8 + -(-(hi - lo) // 8)].contiguous()
     vals, idx = local_topk(scores_fn(lo, hi), k, lo, mask)
     B = vals.shape[0]

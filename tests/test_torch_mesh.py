@@ -23,8 +23,12 @@ graph-CF, multimodal, message-passing and multimodal graph models against
 build and hold it), one batch of each of the diffusion recommenders,
 MVDiff and the 19 RF models against one rank of the port (13 of them also
 against ``jax.grad``), and one training batch of FREEDOM and RFBM3 on a
-model axis alone against one rank. Spawned processes build the batch
-cases while the ranks fit. Then ``dryrun_multigpu(4)``.
+model axis alone against one rank. On the item split of the diffusion
+denoisers: one phase-1 batch of DiffMM, GenRecV1 and MVDiff (MVDiff's
+phase 3) on a model axis alone against one rank (DiffMM from the JAX
+parameters and draws, also against ``jax.grad``), and DiffMM's phase 1 and
+regeneration on the 2 × 2 mesh against one rank. Spawned processes build
+the batch cases while the ranks fit. Then ``dryrun_multigpu(4)``.
 """
 
 import jax
@@ -250,6 +254,39 @@ def _genrecv1_case():
                 state={"image_ui": (top, {"keep": keep})}, batch={k: v.numpy() for k, v in tb.items()},
                 draws={"masks": _dropout_masks(mkey, jm.n_items, jm.latdim)})
     return case, float(ref), jax_tree_by_name(_np_tree(grads))
+
+
+def _diffmm_phase1_case():
+    """DiffMM's phase 1 on tiny at ``PHASE1``'s one batch from the JAX
+    parameters and the JAX package's draws, as ``test_diffusion_epoch_
+    matches_jax`` builds it → (the case of ``dryrun.phase1_batch``: the
+    parameters and the plan; the JAX batch's losses; ``jax.grad`` of each
+    modality's loss by JAX name)."""
+    from test_torch_train import _jax_diffusion_draws, _np_tree
+
+    jc = JConfig("DiffMM", "tiny", dict(PHASE1["DiffMM"]))
+    jm = j_get_model("DiffMM")(jc, j_train(JDataset(jc).split()[0]))
+    params = jm.init_params(jax.random.PRNGKey(0))
+    B, U = int(PHASE1["DiffMM"]["train_batch_size"]), jm.n_users
+    nb = -(-U // B)
+    users = np.asarray(jax.random.permutation(jax.random.PRNGKey(21), nb * B)).reshape(nb, B)
+    plan = {"users": users}
+    valid = jnp.asarray(users[0] < U, jnp.float32)
+    x_start = jm.interaction_vectors(jnp.minimum(jnp.asarray(users[0], jnp.int32), U - 1)) * valid[:, None]
+    feats = {"image": jm.get_image_feats(params), "text": jm.get_text_feats(params)}
+    losses, grads = [], {}
+    for m, km in zip(("image", "text"), jax.random.split(jax.random.PRNGKey(22))):
+        for name, a in zip(("ts", "noise", "keep"), _jax_diffusion_draws(km, B, jm.n_items, jm.steps)):
+            plan[f"{name}_{m}"] = np.repeat(a[None], nb, axis=0)
+
+        def modal_loss(p):
+            d, g = jm.diffusion_losses(p, x_start, params["rec"]["iEmbeds"], feats[m], km)
+            return ((d * valid).sum() + jm.e_loss * (g * valid).sum()) / jnp.maximum(valid.sum(), 1.0)
+
+        loss, g = jax.value_and_grad(modal_loss)(params[f"denoise_{m}"])
+        losses.append(float(loss))
+        grads.update(jax_tree_by_name(_np_tree({f"denoise_{m}": g})))
+    return {"params": _np_tree(params), "plan": plan}, np.asarray(losses), grads
 
 
 def _reference(name, jm, params, jstate, key, overrides, draws=None, graphs=None):
@@ -486,6 +523,11 @@ BN_FED_BIAS = ("lin.bias", "common1.bias", "enc1.bias", "enc2.bias")
 CANCELLED = {"MVDiff": ("emb.weight", "emb.bias", "enc1.weight")}
 
 
+# one phase-1 batch on the model axis's item split (the 64 tiny users in one
+# batch); MVDiff's phase over (B, n_items) vectors is its phase 3
+PHASE1 = {"DiffMM": dryrun.DRYRUN, "GenRecV1": dryrun.DRYRUN, "MVDiff": {**dryrun.DRYRUN, "keep_rate": 1.0}}
+
+
 # the processes that build the batch cases and their JAX references
 CASE_PROCESSES = 3
 
@@ -543,12 +585,13 @@ def _world(tmp):
     handover = str(tmp / "batches.pt")
     spec = {"fits": {"BPR": FIT, "LightGCN": FIT, **ONE_EPOCH, **{name: FIT for name in FAMILY_FITS}},
             "resumes": {"BPR": {**FIT, "checkpoint_dir": str(tmp)}}, "batches": handover,
-            "steps": STEPS, "data_fits": {"BPR": ODD_BATCH}}
+            "steps": STEPS, "data_fits": {"BPR": ODD_BATCH}, "phase1": PHASE1,
+            "phase1_cases": {"phase1_DiffMM": "DiffMM"}, "regenerations": {"DiffMM": dryrun.DRYRUN}}
     with ThreadPoolExecutor(1) as pool:
         running = pool.submit(launch.run, dryrun.mesh_checks, {"data": 2, "model": 2}, "cpu", (spec,))
         batches = None
         try:
-            cases = {"DiffMM": _diffmm_case(), "GenRecV1": _genrecv1_case()}
+            cases = {"DiffMM": _diffmm_case(), "GenRecV1": _genrecv1_case(), "phase1_DiffMM": _diffmm_phase1_case()}
             _pump(queue, procs, got, lambda: len(got["case"]) == len(names))
             batches = {**{k: c[0] for k, c in cases.items()}, **got["case"]}
         finally:
@@ -734,3 +777,77 @@ def test_model_axis_batch_matches_one_rank(world, name):
 def test_dryrun_multigpu_on_the_cpu():
     out = dryrun.dryrun_multigpu(4, device="cpu")
     assert set(out) == {"DiffMM", "GenRecV1"}
+
+
+# the parameters that a phase-1 batch steps on the item split, by model
+SPLIT = {"DiffMM": [f"denoise_{m}.out_layers.0.{w}" for m in ("image", "text") for w in ("weight", "bias")],
+         "GenRecV1": ["denoise_image.out2.weight", "denoise_image.out2.bias"],
+         "MVDiff": [f"denoise_{m}.up.2.{p}" for m in ("image", "text") for p in ("lin.weight", "lin.bias", "bn.g",
+                                                                               "bn.bias")]}
+
+
+@pytest.mark.parametrize("name", sorted(PHASE1))
+def test_model_axis_phase1_matches_one_rank(world, name):
+    """One phase-1 batch (MVDiff: phase 3) on ``{data: 1, model: 2}``, each
+    rank on its item columns and its rows of the item-width out-projections,
+    against the same batch on one rank of the port: the losses within 1e-6,
+    each denoiser's gradient within 1e-4 of its magnitude plus 1e-5 of its
+    tensor's largest (a bias in front of a batch norm and MVDiff's time
+    embedding bias, zero but for rounding, within 1e-5 of its weight's
+    largest), and the parameters after the step. DiffMM's within
+    ``test_model_axis_batch_matches_one_rank``'s 1e-6 / 1e-7. GenRecV1's and
+    MVDiff's within the fits' 2e-4: the split's in-projection rounds apart
+    from one rank's by about 1e-6 of each gradient's largest, and Adam's
+    first step, ±lr·g / (|g| + 1e-8), turns that into up to 8e-5 where |g|
+    is near 1e-8 and into a full step where a gradient is zero but for
+    rounding (``BN_FED_BIAS``, ``CANCELLED``, left out as in the fits)."""
+    out, cases = world
+    got = out[f"phase1_{name}"]
+    ref = dryrun.phase1_batch(name, PHASE1[name], CPU, case=cases["phase1_DiffMM"][0] if name == "DiffMM" else None)
+    assert got["split"] == sorted(SPLIT[name]) and ref["split"] == []
+    np.testing.assert_allclose(got["losses"], ref["losses"], rtol=1e-6)
+    assert got["grads"].keys() == ref["grads"].keys() and got["grads"]
+    for k, r in ref["grads"].items():
+        if k.endswith(("lin.bias", "emb.bias")) and name == "MVDiff":
+            weight = np.abs(ref["grads"][k[: -len("bias")] + "weight"]).max()
+            assert np.abs(got["grads"][k]).max() <= 1e-5 * weight, k
+            continue
+        np.testing.assert_allclose(got["grads"][k], r, rtol=1e-4, atol=1e-5 * np.abs(r).max(), err_msg=k)
+    assert got["params"].keys() == ref["params"].keys()
+    for k, r in ref["params"].items():
+        assert got["params"][k].shape == r.shape, k
+        if name == "DiffMM":
+            np.testing.assert_allclose(got["params"][k], r, rtol=1e-6, atol=1e-7, err_msg=k)
+        elif not k.endswith(BN_FED_BIAS + CANCELLED.get(name, ())):
+            np.testing.assert_allclose(got["params"][k], r, rtol=2e-4, atol=2e-4, err_msg=k)
+
+
+def test_model_axis_diffmm_phase1_matches_jax(world):
+    """DiffMM's phase-1 batch on ``{data: 1, model: 2}`` from the JAX
+    parameters and draws: the losses and every denoiser gradient against
+    ``jax.grad`` of the JAX loss at the global batch, within the bounds of
+    ``test_diffusion_epoch_matches_jax`` and the gradient parity tests."""
+    out, cases = world
+    got = out["phase1_DiffMM"]
+    case, ref_losses, ref_grads = cases["phase1_DiffMM"]
+    np.testing.assert_allclose(got["losses"], ref_losses, rtol=1e-4)
+    config = TConfig("DiffMM", "tiny", dict(PHASE1["DiffMM"]))
+    tm = t_get_model("DiffMM")(config, t_train(TDataset(config).split()[0], CPU))
+    names = dict(zip(params_by_jax_name(tm), dict(tm.named_parameters())))
+    denoisers = {j: p for j, p in names.items() if j.startswith("denoise_")}
+    assert denoisers.keys() == ref_grads.keys() and len(denoisers) == 12
+    for jname, pname in denoisers.items():
+        r = ref_grads[jname]
+        np.testing.assert_allclose(got["grads"][pname], r, rtol=1e-4, atol=1e-5 * np.abs(r).max(), err_msg=jname)
+
+
+def test_mesh_regeneration_matches_one_rank(world):
+    """DiffMM's phase 1 and regeneration on the 2 × 2 mesh (the item split
+    over ``model``: K3 on each rank's columns, merged; the user chunks dealt
+    over ``data``) give one rank's generated graphs."""
+    got = world[0]["regen_DiffMM"]
+    ref = dryrun.regeneration("DiffMM", dryrun.DRYRUN, CPU)
+    assert got.keys() == ref.keys() == {"image_ui", "text_ui"}
+    for k in ref:
+        for a, b in zip(got[k], ref[k]):
+            np.testing.assert_array_equal(a, b, err_msg=k)
