@@ -4139,12 +4139,13 @@ def projection_terms(torch, watched: dict, terms: dict):
     return Mode()
 
 
-def mesh_family_rank(torch, dev, mesh) -> dict:
+def mesh_family_rank(torch, dev, mesh, card) -> dict:
     """The checks of the 45 models on one rank of the ``MESH_SHAPE`` world:
-    the fits of ``MESH_FITS`` (``mesh_fit_drive``), then one batch of each
+    the fits of ``MESH_FITS`` (``mesh_fit_drive``; after MVDiff's, K3 at its
+    phase 4's item shard, ``regeneration_shard_k3``), then one batch of each
     model of ``MESH_FAMILY_MODELS`` (``mesh_family_batch``) on MGCN's train
     data."""
-    fits = {}
+    fits, k3 = {}, []
     for name in MESH_FITS:
         t0 = time.perf_counter()
         config, fit_td, vd, model = mesh_fit_setup(torch, dev, name)
@@ -4152,6 +4153,9 @@ def mesh_family_rank(torch, dev, mesh) -> dict:
         fits[name] = dict(setup_s=setup_s, **mesh_fit_drive(torch, name, config, model, fit_td, vd, mesh))
         if name == "MGCN":
             td = fit_td
+        if name == "MVDiff":
+            chunk = torch.arange(min(int(config["train_batch_size"]), model.n_users), device=dev)
+            k3 += regeneration_shard_k3(torch, model, fit_td, chunk, card, f"mesh_rank{mesh.rank}_MVDiff_phase4")
         del model, vd
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4159,14 +4163,33 @@ def mesh_family_rank(torch, dev, mesh) -> dict:
     for name in MESH_FAMILY_MODELS:
         batches.append(mesh_family_batch(torch, name, td, mesh))
         torch.cuda.empty_cache()
-    return dict(fits=fits, batches=batches, batches_s=time.perf_counter() - t0)
+    return dict(fits=fits, batches=batches, batches_s=time.perf_counter() - t0, k3_cases=k3)
+
+
+def regeneration_shard_k3(torch, model, td, users, card, case):
+    """K3 against its plain version at the shape the item split's
+    regeneration gives it: ``model``'s reverse-diffused interaction vectors
+    of ``users`` on this rank's columns (DiffMM's ``p_sample_users``,
+    MVDiff's ``sparsity_p_sample``, each modality), top ``rebuild_k``
+    (``check_k3``) → its cases."""
+    from genmmrec_tpu_torch.data.arrays import interaction_vectors
+
+    cols = model.item_cols
+    with torch.no_grad():
+        x = interaction_vectors(td, users, cols)
+        sample = model.p_sample_users if hasattr(model, "p_sample_users") else model.sparsity_p_sample
+        planes = [(m, sample(getattr(model, f"denoise_{m}"), x).contiguous()) for m in ("image", "text")]
+    k = int(model.rebuild_k)
+    return check_k3(torch, [(f"{case}_{m}_items{cols.lo}_{cols.hi}_top{k}", plane, k, None) for m, plane in planes],
+                    card)["cases"]
 
 
 def mesh_rank(dev, card):
     """One rank of the ``MESH_SHAPE`` world: ``mesh_drive``, the batch check,
     K3 on this rank's item shard against its plain version (float32 and
-    bfloat16), and the times of the layer's collectives. Returns, on global
-    rank 0, every rank's results."""
+    bfloat16) for the evaluation and for the regeneration of the fit's item
+    split (``regeneration_shard_k3``), and the times of the layer's
+    collectives. Returns, on global rank 0, every rank's results."""
     import torch
     import torch.distributed as dist
 
@@ -4194,6 +4217,8 @@ def mesh_rank(dev, card):
         (f"mesh_rank{mesh.rank}_items{lo}_{hi}_top{k}", plane, k, shard_mask),
         (f"mesh_rank{mesh.rank}_items{lo}_{hi}_top{k}_bf16", plane.bfloat16(), k, shard_mask),
     ], card)["cases"]
+    chunk = torch.arange(min(int(config["train_batch_size"]), model.n_users), device=dev)
+    k3 += regeneration_shard_k3(torch, model, td, chunk, card, f"mesh_rank{mesh.rank}_DiffMM_regeneration")
 
     def timed(fn, reps=10):
         fn()
@@ -4219,7 +4244,7 @@ def mesh_rank(dev, card):
         p.grad = None
     del trainer, model, plane, u, i, rec
     torch.cuda.empty_cache()
-    family = mesh_family_rank(torch, dev, mesh)
+    family = mesh_family_rank(torch, dev, mesh, card)
     mine = dict(rank=mesh.rank, device=str(dev), backend=mesh.backend, setup_s=setup_s, results=res, times=times,
                 launches=launches, bf16_launches=bf16_launches, k3_cases=k3, collectives=collectives, family=family)
     every = [None] * dist.get_world_size()
@@ -4284,11 +4309,12 @@ def mesh_path(torch, card):
         mesh_shape=MESH_SHAPE, world_s=world_s,
         ranks=[{k: v for k, v in r.items() if k not in ("k3_cases", "family")} for r in ranks], family=family,
         batch=world["batch"], one_rank=dict(results=one, times=one_times, setup_s=setup_s, launches=one_launches),
-        drift=drift, fusion_cluster={k: v for k, v in fusion.items() if k != "k3_cases"}, item_split=split,
+        drift=drift, fusion_cluster={k: v for k, v in fusion.items() if k != "k3_cases"},
+        item_split={k: v for k, v in split.items() if k != "k3_cases"},
         phase_s=time.perf_counter() - phase_t0,
     )
     print(f"mesh_path phase done in {out['phase_s']:.1f} s [{card}]")
-    k3 = [c for r in ranks for c in r["k3_cases"]] + fusion["k3_cases"]
+    k3 = [c for r in ranks for c in r["k3_cases"] + r["family"]["k3_cases"]] + fusion["k3_cases"] + split["k3_cases"]
     return out, dict(k1=[], k1_bwd=[], k3=k3), totals
 
 
@@ -4412,9 +4438,11 @@ def item_split_drive(torch, dev, mesh=None, dataset="elec", users=ITEM_SPLIT_USE
     whole (``dryrun.record_step_grads``, whose gathers stay out of the first
     batch's peak); then one regeneration chunk, timed, its launches counted,
     and each user's top-1 item per modality from the regenerated graphs.
-    One rank also keeps its denoised planes, to hold a rank's top-1 where
-    it differs. ``dataset`` and ``users`` other than elec's give a dry run
-    of the control flow at a small size on the CPU (no memory figures)."""
+    Each keeps its denoised planes (on the item split this rank's columns,
+    on the device, for K3 against its plain version; one rank's on the CPU,
+    to hold a rank's top-1 where it differs). ``dataset`` and ``users``
+    other than elec's give a dry run of the control flow at a small size on
+    the CPU (no memory figures)."""
     from genmmrec_tpu_torch.data.arrays import interaction_vectors
     from genmmrec_tpu_torch.engine.trainer import get_trainer
     from genmmrec_tpu_torch.models import get_model
@@ -4466,17 +4494,23 @@ def item_split_drive(torch, dev, mesh=None, dataset="elec", users=ITEM_SPLIT_USE
         order = torch.argsort(g.rows[to_item])
         top[m] = (g.cols[to_item][order] - td.n_users).cpu()
     out["top1"] = top
+    with torch.no_grad():
+        x = interaction_vectors(td, torch.arange(td.n_users, device=dev), model.item_cols)
+        out["denoised"] = {m: model.p_sample_users(getattr(model, f"denoise_{m}"), x) for m in top}
     if mesh is None:
-        with torch.no_grad():
-            x = interaction_vectors(td, torch.arange(td.n_users, device=dev))
-            out["denoised"] = {m: model.p_sample_users(getattr(model, f"denoise_{m}"), x).cpu() for m in top}
+        out["denoised"] = {m: v.cpu() for m, v in out["denoised"].items()}
+    else:
+        out["rebuild_k"] = int(model.rebuild_k)
     return out
 
 
 def item_split_rank(dev, card, dataset="elec", users=ITEM_SPLIT_USERS):
     """One rank of the ``ITEM_SPLIT_SHAPE`` world: ``item_split_drive`` on
-    the item split. Returns every rank's results on global rank 0, with
-    rank 0's gradients."""
+    the item split, then K3 against its plain version on this rank's
+    denoised columns at the regeneration's ``rebuild_k`` (``check_k3``; on
+    the card), and the time of the in-projection gradient's gather over the
+    model axis. Returns every rank's results on global rank 0, with rank
+    0's gradients."""
     import torch
     import torch.distributed as dist
 
@@ -4487,22 +4521,29 @@ def item_split_rank(dev, card, dataset="elec", users=ITEM_SPLIT_USERS):
     mesh = pm.build_mesh({"mesh_shape": ITEM_SPLIT_SHAPE})
     mine = item_split_drive(torch, dev, mesh, dataset, users)
     grads = mine.pop("grads")
-    mine.update(rank=mesh.rank, cols=pm.item_bounds(mine["n_items"], mesh.model)[mesh.model_rank])
-    # the sum over the model axis that the in-projection's gradient takes once a denoiser
+    denoised, k = mine.pop("denoised"), mine.pop("rebuild_k")
+    cols = pm.ItemCols(mesh, mine["n_items"])
+    mine.update(rank=mesh.rank, cols=(cols.lo, cols.hi))
+    mine["k3_cases"] = [] if dev.type != "cuda" else check_k3(torch, [
+        (f"item_split_rank{mesh.rank}_{m}_items{cols.lo}_{cols.hi}_top{k}", plane.contiguous(), k, None)
+        for m, plane in denoised.items()
+    ], card)["cases"]
+    del denoised
+    # the gather over the model axis that the in-projection's gradient takes once a denoiser
     w_in = next(v for k, v in grads.items() if k.endswith("in_layers.0.weight"))
-    g = torch.zeros(w_in.shape, device=dev)
-    pm.all_reduce(g, mesh, pm.MODEL_AXIS)
+    g = torch.zeros(w_in.shape[0], cols.width, device=dev)
+    cols.gather(g, 1)
     reps = 3
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dist.barrier()
     t0 = time.perf_counter()
     for _ in range(reps):
-        pm.all_reduce(g, mesh, pm.MODEL_AXIS)
+        cols.gather(g, 1)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    mine["in_grad_sum_ms"] = (time.perf_counter() - t0) / reps * 1e3
-    mine["in_grad_bytes"] = g.numel() * 4
+    mine["in_grad_gather_ms"] = (time.perf_counter() - t0) / reps * 1e3
+    mine["in_grad_bytes"] = w_in.shape[0] * cols.n * 4
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, mine)
     return dict(ranks=every, grads=grads)
@@ -4527,6 +4568,9 @@ def item_split_check(torch, card, dev="cuda", dataset="elec", users=ITEM_SPLIT_U
     one = item_split_drive(torch, torch.device("cuda:0" if dev == "cuda" else dev), None, dataset, users)
     ranks, got = world["ranks"], world["grads"]
     failures = []
+    for r in ranks[1:]:
+        if r["losses"] != ranks[0]["losses"] or any(not torch.equal(r["top1"][m], t) for m, t in ranks[0]["top1"].items()):
+            failures.append(f"rank {r['rank']}'s losses or merged top-1 differ from rank 0's")
     loss_rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(ranks[0]["losses"], one["losses"]))
     if not loss_rel <= MESH_BATCH_LOSS_RTOL:
         failures.append(f"losses {ranks[0]['losses']} against one rank's {one['losses']}")
@@ -4563,7 +4607,7 @@ def item_split_check(torch, card, dev="cuda", dataset="elec", users=ITEM_SPLIT_U
               f"{r['n_items']}): phase-1 batch {r['phase1_s']:.3f} s, peak {mib(r['peak']):.1f} MiB (rise "
               f"{mib(r['peak_rise']):.1f} MiB over {mib(r['allocated_before']):.1f} MiB); regeneration chunk "
               f"{r['regenerate_s']:.3f} s, K3 launches {r['launches']['grouped_topk']}; the in-projection gradient's "
-              f"sum over the axis ({mib(r['in_grad_bytes']):.1f} MiB) {r['in_grad_sum_ms']:.1f} ms; set-up "
+              f"gather over the axis ({mib(r['in_grad_bytes']):.1f} MiB whole) {r['in_grad_gather_ms']:.1f} ms; set-up "
               f"{r['setup_s']:.1f} s [{card}]")
     print(f"item split one rank: phase-1 batch {one['phase1_s']:.3f} s, peak {mib(one['peak']):.1f} MiB (rise "
           f"{mib(one['peak_rise']):.1f} MiB over {mib(one['allocated_before']):.1f} MiB); regeneration chunk "
@@ -4576,10 +4620,11 @@ def item_split_check(torch, card, dev="cuda", dataset="elec", users=ITEM_SPLIT_U
           f"{world_s:.1f} s [{card}]")
     if failures:
         raise AssertionError(f"{len(failures)} item split checks failed: " + " | ".join(failures))
-    strip = lambda d: {k: v for k, v in d.items() if k not in ("grads", "top1", "denoised")}
+    strip = lambda d: {k: v for k, v in d.items() if k not in ("grads", "top1", "denoised", "k3_cases")}
     totals = {k: one["launches"][k] + sum(r["launches"][k] for r in ranks) for k in one["launches"]}
     return dict(ranks=[strip(r) for r in ranks], one_rank=strip(one), loss_rel=loss_rel, worst_share_of_bound=worst,
-                worst_grad=worst_k, tied_top1=ties, draw_bytes=draw, world_s=world_s, launches=totals)
+                worst_grad=worst_k, tied_top1=ties, draw_bytes=draw, world_s=world_s, launches=totals,
+                k3_cases=[c for r in ranks for c in r["k3_cases"]])
 
 
 def fusion_cluster_check(torch, feats, card, k: int = 20):

@@ -35,10 +35,11 @@ chunks' top items are gathered.
 On a model axis the denoisers and every (B, n_items) vector of phases 1
 and 2 (MVDiff's phases 3 and 4) split over the items (``split_items``,
 ``parallel.mesh.ItemCols``): each rank builds only its columns of the
-interaction vectors, slices its columns of each draw made whole, runs the
-denoisers on them and takes each top-k of the regeneration by K3 on its
-columns, merged over the axis (``ItemCols.topk``). The data axis deals its
-chunks whole as before.
+interaction vectors, takes its columns of each draw made whole (the
+models' draw functions, and ``pm.item_planes`` for draws handed in whole
+by a plan), runs the denoisers on them and takes each top-k of the
+regeneration by K3 on its columns, merged over the axis
+(``ItemCols.topk``). The data axis deals its chunks whole as before.
 """
 
 from __future__ import annotations
@@ -75,14 +76,6 @@ def split_items(trainer) -> Optional[pm.ItemCols]:
     if cols is not None and model.item_cols is None:
         model.split_items(cols)
     return model.item_cols
-
-
-def item_draws(draws: dict, cols, keys) -> dict:
-    """``draws`` with the (B, n_items) planes of ``keys`` cut to this rank's
-    columns (each plane, or each of a tuple or list of them)."""
-    if cols is None:
-        return draws
-    return {k: cols.local(v) if k in keys else v for k, v in draws.items()}
 
 
 def dealt_chunks(mesh, chunks: list, chunk_topk, width: int, chunk_draws=None) -> torch.Tensor:
@@ -153,7 +146,7 @@ class _DiffusionTrainer(Trainer):
             valid = (users < U).to(torch.float32)
             x_start = interaction_vectors(model.data, users.clamp(max=U - 1), cols) * valid[:, None]
             step = []
-            for name, loss in self._batch_losses(x_start, valid, inputs, generator, plan, b, rows, cols):
+            for name, loss in self._batch_losses(x_start, valid, inputs, generator, plan, b, rows):
                 opt = self.optimizers[name]
                 opt.zero_grad(set_to_none=True)
                 loss.backward()
@@ -230,15 +223,14 @@ class DiffMMTrainer(_DiffusionTrainer):
             "text": model.get_text_feats(),
         }
 
-    def _batch_losses(self, x_start, valid, inputs, generator, plan, b, rows=None, cols=None):
+    def _batch_losses(self, x_start, valid, inputs, generator, plan, b, rows=None):
         model = self.model
         denom = (valid.sum() if rows is None else rows.count(valid.sum())).clamp(min=1.0)
         for m in MODALITIES:
             drawn = {} if plan is None else {k: plan[f"{k}_{m}"][b].to(model.device) for k in ("ts", "noise", "keep")}
+            drawn = pm.item_planes(drawn, model.item_cols)
             if rows is not None:
                 drawn = rows.local(drawn or model.diffusion_draws(rows.n, generator))
-            if cols is not None:
-                drawn = item_draws(drawn or model.diffusion_draws(x_start.shape[0], generator), cols, ("noise", "keep"))
             denoiser = getattr(model, f"denoise_{m}")
             diff, gc = model.diffusion_losses(
                 denoiser, x_start, inputs["i_embeds"], inputs[m], generator=generator, **drawn
@@ -260,7 +252,7 @@ class DiffMMTrainer(_DiffusionTrainer):
                 den = model.p_sample_users(denoiser, x, generator, noise)
                 return (grouped_topk(den, model.rebuild_k) if cols is None else cols.topk(den, model.rebuild_k))[1]
 
-            draws = lambda n: item_draws({"noise": model.sample_noise((n, model.n_items), generator)}, cols, ("noise",))
+            draws = lambda n: {"noise": model.sample_noise((n, model.n_items), generator)}
             return model.rebuild_ui_graph(self._top_items(chunk_topk, draws), generator)
 
         return {"image_ui": graph(model.denoise_image), "text_ui": graph(model.denoise_text)}
@@ -311,16 +303,14 @@ class GenRecV1Trainer(_DiffusionTrainer):
             "text": model.get_text_feats(),
         }
 
-    def _batch_losses(self, x_start, valid, inputs, generator, plan, b, rows=None, cols=None):
+    def _batch_losses(self, x_start, valid, inputs, generator, plan, b, rows=None):
         """The denoiser's loss over all B rows, padded ones included, as in
         the JAX package. ``plan`` may give, per batch, the draws of
         ``diffusion_losses`` (``draws``, a list of dicts)."""
-        draws = None if plan is None else plan["draws"][b]
         model = self.model
+        draws = None if plan is None else pm.item_planes(plan["draws"][b], model.item_cols)
         if rows is not None:
             draws = rows.local(draws or model.diffusion_draws(rows.n, generator))
-        if cols is not None:
-            draws = item_draws(draws or model.diffusion_draws(x_start.shape[0], generator), cols, model.ITEM_PLANES)
         yield "denoise_image", model.diffusion_losses(
             x_start, inputs["i_embeds"], inputs["image"], inputs["text"], generator, draws, rows
         )
@@ -341,12 +331,16 @@ class GenRecV1Trainer(_DiffusionTrainer):
                 # this rank's items: their cluster labels, and its columns of the draw
                 tables = {**tables, **{k: cols.rows(tables[k]) for k in ("img_labels", "txt_labels")}}
                 if sampled is None:
-                    sampled = cols.local(
-                        torch.rand(users.shape[0], model.n_items, generator=generator, device=model.device)
-                        < self.sample_ratio
-                    )
+                    sampled = self._debias_draw(users.shape[0], generator)
             blended = interest_debias(users, x_start, blended, tables, self.sample_ratio, generator, sampled)
         return blended, probs
+
+    def _debias_draw(self, n: int, generator=None) -> torch.Tensor:
+        """``interest_debias``'s sampled plane for ``n`` users, in its order;
+        on the item split this rank's columns of it."""
+        model = self.model
+        sampled = torch.rand(n, model.n_items, generator=generator, device=model.device) < self.sample_ratio
+        return pm.item_planes(sampled, model.item_cols)
 
     def _regenerated_graphs(self, generator, plan) -> dict:
         """``image_ui`` from each user's top ``rebuild_k`` of blended · probs
@@ -359,19 +353,16 @@ class GenRecV1Trainer(_DiffusionTrainer):
 
         def chunk_topk(c, users, draws=None, sampled=None):
             if plan is not None:
-                draws, sampled = plan["gen"][c], plan["sampled"][c]
-                if cols is not None:
-                    draws, sampled = cols.local(draws), cols.local(sampled)
+                draws, sampled = pm.item_planes((plan["gen"][c], plan["sampled"][c]), cols)
             blended, probs = self.generate_chunk(users, generator, draws, sampled)
             scores = blended * probs
             return (grouped_topk(scores, model.rebuild_k) if cols is None else cols.topk(scores, model.rebuild_k))[1]
 
         def chunk_draws(n):
-            draws = model.generate_draws(n, generator)
-            if self.debias_tables is None:
-                return item_draws({"draws": draws}, cols, ("draws",))
-            sampled = torch.rand(n, model.n_items, generator=generator, device=model.device) < self.sample_ratio
-            return item_draws({"draws": draws, "sampled": sampled}, cols, ("draws", "sampled"))
+            draws = {"draws": model.generate_draws(n, generator)}
+            if self.debias_tables is not None:
+                draws["sampled"] = self._debias_draw(n, generator)
+            return draws
 
         keep = None if plan is None else plan["keep"]
         top = self._top_items(chunk_topk, None if plan is not None else chunk_draws)
@@ -520,13 +511,11 @@ class MVDiffTrainer(Trainer):
             step = []
             for j, m in enumerate(MODALITIES):
                 if plan is not None:
-                    draws = _to_device(plan["draws"][b][j], model.device)
+                    draws = pm.item_planes(_to_device(plan["draws"][b][j], model.device), cols)
                 else:
                     draws = model.sparsity_draws(generator, slots.shape[0])
                 if rows is not None:
                     draws = rows.local(draws)
-                if cols is not None:
-                    draws = model.item_local_draws(draws, cols)
                 diff, gc, contra = model.sparsity_losses(
                     getattr(model, f"denoise_{m}"), x, i_emb, feats[m], draws, rows)
                 wmean = lambda v: weighted_mean(v, valid, rows)

@@ -43,6 +43,7 @@ from genmmrec_tpu_torch.ops.graph import (
     spmm,
     spmm_multi,
 )
+from genmmrec_tpu_torch.parallel import mesh as pm
 
 
 # past this many nodes (users + items) ``remat`` is on by default
@@ -284,21 +285,20 @@ class DiffMM(RecModel):
 
         ``ts``, ``noise`` and the dropout ``keep`` mask are drawn from
         ``generator`` unless given. On the item split (``denoiser.cols``)
-        ``x_start``, ``noise`` and ``keep`` hold this rank's columns (a draw
-        not given is made whole and sliced): the MSE is the ranks' sums
-        over their columns, summed over the model axis, over ``n_items``,
-        and each product with the per-item tables takes this rank's rows
-        of them, summed over the axis."""
+        ``x_start``, ``noise`` and ``keep`` hold this rank's columns (draws
+        not given come together from ``diffusion_draws``): the MSE is the
+        ranks' sums over their columns, summed over the model axis, over
+        ``n_items``, and each product with the per-item tables takes this
+        rank's rows of them, summed over the axis."""
         B = x_start.shape[0]
         dev = x_start.device
         c = denoiser.cols
+        if c is not None and noise is None:
+            ts, noise, keep = self.diffusion_draws(B, generator).values()
         if ts is None:
             ts = torch.randint(0, self.steps, (B,), generator=generator, device=dev)
         if noise is None:
-            if c is None:
-                noise = torch.randn(x_start.shape, generator=generator, device=dev)
-            else:
-                noise = c.local(torch.randn((B, self.n_items), generator=generator, device=dev))
+            noise = torch.randn(x_start.shape, generator=generator, device=dev)
         x_t = q_sample(self.sched, x_start, ts, noise)
         model_output = denoiser(x_t, ts, dropout=0.5, keep=keep, generator=generator)
         if c is None:
@@ -325,10 +325,9 @@ class DiffMM(RecModel):
         """Reverse-diffuse interaction vectors with the eval-mode denoiser;
         ``noise`` may give the chain's draws (``sample_noise``). On the item
         split (``denoiser.cols``) every vector is this rank's columns, and
-        draws not given are made whole and sliced."""
-        c = denoiser.cols
-        if c is not None and noise is None:
-            noise = c.local(self.sample_noise((x_start.shape[0], self.n_items), generator))
+        draws not given come from ``sample_noise``."""
+        if denoiser.cols is not None and noise is None:
+            noise = self.sample_noise((x_start.shape[0], self.n_items), generator)
         return p_sample_loop(
             self.sched, denoiser, x_start, self.sampling_steps,
             generator=generator, sampling_noise=self.sampling_noise, noise=noise,
@@ -336,17 +335,20 @@ class DiffMM(RecModel):
 
     def sample_noise(self, shape, generator=None) -> list:
         """The draws ``p_sample_users`` makes for a batch of ``shape``, in
-        its order (``sampler.chain_noise``)."""
-        return chain_noise(self.sched.steps, self.sampling_steps, self.sampling_noise, shape, generator, self.device)
+        its order (``sampler.chain_noise``); on the item split this rank's
+        columns of them (``pm.item_planes``)."""
+        noise = chain_noise(self.sched.steps, self.sampling_steps, self.sampling_noise, shape, generator, self.device)
+        return pm.item_planes(noise, self.item_cols)
 
     def diffusion_draws(self, batch_size: int, generator=None) -> dict:
         """The draws ``diffusion_losses`` makes for a batch, in its order:
-        the timesteps, the noise and the denoiser's dropout keep mask."""
+        the timesteps, the noise and the denoiser's dropout keep mask; on the
+        item split this rank's columns of the planes (``pm.item_planes``)."""
         shape = (batch_size, self.n_items)
         ts = torch.randint(0, self.steps, (batch_size,), generator=generator, device=self.device)
         noise = torch.randn(shape, generator=generator, device=self.device)
         keep = torch.rand(shape, generator=generator, device=self.device) < 1.0 - 0.5
-        return {"ts": ts, "noise": noise, "keep": keep}
+        return pm.item_planes({"ts": ts, "noise": noise, "keep": keep}, self.item_cols)
 
     def split_items(self, cols) -> None:
         """Put both denoisers on the model axis's item split ``cols``

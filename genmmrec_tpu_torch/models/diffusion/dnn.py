@@ -105,14 +105,15 @@ class Denoise(nn.Module):
 
     def _forward_cols(self, x, emb, dropout, keep, generator) -> torch.Tensor:
         """The forward on this rank's columns ``x`` (B, hi − lo) → (B, hi −
-        lo). A keep mask not given is drawn whole and sliced."""
+        lo). Dropout takes its keep mask as given: this rank's columns of
+        the whole mask (``DiffMM.diffusion_draws``)."""
         c = self.cols
         if self.norm:
             norm = c.enter(c.sum((x * x).sum(-1, keepdim=True)).sqrt())
             x = x / norm.clamp_min(1e-12)
         if dropout > 0.0:
             if keep is None:
-                keep = c.local(torch.rand((x.shape[0], c.n), generator=generator, device=x.device) < 1.0 - dropout)
+                raise ValueError("on the item split the dropout keep mask is given (this rank's columns)")
             x = torch.where(keep, x / (1.0 - dropout), torch.zeros_like(x))
         first = self.in_layers[0]
         h = c.sum(x @ c.columns(first.weight).T) + emb @ first.weight[:, c.n :].T + first.bias

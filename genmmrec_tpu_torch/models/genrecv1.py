@@ -52,6 +52,7 @@ from genmmrec_tpu_torch.ops.graph import (
     spmm_multi,
 )
 from genmmrec_tpu_torch.ops.topk import grouped_topk
+from genmmrec_tpu_torch.parallel import mesh as pm
 
 DROPOUT = 0.1
 
@@ -263,22 +264,24 @@ class GenRecV1(RecModel):
         return u[users] @ i.T
 
     # -- the diffusion phases (driven by GenRecV1Trainer) ------------------
-    # the (B, n_items) planes among the draws of ``diffusion_draws``
-    ITEM_PLANES = ("q_noise", "q_flip", "gen_init", "gen_steps")
-
     def diffusion_draws(self, batch_size: int, generator=None) -> dict:
-        """The draws ``diffusion_losses`` makes for a batch, in its order."""
+        """The draws ``diffusion_losses`` makes for a batch, in its order; on
+        the item split this rank's columns of the planes
+        (``pm.item_planes``)."""
         shape, dev = (batch_size, self.n_items), self.device
         ts = torch.randint(0, self.steps, (batch_size,), generator=generator, device=dev)
         q_noise = torch.rand(shape, generator=generator, device=dev)
         q_flip = torch.rand(shape, generator=generator, device=dev)
-        return {"ts": ts, "q_noise": q_noise, "q_flip": q_flip,
-                **flip.p_sample_draws(shape, self.steps, self.steps, generator, dev)}
+        draws = {"ts": ts, "q_noise": q_noise, "q_flip": q_flip,
+                 **flip.p_sample_draws(shape, self.steps, self.steps, generator, dev)}
+        return pm.item_planes(draws, self.item_cols)
 
     def generate_draws(self, batch_size: int, generator=None) -> dict:
-        """The draws ``generate`` makes for a batch, in its order."""
+        """The draws ``generate`` makes for a batch, in its order; on the
+        item split this rank's columns of them."""
         shape = (batch_size, self.n_items)
-        return flip.p_sample_draws(shape, self.steps, self.sampling_steps, generator, self.device)
+        draws = flip.p_sample_draws(shape, self.steps, self.sampling_steps, generator, self.device)
+        return pm.item_planes(draws, self.item_cols)
 
     def diffusion_losses(
         self, x_start, item_embeds, img_feats, txt_feats, generator=None, draws: Optional[dict] = None, rows=None
@@ -303,16 +306,15 @@ class GenRecV1(RecModel):
         takes every rank's rows.
 
         On the item split (``item_cols``) ``x_start`` and the planes of
-        ``draws`` hold this rank's columns (draws not given are made whole
-        and sliced): the sums over the items add the ranks' partial sums
-        over the model axis, and the products with the per-item tables take
-        this rank's rows of them."""
-        draws = draws or {}
+        ``draws`` hold this rank's columns (draws not given come from
+        ``diffusion_draws``): the sums over the items add the ranks' partial
+        sums over the model axis, and the products with the per-item tables
+        take this rank's rows of them."""
         B, dev = x_start.shape[0], x_start.device
         c = self.item_cols
-        if c is not None and "q_noise" not in draws:
-            whole = self.diffusion_draws(B, generator)
-            draws = {**whole, **c.local({k: whole[k] for k in self.ITEM_PLANES})}
+        if c is not None and not draws:
+            draws = self.diffusion_draws(B, generator)
+        draws = draws or {}
         ts = draws.get("ts")
         if ts is None:
             ts = torch.randint(0, self.steps, (B,), generator=generator, device=dev)
@@ -356,16 +358,15 @@ class GenRecV1(RecModel):
         probabilities (K3) and the original elsewhere → (blended, probs).
         ``draws`` may give ``gen_init`` and ``gen_steps``. On the item split
         (``item_cols``) every plane is this rank's columns (draws not given
-        are made whole and sliced), the flip schedules take the chunk's
+        come from ``generate_draws``), the flip schedules take the chunk's
         sparsity over every rank's columns, and the top-``gen_topk`` is K3
         on each rank's columns, merged."""
-        draws = draws or {}
         c = self.item_cols
         sparsity = None
         if c is not None:
-            if "gen_steps" not in draws:
-                draws = c.local(self.generate_draws(x_start.shape[0], generator))
+            draws = draws or self.generate_draws(x_start.shape[0], generator)
             sparsity = c.count((x_start == 0).sum().to(torch.float32)) / (x_start.shape[0] * self.n_items)
+        draws = draws or {}
         denoised, probs = flip.p_sample(
             self.denoise_image, x_start, self.steps, self.sampling_steps, self.flip_temp, self.bayesian,
             generator, draws.get("gen_init"), draws.get("gen_steps"), sparsity,

@@ -261,11 +261,14 @@ class MVDiff(RecModel):
         return apply_stack(dn["up"][-1:], c.enter(h), _lrelu, None if keep is None else up[-1:], rows)
 
     def sparsity_draws(self, generator, batch_size: int) -> dict:
-        """One sparsity loss's draws: timesteps, unit noise and the dropout masks."""
+        """One sparsity loss's draws: timesteps, unit noise and the dropout
+        masks; on the item split this rank's columns of the planes over the
+        items (the noise, the input mask and the last ``up`` layer's,
+        ``pm.item_planes``)."""
         dev, n = self.device, self.n_items
         rand = lambda *shape: torch.rand(shape, generator=generator, device=dev)
         dims = [n // 2, n // 4, n // 8]
-        return dict(
+        draws = dict(
             ts=torch.randint(0, self.steps, (batch_size,), generator=generator, device=dev),
             noise=torch.randn(batch_size, n, generator=generator, device=dev),
             keep=dict(
@@ -274,14 +277,7 @@ class MVDiff(RecModel):
                 up=[rand(batch_size, max(1, w)) < 1.0 - STACK_DROPOUT for w in (dims[1], dims[0], n)],
             ),
         )
-
-    @staticmethod
-    def item_local_draws(draws: dict, cols) -> dict:
-        """``sparsity_draws`` with its (B, n_items) planes (the noise, the
-        input keep mask and the last ``up`` layer's) cut to ``cols``."""
-        keep = draws["keep"]
-        return {**draws, "noise": cols.local(draws["noise"]),
-                "keep": {**keep, "input": cols.local(keep["input"]), "up": [*keep["up"][:-1], cols.local(keep["up"][-1])]}}
+        return pm.item_planes(draws, self.item_cols)
 
     def _snr(self, t):
         acp = self.sched.alphas_cumprod[t].to(torch.float32)
@@ -293,7 +289,7 @@ class MVDiff(RecModel):
         the sparsity and the batch norms are the global batch's, and the
         InfoNCE takes every rank's rows as negatives. On the item split
         (``item_cols``) ``x_start`` and the draws' planes hold this rank's
-        columns (``item_local_draws``): each sum over the items adds the
+        columns (``sparsity_draws``): each sum over the items adds the
         ranks' partial sums, and the products with the per-item tables take
         this rank's rows of them."""
         ts = draws["ts"]

@@ -294,22 +294,19 @@ class _EnterItems(torch.autograd.Function):
 
 class _ItemColumns(torch.autograd.Function):
     """Columns ``[lo, hi)`` of a weight every model rank holds whole (an
-    in-projection over the items): its gradient is this rank's columns set
-    into a whole zero tensor and summed over the model axis, so every rank
-    holds the whole gradient of those columns (each column from the one
-    rank that reads it, the zeros adding nothing)."""
+    in-projection over the items): its gradient is every rank's columns
+    gathered over the model axis (``ItemCols.gather``), so every rank holds
+    the whole gradient of those columns, each column from the one rank that
+    reads it."""
 
     @staticmethod
     def forward(ctx, w, cols):
-        ctx.cols, ctx.shape = cols, w.shape
+        ctx.cols = cols
         return w[:, cols.lo : cols.hi]
 
     @staticmethod
     def backward(ctx, g):
-        cols = ctx.cols
-        whole = g.new_zeros(ctx.shape)
-        whole[:, cols.lo : cols.hi] = g
-        return all_reduce(whole, cols.mesh, MODEL_AXIS), None
+        return ctx.cols.gather(g, 1), None
 
 
 class _GatherRows(torch.autograd.Function):
@@ -501,6 +498,23 @@ class ItemCols:
             return type(x)(self.local(v) for v in x)
         return x[..., self.lo : self.hi].contiguous()
 
+    def planes(self, draws):
+        """``draws`` (a tensor, or a dict, tuple or list of them, nested;
+        None stays None) with each plane over the items, a tensor of two or
+        more dimensions whose last is ``n``, cut to this rank's columns; any
+        other draw (the timesteps, a hidden layer's mask) as it is. The one
+        rule of which draws the item split slices: the models' draw
+        functions make their planes whole and give them through it, and so
+        do the trainers for draws handed in whole. A plane already cut is
+        ``width < n`` wide and stays as it is."""
+        if isinstance(draws, dict):
+            return {k: self.planes(v) for k, v in draws.items()}
+        if isinstance(draws, (tuple, list)):
+            return type(draws)(self.planes(v) for v in draws)
+        if torch.is_tensor(draws) and draws.dim() >= 2 and draws.shape[-1] == self.n:
+            return self.local(draws)
+        return draws
+
     def rows(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a per-item (n, ...) tensor."""
         return x[self.lo : self.hi]
@@ -520,16 +534,22 @@ class ItemCols:
         return _EnterItems.apply(x, self)
 
     def columns(self, w: torch.Tensor) -> torch.Tensor:
-        """This rank's columns of a weight held whole (``_ItemColumns``)."""
-        return _ItemColumns.apply(w, self)
+        """This rank's columns of a weight held whole whose first ``n``
+        columns are the items (``_ItemColumns``)."""
+        return _ItemColumns.apply(w[:, : self.n], self)
 
     def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """The whole of a tensor split over the items along ``dim`` (no
-        gradient): every rank's part, padded to the widest, gathered."""
+        gradient): every rank's part, padded to the widest, gathered. Where
+        only the last part is short (``item_bounds``' rule) the result is a
+        view of the gathered tensor."""
         x = x.detach().movedim(dim, 0)
         wide = max(hi - lo for lo, hi in self.bounds)
-        padded = torch.cat([x, x.new_zeros((wide - x.shape[0], *x.shape[1:]))]).contiguous()
-        got = all_gather(padded, self.mesh, MODEL_AXIS)
+        if x.shape[0] < wide:
+            x = torch.cat([x, x.new_zeros((wide - x.shape[0], *x.shape[1:]))])
+        got = all_gather(x.contiguous(), self.mesh, MODEL_AXIS)
+        if all(hi - lo == wide for lo, hi in self.bounds[:-1]):
+            return got[: self.n].movedim(0, dim)
         parts = [got[s * wide : s * wide + hi - lo] for s, (lo, hi) in enumerate(self.bounds)]
         return torch.cat(parts).movedim(0, dim)
 
@@ -554,6 +574,11 @@ def item_sharding(mesh: Optional[Mesh], n: int) -> Optional[ItemCols]:
     if mesh is None or mesh.model == 1:
         return None
     return ItemCols(mesh, n)
+
+
+def item_planes(draws, cols: Optional[ItemCols]):
+    """``cols.planes(draws)``, or ``draws`` as they are off the item split."""
+    return draws if cols is None else cols.planes(draws)
 
 
 def _whole_item_rows(module, state_dict, prefix, local_metadata):

@@ -158,6 +158,45 @@ def test_interaction_vectors_of_a_column_range(n, S):
         assert torch.equal(part, whole[:, lo:hi])
 
 
+# each model's draw functions: (model, overrides) -> [generator -> draws]
+DRAW_FNS = {
+    "DiffMM": lambda m, g: {"phase1": m.diffusion_draws(8, g), "chain": m.sample_noise((8, m.n_items), g)},
+    "GenRecV1": lambda m, g: {"phase1": m.diffusion_draws(8, g), "generate": m.generate_draws(8, g)},
+    "MVDiff": lambda m, g: m.sparsity_draws(g, 8),
+}
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
+    return [] if tree is None else [tree]
+
+
+@pytest.mark.parametrize("name", sorted(DRAW_FNS))
+def test_draw_functions_give_this_ranks_columns(name):
+    """On the item split each model's draw functions make their draws whole
+    from the generator, in one rank's order, and give this rank's columns
+    of every plane over the items (``ItemCols.planes``); the timesteps and
+    the hidden layers' masks stay whole. Off the split they are whole."""
+    config = TConfig(name, "tiny", {**ONE_BATCH, "num_layers": 2} if name == "GenRecV1" else dict(ONE_BATCH))
+    model = t_get_model(name)(config, t_train(TDataset(config).split()[0], CPU))
+    n = model.n_items
+    whole = _leaves(DRAW_FNS[name](model, torch.Generator().manual_seed(3)))
+    planes = [t.dim() >= 2 and t.shape[-1] == n for t in whole]
+    assert sum(planes) >= 2 and not all(planes)
+    for r in range(2):
+        m = copy.deepcopy(model)
+        cols = pm.ItemCols(pm.Mesh(1, 2, r), n)
+        m.split_items(cols)
+        got = _leaves(DRAW_FNS[name](m, torch.Generator().manual_seed(3)))
+        assert len(got) == len(whole)
+        for a, b, plane in zip(got, whole, planes):
+            assert torch.equal(a, b[..., cols.lo : cols.hi] if plane else b)
+        assert all(torch.equal(a, b) for a, b in zip(_leaves(cols.planes(got)), got))
+
+
 def test_model_axis_collectives_on_threads():
     """``ItemCols.sum`` passes the cotangent on unchanged and ``enter`` sums
     it over the ranks, so that a replicated tensor's gradient is the whole
@@ -295,7 +334,7 @@ def test_mvdiff_sparsity_denoiser_on_shards_matches_whole(n, S):
         m.zero_grad(set_to_none=True)
         cols = pm.ItemCols(mesh, n)
         m.split_items(cols)
-        local = m.item_local_draws(draws, cols)
+        local = cols.planes(draws)
         out = m.modal_denoise_apply(m.denoise_image, cols.local(x), ts, local["keep"])
         assert m.denoise_image["up"][-1].bn.g.shape == (cols.width,)
         cols.sum(out.square().sum()).backward()
@@ -383,10 +422,10 @@ def test_genrecv1_loss_and_generate_on_shards_match_one_rank():
         m.zero_grad(set_to_none=True)
         cols = pm.ItemCols(mesh, m.n_items)
         m.split_items(cols)
-        local = {**draws, **cols.local({k: draws[k] for k in m.ITEM_PLANES})}
+        local = cols.planes(draws)
         loss = m.diffusion_losses(cols.local(x), *inputs, draws=local)
         loss.backward()
-        b, p = m.generate(cols.local(x), draws=cols.local(gen))
+        b, p = m.generate(cols.local(x), draws=cols.planes(gen))
         return loss.detach(), _grads(m.denoise_image), cols.gather(b), cols.gather(p)
 
     for loss, grads, b, p in on_shards(2, rank):

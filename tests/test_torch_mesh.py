@@ -794,13 +794,9 @@ def test_model_axis_phase1_matches_one_rank(world, name):
     each denoiser's gradient within 1e-4 of its magnitude plus 1e-5 of its
     tensor's largest (a bias in front of a batch norm and MVDiff's time
     embedding bias, zero but for rounding, within 1e-5 of its weight's
-    largest), and the parameters after the step. DiffMM's within
-    ``test_model_axis_batch_matches_one_rank``'s 1e-6 / 1e-7. GenRecV1's and
-    MVDiff's within the fits' 2e-4: the split's in-projection rounds apart
-    from one rank's by about 1e-6 of each gradient's largest, and Adam's
-    first step, ±lr·g / (|g| + 1e-8), turns that into up to 8e-5 where |g|
-    is near 1e-8 and into a full step where a gradient is zero but for
-    rounding (``BN_FED_BIAS``, ``CANCELLED``, left out as in the fits)."""
+    largest), and every parameter after the step within
+    ``test_model_axis_batch_matches_one_rank``'s 1e-6 / 1e-7 (DiffMM's
+    every element; GenRecV1's and MVDiff's as ``_step_sensitive`` says)."""
     out, cases = world
     got = out[f"phase1_{name}"]
     ref = dryrun.phase1_batch(name, PHASE1[name], CPU, case=cases["phase1_DiffMM"][0] if name == "DiffMM" else None)
@@ -814,12 +810,40 @@ def test_model_axis_phase1_matches_one_rank(world, name):
             continue
         np.testing.assert_allclose(got["grads"][k], r, rtol=1e-4, atol=1e-5 * np.abs(r).max(), err_msg=k)
     assert got["params"].keys() == ref["params"].keys()
+    lr = float(TConfig(name, "tiny", dict(PHASE1[name]))["learning_rate"])
+    excused = total = 0
     for k, r in ref["params"].items():
-        assert got["params"][k].shape == r.shape, k
-        if name == "DiffMM":
-            np.testing.assert_allclose(got["params"][k], r, rtol=1e-6, atol=1e-7, err_msg=k)
-        elif not k.endswith(BN_FED_BIAS + CANCELLED.get(name, ())):
-            np.testing.assert_allclose(got["params"][k], r, rtol=2e-4, atol=2e-4, err_msg=k)
+        a = got["params"][k]
+        assert a.shape == r.shape, k
+        held = np.ones(r.shape, bool) if name == "DiffMM" else ~_step_sensitive(name, k, r.shape, ref["grads"], lr)
+        np.testing.assert_allclose(a[held], r[held], rtol=1e-6, atol=1e-7, err_msg=k)
+        # a first Adam step moves an element by less than lr
+        assert (np.abs(a - r)[~held] < 2 * lr).all(), k
+        excused, total = excused + (~held).sum(), total + r.size
+    # the rule excuses 2.2% of GenRecV1's elements, 0.49% of MVDiff's, none of DiffMM's
+    assert excused <= 0.03 * total, (excused, total)
+
+
+# the share of a gradient's largest by which the split's in-projection
+# rounds apart from one rank's
+SPLIT_ROUNDING = 1e-6
+
+
+def _step_sensitive(name, k, shape, grads, lr, eps=1e-8):
+    """The elements of parameter ``k`` whose first Adam step, lr·g / (|g| +
+    eps), the split's rounding can move past the 1e-7 bound: a gradient
+    that rounds apart by δ moves the step by lr·eps·δ / (|g| + eps)², with δ
+    ``SPLIT_ROUNDING`` of the tensor's largest gradient (of its weight's for
+    MVDiff's biases in front of a batch norm and its time embedding's bias,
+    zero but for rounding). A parameter that the batch does not step has
+    none."""
+    if k not in grads:
+        return np.zeros(shape, bool)
+    g = np.abs(grads[k])
+    scale = g.max()
+    if name == "MVDiff" and k.endswith(("lin.bias", "emb.bias")):
+        scale = np.abs(grads[k[: -len("bias")] + "weight"]).max()
+    return lr * eps * SPLIT_ROUNDING * scale / (g + eps) ** 2 > 1e-7
 
 
 def test_model_axis_diffmm_phase1_matches_jax(world):
