@@ -46,9 +46,10 @@ DiffRec, LD4MRec, GenRecV1 and DiffMM at the Amazon-elec tier after it
 each through ``get_model`` and ``get_trainer`` at its published YAML: the
 set-up timed apart (LD4MRec's ``svds`` of R, GenRecV1's two KNN graphs
 over 63,001 items and its clustering), one epoch of every phase (GenRecV1's
-and DiffMM's phase 3 cut to ``ELEC_PHASE3_BATCHES`` of its 627 batches by a
-batch plan; their denoisers' phase and the regeneration whole) and
-evaluate(valid) and evaluate(test) in float32, with finite losses and
+and DiffMM's phase 3 and DiffRec's and LD4MRec's epoch cut to
+``ELEC_BATCHES`` of their 627 batches by a batch plan; the denoisers' phase
+and the regeneration whole) and evaluate(valid) and evaluate(test) in
+float32 (DiffRec's valid alone, ``ELEC_VALID_ONLY``), with finite losses and
 metrics and no train positive in a top-50; K3 on GenRecV1's KNN block
 (8,192 x 63,001, k = 10) and regeneration planes (k = 5 and 10) and on
 DiffMM's top-1 plane, K1 on both KNN graphs and R (192,403 rows), K2 on
@@ -3877,7 +3878,9 @@ def mesh_batch_check(torch, trainer, model, mesh):
     """One BPR batch of the trained model split over the data axis, its
     gradients summed over the axis, against the same batch on this one rank
     (rank 0): the loss within LOSS_RTOL, each gradient element within
-    GRAD_RTOL of its magnitude plus GRAD_ATOL of its tensor's largest."""
+    GRAD_RTOL of its magnitude plus GRAD_ATOL of its tensor's largest (of a
+    table held as rows, rank 0's rows). Both batches read the tables whole
+    from one gather (``whole_tables``), which every rank enters."""
     from genmmrec_tpu_torch.parallel import mesh as pm
 
     dev = model.device
@@ -3889,7 +3892,7 @@ def mesh_batch_check(torch, trainer, model, mesh):
              "weight": (torch.arange(B, device=dev) < B - 7).to(torch.float32)}
     params = dict(model.named_parameters())
     rows = pm.DataRows(mesh, B)
-    with torch.enable_grad():
+    with torch.enable_grad(), pm.whole_tables(model):
         model.zero_grad(set_to_none=True)
         total, _ = model.loss(trainer.state, {**rows.local(batch), "rows": rows})
         total.backward()
@@ -3974,6 +3977,57 @@ MESH_TERMS_ATOL = 1e-4
 STEP_KERNELS = ("segment_spmm", "segment_spmm_backward", "grouped_topk")
 
 
+def held_table_bytes(torch, trainer, names=None) -> dict:
+    """name -> {param, grad, moments}: the bytes that this rank holds of
+    each table held at rest as its rows (``TableRows``, the placement of
+    ``fit`` on a model axis), or, given ``names``, of those parameters (one
+    rank's, whole): the parameter, its gradient in one BPR batch of the
+    trained model (the first ``train_batch_size`` interactions; the tables
+    read whole through ``whole_tables``, which every rank enters) and the
+    optimizers' moments of it."""
+    from genmmrec_tpu_torch.parallel import mesh as pm
+
+    model = trainer.model
+    params = dict(model.named_parameters())
+    if names is None:
+        names = sorted(k for k, p in params.items() if isinstance(getattr(p, "held_rows", None), pm.TableRows))
+    dev = model.device
+    idx = torch.arange(trainer.train_batch_size, device=dev) % model.data.n_inter
+    batch = {"users": model.data.users[idx], "pos": model.data.items[idx], "neg": model.data.items[idx.flip(0)],
+             "weight": torch.ones(idx.shape[0], device=dev)}
+    with torch.enable_grad():
+        model.zero_grad(set_to_none=True)
+        with pm.whole_tables(model):
+            total, _ = model.loss_and_update(trainer.state, batch, torch.Generator(device=dev).manual_seed(SEED + 61))
+        total.backward()
+    moments = {id(p): sum(v.nbytes for v in opt.state[p].values() if torch.is_tensor(v))
+               for opt in trainer.optimizers.values() for group in opt.param_groups for p in group["params"]}
+    nbytes = lambda t: 0 if t is None else t.nbytes
+    out = {k: dict(param=params[k].nbytes, grad=nbytes(params[k].grad), moments=moments.get(id(params[k]), 0))
+           for k in names}
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def check_held_halves(name, per_rank: list, one: dict, card) -> list:
+    """Each rank's bytes of each table it holds as rows (``held_table_bytes``)
+    against one rank's of the whole table: the parameter, its gradient and
+    its moments each exactly half (the model axis of 2), none zero, and the
+    same tables on every rank; prints a line a rank, returns the failures."""
+    failures = []
+    for r, held in enumerate(per_rank):
+        if not held or held.keys() != per_rank[0].keys():
+            failures.append(f"{name}: mesh rank {r} holds {sorted(held)} as rows, rank 0 {sorted(per_rank[0])}")
+        for k, b in held.items():
+            off = [part for part, v in b.items() if not (v > 0 and 2 * v == one[k][part])]
+            if off:
+                failures.append(f"{name}: mesh rank {r}'s {k} holds {b}, not half of one rank's {one[k]}")
+        print(f"{name} mesh rank {r} holds as its rows: " + "; ".join(
+            f"{k} param {b['param']} B, grad {b['grad']} B, moments {b['moments']} B (one rank {one[k]['param']}, "
+            f"{one[k]['grad']}, {one[k]['moments']} B)" for k, b in held.items()) + f" [{card}]")
+    return failures
+
+
 # the models fitted one epoch on the mesh against one rank: MGCN, and
 # MVDiff (its four phases through MVDiffTrainer, then the BPR epoch), each
 # at its published config
@@ -3998,9 +4052,11 @@ def mesh_fit_setup(torch, dev, name):
     return config, td, vd, get_model(name)(config, td)
 
 
-def mesh_fit_drive(torch, name, config, model, td, vd, mesh=None) -> dict:
+def mesh_fit_drive(torch, name, config, model, td, vd, mesh=None, held_names=None) -> dict:
     """``fit`` of one epoch with evaluate(valid) in float32, timed, its
-    launches counted; a multi-phase trainer's phase times beside."""
+    launches counted; a multi-phase trainer's phase times beside; after
+    it, the bytes of the tables held as rows (``held_table_bytes``; on one
+    rank, of ``held_names``)."""
     from genmmrec_tpu_torch.engine.trainer import get_trainer
 
     trainer = get_trainer(name)(config, model, mesh=mesh)
@@ -4009,9 +4065,11 @@ def mesh_fit_drive(torch, name, config, model, td, vd, mesh=None) -> dict:
     t0 = time.perf_counter()
     _, valid, _ = trainer.fit(td, vd, verbose=False)
     torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = launch_counts()
     phases = {k: v for k, v in getattr(trainer, "prelude_log", {}).items() if k.endswith("_s")}
-    return dict(valid=valid, fit_s=time.perf_counter() - t0, epoch_s=trainer.epoch_times[0], phases=phases,
-                launches=launch_counts())
+    return dict(valid=valid, fit_s=fit_s, epoch_s=trainer.epoch_times[0], phases=phases, launches=launches,
+                held=held_table_bytes(torch, trainer, held_names))
 
 
 def mesh_family_batch(torch, name, td, mesh) -> dict:
@@ -4173,9 +4231,10 @@ def regeneration_shard_k3(torch, model, td, users, card, case):
     MVDiff's ``sparsity_p_sample``, each modality), top ``rebuild_k``
     (``check_k3``) → its cases."""
     from genmmrec_tpu_torch.data.arrays import interaction_vectors
+    from genmmrec_tpu_torch.parallel import mesh as pm
 
     cols = model.item_cols
-    with torch.no_grad():
+    with torch.no_grad(), pm.whole_tables(model):
         x = interaction_vectors(td, users, cols)
         sample = model.p_sample_users if hasattr(model, "p_sample_users") else model.sparsity_p_sample
         planes = [(m, sample(getattr(model, f"denoise_{m}"), x).contiguous()) for m in ("image", "text")]
@@ -4206,10 +4265,12 @@ def mesh_rank(dev, card):
     make = lambda: get_trainer("DiffMM")(config, model, mesh=mesh)
     trainer, res, times, launches, bf16_launches = mesh_drive(torch, make, model, vd, ted)
     batch = mesh_batch_check(torch, trainer, model, mesh)
+    held = held_table_bytes(torch, trainer)
     # K3 on this rank's shard of a 4,096-user chunk, as sharded_topk gives it
     B, k = MESH_TOPK_SHAPE
     lo, hi = pm.shard_bounds(model.n_items, mesh.model)[mesh.model_rank]
-    u, i = model.eval_artifacts(trainer.state)
+    with pm.whole_tables(model):
+        u, i = model.eval_artifacts(trainer.state)
     users = vd.users[:B]
     plane = (u[users] @ i[lo:hi].T).contiguous()
     shard_mask = trainer._dense_mask(vd)[:B, lo // 8 : lo // 8 + -(-(hi - lo) // 8)].contiguous()
@@ -4246,7 +4307,8 @@ def mesh_rank(dev, card):
     torch.cuda.empty_cache()
     family = mesh_family_rank(torch, dev, mesh, card)
     mine = dict(rank=mesh.rank, device=str(dev), backend=mesh.backend, setup_s=setup_s, results=res, times=times,
-                launches=launches, bf16_launches=bf16_launches, k3_cases=k3, collectives=collectives, family=family)
+                launches=launches, bf16_launches=bf16_launches, k3_cases=k3, collectives=collectives, family=family,
+                held=held)
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, mine)
     return dict(ranks=every, batch=batch)
@@ -4283,6 +4345,11 @@ def mesh_path(torch, card):
     setup_s = time.perf_counter() - t0
     make = lambda: get_trainer("DiffMM")(config, model)
     trainer, one, one_times, one_launches, _ = mesh_drive(torch, make, model, vd, ted)
+    # each table held as rows: half of one rank's bytes on every rank
+    one_held = held_table_bytes(torch, trainer, sorted(ranks[0]["held"]))
+    failures = check_held_halves("DiffMM/baby", [r["held"] for r in ranks], one_held, card)
+    if failures:
+        raise AssertionError(f"{len(failures)} held-table checks failed: " + " | ".join(failures))
     mesh_res = ranks[0]["results"]
     drift = {f"{split}/{k}": mesh_res[split][k] - one[split][k] for split in one for k in one[split]}
     off = {k: v for k, v in drift.items() if not abs(v) <= MESH_METRIC_ATOL}
@@ -4308,7 +4375,8 @@ def mesh_path(torch, card):
     out = dict(
         mesh_shape=MESH_SHAPE, world_s=world_s,
         ranks=[{k: v for k, v in r.items() if k not in ("k3_cases", "family")} for r in ranks], family=family,
-        batch=world["batch"], one_rank=dict(results=one, times=one_times, setup_s=setup_s, launches=one_launches),
+        batch=world["batch"], one_rank=dict(results=one, times=one_times, setup_s=setup_s, launches=one_launches,
+                                            held=one_held),
         drift=drift, fusion_cluster={k: v for k, v in fusion.items() if k != "k3_cases"},
         item_split={k: v for k, v in split.items() if k != "k3_cases"},
         phase_s=time.perf_counter() - phase_t0,
@@ -4341,7 +4409,7 @@ def mesh_family_check(torch, ranks, card) -> dict:
         t0 = time.perf_counter()
         config, td, vd, model = mesh_fit_setup(torch, cuda0, name)
         setup_s = time.perf_counter() - t0
-        one = mesh_fit_drive(torch, name, config, model, td, vd)
+        one = mesh_fit_drive(torch, name, config, model, td, vd, held_names=sorted(fam[0]["fits"][name]["held"]))
         del model, td, vd
         torch.cuda.empty_cache()
         launches = dict(one["launches"]) if launches is None else {k: v + one["launches"][k] for k, v in launches.items()}
@@ -4351,6 +4419,7 @@ def mesh_family_check(torch, ranks, card) -> dict:
             if any(got[k] <= 0 for k in need):
                 failures.append(f"mesh rank {r}: {name}'s fit launched none of one of {need}: {got}")
             launches = {k: v + got[k] for k, v in launches.items()}
+        failures += check_held_halves(f"{name}/baby", [f["fits"][name]["held"] for f in fam], one["held"], card)
         mesh_valid = fam[0]["fits"][name]["valid"]
         drift = {k: mesh_valid[k] - one["valid"][k] for k in one["valid"]}
         off = {k: v for k, v in drift.items() if not abs(v) <= MESH_METRIC_ATOL}
@@ -4468,7 +4537,8 @@ def item_split_drive(torch, dev, mesh=None, dataset="elec", users=ITEM_SPLIT_USE
         return trainer, trainer.split("epoch", 0, "prelude")
 
     trainer, gen = start()
-    out["split"] = sorted(k for k, p in model.named_parameters() if getattr(p, "item_cols", None) is not None)
+    out["split"] = sorted(k for k, p in model.named_parameters() if isinstance(getattr(p, "held_rows", None),
+                                                                              pm.ItemCols))
     sync()
     memory(torch.cuda.reset_peak_memory_stats)
     before = memory(torch.cuda.memory_allocated)
@@ -5332,12 +5402,16 @@ def zoo_path(torch, card):
 
 # the elec path's models, in the order it drives them (scripts/elec_scale_torch.py's)
 ELEC_MODELS = ("DiffRec", "LD4MRec", "GenRecV1", "DiffMM")
-# of GenRecV1's and DiffMM's 627 phase-3 batches (the BPR + InfoNCE epoch)
-# at elec, elec_path runs this many by a smoke-side batch plan; their phases 1
-# and 2 (the regeneration builds whole graphs), DiffRec's and LD4MRec's
-# epochs and every evaluation run whole. scripts/elec_scale_torch.py runs
-# the whole epochs.
-ELEC_PHASE3_BATCHES = 60
+# of the 627 batches of an epoch at elec (GenRecV1's and DiffMM's phase 3,
+# the BPR + InfoNCE epoch; DiffRec's and LD4MRec's epoch), elec_path runs
+# this many by a smoke-side batch plan; GenRecV1's and DiffMM's phases 1 and
+# 2 (the regeneration builds whole graphs) run whole.
+# scripts/elec_scale_torch.py runs the whole epochs.
+ELEC_BATCHES = 60
+# the models whose test split elec_path leaves to scripts/elec_scale_torch.py:
+# DiffRec scores each chunk through its denoiser, ~55 s a split at elec
+# (PERF.md §5), and its test split takes the same route as its valid one
+ELEC_VALID_ONLY = ("DiffRec",)
 # the kernels each model's drive must launch, and must not
 ELEC_NEED = {
     "DiffRec": (("grouped_topk",), K1_BOTH + ("segment_spmm_blocked",)),
@@ -5420,8 +5494,9 @@ def elec_path(torch, dev, card, data=None, profile_dir=None):
     and the tier's seeded features (drawn once for the three multimodal
     models). For each model: the set-up timed apart (LD4MRec's ``svds``,
     GenRecV1's KNN graphs and clustering in it), one epoch of every phase
-    (phase 3 of GenRecV1 and DiffMM cut to ``ELEC_PHASE3_BATCHES`` by a
-    batch plan), ``evaluate`` of valid and test in float32; losses and
+    (phase 3 of GenRecV1 and DiffMM and the epoch of DiffRec and LD4MRec
+    cut to ``ELEC_BATCHES`` by a batch plan), ``evaluate`` of valid and test
+    in float32 (valid alone for ``ELEC_VALID_ONLY``); losses and
     metrics finite, no train positive in any top-50, the launches of each
     drive. On the card, after each drive, K1, K2 and K3 against their plain
     versions at its shapes: GenRecV1's KNN block (8,192 x 63,001, k = 10),
@@ -5495,12 +5570,10 @@ def elec_path(torch, dev, card, data=None, profile_dir=None):
                 res["phase1_batches"] = losses.shape[0]
                 res["phase1_loss"] = trainer._loss_log(losses)
                 timed("phase2", lambda: trainer.regenerate(gen))
-                gen = trainer.split("epoch", 0, "train")
-                perm = torch.randperm(trainer._num_batches * B, generator=gen, device=dev).reshape(-1, B)
-                plan = {"idx": perm[:ELEC_PHASE3_BATCHES]}
-                losses = timed("phase3", lambda: trainer._train_epoch(gen, plan=plan).cpu())
-            else:
-                losses = timed("epoch", lambda: trainer._train_epoch(trainer.split("epoch", 0, "train")).cpu())
+            gen = trainer.split("epoch", 0, "train")
+            perm = torch.randperm(trainer._num_batches * B, generator=gen, device=dev).reshape(-1, B)
+            plan = {"idx": perm[:ELEC_BATCHES]}
+            losses = timed("phase3" if prelude else "epoch", lambda: trainer._train_epoch(gen, plan=plan).cpu())
             res.update(batches=losses.shape[0], of_batches=trainer._num_batches,
                        loss_first=float(losses[0, 0]), loss_last=float(losses[-1, 0]))
             finite = bool(torch.isfinite(losses).all()) and all(
@@ -5508,7 +5581,8 @@ def elec_path(torch, dev, card, data=None, profile_dir=None):
             if not finite:
                 raise AssertionError(f"{name}/elec: a training loss is not finite: {res}")
             # -- evaluate(valid), evaluate(test) in float32 -----------------
-            for split, ed, is_test in (("valid", vd, False), ("test", ted, True)):
+            splits = (("valid", vd, False),) + (() if name in ELEC_VALID_ONLY else (("test", ted, True),))
+            for split, ed, is_test in splits:
                 top = timed(f"eval_{split}_topk", lambda: trainer.eval_topk(ed))
                 got = timed(f"eval_{split}_metrics", lambda: trainer.evaluator.evaluate(
                     top, ed, pop_mask=trainer.pop_mask, warm_mask=trainer.warm_mask if is_test else None,
@@ -5540,9 +5614,11 @@ def elec_path(torch, dev, card, data=None, profile_dir=None):
                 f"elec_path {name}: set-up model {res['setup_model_s']:.2f} s + trainer {res['setup_trainer_s']:.2f} s"
                 f"{'; packed masks %.2f s' % res['packed_masks_s'] if 'packed_masks_s' in res else ''}; {phases} "
                 f"({res['batches']} of {res['of_batches']} batches of {B}, loss first {res['loss_first']:.5f} last "
-                f"{res['loss_last']:.5f}); evaluate(valid) {res['eval_valid_s']:.2f} s, evaluate(test) "
-                f"{res['eval_test_s']:.2f} s; Recall@20 valid {res['valid']['recall@20']:.4f} test "
-                f"{res['test']['recall@20']:.4f}; losses and metrics finite, no train positive in any top-50; "
+                f"{res['loss_last']:.5f}); evaluate(valid) {res['eval_valid_s']:.2f} s"
+                + (f", evaluate(test) {res['eval_test_s']:.2f} s" if "test" in res else "")
+                + f"; Recall@20 valid {res['valid']['recall@20']:.4f}"
+                + (f" test {res['test']['recall@20']:.4f}" if "test" in res else "")
+                + f"; losses and metrics finite, no train positive in any top-50; "
                 f"launches {json.dumps(launches[name])} [{card}]"
             )
 
@@ -5605,10 +5681,10 @@ def elec_path(torch, dev, card, data=None, profile_dir=None):
                     torch, trainer, td, train_ds, config, card, replay_branches=True
                 )
                 if profile_dir:
-                    profile_batches(torch, trainer, perm[ELEC_PHASE3_BATCHES : ELEC_PHASE3_BATCHES + 10], profile_dir,
+                    profile_batches(torch, trainer, perm[ELEC_BATCHES : ELEC_BATCHES + 10], profile_dir,
                                     "DiffMM_elec", card)
             if on_card and name == "GenRecV1" and profile_dir:
-                profile_batches(torch, trainer, perm[ELEC_PHASE3_BATCHES : ELEC_PHASE3_BATCHES + 10], profile_dir,
+                profile_batches(torch, trainer, perm[ELEC_BATCHES : ELEC_BATCHES + 10], profile_dir,
                                 "GenRecV1_elec", card)
             out[name] = res
             del trainer, model

@@ -40,6 +40,9 @@ models' draw functions, and ``pm.item_planes`` for draws handed in whole
 by a plan), runs the denoisers on them and takes each top-k of the
 regeneration by K3 on its columns, merged over the axis
 (``ItemCols.topk``). The data axis deals its chunks whole as before.
+The tables held as each rank's rows (``Trainer._place_params``) are read
+whole inside ``pm.whole_tables``: once a batch of phase 1 (and of MVDiff's
+phases 1 and 3), once for each phase's inputs and once a regeneration.
 """
 
 from __future__ import annotations
@@ -107,7 +110,9 @@ class _DiffusionTrainer(Trainer):
         super()._build_train_step(train_data)
         split_items(self)
         self._build_diffusion_phase()
-        self._shard_optimizers()
+
+    def _split_items(self) -> None:
+        split_items(self)
 
     @torch.enable_grad()
     def _diffusion_epoch(self, generator: Optional[torch.Generator] = None, plan: Optional[dict] = None):
@@ -127,7 +132,6 @@ class _DiffusionTrainer(Trainer):
         if "denoise_image" not in self.optimizers:
             split_items(self)
             self._build_diffusion_phase()
-            self._shard_optimizers()
         full_precision_matmuls()
         model = self.model
         cols = model.item_cols
@@ -137,7 +141,7 @@ class _DiffusionTrainer(Trainer):
             batches = plan["users"].to(model.device)
         else:
             batches = torch.randperm(nb * B, generator=generator, device=model.device).reshape(nb, B)
-        with torch.no_grad():
+        with torch.no_grad(), pm.whole_tables(model):
             inputs = self._phase1_inputs()
         rows = pm.data_sharding(self.mesh, B)
         losses = []
@@ -146,15 +150,18 @@ class _DiffusionTrainer(Trainer):
             valid = (users < U).to(torch.float32)
             x_start = interaction_vectors(model.data, users.clamp(max=U - 1), cols) * valid[:, None]
             step = []
-            for name, loss in self._batch_losses(x_start, valid, inputs, generator, plan, b, rows):
-                opt = self.optimizers[name]
-                opt.zero_grad(set_to_none=True)
-                loss.backward()
-                if rows is not None:
-                    pm.reduce_grads(self._step_params([name]), self.mesh)
-                opt.step()
-                opt.zero_grad(set_to_none=True)
-                step.append(loss.detach())
+            # each loss reads its own denoiser alone, so the steps of the
+            # ones before it leave its gathered tables current
+            with pm.whole_tables(model):
+                for name, loss in self._batch_losses(x_start, valid, inputs, generator, plan, b, rows):
+                    opt = self.optimizers[name]
+                    opt.zero_grad(set_to_none=True)
+                    loss.backward()
+                    if rows is not None:
+                        pm.reduce_grads(self._step_params([name]), self.mesh)
+                    opt.step()
+                    opt.zero_grad(set_to_none=True)
+                    step.append(loss.detach())
             losses.append(torch.stack(step))
         losses = torch.stack(losses)
         return losses if rows is None else pm.all_reduce(losses, self.mesh, pm.DATA_AXIS)
@@ -182,7 +189,8 @@ class _DiffusionTrainer(Trainer):
         subclass's draws in their place."""
         full_precision_matmuls()
         split_items(self)
-        self.state = {**self.state, **self._regenerated_graphs(generator, plan)}
+        with pm.whole_tables(self.model):
+            self.state = {**self.state, **self._regenerated_graphs(generator, plan)}
         return self.state
 
     def _epoch_prelude(self, generator: torch.Generator, epoch_idx: int) -> None:
@@ -409,7 +417,9 @@ class MVDiffTrainer(Trainer):
         super()._build_train_step(train_data)
         split_items(self)
         self._build_phase_optimizers()
-        self._shard_optimizers()
+
+    def _split_items(self) -> None:
+        split_items(self)
 
     def _build_phase_optimizers(self) -> None:
         """One plain Adam per denoiser, at the main learning rate."""
@@ -446,7 +456,6 @@ class MVDiffTrainer(Trainer):
         if "feat_denoise_image" not in self.optimizers:
             split_items(self)
             self._build_phase_optimizers()
-            self._shard_optimizers()
         full_precision_matmuls()
         model = self.model
         I = model.n_items
@@ -467,7 +476,8 @@ class MVDiffTrainer(Trainer):
                     noise = torch.randn(slots.shape[0], dim, generator=generator, device=model.device)
                 if rows is not None:
                     ts, noise = rows.local((ts, noise))
-                per = model.feat_diffusion_loss(m, x_img, x_txt, ts, noise, rows)
+                with pm.whole_tables(model):
+                    per = model.feat_diffusion_loss(m, x_img, x_txt, ts, noise, rows)
                 step.append(self._step(f"feat_denoise_{m}", weighted_mean(per, valid, rows), rows))
             losses.append(torch.stack(step))
         losses = torch.stack(losses)
@@ -479,9 +489,10 @@ class MVDiffTrainer(Trainer):
         denoisers' reverse chains plus the original features."""
         full_precision_matmuls()
         model = self.model
-        den_img = model.feat_p_sample("image") + model.v_feat
-        den_txt = model.feat_p_sample("text") + model.t_feat
-        self.state = {**self.state, **model.ii_state(den_img, den_txt)}
+        with pm.whole_tables(model):
+            den_img = model.feat_p_sample("image") + model.v_feat
+            den_txt = model.feat_p_sample("text") + model.t_feat
+            self.state = {**self.state, **model.ii_state(den_img, den_txt)}
         return self.state
 
     @torch.enable_grad()
@@ -494,12 +505,11 @@ class MVDiffTrainer(Trainer):
         if "denoise_image" not in self.optimizers:
             split_items(self)
             self._build_phase_optimizers()
-            self._shard_optimizers()
         full_precision_matmuls()
         model = self.model
         cols = model.item_cols
         U = model.n_users
-        with torch.no_grad():
+        with torch.no_grad(), pm.whole_tables(model):
             i_emb = model.item_id_embedding.detach().clone()
             feats = {m: model.modal_feats(m) for m in MODALITIES}
         rows = pm.data_sharding(self.mesh, self.train_batch_size)
@@ -516,8 +526,9 @@ class MVDiffTrainer(Trainer):
                     draws = model.sparsity_draws(generator, slots.shape[0])
                 if rows is not None:
                     draws = rows.local(draws)
-                diff, gc, contra = model.sparsity_losses(
-                    getattr(model, f"denoise_{m}"), x, i_emb, feats[m], draws, rows)
+                with pm.whole_tables(model):
+                    diff, gc, contra = model.sparsity_losses(
+                        getattr(model, f"denoise_{m}"), x, i_emb, feats[m], draws, rows)
                 wmean = lambda v: weighted_mean(v, valid, rows)
                 loss = wmean(diff) + model.e_loss * wmean(gc) + model.ssl_reg * wmean(contra)
                 step.append(self._step(f"denoise_{m}", loss, rows))
@@ -539,11 +550,12 @@ class MVDiffTrainer(Trainer):
         chunks = torch.arange(-(-U // B) * B, device=model.device).clamp_(max=U - 1).split(B)
         keep = {} if plan is None else _to_device(plan["keep"], model.device)
         graphs = {}
-        for m in MODALITIES:
-            width = model.rebuild_k + (model.high_order_topk if m == "image" else 0)
-            picks = lambda c, users: model.ui_topk(self.state, m, users)
-            items = dealt_chunks(self.mesh, list(chunks), picks, width)[:U]
-            graphs[f"{m}_ui"] = model.rebuild_ui_graph(items, generator, keep.get(m))
+        with pm.whole_tables(model):
+            for m in MODALITIES:
+                width = model.rebuild_k + (model.high_order_topk if m == "image" else 0)
+                picks = lambda c, users: model.ui_topk(self.state, m, users)
+                items = dealt_chunks(self.mesh, list(chunks), picks, width)[:U]
+                graphs[f"{m}_ui"] = model.rebuild_ui_graph(items, generator, keep.get(m))
         self.state = {**self.state, **graphs}
         return self.state
 

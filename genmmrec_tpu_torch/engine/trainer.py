@@ -42,11 +42,16 @@ suite. A chunk takes one of three routes:
   and K3 takes the unmasked top-k.
 
 On a mesh (``config["mesh_shape"]`` in a process group, ``parallel/``):
-every rank starts from rank 0's parameters and state; each batch's rows
-are split over the data axis (``DataRows``: every batch-coupled term of
-every model sees the global batch) and the gradients of every optimizer
-group summed over it; the optimizers step only this model rank's rows of
-the tables ``shard_model_params`` names and gather them. The evaluation
+every rank starts from rank 0's parameters and state; over a model axis
+each rank then holds only its rows of the tables ``shard_model_params``
+names (``hold_table_rows``, before the optimizers are built, as the JAX
+package places its parameters before the optimizer's init), and their
+gradients and moments are those rows; each read of the model (a batch's
+loss, ``pre_epoch``, the evaluation's artifacts, the multi-phase
+trainers' phases) runs inside ``whole_tables``, which gathers the tables
+whole once on entry. Each batch's rows are split over the data axis
+(``DataRows``: every batch-coupled term of every model sees the global
+batch) and the gradients of every optimizer group summed over it. The evaluation
 deals whole user chunks over the data axis and gathers their lists; over a
 model axis the fused and K4 routes stand aside and each chunk takes
 ``sharded_topk`` (K3 on each item shard). Only global rank 0 writes the
@@ -93,14 +98,12 @@ class ChainOptimizer(torch.optim.Optimizer):
     gradient steps as if its gradient were zero, as a leaf of an optax tree
     does.
 
-    ``shard_rows`` splits it over a mesh's model axis: for each parameter
-    it names, this rank keeps the moments of, and updates, its rows alone
-    (the gradients are whole on every rank), then gathers the rows of every
-    rank; the global-norm clip sums those rows' squares over the axis. A
-    parameter held as this rank's rows (``parallel.mesh.hold_item_rows``: a
-    denoiser's item-width out-projection) keeps its moments and takes its
-    update there, and is never gathered. Its ``state_dict`` holds the
-    moments gathered whole, and ``load_state_dict`` takes them whole."""
+    A parameter held as this model rank's rows (``held_rows``: a table of
+    ``parallel.mesh.hold_table_rows``, or a denoiser's item-width
+    out-projection on the item split) keeps its moments and takes its update
+    on those rows; the global-norm clip sums their squares over the model
+    axis. Its ``state_dict`` holds the moments gathered whole (every model
+    rank must call it), and ``load_state_dict`` takes them whole."""
 
     LEARNERS = ("adam", "sgd", "adagrad", "rmsprop")
 
@@ -115,75 +118,55 @@ class ChainOptimizer(torch.optim.Optimizer):
         self.max_norm, self.weight_decay = max_norm, weight_decay
         self.decoupled_weight_decay = decoupled_weight_decay
         self.count = 0
-        self.mesh, self.rows = None, {}
 
-    def shard_rows(self, rows: dict, mesh) -> None:
-        """``rows``: parameter -> (lo, hi), this model rank's rows of it."""
-        mine = {id(p) for group in self.param_groups for p in group["params"]}
-        self.mesh, self.rows = mesh, {k: v for k, v in rows.items() if k in mine}
-
-    def _sharded(self):
-        """(index, parameter, (lo, hi)) of each row-sharded parameter."""
-        params = [p for group in self.param_groups for p in group["params"]]
-        return [(i, p, self.rows[id(p)]) for i, p in enumerate(params) if id(p) in self.rows]
-
-    def _item_local(self):
+    def _held(self):
         """(index, parameter) of each parameter held as this rank's rows."""
         params = [p for group in self.param_groups for p in group["params"]]
-        return [(i, p) for i, p in enumerate(params) if getattr(p, "item_cols", None) is not None]
+        return [(i, p) for i, p in enumerate(params) if getattr(p, "held_rows", None) is not None]
 
     def state_dict(self):
         out = super().state_dict()
         out["count"] = self.count
-        whole = {i: lambda v: pm.all_gather(v, self.mesh, pm.MODEL_AXIS) for i, _, _ in self._sharded()}
-        whole.update({i: lambda v, c=p.item_cols: c.gather(v, 0) for i, p in self._item_local()})
-        for i, gather in whole.items():
+        for i, p in self._held():
             if i in out["state"]:
-                out["state"][i] = {k: gather(v) if torch.is_tensor(v) else v for k, v in out["state"][i].items()}
+                whole = lambda v: p.held_rows.gather(v, 0) if torch.is_tensor(v) and v.dim() else v
+                out["state"][i] = {k: whole(v) for k, v in out["state"][i].items()}
         return out
 
     def load_state_dict(self, state_dict):
         state_dict = dict(state_dict)
         self.count = int(state_dict.pop("count"))
         super().load_state_dict(state_dict)
-        cut = [(p, lo, hi, p.shape[0]) for _, p, (lo, hi) in self._sharded()]
-        cut += [(p, p.item_cols.lo, p.item_cols.hi, p.item_cols.n) for _, p in self._item_local()]
-        for p, lo, hi, n in cut:
-            st = self.state[p]
+        for _, p in self._held():
+            st, held = self.state[p], p.held_rows
             for k, v in list(st.items()):
-                if torch.is_tensor(v) and v.dim() and v.shape[0] == n:
-                    st[k] = v[lo:hi].clone()
+                if torch.is_tensor(v) and v.dim() and v.shape[0] == held.n:
+                    st[k] = held.rows(v).clone()
 
     @torch.no_grad()
     def step(self, closure=None):
         params = [p for group in self.param_groups for p in group["params"]]
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-        # this rank's rows of each sharded parameter and of its gradient
-        rows = [self.rows.get(id(p)) for p in params]
-        cut = lambda t, r: t if r is None else t[r[0] : r[1]]
-        views = [cut(p, r) for p, r in zip(params, rows)]
-        grads = [cut(g, r) for g, r in zip(grads, rows)]
         if self.max_norm is not None:
-            # the rows split over the model axis: row-sharded, or held as this rank's
-            local = [getattr(p, "item_cols", None) for p in params]
-            split = [r is not None or c is not None for r, c in zip(rows, local)]
-            if any(split):
-                mesh = self.mesh or next(c.mesh for c in local if c is not None)
+            # the rows held over the model axis: their squares summed over it
+            held = [getattr(p, "held_rows", None) for p in params]
+            if any(h is not None for h in held):
+                mesh = next(h.mesh for h in held if h is not None)
                 zero = grads[0].new_zeros(())
-                sq = lambda sharded: sum(((g * g).sum() for g, s in zip(grads, split) if s == sharded), zero)
+                sq = lambda split: sum(((g * g).sum() for g, h in zip(grads, held) if (h is not None) == split), zero)
                 norm = (sq(False) + pm.all_reduce(sq(True), mesh, pm.MODEL_AXIS)).sqrt()
             else:
                 norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
             scale = torch.where(norm < self.max_norm, 1.0, self.max_norm / norm)
             grads = [g * scale for g in grads]
         if self.weight_decay:
-            grads = [g + self.weight_decay * p for g, p in zip(grads, views)]
+            grads = [g + self.weight_decay * p for g, p in zip(grads, params)]
         lr = self.lr_fn(self.count)
         t = self.count + 1
-        for param, p, g in zip(params, views, grads):
+        for p, g in zip(params, grads):
             # moments are replaced, never updated in place: a loaded state
             # dict may share its tensors with another optimizer's
-            st = self.state[param]
+            st = self.state[p]
             if self.learner == "adam":
                 st["mu"] = 0.9 * st.get("mu", 0.0) + 0.1 * g
                 st["nu"] = 0.999 * st.get("nu", 0.0) + 0.001 * (g * g)
@@ -201,22 +184,6 @@ class ChainOptimizer(torch.optim.Optimizer):
                 u = u + self.decoupled_weight_decay * p
             p.add_(u, alpha=-lr)
         self.count += 1
-        if self.rows:
-            self._gather_rows()
-
-    def _gather_rows(self) -> None:
-        """Every model rank's updated rows of the sharded parameters, in one
-        coalesced all-gather."""
-        sharded = self._sharded()
-        mine = torch.cat([p[lo:hi].reshape(-1) for _, p, (lo, hi) in sharded])
-        got = pm.all_gather(mine, self.mesh, pm.MODEL_AXIS).view(self.mesh.model, -1)
-        for r in range(self.mesh.model):
-            off = 0
-            for _, p, (lo, hi) in sharded:
-                n = hi - lo
-                size = p[:n].numel()
-                p[r * n : (r + 1) * n].copy_(got[r, off : off + size].view_as(p[:n]))
-                off += size
 
 
 def make_optimizer(params, config, steps_per_epoch: int) -> ChainOptimizer:
@@ -351,16 +318,33 @@ class Trainer:
         for label, make in self.model.label_transforms().items():
             self.optimizers[label] = make(groups[label])
             self._batch_steps.append(label)
-        self._shard_optimizers()
 
-    def _shard_optimizers(self) -> None:
-        """Split every optimizer over the model axis (``shard_rows``) by the
-        rows ``shard_model_params`` names."""
-        named = dict(self.model.named_parameters())
-        rows = {id(named[n]): r for n, r in pm.shard_model_params(self.model, self.mesh).items()}
-        if rows:
-            for opt in self.optimizers.values():
-                opt.shard_rows(rows, self.mesh)
+    def _place_params(self) -> None:
+        """Rank 0's parameters and state on every rank; then, over a model
+        axis, the item split's parameters (``_split_items``) and each table
+        ``shard_model_params`` names held as this rank's rows
+        (``hold_table_rows``), with the JAX trainer's log line. ``fit``
+        calls it after the init and before the optimizers are built."""
+        model = self.model
+        pm.replicated((list(model.parameters()), self.state), self.mesh)
+        m = pm.model_axis_size(self.mesh)
+        if m <= 1:
+            return
+        self._split_items()
+        n = pm.hold_table_rows(model, self.mesh)
+        if not self.is_main:
+            return
+        if n:
+            self.logger.info("model-axis sharding: %d embedding tables row-sharded over %d-way model axis", n, m)
+        else:
+            self.logger.warning(
+                "mesh_shape requests a model axis but no parameter leaf qualified for sharding "
+                "(table rows must divide the axis)"
+            )
+
+    def _split_items(self) -> None:
+        """Hook of the multi-phase trainers: put the denoisers on the model
+        axis's item split before the tables are held."""
 
     def _step_params(self, names) -> list:
         """The parameters of the optimizers ``names``."""
@@ -417,13 +401,16 @@ class Trainer:
                 batch = {**rows.local(batch), "rows": rows}
             draws = lambda name: plan[name][b] if plan is not None and name in plan else {}
             zero()
-            total, (parts, state) = model.loss_and_update(self.state, batch, generator, **draws("draws"))
+            with pm.whole_tables(model):
+                total, (parts, state) = model.loss_and_update(self.state, batch, generator, **draws("draws"))
             backward(total)
             if self.mg and b % self.beta == 0:
                 self._scale_grads(self.alpha1)
                 step()
                 zero()
-                backward(model.loss_and_update(state, batch, generator, **draws("draws2"))[0])
+                with pm.whole_tables(model):
+                    again = model.loss_and_update(state, batch, generator, **draws("draws2"))[0]
+                backward(again)
                 self._scale_grads(-self.alpha2)
             step()
             self.state = state
@@ -467,19 +454,22 @@ class Trainer:
         epochs with early stopping; returns (best valid score, best valid
         result, test result at the best valid)."""
         model = self.model
+        pm.release_tables(model)  # a model held by an earlier fit starts whole
         model.init_params(self.split("init"))
         self.state = model.init_state(self.split("state"))
-        pm.replicated((list(model.parameters()), self.state), self.mesh)
+        described = model.describe()  # its tables whole
+        self._place_params()
         self._build_train_step(train_data)
         resume = self.config["resume_checkpoint"]
         if resume:
             self._resume(str(resume))
         if verbose:
-            self.logger.info(model.describe())
+            self.logger.info(described)
 
         for epoch_idx in range(self.start_epoch, self.epochs):
             t0 = time.time()
-            self.state = model.pre_epoch(self.state, self.split("epoch", epoch_idx, "pre"), epoch_idx)
+            with pm.whole_tables(model):
+                self.state = model.pre_epoch(self.state, self.split("epoch", epoch_idx, "pre"), epoch_idx)
             self._epoch_prelude(self.split("epoch", epoch_idx, "prelude"), epoch_idx)
             if self.req_training:
                 gen = self.split("epoch", epoch_idx, "train")
@@ -570,7 +560,7 @@ class Trainer:
         gathered from the model ranks); every rank takes part in the
         gathers and returns once the file is written."""
         optimizers = {k: opt.state_dict() for k, opt in self.optimizers.items()}
-        params = self.model.state_dict()  # item-split parameters gathered whole
+        params = self.model.state_dict()  # parameters held as rows gathered whole
         if not self.is_main:
             pm.barrier(self.mesh)
             return None
@@ -589,6 +579,8 @@ class Trainer:
         return path
 
     def _resume(self, path: str) -> None:
+        """The checkpoint's whole parameters and moments, each rank taking
+        the rows it holds."""
         ck = load_checkpoint(path, map_location=self.model.device)
         self.model.load_state_dict(ck["params"])
         for name, opt_state in ck["optimizers"].items():
@@ -636,7 +628,12 @@ class Trainer:
     @torch.no_grad()
     def eval_topk(self, eval_data: EvalData) -> torch.Tensor:
         """(U_pad, max_k) top-k item ids, train positives excluded; -1 pads
-        catalogs narrower than max_k."""
+        catalogs narrower than max_k. The tables are gathered whole once an
+        evaluation (``whole_tables``)."""
+        with pm.whole_tables(self.model):
+            return self._eval_topk(eval_data)
+
+    def _eval_topk(self, eval_data: EvalData) -> torch.Tensor:
         full_precision_matmuls()
         model = self.model
         max_k = self.evaluator.max_k

@@ -92,6 +92,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from genmmrec_tpu_torch.parallel import mesh as pm
+
 _LEAF_NAMES = {"w": "weight", "b": "bias"}
 _JAX_LEAF_NAMES = {v: k for k, v in _LEAF_NAMES.items()}
 # top-level subtrees of a JAX tree that has them; every other parameter of
@@ -115,7 +117,8 @@ def from_jax_params(model: nn.Module, tree) -> nn.Module:
     """Copy every leaf of ``tree`` into the parameter of the same name.
 
     Raises if a parameter has no leaf, a leaf has no parameter, or shapes
-    differ."""
+    differ. A parameter held as this rank's rows (``held_rows``) takes its
+    rows of the whole leaf."""
     leaves = {}
     for path, leaf in _flatten(tree):
         if path and path[0] == "rec":
@@ -128,9 +131,9 @@ def from_jax_params(model: nn.Module, tree) -> nn.Module:
         raise KeyError(f"parameter mismatch: missing {missing}, unexpected {extra}")
     for name, p in params.items():
         leaf = leaves[name]
-        if tuple(leaf.shape) != tuple(p.shape):
-            raise ValueError(f"{name}: shape {tuple(leaf.shape)} != {tuple(p.shape)}")
-        p.copy_(torch.tensor(leaf, dtype=p.dtype))
+        if tuple(leaf.shape) != pm.whole_shape(p):
+            raise ValueError(f"{name}: shape {tuple(leaf.shape)} != {pm.whole_shape(p)}")
+        pm.copy_rows_(p, torch.tensor(leaf, dtype=p.dtype))
     return model
 
 
@@ -163,7 +166,8 @@ def jax_tree_by_name(tree) -> dict:
 
 
 def params_by_jax_name(model: nn.Module) -> dict:
-    """The model's parameters as numpy arrays under the JAX tree's names."""
+    """The model's parameters as numpy arrays under the JAX tree's names (a
+    parameter held as this rank's rows: those rows)."""
     named = dict(model.named_parameters())
     has_rec_level = any(name.split(".")[0] in _TOP_LEVEL for name in named)
     out = {}

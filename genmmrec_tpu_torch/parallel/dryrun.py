@@ -15,7 +15,9 @@ while the ranks fit, ``handed_over``), one training batch under a model
 axis alone, and the diffusion phases on the model axis's item split: one
 phase-1 batch of DiffMM, GenRecV1 and MVDiff (``phase1_batch``) on a model
 axis alone and DiffMM's phase 1 and regeneration on the 2 × 2 mesh
-(``regeneration``).
+(``regeneration``). On every model axis the tables are held as each
+rank's rows (``Trainer._place_params``; ``batch_grads`` holds them
+itself), and what each returns is whole.
 """
 
 from __future__ import annotations
@@ -137,28 +139,43 @@ def case_model(case: dict, device):
     return model, state
 
 
+def whole_grads(params: dict) -> dict:
+    """name -> each parameter's gradient, whole (a parameter held as this
+    rank's rows gathered over the model axis: every model rank must call
+    it), zero where it has none, as numpy on the CPU."""
+    out = {}
+    for k, p in params.items():
+        g = torch.zeros_like(p) if p.grad is None else p.grad
+        held = getattr(p, "held_rows", None)
+        out[k] = (g if held is None else held.gather(g, 0)).cpu().numpy()
+    return out
+
+
 def batch_grads(case: dict, device, mesh=None) -> dict:
     """One batch of ``case`` split over the data axis of ``mesh`` (on one
-    rank without it): the loss (summed over the axis), every parameter's
-    gradient (summed; zero where the loss reads none), by name, the JAX
-    names of the parameters in the same order (``interop.params_by_jax_name``)
-    and the floating tensors of the state that the batch writes anew
-    (``loss_and_update``). ``case`` holds the model, its config overrides,
-    what ``case_model`` builds it from, the global batch and the loss's
-    keyword draws (the global batch's)."""
+    rank without it), with the tables held as each model rank's rows
+    (``hold_table_rows``) on its model axis: the loss (summed over the data
+    axis), every parameter's gradient (summed; zero where the loss reads
+    none) whole, by name, the JAX names of the parameters in the same order
+    (``interop.params_by_jax_name``) and the floating tensors of the state
+    that the batch writes anew (``loss_and_update``). ``case`` holds the
+    model, its config overrides, what ``case_model`` builds it from, the
+    global batch and the loss's keyword draws (the global batch's)."""
     model, state = case_model(case, device)
+    pm.hold_table_rows(model, mesh)
     batch = {k: torch.as_tensor(v, device=device) for k, v in case["batch"].items()}
     if mesh is not None:
         rows = pm.DataRows(mesh, batch["users"].shape[0])
         batch = {**rows.local(batch), "rows": rows}
-    total, (_, new_state) = model.loss_and_update(state, batch, **_on(case["draws"], device))
+    with pm.whole_tables(model):
+        total, (_, new_state) = model.loss_and_update(state, batch, **_on(case["draws"], device))
     total.backward()
     params = dict(model.named_parameters())
     loss = total.detach().clone()
     if mesh is not None:
         pm.reduce_grads(params.values(), mesh)
         pm.all_reduce(loss, mesh, pm.DATA_AXIS)
-    grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad).cpu().numpy() for k, p in params.items()}
+    grads = whole_grads(params)
     written = {k: v.detach().cpu().numpy() for k, v in (new_state or {}).items()
                if torch.is_tensor(v) and v.is_floating_point() and v is not state.get(k)}
     from genmmrec_tpu_torch.interop import params_by_jax_name
@@ -167,9 +184,9 @@ def batch_grads(case: dict, device, mesh=None) -> dict:
 
 
 def one_batch(model_name: str, overrides: dict, device, mesh=None) -> dict:
-    """``fit``'s start and the first training batch of epoch 0 (its first
-    ``train_batch_size`` slots) → the parameters after the optimizers
-    stepped, by name."""
+    """``fit``'s start (the tables held as each model rank's rows) and the
+    first training batch of epoch 0 (its first ``train_batch_size`` slots)
+    → the parameters after the optimizers stepped, by name and whole."""
     config = Config(model_name, "tiny", dict(overrides))
     train = RecDataset(config).split()[0]
     td = build_train_data(train, device)
@@ -177,9 +194,10 @@ def one_batch(model_name: str, overrides: dict, device, mesh=None) -> dict:
     trainer = get_trainer(model_name)(config, model, mesh=mesh)
     model.init_params(trainer.split("init"))
     trainer.state = model.init_state(trainer.split("state"))
-    pm.replicated((list(model.parameters()), trainer.state), mesh)
+    trainer._place_params()
     trainer._build_train_step(td)
-    trainer.state = model.pre_epoch(trainer.state, trainer.split("epoch", 0, "pre"), 0)
+    with pm.whole_tables(model):
+        trainer.state = model.pre_epoch(trainer.state, trainer.split("epoch", 0, "pre"), 0)
     idx = torch.arange(trainer.train_batch_size, device=device)[None]
     trainer._train_epoch(trainer.split("epoch", 0, "train"), plan={"idx": idx})
     return {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
@@ -188,8 +206,9 @@ def one_batch(model_name: str, overrides: dict, device, mesh=None) -> dict:
 def _diffusion_trainer(model_name: str, overrides: dict, device, mesh=None, params=None):
     """``fit``'s start for a multi-phase trainer: the model from the seed
     (or from the JAX parameters ``params``, ``interop.from_jax_params``),
-    its state, rank 0's values on every rank, and the optimizers on the
-    item split → (trainer, train data)."""
+    its state, rank 0's values on every rank, the denoisers on the item
+    split and the tables held as each model rank's rows, and the
+    optimizers → (trainer, train data)."""
     from genmmrec_tpu_torch.interop import from_jax_params
 
     config = Config(model_name, "tiny", dict(overrides))
@@ -200,7 +219,7 @@ def _diffusion_trainer(model_name: str, overrides: dict, device, mesh=None, para
     if params is not None:
         from_jax_params(model, params)
     trainer.state = model.init_state(trainer.split("state"))
-    pm.replicated((list(model.parameters()), trainer.state), mesh)
+    trainer._place_params()
     trainer._build_train_step(td)
     return trainer, td
 
@@ -208,16 +227,13 @@ def _diffusion_trainer(model_name: str, overrides: dict, device, mesh=None, para
 def record_step_grads(trainer) -> dict:
     """A dict that each optimizer step of ``trainer`` fills, before it
     steps, with the gradient of every parameter it steps (name -> numpy on
-    the CPU, whole: an item-split one gathered over the model axis, so every
+    the CPU, whole: one held as rows gathered over the model axis, so every
     model rank must step)."""
     names = {id(p): k for k, p in trainer.model.named_parameters()}
     grads = {}
     for opt in trainer.optimizers.values():
         def recorded(closure=None, opt=opt, step=opt.step):
-            for p in (p for group in opt.param_groups for p in group["params"]):
-                g = torch.zeros_like(p) if p.grad is None else p.grad
-                cols = getattr(p, "item_cols", None)
-                grads[names[id(p)]] = (g if cols is None else cols.gather(g, 0)).cpu().numpy()
+            grads.update(whole_grads({names[id(p)]: p for group in opt.param_groups for p in group["params"]}))
             return step(closure)
 
         opt.step = recorded
@@ -246,7 +262,8 @@ def phase1_batch(model_name: str, overrides: dict, device, mesh=None, case=None)
     # the first batch's losses, as _diffusion_epoch gives them
     params = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
     return {"losses": losses[0].cpu().numpy(), "grads": grads, "params": params,
-            "split": sorted(k for k, p in model.named_parameters() if getattr(p, "item_cols", None) is not None)}
+            "split": sorted(k for k, p in model.named_parameters() if isinstance(getattr(p, "held_rows", None),
+                                                                                  pm.ItemCols))}
 
 
 def regeneration(model_name: str, overrides: dict, device, mesh=None) -> dict:

@@ -11,10 +11,14 @@ data index).
 - Training batches are split over ``data``: every rank draws the global
   batch from the same generator and keeps its contiguous ``B / data`` rows
   (``DataRows``); gradients are summed over the data axis.
-- Tables are whole on every rank in the forward and the backward. Over
-  ``model``, each rank keeps the optimizer moments, and takes the update,
-  only for its rows of the tables ``shard_model_params`` names, then
-  gathers the rows (``engine.trainer.ChainOptimizer``).
+- Over ``model`` each rank holds only its rows ``[lo, hi)`` of each table
+  that ``shard_model_params`` names (``hold_table_rows``, the JAX
+  package's placement): the parameter, its gradient and its optimizer
+  moments are those rows. Every call that reads the tables sees them whole
+  through one differentiable all-gather a table, made on entry to
+  ``whole_tables``; the gather's backward keeps this rank's rows of the
+  cotangent. ``state_dict`` gives a held table whole and
+  ``load_state_dict`` takes it whole.
 - The diffusion phases of DiffMM, GenRecV1 and MVDiff split the item
   catalog over ``model`` (``ItemCols``, the JAX package's ``item_sharded``
   layout): each rank holds and computes only its columns ``[lo, hi)`` of
@@ -51,6 +55,7 @@ collective copies through host memory here.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from logging import getLogger
 from typing import Any, Callable, Optional, Union
@@ -209,7 +214,7 @@ def broadcast_(t: torch.Tensor, mesh: Mesh, model: bool = True) -> torch.Tensor:
     """``t`` of global rank 0 on every rank of the mesh, in place: down each
     column from its row-0 rank, then (with ``model``) along each row from
     its column-0 rank. Without ``model``, each rank of row 0's tensor on
-    its column: what an item-split tensor (``hold_item_rows``) takes."""
+    its column: what a tensor held as rows (``held_rows``) takes."""
     axes = [a for a, on in ((DATA_AXIS, mesh.data > 1), (MODEL_AXIS, mesh.model > 1 and model)) if on]
     for axis in axes:
         if mesh.exchange is not None:
@@ -237,14 +242,14 @@ def barrier(mesh: Optional[Mesh]) -> None:
 def replicated(tree, mesh: Optional[Mesh]):
     """Broadcast every tensor of ``tree`` (tensors, dicts, sequences and
     dataclasses such as ``SparseGraph``) from global rank 0, in place, so
-    that every rank holds rank 0's values bit for bit (an item-split
-    parameter: its column's row-0 rank's rows); returns ``tree``."""
+    that every rank holds rank 0's values bit for bit (a parameter held as
+    this rank's rows: its column's row-0 rank's rows); returns ``tree``."""
     if mesh is None or mesh.data * mesh.model == 1:
         return tree
     if torch.is_tensor(tree):
         with torch.no_grad():
             t = tree.data if isinstance(tree, torch.nn.Parameter) else tree
-            broadcast_(t, mesh, model=getattr(tree, "item_cols", None) is None)
+            broadcast_(t, mesh, model=getattr(tree, "held_rows", None) is None)
     elif isinstance(tree, dict):
         for v in tree.values():
             replicated(v, mesh)
@@ -435,12 +440,11 @@ def gather_chunks(mine: list, n_chunks: int, mesh: Mesh, like: torch.Tensor) -> 
 
 # -- the model axis: shard_model_params ---------------------------------------
 def shard_model_params(model, mesh: Optional[Mesh]) -> dict:
-    """name -> (lo, hi): the rows of each qualifying parameter whose
-    optimizer moments and update this model rank owns. The rule is the JAX
-    package's: a 2-D leaf of ``n_users``, ``n_items`` or ``n_users +
-    n_items`` rows, a 1-D leaf of ``n_items``, split evenly over the model
-    axis, but for a leaf held as this rank's rows (``hold_item_rows``).
-    Empty off a model axis."""
+    """name -> (lo, hi): the rows of each qualifying parameter that this
+    model rank holds. The rule is the JAX package's: a 2-D leaf of
+    ``n_users``, ``n_items`` or ``n_users + n_items`` rows, a 1-D leaf of
+    ``n_items``, split evenly over the model axis. A parameter counts by its
+    whole rows, held or not. Empty off a model axis."""
     m = model_axis_size(mesh)
     if m <= 1:
         return {}
@@ -448,9 +452,7 @@ def shard_model_params(model, mesh: Optional[Mesh]) -> dict:
     table_rows = {int(model.n_users), n_items, int(model.n_users) + n_items}
     out = {}
     for name, p in model.named_parameters():
-        if getattr(p, "item_cols", None) is not None:  # held as this rank's rows already
-            continue
-        rows = p.shape[0] if p.dim() in (1, 2) else None
+        rows = whole_shape(p)[0] if p.dim() in (1, 2) else None
         if (p.dim() == 2 and rows in table_rows or p.dim() == 1 and rows == n_items) and rows % m == 0:
             per = rows // m
             out[name] = (mesh.model_rank * per, (mesh.model_rank + 1) * per)
@@ -467,24 +469,62 @@ def item_bounds(n: int, shards: int) -> list:
     return shard_bounds(n, shards)
 
 
-class ItemCols:
+class HeldRows:
+    """This model rank's rows ``[lo, hi)`` of ``n`` rows split over the
+    model axis by ``bounds``: the tag ``held_rows`` of a parameter held as
+    its rows (``hold_item_rows``, ``hold_table_rows``). ``rows`` cuts them
+    from the whole, ``gather`` gives the whole again."""
+
+    def __init__(self, mesh: Mesh, n: int, bounds: list):
+        self.mesh, self.n, self.bounds = mesh, n, bounds
+        self.lo, self.hi = bounds[mesh.model_rank]
+        self.width = self.hi - self.lo
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole (n, ...) tensor."""
+        return x[self.lo : self.hi]
+
+    def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The whole of a tensor split over the rows along ``dim`` (no
+        gradient): every rank's part, padded to the widest, gathered. Where
+        only the last part is short (``item_bounds``' rule) the result is a
+        view of the gathered tensor."""
+        x = x.detach().movedim(dim, 0)
+        wide = max(hi - lo for lo, hi in self.bounds)
+        if x.shape[0] < wide:
+            x = torch.cat([x, x.new_zeros((wide - x.shape[0], *x.shape[1:]))])
+        got = all_gather(x.contiguous(), self.mesh, MODEL_AXIS)
+        if all(hi - lo == wide for lo, hi in self.bounds[:-1]):
+            return got[: self.n].movedim(0, dim)
+        parts = [got[s * wide : s * wide + hi - lo] for s, (lo, hi) in enumerate(self.bounds)]
+        return torch.cat(parts).movedim(0, dim)
+
+
+class TableRows(HeldRows):
+    """The even ``n / model`` rows of a table that ``shard_model_params``
+    names (``hold_table_rows``): held at rest, read whole (``whole_tables``)."""
+
+    def __init__(self, mesh: Mesh, n: int):
+        per = n // mesh.model
+        super().__init__(mesh, n, [(s * per, (s + 1) * per) for s in range(mesh.model)])
+
+
+class ItemCols(HeldRows):
     """This model rank's columns ``[lo, hi)`` of ``n`` item columns split
     over the model axis (``item_bounds``): the item-axis counterpart of
     ``DataRows``, and of the JAX package's ``item_sharded``.
 
     A (B, n) vector is held as its columns (``local``), a per-item table as
-    its rows (``rows``). A sum over the items is this rank's partial sum
-    over its columns, summed over the axis (``sum`` carries the gradient,
-    ``count`` does not); a tensor that every rank holds alike enters
-    column-local work through ``enter``; a whole weight over the items is
-    read through ``columns``. ``gather`` gives an item-split tensor whole,
-    and ``topk`` the exact top-k of a (B, n) vector from its columns."""
+    its rows (``rows``; an item-width out-projection is held so, and read as
+    its rows). A sum over the items is this rank's partial sum over its
+    columns, summed over the axis (``sum`` carries the gradient, ``count``
+    does not); a tensor that every rank holds alike enters column-local
+    work through ``enter``; a whole weight over the items is read through
+    ``columns``. ``gather`` gives an item-split tensor whole, and ``topk``
+    the exact top-k of a (B, n) vector from its columns."""
 
     def __init__(self, mesh: Mesh, n: int):
-        self.mesh, self.n = mesh, n
-        self.bounds = item_bounds(n, mesh.model)
-        self.lo, self.hi = self.bounds[mesh.model_rank]
-        self.width = self.hi - self.lo
+        super().__init__(mesh, n, item_bounds(n, mesh.model))
 
     def local(self, x):
         """This rank's columns (the last axis) of a global (..., n) tensor,
@@ -515,10 +555,6 @@ class ItemCols:
             return self.local(draws)
         return draws
 
-    def rows(self, x: torch.Tensor) -> torch.Tensor:
-        """This rank's rows of a per-item (n, ...) tensor."""
-        return x[self.lo : self.hi]
-
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of the ranks' partial ``x`` over the model axis, carrying
         the gradient (``_SumOver``: the cotangent passes on unchanged)."""
@@ -537,21 +573,6 @@ class ItemCols:
         """This rank's columns of a weight held whole whose first ``n``
         columns are the items (``_ItemColumns``)."""
         return _ItemColumns.apply(w[:, : self.n], self)
-
-    def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-        """The whole of a tensor split over the items along ``dim`` (no
-        gradient): every rank's part, padded to the widest, gathered. Where
-        only the last part is short (``item_bounds``' rule) the result is a
-        view of the gathered tensor."""
-        x = x.detach().movedim(dim, 0)
-        wide = max(hi - lo for lo, hi in self.bounds)
-        if x.shape[0] < wide:
-            x = torch.cat([x, x.new_zeros((wide - x.shape[0], *x.shape[1:]))])
-        got = all_gather(x.contiguous(), self.mesh, MODEL_AXIS)
-        if all(hi - lo == wide for lo, hi in self.bounds[:-1]):
-            return got[: self.n].movedim(0, dim)
-        parts = [got[s * wide : s * wide + hi - lo] for s, (lo, hi) in enumerate(self.bounds)]
-        return torch.cat(parts).movedim(0, dim)
 
     def topk(self, x: torch.Tensor, k: int):
         """(values, global item ids) of the top-k of each row of a (B, n)
@@ -581,44 +602,134 @@ def item_planes(draws, cols: Optional[ItemCols]):
     return draws if cols is None else cols.planes(draws)
 
 
-def _whole_item_rows(module, state_dict, prefix, local_metadata):
-    for name, p in module.named_parameters(recurse=False):
-        cols = getattr(p, "item_cols", None)
-        if cols is not None:
-            state_dict[prefix + name] = cols.gather(p, 0)
+def whole_shape(p: torch.Tensor) -> tuple:
+    """The shape of ``p`` whole: a parameter held as this rank's rows
+    (``held_rows``) has ``held_rows.n`` of them."""
+    held = getattr(p, "held_rows", None)
+    return tuple(p.shape) if held is None else (held.n, *p.shape[1:])
 
 
-def _local_item_rows(module, state_dict, prefix, *args):
+def _whole_rows(module, state_dict, prefix, local_metadata):
     for name, p in module.named_parameters(recurse=False):
-        cols, key = getattr(p, "item_cols", None), prefix + name
-        if cols is not None and key in state_dict and state_dict[key].shape[0] == cols.n:
-            state_dict[key] = cols.rows(state_dict[key])
+        held = getattr(p, "held_rows", None)
+        if held is not None:
+            state_dict[prefix + name] = held.gather(p, 0)
+
+
+def _local_rows(module, state_dict, prefix, *args):
+    for name, p in module.named_parameters(recurse=False):
+        held, key = getattr(p, "held_rows", None), prefix + name
+        if held is not None and key in state_dict and state_dict[key].shape[0] == held.n:
+            state_dict[key] = held.rows(state_dict[key])
+
+
+def _hold(module: torch.nn.Module, name: str, held: HeldRows) -> None:
+    """Put this rank's rows of ``module``'s parameter ``name`` in its place:
+    a new parameter of the same name, tagged ``held_rows`` (read by
+    ``shard_model_params``, ``replicated``, ``copy_rows_`` and
+    ``ChainOptimizer``). ``module.state_dict()`` then gives it whole (every
+    model rank must call it: it gathers) and ``load_state_dict`` takes it
+    whole."""
+    p = module._parameters[name]
+    local = torch.nn.Parameter(held.rows(p.detach()).clone(), requires_grad=p.requires_grad)
+    local.held_rows = held
+    setattr(module, name, local)
+    if not getattr(module, "_holds_rows", False):
+        module._register_state_dict_hook(_whole_rows)
+        module._register_load_state_dict_pre_hook(_local_rows, with_module=True)
+        module._holds_rows = True
 
 
 def hold_item_rows(module: torch.nn.Module, cols: ItemCols) -> None:
     """Hold each parameter of ``module`` itself (not of its children) whose
-    first dimension is the ``cols.n`` items as this rank's rows, a new
-    parameter tagged ``item_cols`` (``shard_model_params``, ``replicated``
-    and ``ChainOptimizer`` read the tag). ``module.state_dict()`` then
-    gives them whole (every model rank must call it: it gathers) and
-    ``load_state_dict`` takes them whole. A parameter held so already is
+    first dimension is the ``cols.n`` items as this rank's rows (``_hold``),
+    which the item split reads as they are. A parameter held already is
     left as it is."""
     for name, p in list(module.named_parameters(recurse=False)):
-        if getattr(p, "item_cols", None) is None and p.shape[0] == cols.n:
-            local = torch.nn.Parameter(cols.rows(p.detach()).clone(), requires_grad=p.requires_grad)
-            local.item_cols = cols
-            setattr(module, name, local)
-    if not getattr(module, "_holds_item_rows", False):
-        module._register_state_dict_hook(_whole_item_rows)
-        module._register_load_state_dict_pre_hook(_local_item_rows, with_module=True)
-        module._holds_item_rows = True
+        if getattr(p, "held_rows", None) is None and p.shape[0] == cols.n:
+            _hold(module, name, cols)
+
+
+def hold_table_rows(model: torch.nn.Module, mesh: Optional[Mesh]) -> int:
+    """Hold each parameter that ``shard_model_params`` names as this model
+    rank's even rows (``TableRows``, ``_hold``), but for one held already
+    (the item split's); every read sees the tables whole inside
+    ``whole_tables(model)``. Returns the number of parameters held as rows,
+    0 off a model axis."""
+    named = shard_model_params(model, mesh)
+    if not named:
+        return 0
+    held = list(getattr(model, "_held_tables", ()))
+    for prefix, module in model.named_modules():
+        for name, p in list(module._parameters.items()):
+            key = f"{prefix}.{name}" if prefix else name
+            if key in named and getattr(p, "held_rows", None) is None:
+                _hold(module, name, TableRows(mesh, p.shape[0]))
+                held.append((module, name))
+    model._held_tables = held
+    return len(named)
+
+
+def release_tables(model: torch.nn.Module) -> None:
+    """Give each table that ``hold_table_rows`` holds as this rank's rows
+    its whole rows back, as a parameter of the same name (a gather: every
+    model rank must call it), so that ``fit`` can start a held model anew."""
+    for module, name in getattr(model, "_held_tables", ()):
+        p = module._parameters[name]
+        setattr(module, name, torch.nn.Parameter(p.held_rows.gather(p, 0).clone(), requires_grad=p.requires_grad))
+    model._held_tables = []
+
+
+class _GatherTable(torch.autograd.Function):
+    """A held table whole: every model rank's rows gathered. Every model
+    rank's loss is the whole loss, so the ranks' cotangents of the whole
+    table are equal; the backward keeps this rank's rows of it, unsummed."""
+
+    @staticmethod
+    def forward(ctx, p, held):
+        ctx.held = held
+        return held.gather(p, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.held.lo : ctx.held.hi].contiguous(), None
+
+
+@contextlib.contextmanager
+def whole_tables(model: torch.nn.Module):
+    """Within the block, each table of ``model`` held as this rank's rows
+    (``hold_table_rows``) reads whole: every one is gathered once, on entry,
+    in the same order on every rank, with the gradient enabled (a read under
+    ``torch.no_grad`` and a later one share the gathered tensor), and its
+    module's attribute of that name gives the gathered tensor; the held
+    parameter (``named_parameters``, ``state_dict``, the optimizers) is
+    untouched, and reads as itself again on exit. Every model rank must
+    enter it together; a step of the parameters inside is not seen until
+    the next entry. Off a model axis it does nothing."""
+    held = getattr(model, "_held_tables", ())
+    if not held:
+        yield
+        return
+    with torch.enable_grad():
+        whole = [(m, name, _GatherTable.apply(m._parameters[name], m._parameters[name].held_rows)) for m, name in held]
+    before = [(m, name, m.__dict__.get(name)) for m, name, _ in whole]
+    for m, name, t in whole:
+        m.__dict__[name] = t
+    try:
+        yield
+    finally:
+        for m, name, prev in before:
+            if prev is None:
+                m.__dict__.pop(name, None)
+            else:
+                m.__dict__[name] = prev
 
 
 def copy_rows_(param: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
     """Copy ``whole`` into ``param``, or its rows where ``param`` holds this
-    rank's rows (``hold_item_rows``)."""
-    cols = getattr(param, "item_cols", None)
-    return param.copy_(whole if cols is None else cols.rows(whole))
+    rank's rows (``held_rows``)."""
+    held = getattr(param, "held_rows", None)
+    return param.copy_(whole if held is None else held.rows(whole))
 
 
 # -- sharded_topk ----------------------------------------------------------

@@ -12,10 +12,16 @@ and every gradient of ``DiffMM.diffusion_losses`` on shards against
 ``generate`` on shards against one rank; a DiffMM fit on the split with
 its checkpoint (whole tensors) and a resume from it; and, with no mesh and
 on ``model = 1``, phase 1 and the regeneration bit-equal to each other and
-off the split.
+off the split. The tables held at rest over the model axis
+(``parallel.mesh.hold_table_rows``) on the same threads: each rank's rows
+of LightGCN and DiffMM against the JAX ``shard_model_params`` shards of
+its model index and one training batch against one rank; a BPR fit's
+layout, its checkpoint (whole tables) loaded back, and the JAX trainer's
+log line of the placement, or its warning.
 """
 
 import copy
+import logging
 import threading
 
 import jax
@@ -23,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import Mesh as JMesh
 
 from genmmrec_tpu.config import Config as JConfig
 from genmmrec_tpu.data.arrays import build_train_data as j_train
@@ -30,6 +37,7 @@ from genmmrec_tpu.data.dataset import RecDataset as JDataset
 from genmmrec_tpu.models import get_model as j_get_model
 from genmmrec_tpu.models.diffusion.dnn import apply_dnn, init_dnn
 from genmmrec_tpu.models.modal_denoise import init_modal_denoise
+from genmmrec_tpu.parallel import mesh as jmesh
 from genmmrec_tpu_torch.config import Config as TConfig
 from genmmrec_tpu_torch.data.arrays import build_train_data as t_train
 from genmmrec_tpu_torch.data.arrays import interaction_vectors
@@ -109,8 +117,8 @@ def _grads(module) -> dict:
     out = {}
     for k, p in module.named_parameters():
         g = torch.zeros_like(p) if p.grad is None else p.grad
-        cols = getattr(p, "item_cols", None)
-        out[k] = (g if cols is None else cols.gather(g, 0)).numpy()
+        held = getattr(p, "held_rows", None)
+        out[k] = (g if held is None else held.gather(g, 0)).numpy()
     return out
 
 
@@ -483,9 +491,26 @@ def test_off_the_split_phases_are_bit_equal(name):
     assert got[1].keys() == ref[1].keys() and all(torch.equal(got[1][k], ref[1][k]) for k in ref[1])
     assert all(torch.equal(a, b) for k in ref[2] for a, b in zip(got[2][k], ref[2][k]))
     split = on_shards(2, lambda mesh: [k for k, p in _phases(name, mesh)[3].model.named_parameters()
-                                       if getattr(p, "item_cols", None) is not None])
+                                       if isinstance(getattr(p, "held_rows", None), pm.ItemCols)])
     assert split[0] == split[1] and split[0]
     assert all(k.startswith("denoise_") for k in split[0])
+
+
+def _fit(name, mesh, over):
+    """A fit of ``name`` on tiny with ``over`` (with its checkpoints where
+    ``over`` names a ``checkpoint_dir``) → (model, trainer)."""
+    from genmmrec_tpu_torch.data.arrays import build_eval_data
+    from genmmrec_tpu_torch.engine.evaluator import group_masks
+
+    config = TConfig(name, "tiny", dict(over))
+    train, valid, test = TDataset(config).split()
+    td = t_train(train, CPU)
+    vd, sd = build_eval_data(valid, train, 64, CPU), build_eval_data(test, train, 64, CPU)
+    config["pop_mask"], config["warm_mask"] = group_masks(train, CPU)
+    model = t_get_model(name)(config, td)
+    trainer = get_trainer(name)(config, model, mesh=mesh)
+    trainer.fit(td, vd, sd, saved="checkpoint_dir" in over, verbose=False)
+    return model, trainer
 
 
 def test_split_fit_checkpoints_whole_tensors_and_resumes(tmp_path):
@@ -494,20 +519,7 @@ def test_split_fit_checkpoints_whole_tensors_and_resumes(tmp_path):
     and a fit resumed from it on the shards takes each rank's rows and ends
     within the mesh tests' 2e-4 of one rank's resumed fit."""
     over = {**ONE_BATCH, "epochs": 1, "checkpoint_dir": str(tmp_path / "split")}
-
-    def fit(mesh, over):
-        config = TConfig("DiffMM", "tiny", dict(over))
-        train, valid, test = TDataset(config).split()
-        from genmmrec_tpu_torch.data.arrays import build_eval_data
-        from genmmrec_tpu_torch.engine.evaluator import group_masks
-
-        td = t_train(train, CPU)
-        vd, sd = build_eval_data(valid, train, 64, CPU), build_eval_data(test, train, 64, CPU)
-        config["pop_mask"], config["warm_mask"] = group_masks(train, CPU)
-        model = t_get_model("DiffMM")(config, td)
-        trainer = get_trainer("DiffMM")(config, model, mesh=mesh)
-        trainer.fit(td, vd, sd, saved=True, verbose=False)
-        return {k: v.numpy() for k, v in model.state_dict().items()}
+    fit = lambda mesh, over: {k: v.numpy() for k, v in _fit("DiffMM", mesh, over)[0].state_dict().items()}
 
     on_shards(2, lambda mesh: fit(mesh, over))
     ck = load_checkpoint(str(tmp_path / "split" / "DiffMM-tiny"))
@@ -528,3 +540,139 @@ def test_split_fit_checkpoints_whole_tensors_and_resumes(tmp_path):
     one = fit(None, {**ref_over, "epochs": 2, "resume_checkpoint": str(tmp_path / "one" / "DiffMM-tiny")})
     for k, v in one.items():
         np.testing.assert_allclose(resumed[0][k], v, rtol=2e-4, atol=2e-4, err_msg=k)
+
+
+# -- the tables held at rest over the model axis --------------------------------
+def _held_step(name, params, mesh):
+    """A trainer's start on tiny from the JAX parameters ``params`` (numpy),
+    placed as ``fit`` places them (on a model axis each table that
+    ``shard_model_params`` names held as the rank's rows), then the first
+    training batch of epoch 0 (DiffMM's: of its BPR + InfoNCE epoch) → (the
+    rows each rank holds, by JAX name, before the batch; the batch's losses;
+    every gradient before the step and every parameter after it, whole)."""
+    from genmmrec_tpu_torch.parallel import dryrun
+
+    config = TConfig(name, "tiny", dict(ONE_BATCH))
+    td = t_train(TDataset(config).split()[0], CPU)
+    model = t_get_model(name)(config, td)
+    trainer = get_trainer(name)(config, model, mesh=mesh)
+    from_jax_params(model, params)
+    trainer.state = model.init_state(trainer.split("state"))
+    trainer._place_params()
+    to_jax = dict(zip(dict(model.named_parameters()), params_by_jax_name(model)))
+    held = {to_jax[k]: p.detach().clone().numpy() for k, p in model.named_parameters()
+            if getattr(p, "held_rows", None) is not None}
+    trainer._build_train_step(td)
+    grads = dryrun.record_step_grads(trainer)
+    with pm.whole_tables(model):
+        trainer.state = model.pre_epoch(trainer.state, trainer.split("epoch", 0, "pre"), 0)
+    idx = torch.arange(trainer.train_batch_size)[None]
+    losses = trainer._train_epoch(trainer.split("epoch", 0, "train"), plan={"idx": idx})
+    return held, losses.numpy(), grads, {k: v.numpy() for k, v in model.state_dict().items()}
+
+
+def _jax_shards(jm, params, S: int) -> list:
+    """For each model index of a ``{data: 1, model: S}`` JAX mesh, the rows
+    its devices hold of each leaf that ``shard_model_params`` shards, by JAX
+    name (``addressable_shards``)."""
+    mesh = JMesh(np.asarray(jax.devices()[:S]).reshape(1, S), ("data", "model"))
+    sharded = jmesh.shard_model_params(jm, params, mesh)
+
+    def rows(leaf, r):
+        if "model" not in str(leaf.sharding.spec):
+            return np.zeros(0)
+        per = leaf.shape[0] // S
+        (shard,) = [s for s in leaf.addressable_shards if (s.index[0].start or 0) == r * per]
+        return np.asarray(shard.data)
+
+    return [{k: v for k, v in jax_tree_by_name(jax.tree_util.tree_map(lambda leaf: rows(leaf, r), sharded)).items()
+             if v.size} for r in range(S)]
+
+
+@pytest.mark.parametrize("name", ["LightGCN", "DiffMM"])
+def test_held_tables_are_jax_shards_and_step_as_one_rank(name, request):
+    """On ``{data: 1, model: 2}`` each rank holds exactly the rows that the
+    JAX ``shard_model_params`` puts on its model index, leaf for leaf (the
+    item split's out-projections among them for DiffMM); one training batch
+    with the tables at rest gives one rank's losses within 1e-6, its
+    gradients (gathered whole) and, after the step, its parameters within
+    1e-6 / 1e-7."""
+    if name == "DiffMM":
+        jm, _, params = request.getfixturevalue("diffmm_pair")
+    else:
+        jc = JConfig(name, "tiny", dict(ONE_BATCH))
+        jm = j_get_model(name)(jc, j_train(JDataset(jc).split()[0]))
+        params = jax.jit(jm.init_params)(jax.random.PRNGKey(0))
+    shards = _jax_shards(jm, params, 2)
+    ref = _held_step(name, _np_tree(params), None)
+    got = on_shards(2, lambda mesh: _held_step(name, _np_tree(params), mesh))
+    assert ref[0] == {}
+    for r, (held, losses, grads, after) in enumerate(got):
+        assert held.keys() == shards[r].keys() and held, (sorted(held), sorted(shards[r]))
+        for k, v in shards[r].items():
+            np.testing.assert_array_equal(held[k], v, err_msg=k)
+        np.testing.assert_allclose(losses, ref[1], rtol=1e-6)
+        for mine, one in ((grads, ref[2]), (after, ref[3])):
+            assert mine.keys() == one.keys() and mine
+            for k, v in one.items():
+                np.testing.assert_allclose(mine[k], v, rtol=1e-6, atol=1e-7, err_msg=k)
+
+
+def test_held_tables_layout_checkpoint_and_log(tmp_path, caplog):
+    """A BPR fit on ``{data: 1, model: 2}``: each rank holds ``n / 2`` rows
+    of each table, and of its gradient and Adam moments; ``state_dict()``
+    and the checkpoint give the tables whole, the same on every rank, and
+    loading the whole checkpoint on the mesh gives back each rank's rows;
+    rank 0 logs the JAX trainer's line of the placement once."""
+    caplog.set_level(logging.INFO)
+    over = {**ONE_BATCH, "checkpoint_dir": str(tmp_path)}
+
+    def rank(mesh):
+        model, trainer = _fit("BPR", mesh, over)
+        params = dict(model.named_parameters())
+        opt = trainer.optimizers["main"]
+        shapes = {k: (tuple(p.shape), p.held_rows.n, {m: tuple(v.shape) for m, v in opt.state[p].items()})
+                  for k, p in params.items()}
+        whole = {k: v.clone() for k, v in model.state_dict().items()}
+        rows = {k: p.detach().clone() for k, p in params.items()}
+        with pm.whole_tables(model):
+            total, _ = model.loss(trainer.state, {k: torch.arange(8) for k in ("users", "pos", "neg")}
+                                  | {"weight": torch.ones(8)})
+        total.backward()
+        grads = {k: tuple(p.grad.shape) for k, p in params.items()}
+        ck = load_checkpoint(str(tmp_path / "BPR-tiny"))
+        for p in params.values():
+            p.data.zero_()
+        model.load_state_dict(ck["params"])
+        loaded = {k: torch.equal(p.detach(), rows[k]) for k, p in params.items()}
+        return shapes, grads, whole, ck["params"], loaded
+
+    out = on_shards(2, rank)
+    n = {"user_emb": 64, "item_emb": 48}
+    for shapes, grads, whole, ck, loaded in out:
+        assert shapes.keys() == grads.keys() == n.keys()
+        for k, (shape, rows, moments) in shapes.items():
+            assert shape[0] == n[k] // 2 and rows == n[k] and grads[k] == shape, k
+            assert moments == {"mu": shape, "nu": shape}, k
+            assert whole[k].shape == ck[k].shape == (n[k], shape[1]) and torch.equal(whole[k], ck[k])
+            assert torch.equal(whole[k], out[0][2][k])
+        assert all(loaded.values()), loaded
+    line = "model-axis sharding: 2 embedding tables row-sharded over 2-way model axis"
+    assert caplog.text.count(line) == 1
+
+
+def test_fit_warns_when_no_table_divides_the_model_axis(caplog):
+    """Tables of 63 users and 47 items on ``{data: 1, model: 2}``: none
+    qualifies, every table stays whole on each rank, and rank 0 logs the
+    JAX trainer's warning once."""
+    caplog.set_level(logging.INFO)
+    over = {**ONE_BATCH, "synthetic_n_users": 63, "synthetic_n_items": 47}
+
+    def rank(mesh):
+        model = _fit("BPR", mesh, over)[0]
+        return model.n_users, model.n_items, [getattr(p, "held_rows", None) for p in model.parameters()]
+
+    for users, items, held in on_shards(2, rank):
+        assert (users, items) == (63, 47) and held == [None, None]
+    warning = "mesh_shape requests a model axis but no parameter leaf qualified for sharding"
+    assert caplog.text.count(warning) == 1 and "model-axis sharding" not in caplog.text

@@ -6,7 +6,7 @@ conftest): ``local_topk`` + ``merge_topk`` over 4 item shards against JAX's
 ``sharded_topk`` on its 2 × 4 mesh, at (16, 64) and at the Amazon-elec
 width; tie-heavy and masked planes against ``lax.top_k`` and K3's plain
 version; the qualifying parameters of ``shard_model_params`` against the
-JAX leaves that come out sharded; ``build_mesh``'s shapes and its error;
+JAX leaves that come out sharded, for every model of the zoo; ``build_mesh``'s shapes and its error;
 the gradient-carrying collectives in a world of one rank; the trainer of
 each of the last 25 models to take a data axis on a ``{data: 2}`` layout.
 
@@ -22,8 +22,10 @@ graph-CF, multimodal, message-passing and multimodal graph models against
 ``jax.grad`` at the global batch (built, and held, as their parity tests
 build and hold it), one batch of each of the diffusion recommenders,
 MVDiff and the 19 RF models against one rank of the port (13 of them also
-against ``jax.grad``), and one training batch of FREEDOM and RFBM3 on a
-model axis alone against one rank. On the item split of the diffusion
+against ``jax.grad``), and one training batch of FREEDOM, RFBM3, LightGCN
+and DiffMM on a model axis alone against one rank. Wherever the world has
+a model axis its ranks hold the tables as their rows
+(``parallel.mesh.hold_table_rows``). On the item split of the diffusion
 denoisers: one phase-1 batch of DiffMM, GenRecV1 and MVDiff (MVDiff's
 phase 3) on a model axis alone against one rank (DiffMM from the JAX
 parameters and draws, also against ``jax.grad``), and DiffMM's phase 1 and
@@ -126,24 +128,6 @@ def _pair(name, shape):
     jm = j_get_model(name)(jc, j_train(JDataset(jc).split()[0]))
     tm = t_get_model(name)(tc, t_train(TDataset(tc).split()[0], CPU))
     return jm, tm
-
-
-@pytest.mark.parametrize("name", ["BPR", "LightGCN", "DiffRec"])
-def test_shard_model_params_names_match_jax(name):
-    shape = {"data": 2, "model": 4}
-    jm, tm = _pair(name, shape)
-    assert jm.n_items % 4 == 0
-    params = jm.init_params(jax.random.PRNGKey(0))
-    sharded = jmesh.shard_model_params(jm, params, jmesh.build_mesh(JConfig(name, "tiny", {"mesh_shape": shape})))
-    flags = jax.tree_util.tree_map(lambda leaf: "model" in str(leaf.sharding.spec), sharded)
-    j_names = {k for k, on in jax_tree_by_name(flags).items() if on}
-    to_jax = dict(zip(dict(tm.named_parameters()), params_by_jax_name(tm)))
-    port = pm.shard_model_params(tm, pm.build_mesh({"mesh_shape": shape}, world=8))
-    assert {to_jax[n] for n in port} == j_names and j_names
-    assert all(hi - lo == dict(tm.named_parameters())[n].shape[0] // 4 for n, (lo, hi) in port.items())
-    if name == "DiffRec":
-        last = len(tm.dnn.out_layers) - 1
-        assert {f"dnn.out_layers.{last}.weight", f"dnn.out_layers.{last}.bias"} <= set(port)
 
 
 def test_build_mesh_shapes_and_error():
@@ -489,6 +473,32 @@ FAMILIES = {
 }
 
 
+# every model of the zoo
+ALL_MODELS = ("BPR", "LightGCN", "DiffMM", "GenRecV1", "DiffRec", *FAMILIES, *LAST_MODELS)
+
+
+@pytest.mark.parametrize("name", ALL_MODELS)
+def test_shard_model_params_names_match_jax(name):
+    shape = {"data": 2, "model": 4}
+    jm, tm = _pair(name, shape)
+    assert jm.n_items % 4 == 0
+    # the rule reads the leaves' shapes alone: zeros of the init's shapes
+    shapes = jax.eval_shape(jm.init_params, jax.random.PRNGKey(0))
+    params = jax.tree_util.tree_map(lambda leaf: np.zeros(leaf.shape, leaf.dtype), shapes)
+    sharded = jmesh.shard_model_params(jm, params, jmesh.build_mesh(JConfig(name, "tiny", {"mesh_shape": shape})))
+    flags = jax.tree_util.tree_map(lambda leaf: "model" in str(leaf.sharding.spec), sharded)
+    j_names = {k for k, on in jax_tree_by_name(flags).items() if on}
+    to_jax = dict(zip(dict(tm.named_parameters()), params_by_jax_name(tm)))
+    port = pm.shard_model_params(tm, pm.build_mesh({"mesh_shape": shape}, world=8))
+    assert {to_jax[n] for n in port} == j_names
+    # ItemKNNCBF learns nothing
+    assert bool(j_names) == (name != "ItemKNNCBF")
+    assert all(hi - lo == dict(tm.named_parameters())[n].shape[0] // 4 for n, (lo, hi) in port.items())
+    if name == "DiffRec":
+        last = len(tm.dnn.out_layers) - 1
+        assert {f"dnn.out_layers.{last}.weight", f"dnn.out_layers.{last}.bias"} <= set(port)
+
+
 def _family_zero_grads():
     """The gradients that are zero but for rounding, each with its weight's,
     as the families' parity tests list them."""
@@ -503,7 +513,7 @@ FAMILY_FITS = ("LayerGCN", "BM3", "DualGNN", "MGCN")
 # a batch that does not split over a {data: 2} mesh
 ODD_BATCH = {**FIT, "train_batch_size": 63}
 
-STEPS = {"FREEDOM": {"save_recommended_topk": False}, "RFBM3": {"save_recommended_topk": False}}
+STEPS = {name: {"save_recommended_topk": False} for name in ("FREEDOM", "RFBM3", "LightGCN", "DiffMM")}
 # fitted one epoch on the 2 x 2 mesh: phase 1, the regeneration and the
 # loss history over the data axis (dryrun.DRYRUN); MVDiff's four phases,
 # with every pick of phase 4 kept (its order among the picks whose
@@ -763,9 +773,10 @@ def test_batch_that_does_not_split_trains_as_one_rank(world):
 
 @pytest.mark.parametrize("name", sorted(STEPS))
 def test_model_axis_batch_matches_one_rank(world, name):
-    """Under ``{data: 1, model: 2}`` the optimizers step each rank's rows of
-    the tables and gather them: the parameters after one batch equal one
-    rank's."""
+    """Under ``{data: 1, model: 2}`` each rank holds its rows of the tables
+    (their gradients and moments too) and reads them whole: the parameters
+    after one batch (DiffMM's: of its BPR + InfoNCE epoch), gathered whole,
+    equal one rank's."""
     out, _ = world
     ref = dryrun.one_batch(name, STEPS[name], CPU)
     got = out[f"step_{name}"]
