@@ -191,8 +191,12 @@ the kernels and runs this phase alone.
 
 The zoo sweep last (``zoo_path``): ``scripts/zoo_sweep_torch.py`` trains
 LightGCN, FREEDOM and DiffMM one epoch each on Amazon-baby through ``python
--m genmmrec_tpu_torch``, three child processes at once: every row OK, its
-Recall@20 finite, each child's K1 and K3 launched. Then
+-m genmmrec_tpu_torch``, three child processes at once, and beside them
+DiffMM one epoch on Amazon-sports (35,598 × 18,357) through a second call:
+every row OK, its Recall@20 finite, each child's K1 and K3 launched. Then
+K1 forward and backward on the sports adjacency and K3 on a masked sports
+evaluation chunk and on DiffMM's sports regeneration plane against their
+plain versions (``zoo_sports_kernels``). Then
 ``scripts/make_structured_dataset_torch.py`` at its default size (4,000 ×
 2,000) with its user graph on the card: the files byte-equal to a numpy
 re-derivation, the user graph against scipy's counts and K3 at k = 200
@@ -5250,10 +5254,14 @@ def prep_path(torch, card):
 
 # the zoo sweep's smoke: one epoch at baby of a model of each kind of
 # path (K1 alone; K1 and K3 on an item graph; the multi-phase trainer),
-# three children at once, and the kernels each must launch
+# three children at once, beside them the main path's model one epoch at
+# sports, and the kernels each must launch. The sports child and the
+# kernels at its shapes add 20–35 s to the phase (PERF.md §5): the budget
+# takes 40 s more
 ZOO_MODELS = ("LightGCN", "FREEDOM", "DiffMM")
+ZOO_SPORTS_MODELS = ("DiffMM",)
 ZOO_NEED = ("grouped_topk",) + K1_BOTH
-ZOO_BUDGET_S = 90.0
+ZOO_BUDGET_S = 90.0 + 40.0
 
 
 def structured_reference(np, n_users=4000, n_items=2000, k=24, mean_degree=25.0, pop_scale=0.25, tau=0.35,
@@ -5303,17 +5311,21 @@ def zoo_path(torch, card):
     """The zoo sweep on the card (``--zoo-only`` runs it alone after the
     build, budget ``ZOO_BUDGET_S``): ``scripts/zoo_sweep_torch.py`` trains
     ``ZOO_MODELS`` one epoch each at baby through ``python -m
-    genmmrec_tpu_torch``, three children at once, into a journal of a
-    temporary directory; each row OK (finite losses and Recall@20, a BEST
-    block) and each child's kernels launched. Then
+    genmmrec_tpu_torch``, three children at once, and beside them, by a
+    second call, ``ZOO_SPORTS_MODELS`` one epoch at sports, into journals of
+    a temporary directory; each row OK (finite losses and Recall@20, a BEST
+    block) and each child's kernels launched. Then K1 and K3 at sports'
+    shapes against their plain versions (``zoo_sports_kernels``). Then
     ``scripts/make_structured_dataset_torch.py`` at its default size (4,000
     × 2,000) with its user graph on the card: its files byte-equal to
     ``structured_reference``, its user graph against scipy's counts and K3
     against its plain version (``check_prep_user_graph``). Then
-    ``scripts/zoo_report_torch.py`` on the journal: the three rows OK in
-    the report. Returns (summary, kernel cases by kernel, launches)."""
+    ``scripts/zoo_report_torch.py`` on the journals: the baby rows and the
+    sports row OK in the reports. Returns (summary, kernel cases by kernel,
+    launches)."""
     import importlib.util
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
 
@@ -5328,31 +5340,54 @@ def zoo_path(torch, card):
     phase_t0 = time.perf_counter()
     cases = dict(k1=[], k1_bwd=[], k3=[])
     out = {}
+    launches = {}
     with tempfile.TemporaryDirectory() as root:
-        journal = os.path.join(root, "zoo_sweep_torch_baby.json")
+
+        def swept(dataset, models):
+            """One ``sweep.main`` call, one epoch of ``models`` at ``dataset``
+            at once, into a journal of ``root``; its rows checked."""
+            journal = os.path.join(root, f"zoo_sweep_torch_{dataset}.json")
+            t0 = time.perf_counter()
+            rc = sweep.main(["-d", dataset, "--epochs", "1", "--models", *models, "--timeout", "300",
+                             "--jobs", str(len(models)), "--out", journal, "--workdir", root])
+            seconds = time.perf_counter() - t0
+            with open(journal) as f:
+                rows = json.load(f)
+            for m in models:
+                r = rows.get(m, {})
+                child = r.get("child") or {}
+                if not r.get("ok") or not math.isfinite(r.get("valid_recall@20") or float("nan")):
+                    raise AssertionError(
+                        f"zoo sweep: {m}/{dataset} failed (rc {r.get('returncode')}):\n{r.get('tail', '')[-3000:]}"
+                    )
+                key = m if dataset == "baby" else f"{m}/{dataset}"
+                launches[key] = child.get("launches", {})
+                never = [k for k in ZOO_NEED if launches[key].get(k, 0) <= 0]
+                if never:
+                    raise AssertionError(f"zoo sweep: {key} did not launch {never}: {launches[key]}")
+                out[key] = {k: r.get(k) for k in ("seconds", "valid_recall@20", "test_recall@20", "epochs_run", "train_s")}
+                out[key].update(setup_s=child.get("setup_s"), import_s=child.get("import_s"),
+                                fit_s=child.get("fit_s"), peak_allocated_bytes=child.get("peak_allocated_bytes"))
+            if rc != 0:
+                raise AssertionError(f"zoo sweep at {dataset} returned {rc}")
+            return seconds
+
+        # the sports child starts first and runs beside the three baby ones
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            sports = pool.submit(swept, "sports", ZOO_SPORTS_MODELS)
+            out["sweep_s"] = swept("baby", ZOO_MODELS)
+            out["sports_sweep_s"] = sports.result()
+        keys = [*ZOO_MODELS, *(f"{m}/sports" for m in ZOO_SPORTS_MODELS)]
+        print(f"zoo_path sweep: {len(ZOO_MODELS)} baby models at once in {out['sweep_s']:.1f} s, beside them "
+              f"{len(ZOO_SPORTS_MODELS)} at sports in {out['sports_sweep_s']:.1f} s: "
+              f"{json.dumps({k: out[k] for k in keys})} [{card}]")
+
+        # K1 and K3 at the sports tier's shapes, the card quiet
         t0 = time.perf_counter()
-        rc = sweep.main(["-d", "baby", "--epochs", "1", "--models", *ZOO_MODELS, "--timeout", "300",
-                         "--jobs", str(len(ZOO_MODELS)), "--out", journal, "--workdir", root])
-        out["sweep_s"] = time.perf_counter() - t0
-        with open(journal) as f:
-            rows = json.load(f)
-        launches = {}
-        for m in ZOO_MODELS:
-            r = rows.get(m, {})
-            child = r.get("child") or {}
-            if not r.get("ok") or not math.isfinite(r.get("valid_recall@20") or float("nan")):
-                raise AssertionError(f"zoo sweep: {m} failed (rc {r.get('returncode')}):\n{r.get('tail', '')[-3000:]}")
-            launches[m] = child.get("launches", {})
-            never = [k for k in ZOO_NEED if launches[m].get(k, 0) <= 0]
-            if never:
-                raise AssertionError(f"zoo sweep: {m} did not launch {never}: {launches[m]}")
-            out[m] = {k: r.get(k) for k in ("seconds", "valid_recall@20", "test_recall@20", "epochs_run", "train_s")}
-            out[m].update(setup_s=child.get("setup_s"), import_s=child.get("import_s"),
-                          peak_allocated_bytes=child.get("peak_allocated_bytes"))
-        if rc != 0:
-            raise AssertionError(f"zoo sweep returned {rc}")
-        print(f"zoo_path sweep: {len(ZOO_MODELS)} models at once in {out['sweep_s']:.1f} s: "
-              f"{json.dumps({m: out[m] for m in ZOO_MODELS})} [{card}]")
+        out["sports_kernels"], sports_cases = zoo_sports_kernels(torch, torch.device("cuda:0"), card)
+        out["sports_kernels_s"] = time.perf_counter() - t0
+        for k, v in sports_cases.items():
+            cases[k] += v
 
         # the structured generator at its default size, its user graph on the card
         d = os.path.join(root, "data_struct", "baby")
@@ -5393,11 +5428,64 @@ def zoo_path(torch, card):
         missing = [m for m in ZOO_MODELS if not re.search(rf"^\| {m} \| OK \|", text, re.M)]
         if missing or card.split(",")[0] not in text:
             raise AssertionError(f"zoo report: rows of {missing} not OK, or the card absent")
+        doc = os.path.join(root, "ZOO_RESULTS_TORCH_SPORTS.md")
+        report.main(["sports", "--logs", root, "--out", doc])
+        text = open(doc).read()
+        missing = [m for m in ZOO_SPORTS_MODELS if not re.search(rf"^\| {m} \| OK \|", text, re.M)]
+        if missing:
+            raise AssertionError(f"zoo report at sports: rows of {missing} not OK")
     total = {k: sum(l.get(k, 0) for l in launches.values()) + gen_launches[k] for k in gen_launches}
     out["launches"] = dict(**launches, structured_generator=gen_launches)
     out["phase_s"] = time.perf_counter() - phase_t0
     print(f"zoo_path phase done in {out['phase_s']:.1f} s (budget {ZOO_BUDGET_S:.0f} s); launches {json.dumps(total)}")
     return out, cases, total
+
+
+def zoo_sports_kernels(torch, dev, card):
+    """K1 and K3 at the Amazon-sports tier's shapes against their plain
+    versions: sports' tables drawn once in bulk (``elec_data``), DiffMM as
+    published on them (seeded parameters); K1 forward and backward on its
+    adjacency (53,955 rows, on K1: under ``takes_blocked``'s cut) at its
+    width, K3 on a (eval batch, 18,357) chunk masked by the valid split's
+    packed train positives at k = 50 and on DiffMM's regeneration plane
+    (a train batch's users) at ``rebuild_k``. DiffMM's ``remat_gcn`` is off
+    at sports (under 100,000 nodes). Returns (facts, cases by kernel)."""
+    from genmmrec_tpu_torch.data.arrays import interaction_vectors
+    from genmmrec_tpu_torch.engine.trainer import get_trainer
+    from genmmrec_tpu_torch.models import get_model
+
+    t0 = time.perf_counter()
+    data = elec_data(torch, dev, dataset="sports")
+    config, td = data.config, data.td
+    config["pop_mask"], config["warm_mask"] = data.pop_warm
+    model = get_model("DiffMM")(config, td)
+    model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    trainer = get_trainer("DiffMM")(config, model)
+    trainer._mask_cache = data.masks
+    eval_bs = int(config["eval_batch_size"])
+    mask = trainer._dense_mask(data.vd)[:eval_bs]
+    torch.cuda.synchronize()
+    g, d = model.norm_adj, model.latdim
+    facts = dict(n_users=td.n_users, n_items=td.n_items, n_inter=td.n_inter, adjacency_rows=g.n_rows,
+                 adjacency_nnz=g.nnz, blocked=g.blocked, remat=model.remat, setup_s=time.perf_counter() - t0)
+    print(f"set-up: zoo_path sports kernels {json.dumps(facts)} (tables drawn in bulk) [{card}]")
+    if g.blocked or model.remat:
+        raise AssertionError(f"DiffMM at sports: the adjacency must take K1 and remat_gcn stay off: {facts}")
+    graphs = [(f"sports_adjacency_d{d}", g, d)]
+    cases = dict(k1=check_spmm(torch, graphs, card)["cases"], k1_bwd=check_spmm_backward(torch, graphs, card)["cases"])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    chunk = torch.randn(eval_bs, td.n_items, generator=gen, device=dev)
+    users = torch.arange(trainer.train_batch_size, device=dev)
+    plane = model.p_sample_users(model.denoise_image, interaction_vectors(td, users))
+    cases["k3"] = check_k3(
+        torch,
+        [("sports_eval_top50_masked", chunk, 50, mask),
+         (f"sports_diffmm_regenerate_top{model.rebuild_k}", plane, model.rebuild_k, None)],
+        card,
+    )["cases"]
+    del trainer, model, data, chunk, plane
+    torch.cuda.empty_cache()
+    return facts, cases
 
 
 # the elec path's models, in the order it drives them (scripts/elec_scale_torch.py's)
@@ -5828,6 +5916,7 @@ def main() -> int:
     if args.zoo_only:
         zoo, zoo_cases, zoo_launches = zoo_path(torch, card)
         print(json.dumps({"zoo_path": dict(**zoo, launches_total=zoo_launches), "kernel_cases": zoo_cases}))
+        print(f"chip_smoke: the build and zoo_path done in {time.perf_counter() - smoke_t0:.1f} s [{card}]")
         return 0
     if args.elec_only:
         elec_d, elec_cases, elec_d_launches = elec_path(torch, torch.device("cuda:0"), card, profile_dir=args.profile)

@@ -1,28 +1,31 @@
 #!/usr/bin/env python
-"""Render the port's zoo sweep as ``docs/ZOO_RESULTS_TORCH.md``, each row
-held against the JAX package's record.
+"""Render the port's zoo sweep at one dataset tier as
+``docs/ZOO_RESULTS_TORCH.md`` (baby) or ``docs/ZOO_RESULTS_TORCH_<DS>.md``,
+each row held against the JAX package's record.
 
 The port's journals (``scripts/zoo_sweep_torch.py``):
   * ``comparison_logs/zoo_sweep_torch_<ds>.json``                 — 2 epochs
   * ``comparison_logs/zoo_sweep_torch_<ds>_converged.json``       — 50 epochs, patience 5
-  * ``comparison_logs/zoo_sweep_torch_<ds>_converged_seed<S>.json`` — the same at seed S
+  * ``comparison_logs/zoo_sweep_torch_<ds>_r3.json``              — 15 epochs, patience 25
+  * ``comparison_logs/zoo_sweep_torch_<ds>_<lane>_seed<S>.json``  — a banded lane at seed S
   * ``comparison_logs/zoo_sweep_torch_<ds>_struct.json``          — the structured lane
-  * ``comparison_logs/zoo_sweep_torch_<ds>_struct_seed<S>.json``
 
 The JAX package's records, read as JSON data only: its journals
-``comparison_logs/zoo_sweep_<ds>[_converged].json`` and its structured
+``comparison_logs/zoo_sweep_<ds>[_converged|_r3].json`` and its structured
 runs ``our_runs/<M>-<ds>-struct/result.json``. Their wall times are not
-carried over: they were taken on another device.
+carried over: they were taken on another device. A lane is rendered where
+the port or the JAX package has a journal of it.
 
-The band: a converged (or structured) valid Recall@20 is in band when it
-lies within ``BAND`` (0.8–1.25×) of the JAX row, or within ``ABS_BAND``
-(0.01) of it where the JAX row is below ``ABS_FLOOR`` (0.01). A row
-outside the band that has seed runs is seed spread when the JAX row lies
-inside the port's three seeds' [min, max] widened by ``SEED_WIDEN`` (0.01);
-``NOTES`` holds what explains any other row, which is flagged as open.
+The band: a converged, 15-epoch or structured valid Recall@20 is in band
+when it lies within ``BAND`` (0.8–1.25×) of the JAX row, or within
+``ABS_BAND`` (0.01) of it where the JAX row is below ``ABS_FLOOR`` (0.01).
+A row outside the band that has seed runs is seed spread when the JAX row
+lies inside the port's three seeds' [min, max] widened by ``SEED_WIDEN``
+(0.01); ``NOTES`` holds what explains any other row, which is flagged as
+open.
 
 Usage:
-    python scripts/zoo_report_torch.py [baby] [--logs DIR] [--out PATH]
+    python scripts/zoo_report_torch.py [baby|sports] [--logs DIR] [--out PATH]
 """
 
 from __future__ import annotations
@@ -75,15 +78,17 @@ RF_HOSTS = [
 RF_BAND = 0.01
 
 # what explains a row outside the band other than seed spread, by
-# (lane, model); the text goes into the row's verdict, the evidence into
-# FINDINGS
-NOTES: dict[tuple[str, str], str] = {
-    ("struct", "BM3"): "the JAX package today gives the port's value (below)",
-    ("struct", "MVGAE"): "the JAX package today gives the port's value (below)",
+# (dataset, lane, model); the text goes into the row's verdict, the
+# evidence into FINDINGS
+NOTES: dict[tuple[str, str, str], str] = {
+    ("baby", "struct", "BM3"): "the JAX package today gives the port's value (below)",
+    ("baby", "struct", "MVGAE"): "the JAX package today gives the port's value (below)",
+    ("sports", "r3", "SLMRec"): "a per-seed epoch-0 transient; the JAX row lies inside the port's eight seeds (below)",
 }
 # the evidence behind NOTES and behind the checks that fail on the port
-# alone, as paragraphs of the report
-FINDINGS = [
+# alone, as paragraphs of each dataset's report
+FINDINGS: dict[str, list[str]] = {}
+FINDINGS["baby"] = [
     "**Structured BM3 and MVGAE: the JAX records are not what the JAX package computes today.** The port's "
     "rows are 1.40× and 4.45× the records (`our_runs/BM3-baby-struct`, `our_runs/MVGAE-baby-struct`), and "
     "its three seeds give 0.0482–0.0497 and 0.0477–0.0507. The JAX package as it stands, run in float32 on "
@@ -111,6 +116,21 @@ FINDINGS = [
     "and 0.1550); **LightGCN > BPR**, which the JAX rows fail by 0.0005, holds on the port by 0.0002, and "
     "**BM3 > BPR** in the structured lane, which the JAX record fails, holds on the port and in the JAX "
     "package run today (0.0489 against the record's BPR 0.0467).",
+]
+
+FINDINGS["sports"] = [
+    "**SLMRec: its 15-epoch number is the height of an epoch-0 transient, a per-seed draw, and the JAX row "
+    "lies inside the port's draws.** The port gives 0.1121, 0.1342 and 0.1091 at seeds 999, 1000 and 2022 "
+    "(1.44× at seed 999; the three-seed rule's [0.0991, 0.1442] misses the JAX row 0.0777 by 0.0214). Five "
+    "more seeds (`comparison_logs/zoo_sweep_torch_sports_r3_seed<S>.json`, S = 1–5, each row with the valid "
+    "Recall@20 of every epoch; seed 999's curve in `_seed999.json`) give 0.0903, 0.1200, 0.1214, 0.0677 and "
+    "0.1045: over eight seeds 0.0677–0.1342, the JAX row between seed 4's 0.0677 and seed 1's 0.0903. In all "
+    "eight the best valid Recall@20 is epoch 0's, and from epoch 2 on it sits at 0.0354–0.0435 (seed 999: "
+    "0.1121, 0.0537, 0.0404, 0.0424, 0.0396, ..., 0.0429). The JAX package shows the same shape: its own "
+    "baby runs peak at epoch 0 or 1 and fall to about 0.044 (`our_runs/SLMRec-baby*`: best 0.1490, 0.0689 "
+    "and 0.0877 at seeds 999, 1000 and 8), the spike's height set per seed by the linear biases' popularity "
+    "prior (`docs/ROUND3.md`). The JAX record is one draw of JAX's random streams (threefry), which the port "
+    "(Philox) cannot replay. Not a fault of the port.",
 ]
 
 
@@ -148,29 +168,45 @@ def verdict(port, ref, seeds=None, note=None) -> str:
     return "OPEN: outside the band"
 
 
-def ordering_rows(get):
+def _check_lanes(kind, lanes, members, a, b):
+    """The lanes a check of ``kind`` runs on: ``lanes[kind]`` (default the
+    kind itself), those of them whose models ``members(lane)`` holds both
+    of ``a`` and ``b`` where ``members`` is given."""
+    out = [kind] if lanes is None else lanes.get(kind, [])
+    return [lane for lane in out if members is None or {a, b} <= members(lane)]
+
+
+def ordering_rows(get, lanes=None, members=None):
     """(text, lane, a, b, ok) for each of ``ORDERINGS`` and ``NEAR_PAIRS``
     on the values ``get(model, lane)``; ok is None where a value is
-    missing."""
+    missing. A check's lane ("conv" or "struct") is a kind of lane:
+    ``lanes`` maps it to the lanes the check runs on (a 15-epoch lane is of
+    the converged kind), and ``members``, where given, leaves out a lane
+    that lacks one of the two models."""
     rows = []
-    for a, b, lane, tol in ORDERINGS:
-        va, vb = get(a, lane), get(b, lane)
-        ok = None if va is None or vb is None else va > vb - tol
-        rows.append((f"{a} > {b}", lane, va, vb, ok))
-    for a, b, lane, tol in NEAR_PAIRS:
-        va, vb = get(a, lane), get(b, lane)
-        ok = None if va is None or vb is None else abs(va - vb) <= tol * max(vb, 1e-9)
-        rows.append((f"{a} ≈ {b} (±{int(tol * 100)}%)", lane, va, vb, ok))
+    for a, b, kind, tol in ORDERINGS:
+        for lane in _check_lanes(kind, lanes, members, a, b):
+            va, vb = get(a, lane), get(b, lane)
+            ok = None if va is None or vb is None else va > vb - tol
+            rows.append((f"{a} > {b}", lane, va, vb, ok))
+    for a, b, kind, tol in NEAR_PAIRS:
+        for lane in _check_lanes(kind, lanes, members, a, b):
+            va, vb = get(a, lane), get(b, lane)
+            ok = None if va is None or vb is None else abs(va - vb) <= tol * max(vb, 1e-9)
+            rows.append((f"{a} ≈ {b} (±{int(tol * 100)}%)", lane, va, vb, ok))
     return rows
 
 
-def rf_rows(get):
-    """(variant, host, rf value, host value, ok) for each of ``RF_HOSTS``."""
+def rf_rows(get, lanes=None, members=None):
+    """(variant, host, rf value, host value, ok) for each of ``RF_HOSTS`` on
+    each lane of the converged kind (``lanes`` and ``members`` as in
+    ``ordering_rows``)."""
     rows = []
     for rf_m, host in RF_HOSTS:
-        va, vb = get(rf_m, "conv"), get(host, "conv")
-        ok = None if va is None or vb is None else va >= vb - RF_BAND
-        rows.append((rf_m, host, va, vb, ok))
+        for lane in _check_lanes("conv", lanes, members, rf_m, host):
+            va, vb = get(rf_m, lane), get(host, lane)
+            ok = None if va is None or vb is None else va >= vb - RF_BAND
+            rows.append((rf_m, host, va, vb, ok))
     return rows
 
 
@@ -238,8 +274,9 @@ def _mark(ok):
     return "pending" if ok is None else ("✅" if ok else "❌")
 
 
-def lane_table(lines, models, lane, port, seeds, jax_rows, wall_note):
-    """The rows of one lane against the JAX rows; returns the verdicts."""
+def lane_table(lines, models, lane, port, seeds, jax_rows, wall_note, notes=None):
+    """The rows of one lane against the JAX rows, ``notes`` explaining rows
+    by model; returns the verdicts."""
     verdicts = {}
     lines += [
         f"| Model | Status | Epochs run | Wall (s), {wall_note} | Peak GB | valid R@20 | JAX valid R@20 | ratio "
@@ -252,7 +289,7 @@ def lane_table(lines, models, lane, port, seeds, jax_rows, wall_note):
         sv = _seed_values(m, v, seeds) if v is not None else None
         seed_txt = " / ".join(fmt(_ok(j.get(m, {}))) for j in seeds) if any(m in j for j in seeds) else "—"
         status = "pending" if m not in port else ("OK" if r.get("ok") else ("TIMEOUT" if str(r.get("tail", "")).startswith("TIMEOUT") else "FAIL"))
-        verdicts[m] = verdict(v, jv, sv, NOTES.get((lane, m))) if status in ("OK", "pending") else "FAIL"
+        verdicts[m] = verdict(v, jv, sv, (notes or {}).get(m)) if status in ("OK", "pending") else "FAIL"
         ratio = fmt(v / jv, 2) if v is not None and jv else "—"
         lines.append(
             f"| {m} | {status} | {r.get('epochs_run', '—')} | {r.get('seconds', '—')} | {_gb(r)} | {fmt(v)} | "
@@ -272,34 +309,78 @@ def _wall_note(journal):
     return note
 
 
+# the tiers' sizes for the report's text (configs/dataset/<ds>.yaml's
+# synthetic fallback)
+TIERS = {"baby": (19445, 7050), "sports": (35598, 18357)}
+# the banded lanes: (tag, heading, settings, the JAX record's tag)
+BANDED = {
+    "conv": ("_converged", "Converged lane",
+             "`--epochs 50 --stopping-step 5`, the JAX lane's settings.", "_converged"),
+    "r3": ("_r3", "15-epoch lane",
+           "`--epochs 15 --stopping-step 25 --timeout 1400`, the JAX record's settings "
+           "(`scripts/tpu_r3q_queue.sh`), against `comparison_logs/zoo_sweep_{ds}_r3.json`.", "_r3"),
+}
+NUMBERS = ("none", "one", "two", "three", "four", "five", "six", "seven", "eight", "nine")
+
+
+def default_out(dataset: str) -> str:
+    """``docs/ZOO_RESULTS_TORCH.md`` for baby, ``docs/ZOO_RESULTS_TORCH_<DS>.md``
+    for any other tier."""
+    name = "ZOO_RESULTS_TORCH.md" if dataset == "baby" else f"ZOO_RESULTS_TORCH_{dataset.upper()}.md"
+    return os.path.join(ROOT, "docs", name)
+
+
+def _verdict_counts(verdicts):
+    counts = {}
+    for v in verdicts.values():
+        key = v.split(":")[0]
+        counts[key] = counts.get(key, 0) + 1
+    return ", ".join(f"{k} {n}" for k, n in sorted(counts.items()))
+
+
 def main(argv=None) -> str:
     import argparse
 
     ap = argparse.ArgumentParser()
     ap.add_argument("dataset", nargs="?", default="baby")
     ap.add_argument("--logs", default=os.path.join(ROOT, "comparison_logs"), help="directory of the port's journals")
-    ap.add_argument("--out", default=os.path.join(ROOT, "docs", "ZOO_RESULTS_TORCH.md"))
+    ap.add_argument("--out", default=None,
+                    help="the report (default docs/ZOO_RESULTS_TORCH.md for baby, docs/ZOO_RESULTS_TORCH_<DS>.md else)")
     args = ap.parse_args(argv)
     dataset = args.dataset
-    two = _journal(args.logs, dataset)
-    conv = _journal(args.logs, dataset, "_converged")
-    conv_seeds = [_journal(args.logs, dataset, f"_converged_seed{s}") for s in SEEDS]
+    jax = lambda tag="": _load(os.path.join(ROOT, "comparison_logs", f"zoo_sweep_{dataset}{tag}.json"))
+    two, j_two = _journal(args.logs, dataset), jax()
+    # the banded lanes present: lane -> (port, port at each seed, JAX record, models)
+    banded = {}
+    for lane, (tag, _, _, jtag) in BANDED.items():
+        port, ref = _journal(args.logs, dataset, tag), jax(jtag)
+        if port or ref:
+            seeds = [_journal(args.logs, dataset, f"{tag}_seed{s}") for s in SEEDS]
+            banded[lane] = (port, seeds, ref, sorted({*ref, *port}))
     struct = _journal(args.logs, dataset, "_struct")
     struct_seeds = [_journal(args.logs, dataset, f"_struct_seed{s}") for s in SEEDS]
-    j_two = _load(os.path.join(ROOT, "comparison_logs", f"zoo_sweep_{dataset}.json"))
-    j_conv = _load(os.path.join(ROOT, "comparison_logs", f"zoo_sweep_{dataset}_converged.json"))
     j_struct = _jax_struct(dataset)
-    models = list(dict.fromkeys(list(j_conv) + list(conv) + list(two)))
+    has_struct = bool(struct or j_struct)
+    models = sorted({*two, *(m for b in banded.values() for m in b[3])})
 
-    cards = _cards(two, conv, struct, *conv_seeds, *struct_seeds)
+    cards = _cards(two, struct, *(j for b in banded.values() for j in [b[0], *b[1]]), *struct_seeds)
+    records = [f"`comparison_logs/zoo_sweep_{dataset}[{'|'.join(BANDED[l][3] for l in banded)}].json`"]
+    if has_struct:
+        records.append(f"`our_runs/<M>-{dataset}-struct/result.json`")
+    users, items = TIERS.get(dataset, (None, None))
+    tier = f"The {dataset} tier is the synthetic fallback"
+    if users:
+        tier += f" ({users:,} users × {items:,} items)"
+    tier += (" whose modal features are noise, so feature-dominated models (VBPR, ItemKNNCBF, SMORE, MVGAE, "
+             "RFMRec) sit low in both packages")
+    tier += "; the structured lane is where features carry signal." if has_struct else "."
     lines = [
         "# Zoo sweep of genmmrec_tpu_torch",
         "",
         f"Every model run end to end through the port's command line, `python -m genmmrec_tpu_torch -m <M> "
         f"-d {dataset}`, one process a model (`scripts/zoo_sweep_torch.py`), on "
         f"{', '.join(cards) if cards else 'no recorded card'}; generated by `scripts/zoo_report_torch.py`. "
-        "Each row is held against the JAX package's record of the same lane (`comparison_logs/"
-        f"zoo_sweep_{dataset}[_converged].json`, `our_runs/<M>-{dataset}-struct/result.json`); the JAX "
+        f"Each row is held against the JAX package's record of the same lane ({', '.join(records)}); the JAX "
         "package's wall times were taken on another device and are not carried over.",
         "",
         f"Band: a valid Recall@20 within {BAND[0]}–{BAND[1]}× of the JAX row, or within ±{ABS_BAND} of it where "
@@ -307,14 +388,12 @@ def main(argv=None) -> str:
         f"it is seed spread when the JAX row lies inside the port's three values' [min, max] widened by "
         f"{SEED_WIDEN}. Anything else is explained in its verdict or flagged OPEN.",
         "",
-        "The baby tier is the synthetic fallback (19,445 users × 7,050 items) whose modal features are noise, "
-        "so feature-dominated models (VBPR, ItemKNNCBF, SMORE, MVGAE, RFMRec) sit low in both packages; the "
-        "structured lane is where features carry signal. Peak GB is `torch.cuda.max_memory_allocated` at the "
-        "end of the run.",
+        tier + " Peak GB is `torch.cuda.max_memory_allocated` at the end of the run.",
         "",
         "## 2-epoch lane (runs at all)",
         "",
-        "`--epochs 2`. No band: two epochs are dominated by the draws.",
+        "`--epochs 2`. No band: two epochs are dominated by the draws."
+        + ("" if j_two else f" The JAX package has no 2-epoch record at {dataset}."),
         "",
         f"| Model | Status | Wall (s), {_wall_note(two)} | Peak GB | valid R@20 | JAX valid R@20 | last epoch's loss |",
         "|---|---|---|---|---|---|---|",
@@ -328,79 +407,87 @@ def main(argv=None) -> str:
         )
     n_two = sum(bool(two.get(m, {}).get("ok")) for m in models)
     lines += ["", f"{n_two}/{len(models)} models OK.", ""]
+    summary = [f"2-epoch {n_two}/{len(models)} OK"]
 
-    lines += [
-        "## Converged lane",
-        "",
-        "`--epochs 50 --stopping-step 5`, the JAX lane's settings. Seeds: the same run at `seed` 1000 and 2022.",
-        "",
-    ]
-    conv_v = lane_table(lines, models, "conv", conv, conv_seeds, j_conv, _wall_note(conv))
-    n_conv = sum(bool(conv.get(m, {}).get("ok")) for m in models)
-    counts = {}
-    for v in conv_v.values():
-        key = v.split(":")[0]
-        counts[key] = counts.get(key, 0) + 1
-    lines += ["", f"{n_conv}/{len(models)} models OK; verdicts: "
-              + ", ".join(f"{k} {n}" for k, n in sorted(counts.items())) + ".", ""]
+    notes = lambda lane: {m: t for (ds, ln, m), t in NOTES.items() if ds == dataset and ln == lane}
+    for lane, (port, seeds, ref, lm) in banded.items():
+        _, heading, settings, _ = BANDED[lane]
+        lines += [f"## {heading}", "", settings.format(ds=dataset)
+                  + " Seeds: the same run at `seed` 1000 and 2022.", ""]
+        verdicts = lane_table(lines, lm, lane, port, seeds, ref, _wall_note(port), notes(lane))
+        n_ok = sum(bool(port.get(m, {}).get("ok")) for m in lm)
+        lines += ["", f"{n_ok}/{len(lm)} models OK; verdicts: {_verdict_counts(verdicts)}.", ""]
+        summary.append(f"{lane} {n_ok}/{len(lm)} OK")
 
-    lines += [
-        "## Structured-feature lane",
-        "",
-        "The latent-factor dataset with feature-correlated modalities (`scripts/make_structured_dataset_torch.py`, "
-        "4,000 users × 2,000 items, the same bytes as `scripts/make_structured_dataset.py`'s), `--epochs 100 "
-        "--stopping-step 10`, against `our_runs/<M>-baby-struct`.",
-        "",
-    ]
-    struct_v = lane_table(lines, list(STRUCT_MODELS), "struct", struct, struct_seeds, j_struct, _wall_note(struct))
-    n_struct = sum(bool(struct.get(m, {}).get("ok")) for m in STRUCT_MODELS)
-    lines += ["", f"{n_struct}/{len(STRUCT_MODELS)} models OK.", ""]
+    if has_struct:
+        lines += [
+            "## Structured-feature lane",
+            "",
+            "The latent-factor dataset with feature-correlated modalities (`scripts/make_structured_dataset_torch.py`, "
+            "4,000 users × 2,000 items, the same bytes as `scripts/make_structured_dataset.py`'s), `--epochs 100 "
+            "--stopping-step 10`, against `our_runs/<M>-baby-struct`.",
+            "",
+        ]
+        lane_table(lines, list(STRUCT_MODELS), "struct", struct, struct_seeds, j_struct, _wall_note(struct),
+                   notes("struct"))
+        n_struct = sum(bool(struct.get(m, {}).get("ok")) for m in STRUCT_MODELS)
+        lines += ["", f"{n_struct}/{len(STRUCT_MODELS)} models OK.", ""]
+        summary.append(f"struct {n_struct}/{len(STRUCT_MODELS)} OK")
+        banded["struct"] = (struct, struct_seeds, j_struct, list(STRUCT_MODELS))
 
     def port_get(model, lane):
-        return _ok((conv if lane == "conv" else struct).get(model, {}))
+        return _ok(banded[lane][0].get(model, {}))
 
     def jax_get(model, lane):
-        row = (j_conv if lane == "conv" else j_struct).get(model, {})
-        return _num(row.get("valid_recall@20"))
+        return _num(banded[lane][2].get(model, {}).get("valid_recall@20"))
 
-    lines += [
-        "## Expected-ordering checks",
-        "",
-        "`scripts/zoo_report.py`'s checks on the port's rows beside the JAX package's. The JAX package fails "
-        "three of them; an ordering that fails in both is not a fault of the port by itself.",
-        "",
-        "| Check | Lane | port values | port | JAX values | JAX |",
-        "|---|---|---|---|---|---|",
-    ]
-    for (text, lane, va, vb, ok), (_, _, ja, jb, jok) in zip(ordering_rows(port_get), ordering_rows(jax_get)):
-        lines.append(f"| {text} | {lane} | {fmt(va)} vs {fmt(vb)} | {_mark(ok)} | {fmt(ja)} vs {fmt(jb)} | {_mark(jok)} |")
+    kinds = {"conv": [l for l in BANDED if l in banded], "struct": ["struct"] if has_struct else []}
+    members = lambda lane: set(banded[lane][3])
+    checks = list(zip(ordering_rows(port_get, kinds, members), ordering_rows(jax_get, kinds, members)))
+    if checks:
+        n_jax = sum(jok is False for _, (_, _, _, _, jok) in checks)
+        where = "" if dataset == "baby" else ", on each lane that holds both models"
+        lines += [
+            "## Expected-ordering checks",
+            "",
+            f"`scripts/zoo_report.py`'s checks on the port's rows beside the JAX package's{where}. The JAX package "
+            f"fails {NUMBERS[n_jax] if n_jax < len(NUMBERS) else n_jax} of them; an ordering that fails in both is "
+            "not a fault of the port by itself.",
+            "",
+            "| Check | Lane | port values | port | JAX values | JAX |",
+            "|---|---|---|---|---|---|",
+        ]
+        for (text, lane, va, vb, ok), (_, _, ja, jb, jok) in checks:
+            lines.append(f"| {text} | {lane} | {fmt(va)} vs {fmt(vb)} | {_mark(ok)} | {fmt(ja)} vs {fmt(jb)} | {_mark(jok)} |")
+        lines.append("")
 
-    lines += [
-        "",
-        "## RF family vs host models",
-        "",
-        f"An RF variant's converged valid Recall@20 at or above its host's less {RF_BAND}.",
-        "",
-        "| RF variant | Host | RF R@20 | Host R@20 | Δ | ≥ host − band? | JAX Δ | JAX |",
-        "|---|---|---|---|---|---|---|---|",
-    ]
-    n_rf = 0
-    for (rf_m, host, va, vb, ok), (_, _, ja, jb, jok) in zip(rf_rows(port_get), rf_rows(jax_get)):
-        n_rf += bool(ok)
-        delta = fmt(va - vb) if ok is not None else "—"
-        jdelta = fmt(ja - jb) if jok is not None else "—"
-        lines.append(f"| {rf_m} | {host} | {fmt(va)} | {fmt(vb)} | {delta} | {_mark(ok)} | {jdelta} | {_mark(jok)} |")
-    lines += ["", f"{n_rf}/{len(RF_HOSTS)} RF variants within the band of their host.", ""]
-    if FINDINGS:
+    rf = list(zip(rf_rows(port_get, kinds, members), rf_rows(jax_get, kinds, members)))
+    if rf:
+        lines += [
+            "## RF family vs host models",
+            "",
+            f"An RF variant's {' or '.join(BANDED[l][1].split()[0].lower() for l in kinds['conv'])} valid "
+            f"Recall@20 at or above its host's less {RF_BAND}.",
+            "",
+            "| RF variant | Host | RF R@20 | Host R@20 | Δ | ≥ host − band? | JAX Δ | JAX |",
+            "|---|---|---|---|---|---|---|---|",
+        ]
+        n_rf = 0
+        for (rf_m, host, va, vb, ok), (_, _, ja, jb, jok) in rf:
+            n_rf += bool(ok)
+            delta = fmt(va - vb) if ok is not None else "—"
+            jdelta = fmt(ja - jb) if jok is not None else "—"
+            lines.append(f"| {rf_m} | {host} | {fmt(va)} | {fmt(vb)} | {delta} | {_mark(ok)} | {jdelta} | {_mark(jok)} |")
+        lines += ["", f"{n_rf}/{len(rf)} RF variants within the band of their host.", ""]
+    if FINDINGS.get(dataset):
         lines += ["## Rows outside the band, and checks that fail on the port alone", ""]
-        for para in FINDINGS:
+        for para in FINDINGS[dataset]:
             lines += [para, ""]
 
-    out = args.out
+    out = args.out or default_out(dataset)
     with open(out, "w") as f:
         f.write("\n".join(lines))
-    print(f"wrote {out}: 2-epoch {n_two}/{len(models)} OK, converged {n_conv}/{len(models)} OK, "
-          f"structured {n_struct}/{len(STRUCT_MODELS)} OK")
+    print(f"wrote {out}: {', '.join(summary)}")
     return out
 
 

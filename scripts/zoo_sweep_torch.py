@@ -122,7 +122,8 @@ def parse_best(out: str):
 def parse_epochs(out: str) -> dict:
     """The training epochs of a CLI log: their count, seconds, last loss
     line, whether every loss is finite and the ``Loss is nan`` abort is
-    absent, and the valid evaluations' count and seconds."""
+    absent, and the valid evaluations' count, seconds and scores (the
+    valid Recall@20 of each, in epoch order)."""
     epochs = _EPOCH.findall(out)
     losses = [float(v) for _, _, text in epochs for v in re.findall(_NUM + r"(?=,|$)", text)]
     evals = _EVAL.findall(out)
@@ -133,6 +134,7 @@ def parse_epochs(out: str) -> dict:
         "losses_finite": "Loss is nan" not in out and all(math.isfinite(v) for v in losses),
         "evals_run": len(evals),
         "valid_eval_s": round(sum(float(t) for _, t, _ in evals), 2),
+        "valid_scores": [float(v) for _, _, v in evals],
     }
 
 

@@ -111,6 +111,7 @@ def test_parse_best_on_a_port_log(swept):
     assert sweep.parse_best("epoch 0 training [time: 0.10s, train loss: 0.6931]\n") == (None, None, None)
     epochs = sweep.parse_epochs(log)
     assert epochs["epochs_run"] == 1 and epochs["evals_run"] == 1 and epochs["losses_finite"]
+    assert epochs["valid_scores"] == [want_valid]  # one epoch: its evaluation is the BEST one
 
 
 def test_parse_epochs_flags_non_finite_losses():
@@ -119,6 +120,9 @@ def test_parse_epochs_flags_non_finite_losses():
     bad = ok + "epoch 1 training [time: 1.00s, train_loss1: nan, train_loss2: 0.2500]\n"
     assert not sweep.parse_epochs(bad)["losses_finite"]
     assert not sweep.parse_epochs(ok + "Loss is nan at epoch: 1. Exiting.\n")["losses_finite"]
+    evals = ok + "epoch 0 evaluating [time: 0.50s, valid_score: 0.084500]\n" + ok.replace("epoch 0", "epoch 1") + (
+        "epoch 1 evaluating [time: 0.50s, valid_score: 0.101500]\n")
+    assert sweep.parse_epochs(evals)["valid_scores"] == [0.0845, 0.1015]
 
 
 @pytest.mark.parametrize(
@@ -165,37 +169,44 @@ def test_ordering_and_rf_checks_on_hand_written_rows():
     assert rf["RFBM3"] == (None, None, None)
 
 
-def test_report_on_hand_written_journals(tmp_path):
-    """The report from journals of every lane: statuses, ratios and
+CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+
+
+def _row(v, ok=True, seconds=12.5):
+    return {"ok": ok, "seconds": seconds, "valid_recall@20": v, "test_recall@20": v, "test_ndcg@20": v and v / 2,
+            "epochs_run": 7, "card": CARD, "jobs": 1, "last_loss": "train loss: 0.1000",
+            "child": {"peak_allocated_bytes": 2.5e9}}
+
+
+def _write_journals(path, dataset, lanes, prefix="zoo_sweep_torch"):
+    for tag, rows in lanes.items():
+        with open(path / f"{prefix}_{dataset}{tag}.json", "w") as f:
+            json.dump(rows, f)
+
+
+def _line(text, section, model):
+    part = text.split(f"## {section}", 1)[1].split("\n## ", 1)[0]
+    (hit,) = [ln for ln in part.splitlines() if ln.startswith(f"| {model} |")]
+    return hit
+
+
+def _baby_report(tmp_path, monkeypatch):
+    """Every baby lane, against the repo's JAX records: statuses, ratios and
     verdicts (in band, seed spread, open, the absolute band), the card
     beside the wall times, the orderings on the port's rows."""
-    card = "NVIDIA H100 80GB HBM3, 700.00 W"
-
-    def row(v, ok=True, seconds=12.5):
-        return {"ok": ok, "seconds": seconds, "valid_recall@20": v, "test_recall@20": v, "test_ndcg@20": v and v / 2,
-                "epochs_run": 7, "card": card, "jobs": 1, "last_loss": "train loss: 0.1000",
-                "child": {"peak_allocated_bytes": 2.5e9}}
-
     lanes = {
-        "": {"BPR": row(0.08), "LightGCN": row(None, ok=False)},
+        "": {"BPR": _row(0.08), "LightGCN": _row(None, ok=False)},
         # BPR's JAX row 0.1555, LightGCN's 0.1550, RFMRec's 0.0016, GRCN's 0.1132
-        "_converged": {"BPR": row(0.1500), "LightGCN": row(0.1000), "RFMRec": row(0.0100), "GRCN": row(0.0800)},
-        "_converged_seed1000": {"LightGCN": row(0.1450), "GRCN": row(0.0810)},
-        "_converged_seed2022": {"LightGCN": row(0.1200), "GRCN": row(0.0820)},
-        "_struct": {"VBPR": row(0.0500), "BPR": row(0.0460)},
+        "_converged": {"BPR": _row(0.1500), "LightGCN": _row(0.1000), "RFMRec": _row(0.0100), "GRCN": _row(0.0800)},
+        "_converged_seed1000": {"LightGCN": _row(0.1450), "GRCN": _row(0.0810)},
+        "_converged_seed2022": {"LightGCN": _row(0.1200), "GRCN": _row(0.0820)},
+        "_struct": {"VBPR": _row(0.0500), "BPR": _row(0.0460)},
     }
-    for tag, rows in lanes.items():
-        with open(tmp_path / f"zoo_sweep_torch_baby{tag}.json", "w") as f:
-            json.dump(rows, f)
+    _write_journals(tmp_path, "baby", lanes)
     out = tmp_path / "doc.md"
     report.main(["baby", "--logs", str(tmp_path), "--out", str(out)])
     text = out.read_text()
-
-    def line(section, model):
-        part = text.split(f"## {section}", 1)[1].split("\n## ", 1)[0]
-        (hit,) = [ln for ln in part.splitlines() if ln.startswith(f"| {model} |")]
-        return hit
-
+    line = lambda section, model: _line(text, section, model)
     assert line("2-epoch lane", "BPR").startswith("| BPR | OK | 12.5 | 2.50 | 0.0800 | 0.0863 |")
     assert "| LightGCN | FAIL |" in line("2-epoch lane", "LightGCN")
     assert line("Converged lane", "BPR").endswith("| in band |") and "| 0.96 |" in line("Converged lane", "BPR")
@@ -205,10 +216,96 @@ def test_report_on_hand_written_journals(tmp_path):
     assert line("Converged lane", "GRCN").endswith("| OPEN: outside the band |")
     assert "| pending |" in line("Converged lane", "DiffMM")
     assert line("Structured-feature lane", "VBPR").endswith("| in band |")
-    assert f"Wall (s), {card} |" in text and "Wall (s), no card recorded" not in text.split("## Structured")[0]
+    assert f"Wall (s), {CARD} |" in text and "Wall (s), no card recorded" not in text.split("## Structured")[0]
     assert "| VBPR > BPR | struct | 0.0500 vs 0.0460 | ✅ | 0.0501 vs 0.0467 | ✅ |" in text
     assert "| LightGCN > BPR | conv | 0.1000 vs 0.1500 | ❌ | 0.1550 vs 0.1555 | ❌ |" in text
+    assert "## 15-epoch lane" not in text and "The JAX package fails three of them" in text
     assert "TPU" not in text
+
+
+def _sports_report(tmp_path, monkeypatch):
+    """The sports 15-epoch lane against a hand-written JAX ``_r3`` record:
+    rows in band (the absolute band too), seed spread, explained by a
+    ``NOTES`` entry, pending and OPEN; the 2-epoch lane with no JAX record;
+    the ordering and RF-versus-host checks only where the lane holds both
+    models; no converged or structured lane; the sports findings alone."""
+    jax_dir, port_dir = tmp_path / "comparison_logs", tmp_path / "port"
+    jax_dir.mkdir()
+    port_dir.mkdir()
+    monkeypatch.setattr(report, "ROOT", str(tmp_path))  # the JAX records are read under the checkout
+    jax_rows = {"BM3": 0.1472, "BPR": 0.1322, "DDRM": 0.0400, "DiffMM": 0.1471, "MGCN": 0.1435,
+                "RFMRec": 0.0006, "LightGCN": 0.1319, "GUME": 0.1384, "RFGUME": 0.1383, "RFBM3": 0.1465}
+    jax_r3 = {m: {"ok": True, "valid_recall@20": v, "test_recall@20": v, "test_ndcg@20": v / 2, "seconds": 99.0}
+              for m, v in jax_rows.items()}
+    _write_journals(jax_dir, "sports", {"_r3": jax_r3}, prefix="zoo_sweep")
+    r3 = {"BM3": 0.1400, "BPR": 0.1000, "DDRM": 0.0200, "MGCN": 0.0300, "RFMRec": 0.0090, "LightGCN": 0.1300,
+          "GUME": 0.1350, "RFGUME": 0.1300, "RFBM3": None}
+    lanes = {
+        "": {"BPR": _row(0.05), "LATTICE": _row(0.06)},
+        "_r3": {m: _row(v, ok=v is not None) for m, v in r3.items()},
+        "_r3_seed1000": {"BPR": _row(0.1200), "MGCN": _row(0.0310)},
+        "_r3_seed2022": {"BPR": _row(0.1250), "MGCN": _row(0.0320)},
+    }
+    _write_journals(port_dir, "sports", lanes)
+    monkeypatch.setitem(report.NOTES, ("sports", "r3", "DDRM"), "the JAX record's own")
+    monkeypatch.setitem(report.FINDINGS, "sports", ["**DDRM at sports.** The evidence."])
+    out = tmp_path / "doc.md"
+    report.main(["sports", "--logs", str(port_dir), "--out", str(out)])
+    text = out.read_text()
+    line = lambda section, model: _line(text, section, model)
+    assert "The JAX package has no 2-epoch record at sports." in text
+    assert line("2-epoch lane", "LATTICE").startswith("| LATTICE | OK | 12.5 | 2.50 | 0.0600 | — |")
+    assert "| DiffMM | pending |" in line("2-epoch lane", "DiffMM")
+    assert line("15-epoch lane", "BM3").endswith("| in band |") and "| 0.95 |" in line("15-epoch lane", "BM3")
+    assert line("15-epoch lane", "RFMRec").endswith("| in band |")  # 0.0084 from 0.0006
+    assert line("15-epoch lane", "BPR").endswith("| seed spread |") and "0.1200 / 0.1250" in line("15-epoch lane", "BPR")
+    assert line("15-epoch lane", "DDRM").endswith("| explained: the JAX record's own |")
+    assert line("15-epoch lane", "MGCN").endswith("| OPEN: outside the band |")
+    assert line("15-epoch lane", "DiffMM").endswith("| pending |") and "| RFBM3 | FAIL |" in text
+    assert "verdicts: FAIL 1, OPEN 1, explained 1, in band 5, pending 1, seed spread 1." in text
+    assert "## Converged lane" not in text and "## Structured-feature lane" not in text
+    assert "`comparison_logs/zoo_sweep_sports[_r3].json`" in text and "struct" not in text
+    checks = text.split("## Expected-ordering checks", 1)[1].split("\n## ", 1)[0]
+    assert [ln.split(" | ")[0] for ln in checks.splitlines() if ln.startswith("| ") and "---" not in ln][1:] == [
+        "| LightGCN > BPR"]
+    assert "| LightGCN > BPR | r3 | 0.1300 vs 0.1000 | ✅ | 0.1319 vs 0.1322 | ❌ |" in checks
+    assert "The JAX package fails one of them" in checks
+    rf = text.split("## RF family vs host models", 1)[1].split("\n## ", 1)[0]
+    assert "An RF variant's 15-epoch valid Recall@20" in rf
+    assert "| RFGUME | GUME | 0.1300 | 0.1350 | -0.0050 | ✅ | -0.0001 | ✅ |" in rf
+    assert "| RFBM3 | BM3 | — | 0.1400 | — | pending | -0.0007 | ✅ |" in rf
+    assert "1/2 RF variants within the band of their host." in rf
+    assert "**DDRM at sports.** The evidence." in text and "Structured BM3 and MVGAE" not in text
+
+
+@pytest.mark.parametrize("case", [_baby_report, _sports_report], ids=["baby", "sports"])
+def test_report_on_hand_written_journals(tmp_path, monkeypatch, case):
+    case(tmp_path, monkeypatch)
+
+
+def test_baby_report_unchanged_by_the_sports_lane(tmp_path):
+    """The committed baby journals render ``docs/ZOO_RESULTS_TORCH.md`` byte
+    for byte."""
+    out = tmp_path / "baby.md"
+    report.main(["baby", "--out", str(out)])
+    with open(os.path.join(REPO, "docs", "ZOO_RESULTS_TORCH.md"), "rb") as f:
+        assert out.read_bytes() == f.read()
+
+
+@pytest.mark.parametrize(
+    "dataset, name", [("baby", "ZOO_RESULTS_TORCH.md"), ("sports", "ZOO_RESULTS_TORCH_SPORTS.md"),
+                      ("clothing", "ZOO_RESULTS_TORCH_CLOTHING.md")],
+)
+def test_report_default_out(tmp_path, monkeypatch, dataset, name):
+    """The report lands in ``docs/`` under the tier's name when no ``--out``
+    is given."""
+    assert report.default_out(dataset) == os.path.join(REPO, "docs", name)
+    monkeypatch.setattr(report, "ROOT", str(tmp_path))
+    (tmp_path / "docs").mkdir()
+    (tmp_path / "comparison_logs").mkdir()
+    _write_journals(tmp_path / "comparison_logs", dataset, {"": {"BPR": _row(0.05)}})
+    assert report.main([dataset]) == str(tmp_path / "docs" / name)
+    assert "| BPR | OK |" in (tmp_path / "docs" / name).read_text()
 
 
 def _same_graph(g, ref):
