@@ -49,7 +49,8 @@ over 63,001 items and its clustering), one epoch of every phase (GenRecV1's
 and DiffMM's phase 3 and DiffRec's and LD4MRec's epoch cut to
 ``ELEC_BATCHES`` of their 627 batches by a batch plan; the denoisers' phase
 and the regeneration whole) and evaluate(valid) and evaluate(test) in
-float32 (DiffRec's valid alone, ``ELEC_VALID_ONLY``), with finite losses and
+float32 (DiffRec's valid alone, on its first 32,768 users,
+``ELEC_VALID_ONLY``), with finite losses and
 metrics and no train positive in a top-50; K3 on GenRecV1's KNN block
 (8,192 x 63,001, k = 10) and regeneration planes (k = 5 and 10) and on
 DiffMM's top-1 plane, K1 on both KNN graphs and R (192,403 rows), K2 on
@@ -193,10 +194,15 @@ The zoo sweep last (``zoo_path``): ``scripts/zoo_sweep_torch.py`` trains
 LightGCN, FREEDOM and DiffMM one epoch each on Amazon-baby through ``python
 -m genmmrec_tpu_torch``, three child processes at once, and beside them
 DiffMM one epoch on Amazon-sports (35,598 × 18,357) through a second call:
-every row OK, its Recall@20 finite, each child's K1 and K3 launched. Then
-K1 forward and backward on the sports adjacency and K3 on a masked sports
-evaluation chunk and on DiffMM's sports regeneration plane against their
-plain versions (``zoo_sports_kernels``). Then
+and DiffMM one epoch on MicroLens (98,129 × 17,228, ``remat_gcn`` on)
+through a third: every row OK, its Recall@20 finite, each child's K1 and
+K3 launched. Then K1 forward and backward on the sports adjacency and K3
+on a masked sports evaluation chunk and on DiffMM's sports regeneration
+plane against their plain versions (``zoo_sports_kernels``), and K1
+forward and backward on the microlens adjacency, ``graph.spmm`` at d = 768
+on it (a 512 and a 256 slice), K3 on a masked microlens evaluation chunk
+and on a tie-heavy (2,048, 98,129) block of DualGNN's co-occurrence counts
+(``zoo_microlens_kernels``). Then
 ``scripts/make_structured_dataset_torch.py`` at its default size (4,000 ×
 2,000) with its user graph on the card: the files byte-equal to a numpy
 re-derivation, the user graph against scipy's counts and K3 at k = 200
@@ -578,9 +584,32 @@ def check_spmm_backward(torch, graphs, card, blocked: bool = False):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bound.keys(), cases=cases)
 
 
-def check_k3(torch, cases_in, card):
+def k3_tie_sets(torch, s, v, i, v_ref, i_ref, name):
+    """K3's top-k of unmasked rows held with its ties as sets: the values
+    equal, each index pointing at its value, no index twice in a row, and
+    each row's indices above its k-th value the plain version's. Returns
+    (rows whose k-th value is tied past the cut, rows whose indices differ
+    from the plain version's)."""
+    fin = torch.isfinite(v_ref)
+    if not torch.equal(torch.isfinite(v), fin) or not torch.equal(v[fin], v_ref[fin]):
+        raise AssertionError(f"K3 {name}: values differ")
+    if not torch.equal(s.gather(1, i.long())[fin], v[fin]):
+        raise AssertionError(f"K3 {name}: an index does not point at its value")
+    srt = i.sort(dim=1).values
+    if bool((srt[:, 1:] == srt[:, :-1]).any()):
+        raise AssertionError(f"K3 {name}: an index twice in a row")
+    kth = v_ref[:, -1:]
+    above = lambda vals, idx: torch.where(vals > kth, idx, -1).sort(dim=1).values
+    if not torch.equal(above(v, i), above(v_ref, i_ref)):
+        raise AssertionError(f"K3 {name}: the indices above a row's k-th value differ")
+    tied = int(((s == kth).sum(dim=1) > (v_ref == kth).sum(dim=1)).sum())
+    return tied, int((i != i_ref).any(dim=1).sum())
+
+
+def check_k3(torch, cases_in, card, ties_as_sets=False):
     """K3 against its plain version on each (name, scores, k, mask) case:
-    indices equal, values equal where finite."""
+    indices equal, values equal where finite; with ``ties_as_sets`` (rows
+    without a mask) the ties held as sets (``k3_tie_sets``)."""
     from genmmrec_tpu_torch.ops.topk import grouped_topk, grouped_topk_plain, unpack_mask
 
     cases, err, ms, plain_ms, lib_ms, bound = [], 0.0, 0.0, 0.0, 0.0, Bound()
@@ -588,10 +617,13 @@ def check_k3(torch, cases_in, card):
         v, i = grouped_topk(s, k, packed_mask=m)
         v_ref, i_ref = grouped_topk_plain(s, k, packed_mask=m)
         torch.cuda.synchronize()
-        if not torch.equal(i, i_ref):
+        fin = torch.isfinite(v_ref)
+        ties = {}
+        if ties_as_sets:
+            ties["tied_rows"], ties["rows_ordered_otherwise"] = k3_tie_sets(torch, s, v, i, v_ref, i_ref, name)
+        elif not torch.equal(i, i_ref):
             bad = (i != i_ref).any(dim=1).sum().item()
             raise AssertionError(f"K3 {name}: indices differ in {bad} rows")
-        fin = torch.isfinite(v_ref)
         if not torch.equal(v[fin], v_ref[fin]):
             raise AssertionError(f"K3 {name}: values differ")
         e = (v[fin] - v_ref[fin]).abs().max().item() if fin.any() else 0.0
@@ -605,14 +637,18 @@ def check_k3(torch, cases_in, card):
         l_ms = cuda_ms(torch, lib)
         mask_bytes = 0 if m is None else s.shape[0] * -(-s.shape[1] // 8)
         b = bound.add(nbytes(s, v, i) + mask_bytes, float(s.numel()), F32_FLOPS)
+        held = (
+            f"ties held as sets ({ties['tied_rows']} rows tied past the k-th value, "
+            f"{ties['rows_ordered_otherwise']} rows in another order than plain)" if ties else "indices equal"
+        )
         print(
             f"K3 {name}: scores {tuple(s.shape)} {str(s.dtype).split('.')[-1]} k={k} "
-            f"mask={'yes' if m is not None else 'no'} indices equal, max_abs_err={e:.3e} kernel {k_ms:.4f} ms, "
+            f"mask={'yes' if m is not None else 'no'} {held}, max_abs_err={e:.3e} kernel {k_ms:.4f} ms, "
             f"plain {p_ms:.4f} ms, torch.topk {l_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]"
         )
         cases.append(dict(
             case=name, shape=list(s.shape), dtype=str(s.dtype).split(".")[-1], k=k, max_abs_err=e,
-            ms=k_ms, plain_ms=p_ms, library_ms=l_ms, **b,
+            ms=k_ms, plain_ms=p_ms, library_ms=l_ms, **ties, **b,
         ))
         err, ms, plain_ms, lib_ms = max(err, e), ms + k_ms, plain_ms + p_ms, lib_ms + l_ms
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bound.keys(), cases=cases)
@@ -4796,20 +4832,21 @@ PREP_CHECK_USERS = 2048
 PREP_TOP_K = 200
 
 
-def prep_raw_files(np, root, seed):
+def prep_raw_files(np, root, seed, dataset="baby"):
     """The raw ratings CSV (``user,item,rating,ts``, no header, as Amazon's
     dumps) and a gzipped meta file of Python-dict lines, from the synthetic
-    baby table topped up so that every user and item has at least 5 rows
-    (the core), and noise around it (``PREP_*``). Returns (ratings path,
-    meta path, the core rows as a set of (user, asin, rating, time),
-    summary)."""
+    table of a dataset tier (its generator, at the tier's sizes) topped up
+    so that every user and item has at least 5 rows (the core), and noise
+    around it (``PREP_*``). Returns (ratings path, meta path, the core rows
+    as a set of (user, asin, rating, time), summary)."""
     from genmmrec_tpu_torch.config import Config
     from genmmrec_tpu_torch.data.dataset import RecDataset
 
     t0 = time.perf_counter()
     empty = os.path.join(root, "none")
     os.makedirs(empty, exist_ok=True)
-    ds = RecDataset(Config("DualGNN", "baby", {"data_path": empty}))
+    ds = RecDataset(Config("DualGNN", dataset, {"data_path": empty}))
+    generate_s = time.perf_counter() - t0
     n_users, n_items = ds.user_num, ds.item_num
     rng = np.random.default_rng(seed)
     pairs = np.unique(np.stack([ds.table.users, ds.table.items], 1).astype(np.int64), axis=0)
@@ -4867,10 +4904,10 @@ def prep_raw_files(np, root, seed):
     allrows = base + reps
     allkey = np.concatenate([key, after])
     fmt = lambda r: f"{r[0]},{r[1]},{r[2]},{'' if r[3] is None else r[3]}"
-    ratings_csv = os.path.join(root, "ratings_baby.csv")
+    ratings_csv = os.path.join(root, f"ratings_{dataset}.csv")
     with open(ratings_csv, "w") as f:
         f.write("\n".join(fmt(allrows[j]) for j in np.argsort(allkey, kind="stable").tolist()) + "\n")
-    meta = os.path.join(root, "meta_baby.json.gz")
+    meta = os.path.join(root, f"meta_{dataset}.json.gz")
     import gzip
 
     with gzip.open(meta, "wt") as f:
@@ -4878,17 +4915,17 @@ def prep_raw_files(np, root, seed):
         for j in rng.permutation(len(names)).tolist():
             rec = {"asin": names[j]}
             if j % 9:
-                rec["title"] = "" if j % 13 == 0 else f"baby item {j} soft {j % 17}"
+                rec["title"] = "" if j % 13 == 0 else f"{dataset} item {j} soft {j % 17}"
             if j % 4:
                 rec["brand"] = f"brand{j % 97}"
             if j % 6:
-                rec["categories"] = [["Baby", f"Sub{j % 23}", f"Leaf{j % 5}"], ["Other"]]
+                rec["categories"] = [[dataset.capitalize(), f"Sub{j % 23}", f"Leaf{j % 5}"], ["Other"]]
             if j % 5:
                 rec["description"] = "" if j % 11 == 0 else f"a description of {j}\nwith words {j % 31}"
             f.write(repr(rec) + "\n")
     summary = dict(
         raw_rows=len(allrows), core_rows=n_core, core_users=n_users, core_items=n_items,
-        noise_rows=len(allrows) - n_core, write_s=time.perf_counter() - t0,
+        noise_rows=len(allrows) - n_core, generate_s=generate_s, write_s=time.perf_counter() - t0,
     )
     return ratings_csv, meta, core, summary
 
@@ -4919,6 +4956,83 @@ def plain_kcore(path, min_u=5, min_i=5):
         if len(kept) == len(rows):
             return set(kept)
         rows = kept
+
+
+def check_prep_kcore(d, dataset, ratings, core, raw):
+    """The 5-core that ``rating2inter`` wrote under ``d``: exactly the core's
+    users, items and rows (``prep_raw_files``' ``core`` and summary ``raw``),
+    equal to a plain k-core of the raw ratings (in dicts, timed), and the
+    time column float, as pandas reads it where blank times were dropped.
+    Returns its users, items, rows and the plain k-core's seconds."""
+    from genmmrec_tpu_torch.preprocessing import pipeline
+
+    inter = pipeline.read_table(f"{d}/{dataset}-indexed.inter", "\t")
+    names_u = pipeline.read_table(f"{d}/u_id_mapping.csv", "\t")["user_id"]
+    names_i = pipeline.read_table(f"{d}/i_id_mapping.csv", "\t")["asin"]
+    kept = set(zip(names_u[inter["userID"]].tolist(), names_i[inter["itemID"]].tolist(),
+                   inter["rating"].astype(float).tolist(), inter["timestamp"].astype(float).tolist()))
+    n_u, n_i = len(names_u), len(names_i)
+    core_f = {(u, i, float(r), float(t)) for u, i, r, t in core}
+    if (n_u, n_i) != (raw["core_users"], raw["core_items"]) or kept != core_f:
+        raise AssertionError(f"the 5-core kept {n_u} users, {n_i} items, {len(kept)} rows; the core has "
+                             f"{raw['core_users']}, {raw['core_items']}, {len(core_f)}")
+    t0 = time.perf_counter()
+    plain = plain_kcore(ratings)
+    plain_s = time.perf_counter() - t0
+    if plain != kept:
+        raise AssertionError(f"the 5-core's {len(kept)} rows differ from the plain k-core's {len(plain)}")
+    with open(f"{d}/{dataset}-indexed.inter") as f:
+        next(f)
+        if not next(f).rstrip("\n").split("\t")[3].endswith(".0"):
+            raise AssertionError("the blank timestamps did not make the time column float, as pandas reads it")
+    return dict(users=n_u, items=n_i, rows=len(kept), plain_kcore_s=plain_s)
+
+
+def check_prep_readers(np, path):
+    """The ``.inter`` at ``path`` read back by the native parser and by
+    ``_read_inter_csv``: tables, labels and times equal, the times in step
+    with the file's column, both timed (host). Returns (the native parser's
+    columns, its rows and both seconds)."""
+    from genmmrec_tpu_torch import native
+    from genmmrec_tpu_torch.data.dataset import _read_inter_csv
+    from genmmrec_tpu_torch.preprocessing import pipeline
+
+    cols = (open(path).readline().rstrip("\n").split("\t"), "userID", "itemID", "x_label", "rating", "timestamp")
+    t0 = time.perf_counter()
+    nat = native.parse_inter_tsv(path, *cols)
+    nat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cs = _read_inter_csv(path, "\t", *cols)
+    csv_s = time.perf_counter() - t0
+    for f, a, b in zip(("users", "items", "labels", "ratings", "times"), nat, cs):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f".inter readers: {f} differ")
+    if not np.array_equal(nat[4], pipeline.read_table(path, "\t")["timestamp"]):
+        raise AssertionError(".inter readers: the times are out of step with the rows")
+    return nat, dict(rows=len(nat[0]), native_s=nat_s, csv_s=csv_s)
+
+
+def cooccurrence_block(torch, users, items, n_users, n_items, lo, dev, repeats):
+    """The co-occurrence counts of users [lo, lo + USER_GRAPH_BLOCK) against
+    every user, as ``ops/graph.py`` ``cooccurrence_topk`` builds them: the
+    0/1 user-item matrix, sparse, times the block's dense rows (their 0/1
+    rows, or with ``repeats`` each (user, item) row's count), the diagonal
+    zeroed."""
+    from genmmrec_tpu_torch.ops.graph import USER_GRAPH_BLOCK
+
+    u = torch.as_tensor(users, device=dev).long()
+    i = torch.as_tensor(items, device=dev).long()
+    pairs = torch.unique(u * n_items + i)
+    r = torch.sparse_coo_tensor(torch.stack([pairs // n_items, pairs % n_items]), torch.ones(len(pairs), device=dev),
+                                (n_users, n_items), is_coalesced=True, check_invariants=True)
+    hi = min(lo + USER_GRAPH_BLOCK, n_users)
+    sel = (u >= lo) & (u < hi)
+    left_t = torch.zeros(n_items, hi - lo, device=dev)
+    left_t.index_put_((i[sel], u[sel] - lo), torch.ones(int(sel.sum()), device=dev), accumulate=repeats)
+    block = (r @ left_t).T.contiguous()
+    rows = torch.arange(hi - lo, device=dev)
+    block[rows, rows + lo] = 0.0
+    return block
 
 
 def check_prep_user_graph(torch, np, graph, users, items, n_users, n_items, card, case="uu_graph_cooccurrence_top200"):
@@ -5142,9 +5256,8 @@ def prep_path(torch, card):
 
     import numpy as np
 
-    from genmmrec_tpu_torch import native
     from genmmrec_tpu_torch.config import Config
-    from genmmrec_tpu_torch.data.dataset import RecDataset, _read_inter_csv
+    from genmmrec_tpu_torch.data.dataset import RecDataset
     from genmmrec_tpu_torch.preprocessing import pipeline
     from genmmrec_tpu_torch.preprocessing.__main__ import main as prep_main
 
@@ -5178,25 +5291,9 @@ def prep_path(torch, card):
             raise AssertionError("uu-graph did not launch K3")
 
         # the 5-core: exactly the core, and a plain k-core's rows
-        inter = pipeline.read_table(f"{d}/baby-indexed.inter", "\t")
-        umap = pipeline.read_table(f"{d}/u_id_mapping.csv", "\t")
-        imap = pipeline.read_table(f"{d}/i_id_mapping.csv", "\t")
-        names_u, names_i = umap["user_id"], imap["asin"]
-        kept = set(zip(names_u[inter["userID"]].tolist(), names_i[inter["itemID"]].tolist(),
-                       inter["rating"].astype(float).tolist(), inter["timestamp"].astype(float).tolist()))
-        n_u, n_i = len(names_u), len(names_i)
-        core_f = {(u, i, float(r), float(t)) for u, i, r, t in core}
-        if (n_u, n_i) != (out["raw"]["core_users"], out["raw"]["core_items"]) or kept != core_f:
-            raise AssertionError(f"the 5-core kept {n_u} users, {n_i} items, {len(kept)} rows; the core has "
-                                 f"{out['raw']['core_users']}, {out['raw']['core_items']}, {len(core_f)}")
-        t0 = time.perf_counter()
-        plain = plain_kcore(ratings)
-        plain_s = time.perf_counter() - t0
-        if plain != kept:
-            raise AssertionError(f"the 5-core's {len(kept)} rows differ from the plain k-core's {len(plain)}")
-        if not open(f"{d}/baby-indexed.inter").readlines()[1].rstrip("\n").split("\t")[3].endswith(".0"):
-            raise AssertionError("the blank timestamps did not make the time column float, as pandas reads it")
-        print(f"prep_path 5-core: {n_u} users, {n_i} items, {len(kept)} rows: the core's rows, equal to a plain "
+        kcore = check_prep_kcore(d, "baby", ratings, core, out["raw"])
+        n_u, n_i, plain_s = kcore["users"], kcore["items"], kcore["plain_kcore_s"]
+        print(f"prep_path 5-core: {n_u} users, {n_i} items, {kcore['rows']} rows: the core's rows, equal to a plain "
               f"k-core's ({plain_s:.2f} s in dicts)")
 
         # the user graph
@@ -5214,21 +5311,9 @@ def prep_path(torch, card):
         np.save(f"{d}/image_feat.npy", np.abs(np.random.default_rng(SEED + 19).normal(0.0, 0.3, (n_i, 4096))).astype(np.float32))
         over = {"data_path": root, "synthetic_fallback": False}
         config = Config("DualGNN", "baby", dict(over))
-        cols = (open(f"{d}/baby.inter").readline().rstrip("\n").split("\t"), "userID", "itemID", "x_label", "rating", "timestamp")
-        t0 = time.perf_counter()
-        nat = native.parse_inter_tsv(f"{d}/baby.inter", *cols)
-        nat_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        cs = _read_inter_csv(f"{d}/baby.inter", "\t", *cols)
-        csv_s = time.perf_counter() - t0
-        for f, a, b in zip(("users", "items", "labels", "ratings", "times"), nat, cs):
-            if a.dtype != b.dtype or not np.array_equal(a, b):
-                raise AssertionError(f".inter readers: {f} differ")
-        if not np.array_equal(nat[4], split["timestamp"]):
-            raise AssertionError(".inter readers: the times are out of step with the rows")
-        out["load_s"] = dict(native=nat_s, csv=csv_s, rows=len(nat[0]))
-        print(f"prep_path .inter read back: {len(nat[0])} rows, native {nat_s:.3f} s, csv {csv_s:.3f} s "
-              f"(host), tables, labels and times equal, times in step with the rows")
+        nat, out["load_s"] = check_prep_readers(np, f"{d}/baby.inter")
+        print(f"prep_path .inter read back: {out['load_s']['rows']} rows, native {out['load_s']['native_s']:.3f} s, "
+              f"csv {out['load_s']['csv_s']:.3f} s (host), tables, labels and times equal, times in step with the rows")
         out["history_s"] = history_builds(np, nat[0][nat[2] == 0], nat[1][nat[2] == 0], n_u, n_i)
         train_ds = RecDataset(config).split()[0]
 
@@ -5255,13 +5340,17 @@ def prep_path(torch, card):
 # the zoo sweep's smoke: one epoch at baby of a model of each kind of
 # path (K1 alone; K1 and K3 on an item graph; the multi-phase trainer),
 # three children at once, beside them the main path's model one epoch at
-# sports, and the kernels each must launch. The sports child and the
-# kernels at its shapes add 20–35 s to the phase (PERF.md §5): the budget
-# takes 40 s more
+# sports and at microlens, and the kernels each must launch. The sports
+# child and the kernels at its shapes add 20–35 s to the phase (PERF.md
+# §5): the budget takes 40 s more; the microlens child and the kernels at
+# its shapes add about 20 s: 30 s more
 ZOO_MODELS = ("LightGCN", "FREEDOM", "DiffMM")
 ZOO_SPORTS_MODELS = ("DiffMM",)
+ZOO_MICROLENS_MODELS = ("DiffMM",)
 ZOO_NEED = ("grouped_topk",) + K1_BOTH
-ZOO_BUDGET_S = 90.0 + 40.0
+ZOO_BUDGET_S = 90.0 + 40.0 + 30.0
+# DualGNN's top-k of a user's co-occurrence counts (``models/dualgnn.py``)
+DUALGNN_USER_K = 40
 
 
 def structured_reference(np, n_users=4000, n_items=2000, k=24, mean_degree=25.0, pop_scale=0.25, tau=0.35,
@@ -5312,17 +5401,20 @@ def zoo_path(torch, card):
     build, budget ``ZOO_BUDGET_S``): ``scripts/zoo_sweep_torch.py`` trains
     ``ZOO_MODELS`` one epoch each at baby through ``python -m
     genmmrec_tpu_torch``, three children at once, and beside them, by a
-    second call, ``ZOO_SPORTS_MODELS`` one epoch at sports, into journals of
-    a temporary directory; each row OK (finite losses and Recall@20, a BEST
-    block) and each child's kernels launched. Then K1 and K3 at sports'
-    shapes against their plain versions (``zoo_sports_kernels``). Then
+    second and a third call, ``ZOO_SPORTS_MODELS`` one epoch at sports and
+    ``ZOO_MICROLENS_MODELS`` one epoch at microlens, into journals of a
+    temporary directory; each row OK (finite losses and Recall@20, a BEST
+    block), each child's kernels launched, DiffMM's ``remat_gcn`` on at
+    microlens alone. Then K1 and K3 at sports' and microlens' shapes
+    against their plain versions (``zoo_sports_kernels``,
+    ``zoo_microlens_kernels``). Then
     ``scripts/make_structured_dataset_torch.py`` at its default size (4,000
     × 2,000) with its user graph on the card: its files byte-equal to
     ``structured_reference``, its user graph against scipy's counts and K3
     against its plain version (``check_prep_user_graph``). Then
     ``scripts/zoo_report_torch.py`` on the journals: the baby rows and the
-    sports row OK in the reports. Returns (summary, kernel cases by kernel,
-    launches)."""
+    sports and microlens rows OK in the reports. Returns (summary, kernel
+    cases by kernel, launches)."""
     import importlib.util
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
@@ -5367,27 +5459,36 @@ def zoo_path(torch, card):
                     raise AssertionError(f"zoo sweep: {key} did not launch {never}: {launches[key]}")
                 out[key] = {k: r.get(k) for k in ("seconds", "valid_recall@20", "test_recall@20", "epochs_run", "train_s")}
                 out[key].update(setup_s=child.get("setup_s"), import_s=child.get("import_s"),
-                                fit_s=child.get("fit_s"), peak_allocated_bytes=child.get("peak_allocated_bytes"))
+                                fit_s=child.get("fit_s"), peak_allocated_bytes=child.get("peak_allocated_bytes"),
+                                remat=child.get("remat"))
             if rc != 0:
                 raise AssertionError(f"zoo sweep at {dataset} returned {rc}")
             return seconds
 
-        # the sports child starts first and runs beside the three baby ones
-        with ThreadPoolExecutor(max_workers=1) as pool:
+        # the microlens child starts first, then the sports one, and both
+        # run beside the three baby ones
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            microlens = pool.submit(swept, "microlens", ZOO_MICROLENS_MODELS)
             sports = pool.submit(swept, "sports", ZOO_SPORTS_MODELS)
             out["sweep_s"] = swept("baby", ZOO_MODELS)
             out["sports_sweep_s"] = sports.result()
-        keys = [*ZOO_MODELS, *(f"{m}/sports" for m in ZOO_SPORTS_MODELS)]
+            out["microlens_sweep_s"] = microlens.result()
+        keys = [*ZOO_MODELS, *(f"{m}/sports" for m in ZOO_SPORTS_MODELS),
+                *(f"{m}/microlens" for m in ZOO_MICROLENS_MODELS)]
         print(f"zoo_path sweep: {len(ZOO_MODELS)} baby models at once in {out['sweep_s']:.1f} s, beside them "
-              f"{len(ZOO_SPORTS_MODELS)} at sports in {out['sports_sweep_s']:.1f} s: "
-              f"{json.dumps({k: out[k] for k in keys})} [{card}]")
+              f"{len(ZOO_SPORTS_MODELS)} at sports in {out['sports_sweep_s']:.1f} s and {len(ZOO_MICROLENS_MODELS)} "
+              f"at microlens in {out['microlens_sweep_s']:.1f} s: {json.dumps({k: out[k] for k in keys})} [{card}]")
+        remat = {k: out[k]["remat"] for k in keys if k.startswith("DiffMM/")}
+        if any(on != (k == "DiffMM/microlens") for k, on in remat.items()):
+            raise AssertionError(f"DiffMM's remat_gcn must be on at microlens alone (115,357 nodes): {remat}")
 
-        # K1 and K3 at the sports tier's shapes, the card quiet
-        t0 = time.perf_counter()
-        out["sports_kernels"], sports_cases = zoo_sports_kernels(torch, torch.device("cuda:0"), card)
-        out["sports_kernels_s"] = time.perf_counter() - t0
-        for k, v in sports_cases.items():
-            cases[k] += v
+        # K1 and K3 at the sports and microlens tiers' shapes, the card quiet
+        for tier, check in (("sports", zoo_sports_kernels), ("microlens", zoo_microlens_kernels)):
+            t0 = time.perf_counter()
+            out[f"{tier}_kernels"], tier_cases = check(torch, torch.device("cuda:0"), card)
+            out[f"{tier}_kernels_s"] = time.perf_counter() - t0
+            for k, v in tier_cases.items():
+                cases[k] += v
 
         # the structured generator at its default size, its user graph on the card
         d = os.path.join(root, "data_struct", "baby")
@@ -5428,12 +5529,13 @@ def zoo_path(torch, card):
         missing = [m for m in ZOO_MODELS if not re.search(rf"^\| {m} \| OK \|", text, re.M)]
         if missing or card.split(",")[0] not in text:
             raise AssertionError(f"zoo report: rows of {missing} not OK, or the card absent")
-        doc = os.path.join(root, "ZOO_RESULTS_TORCH_SPORTS.md")
-        report.main(["sports", "--logs", root, "--out", doc])
-        text = open(doc).read()
-        missing = [m for m in ZOO_SPORTS_MODELS if not re.search(rf"^\| {m} \| OK \|", text, re.M)]
-        if missing:
-            raise AssertionError(f"zoo report at sports: rows of {missing} not OK")
+        for tier, tier_models in (("sports", ZOO_SPORTS_MODELS), ("microlens", ZOO_MICROLENS_MODELS)):
+            doc = os.path.join(root, f"ZOO_RESULTS_TORCH_{tier.upper()}.md")
+            report.main([tier, "--logs", root, "--out", doc])
+            text = open(doc).read()
+            missing = [m for m in tier_models if not re.search(rf"^\| {m} \| OK \|", text, re.M)]
+            if missing:
+                raise AssertionError(f"zoo report at {tier}: rows of {missing} not OK")
     total = {k: sum(l.get(k, 0) for l in launches.values()) + gen_launches[k] for k in gen_launches}
     out["launches"] = dict(**launches, structured_generator=gen_launches)
     out["phase_s"] = time.perf_counter() - phase_t0
@@ -5441,21 +5543,19 @@ def zoo_path(torch, card):
     return out, cases, total
 
 
-def zoo_sports_kernels(torch, dev, card):
-    """K1 and K3 at the Amazon-sports tier's shapes against their plain
-    versions: sports' tables drawn once in bulk (``elec_data``), DiffMM as
-    published on them (seeded parameters); K1 forward and backward on its
-    adjacency (53,955 rows, on K1: under ``takes_blocked``'s cut) at its
-    width, K3 on a (eval batch, 18,357) chunk masked by the valid split's
-    packed train positives at k = 50 and on DiffMM's regeneration plane
-    (a train batch's users) at ``rebuild_k``. DiffMM's ``remat_gcn`` is off
-    at sports (under 100,000 nodes). Returns (facts, cases by kernel)."""
-    from genmmrec_tpu_torch.data.arrays import interaction_vectors
+def tier_diffmm_kernels(torch, dev, dataset, remat, card):
+    """K1 and K3 at a dataset tier's shapes against their plain versions:
+    the tier's tables drawn once in bulk (``elec_data``), DiffMM as
+    published on them (seeded parameters; its ``remat_gcn`` must be
+    ``remat``); K1 forward and backward on its adjacency at its width (on
+    K1: under ``takes_blocked``'s cut), K3 on a (eval batch, n_items) chunk
+    masked by the valid split's packed train positives at k = 50. Returns
+    (data, model, facts, cases by kernel)."""
     from genmmrec_tpu_torch.engine.trainer import get_trainer
     from genmmrec_tpu_torch.models import get_model
 
     t0 = time.perf_counter()
-    data = elec_data(torch, dev, dataset="sports")
+    data = elec_data(torch, dev, dataset=dataset)
     config, td = data.config, data.td
     config["pop_mask"], config["warm_mask"] = data.pop_warm
     model = get_model("DiffMM")(config, td)
@@ -5468,22 +5568,59 @@ def zoo_sports_kernels(torch, dev, card):
     g, d = model.norm_adj, model.latdim
     facts = dict(n_users=td.n_users, n_items=td.n_items, n_inter=td.n_inter, adjacency_rows=g.n_rows,
                  adjacency_nnz=g.nnz, blocked=g.blocked, remat=model.remat, setup_s=time.perf_counter() - t0)
-    print(f"set-up: zoo_path sports kernels {json.dumps(facts)} (tables drawn in bulk) [{card}]")
-    if g.blocked or model.remat:
-        raise AssertionError(f"DiffMM at sports: the adjacency must take K1 and remat_gcn stay off: {facts}")
-    graphs = [(f"sports_adjacency_d{d}", g, d)]
+    print(f"set-up: zoo_path {dataset} kernels {json.dumps(facts)} (tables drawn in bulk) [{card}]")
+    if g.blocked or model.remat != remat:
+        raise AssertionError(f"DiffMM at {dataset}: the adjacency must take K1 and remat_gcn be {remat}: {facts}")
+    graphs = [(f"{dataset}_adjacency_d{d}", g, d)]
     cases = dict(k1=check_spmm(torch, graphs, card)["cases"], k1_bwd=check_spmm_backward(torch, graphs, card)["cases"])
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     chunk = torch.randn(eval_bs, td.n_items, generator=gen, device=dev)
-    users = torch.arange(trainer.train_batch_size, device=dev)
-    plane = model.p_sample_users(model.denoise_image, interaction_vectors(td, users))
-    cases["k3"] = check_k3(
-        torch,
-        [("sports_eval_top50_masked", chunk, 50, mask),
-         (f"sports_diffmm_regenerate_top{model.rebuild_k}", plane, model.rebuild_k, None)],
-        card,
+    cases["k3"] = check_k3(torch, [(f"{dataset}_eval_top50_masked", chunk, 50, mask)], card)["cases"]
+    return data, model, facts, cases
+
+
+def zoo_sports_kernels(torch, dev, card):
+    """``tier_diffmm_kernels`` at Amazon-sports (the adjacency's 53,955
+    rows; ``remat_gcn`` off, under 100,000 nodes), and K3 on DiffMM's
+    regeneration plane (a train batch's users) at ``rebuild_k``. Returns
+    (facts, cases by kernel)."""
+    from genmmrec_tpu_torch.data.arrays import interaction_vectors
+
+    data, model, facts, cases = tier_diffmm_kernels(torch, dev, "sports", False, card)
+    users = torch.arange(int(data.config["train_batch_size"]), device=dev)
+    plane = model.p_sample_users(model.denoise_image, interaction_vectors(data.td, users))
+    cases["k3"] += check_k3(
+        torch, [(f"sports_diffmm_regenerate_top{model.rebuild_k}", plane, model.rebuild_k, None)], card
     )["cases"]
-    del trainer, model, data, chunk, plane
+    del model, data, plane
+    torch.cuda.empty_cache()
+    return facts, cases
+
+
+def zoo_microlens_kernels(torch, dev, card):
+    """``tier_diffmm_kernels`` at MicroLens (the adjacency's 115,357 rows;
+    ``remat_gcn`` on, past 100,000 nodes); ``graph.spmm`` on the same graph
+    at the text features' width, 768, past K1's 512 columns (a 512 and a
+    256 slice, the width MMGCN's text tower propagates) against the
+    unsliced plain product (``check_sliced_spmm``); K3 at DualGNN's k on
+    the first ``USER_GRAPH_BLOCK`` users' block of co-occurrence counts over
+    all 98,129 users, built as ``cooccurrence_topk`` builds it, its ties
+    held as sets. Returns (facts, cases by kernel)."""
+    data, model, facts, cases = tier_diffmm_kernels(torch, dev, "microlens", True, card)
+    td, text_d = data.td, int(data.config["synthetic_t_feat_dim"])
+    name = f"microlens_adjacency_d{text_d}_sliced"
+    cases["k1"].append(check_sliced_spmm(torch, name, model.norm_adj, text_d, card))
+    del model
+    torch.cuda.empty_cache()
+    # DualGNN's first block of counts (its user graph's, ops/graph.py
+    # cooccurrence_topk)
+    table = data.train_ds.table
+    block = cooccurrence_block(torch, table.users, table.items, td.n_users, td.n_items, 0, dev, repeats=False)
+    cases["k3"] += check_k3(
+        torch, [(f"microlens_dualgnn_cooccurrence_top{DUALGNN_USER_K}", block, DUALGNN_USER_K, None)], card,
+        ties_as_sets=True,
+    )["cases"]
+    del data, block
     torch.cuda.empty_cache()
     return facts, cases
 
@@ -5496,10 +5633,13 @@ ELEC_MODELS = ("DiffRec", "LD4MRec", "GenRecV1", "DiffMM")
 # 2 (the regeneration builds whole graphs) run whole.
 # scripts/elec_scale_torch.py runs the whole epochs.
 ELEC_BATCHES = 60
-# the models whose test split elec_path leaves to scripts/elec_scale_torch.py:
-# DiffRec scores each chunk through its denoiser, ~55 s a split at elec
-# (PERF.md §5), and its test split takes the same route as its valid one
+# the models whose test split elec_path leaves to scripts/elec_scale_torch.py,
+# and whose valid split it evaluates on its first ELEC_VALID_USERS users
+# (8 of the 47 chunks of 4,096): DiffRec scores each chunk through its
+# denoiser, ~55 s a split at elec (PERF.md §5), and its test split takes
+# the same route as its valid one
 ELEC_VALID_ONLY = ("DiffRec",)
+ELEC_VALID_USERS = 8 * 4096
 # the kernels each model's drive must launch, and must not
 ELEC_NEED = {
     "DiffRec": (("grouped_topk",), K1_BOTH + ("segment_spmm_blocked",)),
@@ -5584,7 +5724,8 @@ def elec_path(torch, dev, card, data=None, profile_dir=None):
     GenRecV1's KNN graphs and clustering in it), one epoch of every phase
     (phase 3 of GenRecV1 and DiffMM and the epoch of DiffRec and LD4MRec
     cut to ``ELEC_BATCHES`` by a batch plan), ``evaluate`` of valid and test
-    in float32 (valid alone for ``ELEC_VALID_ONLY``); losses and
+    in float32 (for ``ELEC_VALID_ONLY`` valid alone, on its users below
+    ``ELEC_VALID_USERS``); losses and
     metrics finite, no train positive in any top-50, the launches of each
     drive. On the card, after each drive, K1, K2 and K3 against their plain
     versions at its shapes: GenRecV1's KNN block (8,192 x 63,001, k = 10),
@@ -5597,7 +5738,7 @@ def elec_path(torch, dev, card, data=None, profile_dir=None):
     where the kernel and launch checks are skipped). Returns (summary,
     kernel cases by kernel, launches of the four drives)."""
     from genmmrec_tpu_torch.config import Config
-    from genmmrec_tpu_torch.data.arrays import interaction_vectors
+    from genmmrec_tpu_torch.data.arrays import build_eval_data, interaction_vectors
     from genmmrec_tpu_torch.engine.trainer import get_trainer
     from genmmrec_tpu_torch.models import base as model_base
     from genmmrec_tpu_torch.models import get_model
@@ -5669,7 +5810,12 @@ def elec_path(torch, dev, card, data=None, profile_dir=None):
             if not finite:
                 raise AssertionError(f"{name}/elec: a training loss is not finite: {res}")
             # -- evaluate(valid), evaluate(test) in float32 -----------------
-            splits = (("valid", vd, False),) + (() if name in ELEC_VALID_ONLY else (("test", ted, True),))
+            splits = (("test", ted, True),)
+            if name in ELEC_VALID_ONLY:
+                part = data.valid_ds.copy(data.valid_ds.table.subset(data.valid_ds.table.users < ELEC_VALID_USERS))
+                splits = (("valid", build_eval_data(part, train_ds, int(config["eval_batch_size"]), dev), False),)
+            else:
+                splits = (("valid", vd, False),) + splits
             for split, ed, is_test in splits:
                 top = timed(f"eval_{split}_topk", lambda: trainer.eval_topk(ed))
                 got = timed(f"eval_{split}_metrics", lambda: trainer.evaluator.evaluate(
@@ -5703,6 +5849,7 @@ def elec_path(torch, dev, card, data=None, profile_dir=None):
                 f"{'; packed masks %.2f s' % res['packed_masks_s'] if 'packed_masks_s' in res else ''}; {phases} "
                 f"({res['batches']} of {res['of_batches']} batches of {B}, loss first {res['loss_first']:.5f} last "
                 f"{res['loss_last']:.5f}); evaluate(valid) {res['eval_valid_s']:.2f} s"
+                + (f" (its first {splits[0][1].n_users_eval} of {vd.n_users_eval} users)" if name in ELEC_VALID_ONLY else "")
                 + (f", evaluate(test) {res['eval_test_s']:.2f} s" if "test" in res else "")
                 + f"; Recall@20 valid {res['valid']['recall@20']:.4f}"
                 + (f" test {res['test']['recall@20']:.4f}" if "test" in res else "")

@@ -19,7 +19,8 @@ that model's error, never as a result.
 Writes the JSON to ``comparison_logs/<dataset>_scale_torch.json`` (or
 ``--out``), merged into what the file holds, and a markdown table, with
 the card's name and power limit, to ``docs/ELEC_SCALE_TORCH.md`` for the
-elec tier (or ``--doc``).
+elec tier (or ``--doc``), keeping the host tools' section that
+``scripts/prep_scale_torch.py`` writes there.
 
 Usage:
     python scripts/elec_scale_torch.py [--models DiffRec LD4MRec GenRecV1 DiffMM]
@@ -303,8 +304,11 @@ def main(argv=None) -> int:
     text = table(results, card)
     print("\n" + text)
     if doc_path:
+        # the host tools' section (scripts/prep_scale_torch.py) stays
+        kept = open(doc_path).read() if os.path.exists(doc_path) else ""
+        cut = kept.find("## The host tools at ")
         with open(doc_path, "w") as f:
-            f.write(text)
+            f.write(text + ("\n" + kept[cut:] if cut >= 0 else ""))
         print("WROTE", doc_path)
     return 1 if failed else 0
 

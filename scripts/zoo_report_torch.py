@@ -24,8 +24,13 @@ lies inside the port's three seeds' [min, max] widened by ``SEED_WIDEN``
 (0.01); ``NOTES`` holds what explains any other row, which is flagged as
 open.
 
+At clothing and microlens the JAX rows of the 15-epoch lane were taken on
+the CPU by the JAX package's own sweep (``CPU_RECORDS``); a JAX child that
+ran past its timeout has no row, and the port's row is then held as OK
+only, the verdict naming it.
+
 Usage:
-    python scripts/zoo_report_torch.py [baby|sports] [--logs DIR] [--out PATH]
+    python scripts/zoo_report_torch.py [baby|sports|clothing|microlens] [--logs DIR] [--out PATH]
 """
 
 from __future__ import annotations
@@ -131,6 +136,19 @@ FINDINGS["sports"] = [
     "and 0.0877 at seeds 999, 1000 and 8), the spike's height set per seed by the linear biases' popularity "
     "prior (`docs/ROUND3.md`). The JAX record is one draw of JAX's random streams (threefry), which the port "
     "(Philox) cannot replay. Not a fault of the port.",
+]
+
+FINDINGS["microlens"] = [
+    "**VBPR at microlens: neither package learns it in 15 epochs, and its number is the best of fifteen "
+    "noise-level evaluations.** The port gives 0.0059, 0.0066 and 0.0076 at seeds 999, 1000 and 2022 against the "
+    "JAX row's 0.0110 (the CPU's), so the three-seed rule holds. Each epoch's valid Recall@20 stays at 0.0005–0.0076 "
+    "(seed 999: 0.0007, 0.0059, 0.0026, 0.0029, 0.0007, ..., 0.0022), and the training loss stays at about 180, ln 2 "
+    "a batch over the tier's 250 batches, where BPR's falls from 145 to 75. The JAX package does the same: "
+    "`JAX_PLATFORMS=cpu python main.py -m VBPR -d microlens --epochs 2 --config-json '{\"hyper_parameters\": "
+    "[\"seed\"], \"save_recommended_topk\": false}'` gives a loss of 200.6 then 180.2 and a valid Recall@20 of "
+    "0.0005 then 0.0034 (the port 0.0007 then 0.0059). MicroLens' synthetic features are noise, 1,024 and 768 wide, "
+    "and half of VBPR's item side is their projection; at clothing both packages learn it (0.1186 against 0.1176). "
+    "Not a fault of the port.",
 ]
 
 
@@ -274,9 +292,15 @@ def _mark(ok):
     return "pending" if ok is None else ("✅" if ok else "❌")
 
 
+def jax_timed_out(ref) -> bool:
+    """Whether a JAX row is a child that ran past its timeout."""
+    return bool(ref) and not ref.get("ok") and str(ref.get("tail", "")).startswith("TIMEOUT")
+
+
 def lane_table(lines, models, lane, port, seeds, jax_rows, wall_note, notes=None):
     """The rows of one lane against the JAX rows, ``notes`` explaining rows
-    by model; returns the verdicts."""
+    by model; a row whose JAX child ran past its timeout is OK only.
+    Returns the verdicts."""
     verdicts = {}
     lines += [
         f"| Model | Status | Epochs run | Wall (s), {wall_note} | Peak GB | valid R@20 | JAX valid R@20 | ratio "
@@ -290,6 +314,8 @@ def lane_table(lines, models, lane, port, seeds, jax_rows, wall_note, notes=None
         seed_txt = " / ".join(fmt(_ok(j.get(m, {}))) for j in seeds) if any(m in j for j in seeds) else "—"
         status = "pending" if m not in port else ("OK" if r.get("ok") else ("TIMEOUT" if str(r.get("tail", "")).startswith("TIMEOUT") else "FAIL"))
         verdicts[m] = verdict(v, jv, sv, (notes or {}).get(m)) if status in ("OK", "pending") else "FAIL"
+        if status == "OK" and jax_timed_out(ref):
+            verdicts[m] = f"OK only: the JAX child ran past its {ref.get('seconds')} s timeout, no JAX row"
         ratio = fmt(v / jv, 2) if v is not None and jv else "—"
         lines.append(
             f"| {m} | {status} | {r.get('epochs_run', '—')} | {r.get('seconds', '—')} | {_gb(r)} | {fmt(v)} | "
@@ -311,7 +337,7 @@ def _wall_note(journal):
 
 # the tiers' sizes for the report's text (configs/dataset/<ds>.yaml's
 # synthetic fallback)
-TIERS = {"baby": (19445, 7050), "sports": (35598, 18357)}
+TIERS = {"baby": (19445, 7050), "sports": (35598, 18357), "clothing": (39387, 23033), "microlens": (98129, 17228)}
 # the banded lanes: (tag, heading, settings, the JAX record's tag)
 BANDED = {
     "conv": ("_converged", "Converged lane",
@@ -319,6 +345,16 @@ BANDED = {
     "r3": ("_r3", "15-epoch lane",
            "`--epochs 15 --stopping-step 25 --timeout 1400`, the JAX record's settings "
            "(`scripts/tpu_r3q_queue.sh`), against `comparison_logs/zoo_sweep_{ds}_r3.json`.", "_r3"),
+}
+# the tiers whose 15-epoch JAX rows were taken on the CPU: the lane's
+# settings and where its JAX rows come from
+CPU_RECORDS = {
+    ds: (f"`--epochs 15 --stopping-step 25 --timeout 2700`, against `comparison_logs/zoo_sweep_{ds}_r3.json`: "
+         "**these JAX rows were taken on the CPU**, by the JAX package's own sweep, unedited "
+         f"(`JAX_PLATFORMS=cpu python scripts/zoo_sweep.py --dataset {ds} --tag r3 --epochs 15 --stopping-step 25 "
+         "--timeout 2700 --models BPR LightGCN VBPR FREEDOM DiffMM`). A JAX child that ran past its 2,700 s has no "
+         "row; the port's row is then held as OK only.")
+    for ds in ("clothing", "microlens")
 }
 NUMBERS = ("none", "one", "two", "three", "four", "five", "six", "seven", "eight", "nine")
 
@@ -412,8 +448,8 @@ def main(argv=None) -> str:
     notes = lambda lane: {m: t for (ds, ln, m), t in NOTES.items() if ds == dataset and ln == lane}
     for lane, (port, seeds, ref, lm) in banded.items():
         _, heading, settings, _ = BANDED[lane]
-        lines += [f"## {heading}", "", settings.format(ds=dataset)
-                  + " Seeds: the same run at `seed` 1000 and 2022.", ""]
+        settings = CPU_RECORDS[dataset] if lane == "r3" and dataset in CPU_RECORDS else settings.format(ds=dataset)
+        lines += [f"## {heading}", "", settings + " Seeds: the same run at `seed` 1000 and 2022.", ""]
         verdicts = lane_table(lines, lm, lane, port, seeds, ref, _wall_note(port), notes(lane))
         n_ok = sum(bool(port.get(m, {}).get("ok")) for m in lm)
         lines += ["", f"{n_ok}/{len(lm)} models OK; verdicts: {_verdict_counts(verdicts)}.", ""]

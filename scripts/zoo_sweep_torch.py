@@ -16,7 +16,8 @@ Each child pins the grid to one combination (``hyper_parameters: [seed]``;
 every other list-valued YAML key is read at its first entry) and writes no
 top-k files. It runs the CLI module as ``-m`` does (``runpy``), then prints
 one line with the kernels' launch counts and the card's peak allocated
-memory; the row keeps both, and the set-up time up to ``fit``.
+memory; the row keeps both, the set-up time up to ``fit`` and the model's
+``remat`` (DiffMM's ``remat_gcn``; null for a model without it).
 
 Usage:
     python scripts/zoo_sweep_torch.py [--dataset baby] [--epochs 2] [--timeout 900]
@@ -24,6 +25,13 @@ Usage:
     python scripts/zoo_sweep_torch.py --tag struct --epochs 100 --stopping-step 10 \\
         --config-json '{"data_path": "<repo>/data_struct/"}' --models BPR VBPR
     python scripts/zoo_sweep_torch.py --device cpu -d tiny --epochs 1 --models BPR
+
+With ``--jobs`` past 1 the children share the card, but never two of
+``LARGE_PLANES`` at once: a worker that is free starts the first model of
+the list that may start (``next_model``). A child writes its checkpoint
+under ``--workdir`` as the CLI does (several GB for the models that keep
+dense item planes in their state); the sweep removes it once the row is
+recorded.
 """
 
 from __future__ import annotations
@@ -57,6 +65,12 @@ ALL_MODELS = [
     "RFSMORE", "RFPGL", "RFBPR_remove", "RFLightGCN_remove", "RFLayerGCN_remove",
 ]
 
+# the models whose item planes fill a large share of the card past sports:
+# at clothing (23,033 items) they peak at 28.77, 33.03 and 30.52 GB
+# (PERF.md §5), and three at once would not fit in 80 GB. At most one of
+# them runs at a time.
+LARGE_PLANES = ("LATTICE", "RFLATTICE", "MVDiff")
+
 CHILD_TAG = "zoo child "
 # the child: the CLI module run as ``python -m`` runs it, timed up to
 # ``Trainer.fit``, then one line with the launch counters and peak memory
@@ -71,6 +85,7 @@ marks = {{}}
 fit = T.Trainer.fit
 def timed_fit(self, *a, **kw):
     marks.setdefault("setup_s", time.perf_counter() - t0)
+    marks.setdefault("remat", getattr(self.model, "remat", None))
     t1 = time.perf_counter()
     try:
         return fit(self, *a, **kw)
@@ -195,6 +210,17 @@ def run_one(model: str, dataset: str, epochs: int, timeout: int, stopping_step: 
     return row
 
 
+def next_model(queue: list, running: set):
+    """The first model of ``queue`` that may start beside ``running``: any
+    but one of ``LARGE_PLANES`` while another of them runs. None when every
+    model left must wait."""
+    busy = any(m in LARGE_PLANES for m in running)
+    for m in queue:
+        if not (busy and m in LARGE_PLANES):
+            return m
+    return None
+
+
 def journal_path(dataset: str, tag: str | None) -> str:
     tag = f"_{tag}" if tag else ""
     return os.path.join(ROOT, "comparison_logs", f"zoo_sweep_torch_{dataset}{tag}.json")
@@ -225,6 +251,7 @@ def main(argv=None):
     models = args.models or ALL_MODELS
     out_path = args.out or journal_path(args.dataset, args.tag)
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+    os.makedirs(args.workdir, exist_ok=True)
     overrides = json.loads(args.config_json) if args.config_json else {}
     results = {}
     if os.path.exists(out_path):
@@ -233,29 +260,49 @@ def main(argv=None):
     card = card_line(args.device)
     print(f"zoo sweep: {len(models)} models on {args.device} [{card}] -> {out_path}", flush=True)
 
-    lock = threading.Lock()
-
-    def one(i_model):
-        i, model = i_model
+    lock = threading.Condition()
+    queue, running = [], set()
+    for i, model in enumerate(models):
         if model in results and results[model]["ok"] and not args.rerun:
             print(f"[{i + 1}/{len(models)}] {model}: cached OK", flush=True)
-            return
-        print(f"[{i + 1}/{len(models)}] {model} ...", flush=True)
-        row = run_one(model, args.dataset, args.epochs, args.timeout, args.stopping_step, args.device,
-                      overrides, args.workdir, card)
-        row["jobs"] = args.jobs
-        with lock:
-            results[model] = row
-            print(
-                f"    {model}: {'OK' if row['ok'] else 'FAIL'} in {row['seconds']}s, "
-                f"{row.get('epochs_run')} epochs, valid recall@20={row['valid_recall@20']}", flush=True,
-            )
-            with open(out_path, "w") as f:
-                json.dump(results, f, indent=2, sort_keys=True)
-                f.write("\n")
+        else:
+            queue.append(model)
+
+    def worker():
+        while True:
+            with lock:
+                model = None
+                while queue and (model := next_model(queue, running)) is None:
+                    lock.wait()
+                if model is None:
+                    return
+                queue.remove(model)
+                running.add(model)
+            print(f"[{models.index(model) + 1}/{len(models)}] {model} ...", flush=True)
+            try:
+                row = run_one(model, args.dataset, args.epochs, args.timeout, args.stopping_step, args.device,
+                              overrides, args.workdir, card)
+            finally:
+                with lock:
+                    running.discard(model)
+                    lock.notify_all()
+            row["jobs"] = args.jobs
+            ckpt = os.path.join(args.workdir, "saved", f"{model}-{args.dataset}.pt")
+            if os.path.exists(ckpt):
+                os.remove(ckpt)
+            with lock:
+                results[model] = row
+                print(
+                    f"    {model}: {'OK' if row['ok'] else 'FAIL'} in {row['seconds']}s, "
+                    f"{row.get('epochs_run')} epochs, valid recall@20={row['valid_recall@20']}", flush=True,
+                )
+                with open(out_path, "w") as f:
+                    json.dump(results, f, indent=2, sort_keys=True)
+                    f.write("\n")
 
     with ThreadPoolExecutor(max_workers=max(1, args.jobs)) as pool:
-        list(pool.map(one, enumerate(models)))
+        for f in [pool.submit(worker) for _ in range(max(1, args.jobs))]:
+            f.result()
 
     n_ok = sum(1 for m in models if results.get(m, {}).get("ok"))
     print(f"\n{n_ok}/{len(models)} models OK — {out_path}")

@@ -183,6 +183,8 @@ def test_elec_scale_script_at_tiny_size(tmp_path):
     cmd = [sys.executable, os.path.join(ROOT, "scripts", "elec_scale_torch.py"), "--dataset", "tiny",
            "--epochs", "1", "--device", "cpu", "--out", str(out), "--doc", str(doc)]
     env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    # the host tools' section (scripts/prep_scale_torch.py) outlives the table
+    doc.write_text("an older table\n\n## The host tools at elec\n\nkept\n")
     proc = subprocess.run(cmd, cwd=tmp_path, capture_output=True, text=True, timeout=300, env=env)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     results = json.loads(out.read_text())
@@ -197,3 +199,4 @@ def test_elec_scale_script_at_tiny_size(tmp_path):
     assert np.isfinite(results["DiffMM"]["spmm_pass_ms"]) and np.isfinite(results["GenRecV1"]["spmm_pass_ms"])
     text = doc.read_text()
     assert "| DiffMM | 1/1 |" in text and "Card: cpu" in text
+    assert "an older table" not in text and text.endswith("|\n\n## The host tools at elec\n\nkept\n")

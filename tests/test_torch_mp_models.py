@@ -17,6 +17,10 @@ port's (K3 over ``R @ Rᵀ`` on the device) is held against the JAX package's
 weights and by the set of neighbours whose weight is above the row's least,
 and both packages read a ``user_graph_dict.npy`` the same way. For the
 model comparisons the port takes the JAX package's neighbours, in its order.
+
+MMGCN runs once more at MicroLens' feature widths (1,024 visual, 768
+text): its text tower propagates the raw 768-wide features, past K1's 512
+columns, so the port cuts them into a 512 and a 256 column slice.
 """
 
 import jax
@@ -35,11 +39,14 @@ from genmmrec_tpu_torch.data.arrays import build_train_data as t_train
 from genmmrec_tpu_torch.data.dataset import RecDataset as TDataset
 from genmmrec_tpu_torch.interop import from_jax_params, jax_tree_by_name, params_by_jax_name
 from genmmrec_tpu_torch.models import get_model as t_get_model
-from genmmrec_tpu_torch.ops.graph import sorted_graph
+from genmmrec_tpu_torch.ops.graph import KERNEL_MAX_D, sorted_graph
 
 CPU = torch.device("cpu")
 MODELS = ["MMGCN", "GRCN", "DualGNN", "DRAGON", "COHESION", "MVGAE"]
 USER_GRAPH_MODELS = ("DualGNN", "DRAGON", "COHESION")
+# a model at a tier's feature widths: <model>@<tier>
+WIDTHS = {"microlens": {"synthetic_v_feat_dim": 1024, "synthetic_t_feat_dim": 768}}
+CASES = MODELS + ["MMGCN@microlens"]
 SLICE = {
     "synthetic_n_users": 200,
     "synthetic_n_items": 600,
@@ -73,12 +80,14 @@ def _build(name, overrides=None):
     return j_get_model(name)(jc, jtd), t_get_model(name)(tc, ttd)
 
 
-@pytest.fixture(scope="module", params=MODELS)
+@pytest.fixture(scope="module", params=CASES)
 def pair(request):
     """One model in both packages on the same data, with the same parameters."""
-    name = request.param
-    jm, tm = _build(name)
+    name, _, tier = request.param.partition("@")
+    jm, tm = _build(name, WIDTHS.get(tier))
     assert type(tm).__name__ == name
+    if tier == "microlens":
+        assert tm.v_feat.shape[1] == 1024 and tm.t_feat.shape[1] == 768 > KERNEL_MAX_D
     if name in USER_GRAPH_MODELS:
         tm.user_graph = _user_graph_from(jm, jm.n_users)
     params = jm.init_params(jax.random.PRNGKey(0))

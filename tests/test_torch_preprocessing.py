@@ -269,3 +269,34 @@ def test_port_imports_no_pandas_sklearn_pil_or_transformers():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_prep_scale_section_and_its_place_in_the_doc(tmp_path):
+    """``scripts/prep_scale_torch.py``'s section of the scale document from
+    a hand-written run: the steps in the CLI's order, a step stopped at its
+    timeout named and the steps after it absent; ``write_section`` replaces
+    its own part of the document, from its heading on, and keeps the rest."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("prep_scale_torch", os.path.join(REPO, "scripts", "prep_scale_torch.py"))
+    P = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(P)
+    gb = 1e9
+    step = lambda s: dict(ok=True, step_s=s, import_s=8.0, peak_rss_bytes=6 * gb, peak_allocated_bytes=None,
+                          k3_launches=0)
+    run = dict(
+        dataset="elec", card="NVIDIA H100 80GB HBM3, 700.00 W", torch="2.11.0+cu128", total_s=300.0,
+        raw=dict(core_users=192403, core_items=63001, core_rows=1855897, noise_rows=470500, raw_rows=2326397,
+                 generate_s=143.6, write_s=161.0, peak_rss_bytes=1.43 * gb, parent_peak_rss_bytes=0.05 * gb),
+        steps={"split": dict(ok=False, stopped_after_s=1800), "rating2inter": step(33.0)},
+    )
+    text = P.section(run)
+    assert text.startswith("## The host tools at elec\n") and "(192,403 users × 63,001 items)" in text
+    rows = [ln for ln in text.splitlines() if ln.startswith("| ") and "---" not in ln][1:]
+    assert rows == ["| rating2inter | 33.0 | 8.0 | 6.00 | — | 0 |", "| split | stopped after 1800 s | | | | |"]
+    assert "The user graph on the card" not in text and "NVIDIA H100 80GB HBM3, 700.00 W" in text
+    doc = tmp_path / "ELEC_SCALE_TORCH.md"
+    doc.write_text("# Elec-scale runs\n\n| table |\n")
+    P.write_section(str(doc), text)
+    P.write_section(str(doc), text.replace("33.0", "34.0"))
+    assert doc.read_text() == "# Elec-scale runs\n\n| table |\n\n" + text.replace("33.0", "34.0")

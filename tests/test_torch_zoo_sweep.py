@@ -7,6 +7,7 @@ JAX package's script, and one sweep child."""
 
 from __future__ import annotations
 
+import functools
 import glob
 import importlib.util
 import json
@@ -56,8 +57,10 @@ def swept(tmp_path_factory):
 
 def test_sweep_child_on_the_cpu(swept):
     """The row of one child: OK, one epoch, finite values equal to its log's
-    BEST block, the JAX sweep's pins, no kernel launched on the CPU."""
-    _, rows, log, _ = swept
+    BEST block, the JAX sweep's pins, no kernel launched on the CPU; its
+    checkpoint removed once the row is recorded."""
+    _, rows, log, work = swept
+    assert (work / "saved").is_dir() and not list((work / "saved").iterdir())
     row = rows["BPR"]
     assert row["ok"] and row["returncode"] == 0 and row["tail"] == ""
     assert row["epochs_run"] == 1 and row["evals_run"] == 1 and row["losses_finite"]
@@ -278,7 +281,46 @@ def _sports_report(tmp_path, monkeypatch):
     assert "**DDRM at sports.** The evidence." in text and "Structured BM3 and MVGAE" not in text
 
 
-@pytest.mark.parametrize("case", [_baby_report, _sports_report], ids=["baby", "sports"])
+def _cpu_tier_report(tmp_path, monkeypatch, tier):
+    """A tier whose 15-epoch JAX rows were taken on the CPU (clothing,
+    microlens): the report says so and gives the JAX sweep's command; rows
+    in band and OPEN; a JAX child past its timeout leaves the port's row OK
+    only, named in its verdict; the tier's sizes; no 2-epoch JAX record."""
+    jax_dir, port_dir = tmp_path / "comparison_logs", tmp_path / "port"
+    jax_dir.mkdir()
+    port_dir.mkdir()
+    monkeypatch.setattr(report, "ROOT", str(tmp_path))
+    jax_r3 = {m: {"ok": True, "valid_recall@20": v, "test_recall@20": v, "test_ndcg@20": v / 2, "seconds": 99.0}
+              for m, v in {"BPR": 0.0500, "LightGCN": 0.0600, "VBPR": 0.0400, "FREEDOM": 0.0700}.items()}
+    jax_r3["DiffMM"] = {"ok": False, "seconds": 2700, "valid_recall@20": None, "returncode": None, "tail": "TIMEOUT"}
+    _write_journals(jax_dir, tier, {"_r3": jax_r3}, prefix="zoo_sweep")
+    r3 = {"BPR": 0.0510, "LightGCN": 0.0300, "VBPR": 0.0420, "FREEDOM": 0.0690, "DiffMM": 0.0650}
+    _write_journals(port_dir, tier, {"": {"BPR": _row(0.04)}, "_r3": {m: _row(v) for m, v in r3.items()}})
+    out = tmp_path / "doc.md"
+    report.main([tier, "--logs", str(port_dir), "--out", str(out)])
+    text = out.read_text()
+    line = lambda section, model: _line(text, section, model)
+    users, items = report.TIERS[tier]
+    assert f"({users:,} users × {items:,} items)" in text
+    assert f"The JAX package has no 2-epoch record at {tier}." in text
+    assert "**these JAX rows were taken on the CPU**" in text
+    assert f"`JAX_PLATFORMS=cpu python scripts/zoo_sweep.py --dataset {tier} --tag r3 --epochs 15" in text
+    assert "--timeout 1400" not in text
+    assert line("15-epoch lane", "BPR").endswith("| in band |")
+    assert line("15-epoch lane", "LightGCN").endswith("| OPEN: outside the band |")
+    assert line("15-epoch lane", "DiffMM").endswith(
+        "| OK only: the JAX child ran past its 2700 s timeout, no JAX row |")
+    assert "| DiffMM | OK | 7 | 12.5 | 2.50 | 0.0650 | — | — |" in line("15-epoch lane", "DiffMM")
+    assert "verdicts: OK only 1, OPEN 1, in band 3." in text
+    assert "TPU" not in text
+
+
+@pytest.mark.parametrize(
+    "case",
+    [_baby_report, _sports_report, functools.partial(_cpu_tier_report, tier="clothing"),
+     functools.partial(_cpu_tier_report, tier="microlens")],
+    ids=["baby", "sports", "clothing", "microlens"],
+)
 def test_report_on_hand_written_journals(tmp_path, monkeypatch, case):
     case(tmp_path, monkeypatch)
 
@@ -292,9 +334,19 @@ def test_baby_report_unchanged_by_the_sports_lane(tmp_path):
         assert out.read_bytes() == f.read()
 
 
+@pytest.mark.parametrize("tier", ["sports", "clothing", "microlens"])
+def test_tier_report_unchanged(tmp_path, tier):
+    """The committed journals of each tier past baby render its report,
+    ``docs/ZOO_RESULTS_TORCH_<TIER>.md``, byte for byte."""
+    out = tmp_path / f"{tier}.md"
+    report.main([tier, "--out", str(out)])
+    with open(report.default_out(tier), "rb") as f:
+        assert out.read_bytes() == f.read()
+
+
 @pytest.mark.parametrize(
     "dataset, name", [("baby", "ZOO_RESULTS_TORCH.md"), ("sports", "ZOO_RESULTS_TORCH_SPORTS.md"),
-                      ("clothing", "ZOO_RESULTS_TORCH_CLOTHING.md")],
+                      ("clothing", "ZOO_RESULTS_TORCH_CLOTHING.md"), ("microlens", "ZOO_RESULTS_TORCH_MICROLENS.md")],
 )
 def test_report_default_out(tmp_path, monkeypatch, dataset, name):
     """The report lands in ``docs/`` under the tier's name when no ``--out``
@@ -306,6 +358,49 @@ def test_report_default_out(tmp_path, monkeypatch, dataset, name):
     _write_journals(tmp_path / "comparison_logs", dataset, {"": {"BPR": _row(0.05)}})
     assert report.main([dataset]) == str(tmp_path / "docs" / name)
     assert "| BPR | OK |" in (tmp_path / "docs" / name).read_text()
+
+
+def test_next_model_keeps_large_planes_apart():
+    """``next_model``: the first model of the queue, but never one of
+    ``LARGE_PLANES`` beside another."""
+    assert sweep.LARGE_PLANES == ("LATTICE", "RFLATTICE", "MVDiff")
+    queue = ["LATTICE", "RFLATTICE", "BPR", "MVDiff", "VBPR"]
+    assert sweep.next_model(queue, set()) == "LATTICE"
+    assert sweep.next_model(queue, {"BPR"}) == "LATTICE"
+    assert sweep.next_model(queue, {"MVDiff"}) == "BPR"
+    assert sweep.next_model(["RFLATTICE", "MVDiff"], {"LATTICE", "VBPR"}) is None
+    assert sweep.next_model([], set()) is None
+
+
+def test_sweep_runs_large_planes_one_at_a_time(tmp_path, monkeypatch):
+    """Five children, three at once (``run_one`` a stub that sleeps): every
+    model runs once, the first three to start are LATTICE, BPR and VBPR
+    (RFLATTICE and MVDiff wait for LATTICE), and no two of ``LARGE_PLANES``
+    ever run together."""
+    import threading
+    import time
+
+    lock, running, starts, overlaps = threading.Lock(), set(), [], []
+
+    def stub(model, *args, **kwargs):
+        with lock:
+            starts.append(model)
+            running.add(model)
+            if len(running & set(sweep.LARGE_PLANES)) > 1:
+                overlaps.append(sorted(running))
+        time.sleep(0.2)
+        with lock:
+            running.discard(model)
+        return {"ok": True, "seconds": 0.2, "valid_recall@20": 0.1, "test_recall@20": 0.1, "test_ndcg@20": 0.05}
+
+    monkeypatch.setattr(sweep, "run_one", stub)
+    models = ["LATTICE", "RFLATTICE", "MVDiff", "BPR", "VBPR"]
+    rc = sweep.main(["--device", "cpu", "-d", "tiny", "--models", *models, "--jobs", "3",
+                     "--out", str(tmp_path / "j.json"), "--workdir", str(tmp_path / "w")])
+    assert rc == 0 and sorted(starts) == sorted(models) and not overlaps
+    assert starts[:3] == ["LATTICE", "BPR", "VBPR"] and starts.index("RFLATTICE") < starts.index("MVDiff")
+    with open(tmp_path / "j.json") as f:
+        assert set(json.load(f)) == set(models)
 
 
 def _same_graph(g, ref):
@@ -336,7 +431,7 @@ def test_structured_generator_against_the_jax_script(tmp_path, monkeypatch):
 
 def test_scripts_import_neither_jax_nor_the_jax_package():
     pattern = re.compile(r"^\s*(?:import|from)\s+(jax|genmmrec_tpu)\b(?!_torch)", re.M)
-    for name in ("zoo_sweep_torch", "zoo_report_torch", "make_structured_dataset_torch"):
+    for name in ("zoo_sweep_torch", "zoo_report_torch", "make_structured_dataset_torch", "prep_scale_torch"):
         with open(os.path.join(SCRIPTS, f"{name}.py")) as f:
             src = f.read()
         assert not pattern.search(src), name
