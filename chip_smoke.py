@@ -10,6 +10,7 @@
     python3 chip_smoke.py --mesh-only
     python3 chip_smoke.py --elec-only [--profile DIR]
     python3 chip_smoke.py --zoo-only
+    python3 chip_smoke.py --tools-only
 
 Drives DiffMM, GenRecV1 and LightGCN at full width, parameters from a
 seeded generator.
@@ -208,6 +209,16 @@ and on a tie-heavy (2,048, 98,129) block of DualGNN's co-occurrence counts
 re-derivation, the user graph against scipy's counts and K3 at k = 200
 against its plain version; then ``scripts/zoo_report_torch.py`` on the
 journal. ``--zoo-only`` builds the kernels and runs this phase alone.
+
+The experiment tools after it (``tools_path``): the baby LightGCN
+checkpoint of one ``python -m genmmrec_tpu_torch`` epoch, its loss landscape
+(``scripts/visualize_landscape_torch.py``'s ``loss_grid``, 11 × 11 points)
+through K1 and again through the plain versions on the card, within
+``LANDSCAPE_RTOL``, the parameters equal to the checkpoint's bit for bit
+afterwards; beside it one harness child, ``scripts/run_rf_models_torch.py
+-d baby --models RFBM3 --use_rf false --epochs 1`` (its YAML grid of three),
+with K1 and K3 launched and a finite BEST block. ``--tools-only`` builds the
+kernels and runs this phase alone.
 
 Before the paths it builds the CUDA kernels from ``genmmrec_tpu_torch/csrc``
 and holds each one (K1 forward and backward, K2 forward and backward, K3,
@@ -1586,23 +1597,14 @@ def k5a_against(torch, dirs, card):
 
 
 def counted_wrappers():
-    """name -> the wrapper whose ``launches`` counts that kernel's launches."""
-    from genmmrec_tpu_torch.ops.fused_topk import fused_candidates, fused_candidates_unmasked, fused_group_max
-    from genmmrec_tpu_torch.ops import segment as S
-    from genmmrec_tpu_torch.ops.topk import candidate_extract, grouped_topk, masked_group_max
+    """name -> the wrapper whose ``launches`` counts that kernel's launches
+    (``genmmrec_tpu_torch.ops.KERNEL_WRAPPERS``)."""
+    import importlib
 
-    return {
-        "segment_spmm": S.segment_spmm,
-        "segment_spmm_backward": S.segment_spmm_backward,
-        "segment_spmm_blocked": S.segment_spmm_blocked,
-        "segment_spmm_blocked_backward": S.segment_spmm_blocked_backward,
-        "grouped_topk": grouped_topk,
-        "candidate_extract": candidate_extract,
-        "masked_group_max": masked_group_max,
-        "fused_group_max": fused_group_max,
-        "fused_candidates": fused_candidates,
-        "fused_candidates_unmasked": fused_candidates_unmasked,
-    }
+    from genmmrec_tpu_torch.ops import KERNEL_WRAPPERS
+
+    return {name: getattr(importlib.import_module(f"genmmrec_tpu_torch.ops.{mod}"), name)
+            for mod, names in KERNEL_WRAPPERS.items() for name in names}
 
 
 def launch_counts():
@@ -5396,6 +5398,17 @@ def structured_reference(np, n_users=4000, n_items=2000, k=24, mean_degree=25.0,
     return files
 
 
+def repo_script(name):
+    """The module of ``scripts/<name>.py`` of this checkout."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def zoo_path(torch, card):
     """The zoo sweep on the card (``--zoo-only`` runs it alone after the
     build, budget ``ZOO_BUDGET_S``): ``scripts/zoo_sweep_torch.py`` trains
@@ -5415,20 +5428,13 @@ def zoo_path(torch, card):
     ``scripts/zoo_report_torch.py`` on the journals: the baby rows and the
     sports and microlens rows OK in the reports. Returns (summary, kernel
     cases by kernel, launches)."""
-    import importlib.util
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
 
-    def script(name):
-        path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", f"{name}.py")
-        spec = importlib.util.spec_from_file_location(name, path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod
-
-    sweep, gen, report = (script(n) for n in ("zoo_sweep_torch", "make_structured_dataset_torch", "zoo_report_torch"))
+    sweep, gen, report = (repo_script(n) for n in ("zoo_sweep_torch", "make_structured_dataset_torch",
+                                                   "zoo_report_torch"))
     phase_t0 = time.perf_counter()
     cases = dict(k1=[], k1_bwd=[], k3=[])
     out = {}
@@ -5540,6 +5546,151 @@ def zoo_path(torch, card):
     out["launches"] = dict(**launches, structured_generator=gen_launches)
     out["phase_s"] = time.perf_counter() - phase_t0
     print(f"zoo_path phase done in {out['phase_s']:.1f} s (budget {ZOO_BUDGET_S:.0f} s); launches {json.dumps(total)}")
+    return out, cases, total
+
+
+# the experiment tools' phase: the landscape's grid through K1 against the
+# same grid through the plain versions, each point within this share of the
+# grid's largest loss (the same float32 sums in another order), and the
+# harness child's kernels
+LANDSCAPE_STEPS, LANDSCAPE_DISTANCE = 11, 2.0
+LANDSCAPE_RTOL = 1e-5
+TOOLS_NEED = ("grouped_topk",) + K1_BOTH
+
+
+def tools_path(torch, card):
+    """The experiment tools on the card (``--tools-only`` runs it alone
+    after the build): one epoch of LightGCN at baby through ``python -m
+    genmmrec_tpu_torch`` (its grid pinned to one combination) writes the
+    checkpoint, and beside it ``scripts/run_rf_models_torch.py -d baby
+    --models RFBM3 --use_rf false --epochs 1`` runs one harness child (the
+    YAML's grid of three), both in a temporary directory; the child's row
+    OK with a finite BEST block and K1 and K3 launched. Then the
+    checkpoint's loss landscape (``LANDSCAPE_STEPS``² points) through K1,
+    no backward launched, and again through the plain versions: each point
+    within ``LANDSCAPE_RTOL`` of the grid's largest loss, and the
+    parameters equal to the checkpoint's bit for bit afterwards; K1 on the
+    model's adjacency and K3 on a chunk of its scores against their plain
+    versions. Returns (summary, kernel cases by kernel, launches)."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    scripts_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts")
+    land, harness = repo_script("visualize_landscape_torch"), repo_script("harness_torch")
+    phase_t0 = time.perf_counter()
+    out, launches = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+
+        def fit_lightgcn():
+            cmd = harness.child_command("LightGCN", "baby", None, "cuda", 1) + [
+                "--config-json", json.dumps({"hyper_parameters": ["seed"], "save_recommended_topk": False})]
+            rc, text, seconds = harness.run_child(cmd, root, 600)
+            row = harness.parse_run(text)
+            if rc != 0 or not os.path.exists(os.path.join(root, "saved", "LightGCN-baby.pt")):
+                raise AssertionError(f"tools_path: LightGCN/baby (rc {rc}) wrote no checkpoint:\n{text[-3000:]}")
+            return dict(seconds=seconds, valid_recall20=row["valid_recall@20"], launches=row["launches"])
+
+        def harness_child():
+            journal = os.path.join(root, "harness.json")
+            t0 = time.perf_counter()
+            run = subprocess.run(
+                [sys.executable, os.path.join(scripts_dir, "run_rf_models_torch.py"), "-d", "baby", "--models",
+                 "RFBM3", "--use_rf", "false", "--epochs", "1", "--workdir", os.path.join(root, "h"),
+                 "--journal", journal, "--timeout", "600"],
+                capture_output=True, text=True, timeout=900,
+            )
+            seconds = time.perf_counter() - t0
+            rows = json.load(open(journal)) if os.path.exists(journal) else {}
+            row = rows.get("RFBM3/baby/norf") or {}
+            if run.returncode != 0 or not row.get("ok"):
+                raise AssertionError(f"tools_path: the harness child failed (rc {run.returncode}):\n"
+                                     f"{run.stdout[-3000:]}{row.get('tail', '')}")
+            return seconds, row
+
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            child = pool.submit(harness_child)
+            lightgcn = fit_lightgcn()
+            child_s, row = child.result()
+        launches["lightgcn_child"] = lightgcn.pop("launches")
+        launches["harness_child"] = row["launches"]
+        for key in ("lightgcn_child", "harness_child"):
+            never = [k for k in TOOLS_NEED if launches[key].get(k, 0) <= 0]
+            if never:
+                raise AssertionError(f"tools_path: the {key} did not launch {never}: {launches[key]}")
+        combos = [dict(parameters=c["parameters"], best_epoch=c["best_epoch"], valid_scores=c["valid_scores"])
+                  for c in row["combinations"]]
+        out["harness_child"] = dict(
+            wall_s=child_s, child_s=row["seconds"], peak_allocated_bytes=row["peak_allocated_bytes"],
+            valid_recall20=row["valid_recall@20"], test_recall20=row["test_recall@20"],
+            best_epoch=row["best_epoch"], rf_warmup_epochs=row["rf_warmup_epochs"], combinations=combos,
+        )
+        out["lightgcn_child"] = lightgcn
+        print(f"tools_path harness child run_rf_models_torch.py -d baby --models RFBM3 --use_rf false --epochs 1: "
+              f"OK in {child_s:.1f} s, {json.dumps(out['harness_child'])}, launches {json.dumps(row['launches'])}; "
+              f"beside it LightGCN/baby one epoch through the CLI in {lightgcn['seconds']:.1f} s [{card}]")
+
+        # the landscape of the LightGCN checkpoint, on the card
+        dev = torch.device("cuda:0")
+        t0 = time.perf_counter()
+        model, state, td = land.load_model("LightGCN", "baby", os.path.join(root, "saved", "LightGCN-baby"), dev,
+                                           {"hyper_parameters": ["seed"]})
+        params = dict(model.named_parameters())
+        ckpt = {k: p.detach().clone() for k, p in params.items()}
+        d1 = land.filter_normalize(land.random_directions(model, 1), params)
+        d2 = land.filter_normalize(land.random_directions(model, 2), params)
+        batch = land.landscape_batch(td, 1024, 3)
+        coords = np.linspace(-LANDSCAPE_DISTANCE / 2, LANDSCAPE_DISTANCE / 2, LANDSCAPE_STEPS, dtype=np.float32)
+        torch.cuda.synchronize()
+        out["landscape_setup_s"] = time.perf_counter() - t0
+
+        def grid():
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            g = land.loss_grid(model, state, batch, d1, d2, coords, 4)
+            return g, time.perf_counter() - start
+
+        grid()  # the first points build the kernels' plans; not timed
+        reset_counts()
+        kernel_grid, kernel_s = grid()
+        launches["landscape"] = launch_counts()
+        with land.plain_versions():
+            plain_grid, plain_s = grid()
+        plain_launched = {k: v for k, v in launch_counts().items() if v != launches["landscape"][k]}
+        if launches["landscape"]["segment_spmm"] <= 0 or launches["landscape"]["segment_spmm_backward"]:
+            raise AssertionError(f"tools_path: the landscape must launch K1 forward alone: {launches['landscape']}")
+        if plain_launched:
+            raise AssertionError(f"tools_path: the plain landscape launched {plain_launched}")
+        diff = float(np.abs(kernel_grid - plain_grid).max())
+        bound = LANDSCAPE_RTOL * float(np.abs(plain_grid).max())
+        if not (np.isfinite(kernel_grid).all() and diff <= bound):
+            raise AssertionError(f"tools_path: the landscape through K1 and through the plain versions differ by "
+                                 f"{diff:.3e} (bound {bound:.3e})")
+        moved = [k for k, p in params.items() if not torch.equal(p, ckpt[k])]
+        if moved:
+            raise AssertionError(f"tools_path: the landscape left {moved} off the checkpoint")
+        centre = float(kernel_grid[LANDSCAPE_STEPS // 2, LANDSCAPE_STEPS // 2])
+        out["landscape"] = dict(steps=LANDSCAPE_STEPS, distance=LANDSCAPE_DISTANCE, grid_s=kernel_s,
+                                plain_grid_s=plain_s, loss_at_checkpoint=centre, max_abs_diff_to_plain=diff,
+                                bound=bound, k1_launches=launches["landscape"]["segment_spmm"])
+        print(f"tools_path landscape LightGCN/baby {LANDSCAPE_STEPS}x{LANDSCAPE_STEPS} at distance "
+              f"{LANDSCAPE_DISTANCE}: loss at checkpoint {centre:.6f}, through K1 in {kernel_s:.3f} s "
+              f"({launches['landscape']['segment_spmm']} launches, no backward), plain versions in {plain_s:.3f} s, "
+              f"largest difference {diff:.3e} (bound {bound:.3e}); parameters equal to the checkpoint's [{card}]")
+
+        # K1 and K3 at the path's shapes against their plain versions
+        cases = dict(k1=check_spmm(torch, [("landscape_lightgcn_adjacency_d64", model.norm_adj, model.latent_dim)],
+                                   card)["cases"], k1_bwd=[])
+        u, i = model.full_embeddings(state)
+        cases["k3"] = check_k3(torch, [("tools_lightgcn_scores_top50", u[:4096] @ i.T, 50, None)], card,
+                               ties_as_sets=True)["cases"]
+        del model, state, td, u, i
+        torch.cuda.empty_cache()
+    total = {k: sum(l.get(k, 0) for l in launches.values()) for k in launch_counts()}
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - phase_t0
+    print(f"tools_path phase done in {out['phase_s']:.1f} s; launches {json.dumps(total)}")
     return out, cases, total
 
 
@@ -5996,6 +6147,10 @@ def main() -> int:
         help="only build the kernels and run the zoo sweep's phase (zoo_path), and stop",
     )
     parser.add_argument(
+        "--tools-only", action="store_true",
+        help="only build the kernels and run the experiment tools' phase (tools_path), and stop",
+    )
+    parser.add_argument(
         "--k5a-against", nargs="+", metavar="DIR",
         help="only time this checkout's K5a against the K5a of each other checkout DIR, in turns, and stop",
     )
@@ -6064,6 +6219,11 @@ def main() -> int:
         zoo, zoo_cases, zoo_launches = zoo_path(torch, card)
         print(json.dumps({"zoo_path": dict(**zoo, launches_total=zoo_launches), "kernel_cases": zoo_cases}))
         print(f"chip_smoke: the build and zoo_path done in {time.perf_counter() - smoke_t0:.1f} s [{card}]")
+        return 0
+    if args.tools_only:
+        tools, tools_cases, tools_launches = tools_path(torch, card)
+        print(json.dumps({"tools_path": dict(**tools, launches_total=tools_launches), "kernel_cases": tools_cases}))
+        print(f"chip_smoke: the build and tools_path done in {time.perf_counter() - smoke_t0:.1f} s [{card}]")
         return 0
     if args.elec_only:
         elec_d, elec_cases, elec_d_launches = elec_path(torch, torch.device("cuda:0"), card, profile_dir=args.profile)
@@ -6361,7 +6521,10 @@ def main() -> int:
     mesh, mesh_cases, mesh_launches = mesh_path(torch, card)
     # -- phase 14: the zoo sweep, its structured data and its report -------
     zoo, zoo_cases, zoo_launches = zoo_path(torch, card)
-    for cs in (cli_cases, mp_cases, prep_cases, mmg_cases, diff_cases, rf_cases, mesh_cases, zoo_cases):
+    # -- phase 15: the experiment tools, the landscape and a harness child --
+    tools, tools_cases, tools_launches = tools_path(torch, card)
+    for cs in (cli_cases, mp_cases, prep_cases, mmg_cases, diff_cases, rf_cases, mesh_cases, zoo_cases,
+               tools_cases):
         k1["cases"] += cs["k1"]
         k1_bwd["cases"] += cs["k1_bwd"]
         k3["cases"] += cs["k3"]
@@ -6369,7 +6532,7 @@ def main() -> int:
     launches = {
         k: serving_launches[k] + switched_launches[k] + bf16_launches[k] + training_launches[k] + wide_launches[k]
         + elec_launches[k] + elec_d_launches[k] + genrec_launches[k] + cli_launches[k] + mp_launches[k] + prep_launches[k] + mmg_launches[k]
-        + diff_launches[k] + rf_launches[k] + mesh_launches[k] + zoo_launches[k]
+        + diff_launches[k] + rf_launches[k] + mesh_launches[k] + zoo_launches[k] + tools_launches[k]
         for k in serving_launches
     }
     never = [k for k, v in launches.items() if v <= 0]
@@ -6439,6 +6602,7 @@ def main() -> int:
         rf_path=dict(**rfp, launches_total=rf_launches),
         mesh_path=dict(**mesh, launches_total=mesh_launches),
         zoo_path=dict(**zoo, launches_total=zoo_launches),
+        tools_path=dict(**tools, launches_total=tools_launches),
         card=card,
         total_s=time.perf_counter() - smoke_t0,
     )

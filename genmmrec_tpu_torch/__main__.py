@@ -4,12 +4,20 @@
         [--config-json '{"eval_dtype": "bfloat16"}' | --config-json overrides.json] [--device cuda|cpu]
 
 It runs ``quick_start`` on the card (``--device cuda``, the default; an
-error without one) or, when asked, on the CPU."""
+error without one) or, when asked, on the CPU. Its last line on standard
+output, ``RUN_TAG`` and a JSON object, gives the device, each kernel's
+launches (``ops.launch_counts``) and the card's peak allocated memory (null
+on the CPU), which the experiment harnesses under ``scripts/`` read."""
 
 import argparse
 import json
 
+import torch
+
+from genmmrec_tpu_torch.ops import launch_counts
 from genmmrec_tpu_torch.quick_start import quick_start
+
+RUN_TAG = "genmmrec_tpu_torch run "
 
 
 def main(argv=None) -> None:
@@ -41,6 +49,12 @@ def main(argv=None) -> None:
         max_epochs=args.epochs,
         device=args.device,
     )
+    on_card = torch.device(args.device).type == "cuda"
+    print(RUN_TAG + json.dumps(dict(
+        device=torch.cuda.get_device_name(0) if on_card else args.device,
+        launches=launch_counts(),
+        peak_allocated_bytes=torch.cuda.max_memory_allocated() if on_card else None,
+    )), flush=True)
 
 
 if __name__ == "__main__":

@@ -21,7 +21,8 @@ set-up.
 A host calls ``_rf_setup(embedding_dim, condition_dim)`` at the end of its
 constructor. ``loss`` takes the host's own draws as keyword arguments and
 the RF draws as ``rf_draws`` (``rf_modules.rf_draws``'s dict);
-``full_embeddings`` takes the start noise as ``start_noise``.
+``full_embeddings`` takes the start noise as ``start_noise`` and, with
+``use_rf`` false, the host's own evaluation draws as keyword arguments.
 """
 
 from __future__ import annotations
@@ -118,9 +119,11 @@ class RFHostMixin:
     def _rf_warmed(self, state) -> float:
         return float(state["rf_epoch"] >= self.rf_cfg.warmup_epochs)
 
-    def full_embeddings(self, state, start_noise=None):
+    def full_embeddings(self, state, start_noise=None, **host_draws):
+        """With ``use_rf`` false the host's own evaluation, which takes
+        ``host_draws`` (LGMRec's ``draws``); otherwise the mix."""
         if not self.use_rf:
-            return super().full_embeddings(state)
+            return super().full_embeddings(state, **host_draws)
         final = self.rf_host_repr(state)
         generated = rf.generate_staged(self.rf, self._rf_conditions(), state["rf_epoch"],
                                        start_noise=self._rf_start_noise(start_noise))

@@ -79,7 +79,7 @@ import json, runpy, sys, time
 t0 = time.perf_counter()
 import torch
 from genmmrec_tpu_torch.engine import trainer as T
-from genmmrec_tpu_torch.ops import fused_topk as F, segment as S, topk as K
+from genmmrec_tpu_torch.ops import launch_counts
 import_s = time.perf_counter() - t0
 marks = {{}}
 fit = T.Trainer.fit
@@ -94,17 +94,10 @@ def timed_fit(self, *a, **kw):
 T.Trainer.fit = timed_fit
 sys.argv = ["genmmrec_tpu_torch"] + sys.argv[1:]
 runpy.run_module("genmmrec_tpu_torch", run_name="__main__", alter_sys=True)
-wrappers = dict(
-    segment_spmm=S.segment_spmm, segment_spmm_backward=S.segment_spmm_backward,
-    segment_spmm_blocked=S.segment_spmm_blocked, segment_spmm_blocked_backward=S.segment_spmm_blocked_backward,
-    grouped_topk=K.grouped_topk, candidate_extract=K.candidate_extract, masked_group_max=K.masked_group_max,
-    fused_group_max=F.fused_group_max, fused_candidates=F.fused_candidates,
-    fused_candidates_unmasked=F.fused_candidates_unmasked,
-)
 peak = torch.cuda.max_memory_allocated() if torch.cuda.is_initialized() else None
 print({CHILD_TAG!r} + json.dumps(dict(
     import_s=import_s, total_s=time.perf_counter() - t0, peak_allocated_bytes=peak,
-    launches={{k: int(w.launches) for k, w in wrappers.items()}}, **marks,
+    launches=launch_counts(), **marks,
 )), flush=True)
 """
 

@@ -189,6 +189,56 @@ def test_velocity_net_matches(mode):
             assert not torch.allclose(got, net(_t(x), _t(t), _t(cond)))
 
 
+# the prior-guidance ablation's four settings (scripts/run_ablation_prior.py;
+# its port keeps the same table, tests/test_torch_harness.py)
+ABLATIONS = {
+    "baseline": {"user_guidance_scale": 0.0, "cosine_guidance_scale": 0.0},
+    "user_only": {"user_guidance_scale": 0.2, "cosine_guidance_scale": 0.0},
+    "cosine_only": {"user_guidance_scale": 0.0, "cosine_guidance_scale": 0.1},
+    "both": {"user_guidance_scale": 0.2, "cosine_guidance_scale": 0.1},
+}
+
+
+@pytest.mark.parametrize("ablation", list(ABLATIONS))
+def test_velocity_under_the_prior_ablations(ablation):
+    """Each ablation's scales reach ``RFConfig`` from RFGUME's config in both
+    packages, and the velocity in train mode with both guidance inputs
+    given, and its gradients, match the JAX one at those scales; a scale of
+    0 drops its term: the velocity equals the one without that input."""
+    scales = ABLATIONS[ablation]
+    over = {**ONE_DEVICE, **scales}
+    ref_cfg = jrf.RFConfig.from_config(JConfig("RFGUME", "tiny", dict(over)), 11, 13, 64)
+    got_cfg = trf.RFConfig.from_config(TConfig("RFGUME", "tiny", dict(over)), 11, 13, 64)
+    assert dataclasses.asdict(got_cfg) == dataclasses.asdict(ref_cfg)
+    assert (got_cfg.user_guidance_scale, got_cfg.cosine_guidance_scale) == tuple(scales.values())
+    jcfg, tcfg = _cfgs(**scales)
+    N, c = 30, 9
+    params, net = _velocity_pair(jcfg, tcfg, c, seed=5)
+    rng = np.random.default_rng(6)
+    x, cond, prior, x1, g_bar = (rng.standard_normal((N, d)).astype(np.float32) for d in (8, c, 8, 8, 8))
+    t = rng.random((N, 1)).astype(np.float32)
+    key = jax.random.PRNGKey(7)
+
+    def jax_v(p):
+        return jrf.apply_velocity(p, jcfg, jnp.asarray(x), jnp.asarray(t), jnp.asarray(cond), train=True,
+                                  dropout_key=key, user_prior=jnp.asarray(prior), x_1=jnp.asarray(x1))
+
+    ref = jax.jit(jax_v)(params)
+    ref_g = jax.jit(jax.grad(lambda p: (jax_v(p) * g_bar).sum()))(params)
+    keep = _planes(key, jcfg, N)
+    got = net(_t(x), _t(t), _t(cond), train=True, keep=keep, user_prior=_t(prior), x_1=_t(x1))
+    _close(got, ref)
+    (got * _t(g_bar)).sum().backward()
+    _grads_close(net, ref_g)
+    with torch.no_grad():
+        kw = {}
+        if scales["user_guidance_scale"]:
+            kw["user_prior"] = _t(prior)
+        if scales["cosine_guidance_scale"]:
+            kw["x_1"] = _t(x1)
+        assert torch.equal(net(_t(x), _t(t), _t(cond), train=True, keep=keep, **kw), got.detach())
+
+
 @pytest.mark.parametrize("case", ["noise", "prior_and_fixed_noise"])
 def test_rf_losses_and_grads_match(case):
     """``rf_losses`` (flow, InfoNCE, total) and every gradient of the

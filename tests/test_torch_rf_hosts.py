@@ -22,6 +22,9 @@ projection biases of FREEDOM are zero but for rounding (their loss terms
 cancel).
 """
 
+import importlib.util
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -196,9 +199,11 @@ def batch(n_users, n_items, B=96, seed=0):
     return rng.integers(0, n_users, B), rng.integers(0, n_items, B), rng.integers(0, n_items, B), w
 
 
-def check_loss_and_grads(pair, port_draws, n_parts):
+def check_loss_and_grads(pair, port_draws, n_parts, rf=True):
     """The loss and every gradient against ``jax.grad``: ``port_draws(key,
-    B)`` gives the port's loss keyword draws of the JAX key."""
+    B)`` gives the port's loss keyword draws of the JAX key. ``n_parts``
+    None: as many parts as the JAX loss; ``rf`` False: a model without the
+    flow (``use_rf`` false), no ``rf`` subtree."""
     name, jm, tm, params = pair["name"], pair["jm"], pair["tm"], pair["params"]
     users, pos, neg, w = batch(jm.n_users, jm.n_items)
     jb = {"users": jnp.asarray(users, jnp.int32), "pos": jnp.asarray(pos, jnp.int32),
@@ -210,13 +215,13 @@ def check_loss_and_grads(pair, port_draws, n_parts):
     total, parts = tm.loss(pair["tstate"], tb, **port_draws(key, len(users)))
     total.backward()
     np.testing.assert_allclose(total.item(), float(ref), rtol=1e-5)
-    assert len(parts) == len(ref_parts) == n_parts
+    assert len(parts) == len(ref_parts) == (n_parts or len(ref_parts))
     for g, r in zip(parts, ref_parts):
         np.testing.assert_allclose(g.item(), float(r), rtol=1e-5, atol=1e-7)
     ref_g = jax_tree_by_name(np_tree(grads))
     got = dict(zip(params_by_jax_name(tm), (p.grad for _, p in tm.named_parameters())))
     assert got.keys() == ref_g.keys()
-    assert any(k.startswith(("rf/", "velocity/")) for k in got)
+    assert any(k.startswith(("rf/", "velocity/")) for k in got) == rf
     for k, g in got.items():
         if g is None:
             assert not ref_g[k].any(), k
@@ -288,3 +293,64 @@ def test_host_loss_and_grads_match(pair):
 @pytest.mark.parametrize("warmed", [0, 1])
 def test_host_embeddings_and_scores_match(pair, warmed):
     check_embeddings_and_scores(pair, warmed)
+
+
+# ----------------------------------------------------------------------
+# the branches the experiment harnesses reach (scripts/*_torch.py)
+def harness_overrides(name, dataset="baby"):
+    """``run_rf_models_torch.py``'s overrides of ``name`` at ``dataset``
+    (its table equals the JAX ``run_rf_models.py``'s:
+    ``tests/test_torch_harness.py``)."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts",
+                        "run_rf_models_torch.py")
+    spec = importlib.util.spec_from_file_location("run_rf_models_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return dict(mod.MODEL_DATASET_CONFIGS.get(name, {}).get(dataset, {}))
+
+
+EPOCH_KEYS = {"RFGUME": "epoch"}
+
+
+@pytest.fixture(scope="module", params=["RFBM3", "RFGUME", "RFFREEDOM", "RFLGMRec", "RFSMORE"])
+def pair_without_rf(request):
+    """A host with ``use_rf`` false and the RF comparison's baby overrides
+    (``run_rf_models``' ``MODEL_DATASET_CONFIGS``: RFLGMRec's hyper_num 4,
+    RFSMORE's image_knn_k 40, ...)."""
+    name = request.param
+    p = build_pair(name, {**harness_overrides(name), "use_rf": False})
+    if name == "RFLGMRec":
+        p["tm"].repr_draws = lgmrec_draws(p["jm"], jax.random.PRNGKey(0))
+    return p
+
+
+def test_host_without_rf_matches(pair_without_rf):
+    """``use_rf`` false: no flow in either package (no ``rf`` subtree, no
+    ``"rf"`` optimizer group), the overrides applied, the host's loss parts
+    and every gradient against ``jax.grad`` with the host's own draws, and
+    the embeddings and scores past the warm-up equal to the JAX model's
+    (no generated term)."""
+    pair = pair_without_rf
+    name, jm, tm = pair["name"], pair["jm"], pair["tm"]
+    assert not tm.use_rf and not jm.use_rf and tm.label_transforms() == {}
+    assert not any(k.startswith("rf/") for k in jax_tree_by_name(np_tree(pair["params"])))
+    for key, value in harness_overrides(name).items():
+        assert tm.config[key] == value == jm.config[key], key
+    check_loss_and_grads(pair, lambda key, B: host_draws(name, jm, key, B), n_parts=None, rf=False)
+    # LGMRec evaluates with draws (the JAX PRNGKey(0)'s, as its target takes them)
+    kw = {"draws": tm.repr_draws} if name == "RFLGMRec" else {}
+    check_embeddings_and_scores(pair, 1, epoch_key=EPOCH_KEYS.get(name, "rf_epoch"), **kw)
+
+
+@pytest.mark.parametrize("name", ["RFBM3", "RFGUME"])
+def test_inference_mix_at_the_searched_ratio(name):
+    """``rf_inference_mix_ratio`` 0.1 (the staged search's third value; the
+    YAMLs' 0.05) past the warm-up: the embeddings and scores with the
+    generated term mixed in at that ratio equal the JAX model's, and differ
+    from those before the warm-up."""
+    pair = build_pair(name, {"rf_inference_mix_ratio": 0.1})
+    assert pair["tm"].rf_cfg.inference_mix_ratio == pair["jm"].rf_cfg.inference_mix_ratio == 0.1
+    key = EPOCH_KEYS.get(name, "rf_epoch")
+    warm = check_embeddings_and_scores(pair, 1, epoch_key=key)
+    cold = check_embeddings_and_scores(pair, 0, epoch_key=key)
+    assert not torch.allclose(warm[1], cold[1])

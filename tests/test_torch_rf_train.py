@@ -104,13 +104,11 @@ EPOCH_OVER = {"train_batch_size": 64, "save_recommended_topk": False, "rf_loss_w
               "alpha2": 0.3, "beta": 2, **ONE_DEVICE}
 
 
-@pytest.fixture(scope="module", params=["RFGUME", "RFBM3"])
-def jax_epoch(request):
+def _jax_side(name, over):
     """A model's JAX side on tiny: its trainer's optimizer (the main chain
     and the ``"rf"`` AdamW under ``multi_transform``), the jitted gradient
     and update, the batch plan and keys of one epoch."""
-    name = request.param
-    jc = JConfig(name, "tiny", dict(EPOCH_OVER))
+    jc = JConfig(name, "tiny", dict(over))
     jtd = j_train(JDataset(jc).split()[0])
     jm = j_get_model(name)(jc, jtd)
     params = _widened(name, jm.init_params(jax.random.PRNGKey(0)))
@@ -119,13 +117,74 @@ def jax_epoch(request):
     optimizer, _ = jtr._build_train_step(jtd)
     B, nb = jtr.train_batch_size, jtr._num_batches
     k_perm, k_scan = jax.random.split(jax.random.PRNGKey(5))
-    return dict(name=name, jm=jm, jtd=jtd, jtr=jtr, params=params, optimizer=optimizer,
+    return dict(name=name, over=over, jm=jm, jtd=jtd, jtr=jtr, params=params, optimizer=optimizer,
                 grad_fn=jax.jit(jax.value_and_grad(jm.loss_and_update, has_aux=True)),
                 update=jax.jit(optimizer.update),
                 negatives=jax.jit(lambda k, u: j_sample_negatives(k, u, jtd.hist, jtd.item_pool, jtd.n_pool,
                                                                   jtr.neg_rounds)),
                 draws=jax.jit(lambda k: _epoch_draws_jax(name, jm, k, B)),
                 idxs=jax.random.permutation(k_perm, nb * B).reshape(nb, B), keys=jax.random.split(k_scan, nb))
+
+
+@pytest.fixture(scope="module", params=["RFGUME", "RFBM3"])
+def jax_epoch(request):
+    return _jax_side(request.param, EPOCH_OVER)
+
+
+def _jax_batches(js, mg, n_batches):
+    """The JAX trainer's optimizer stepping the first ``n_batches`` batches
+    of the plan as its ``batch_step`` does: (parameters after them, the
+    per-batch losses, the port's plan of the same batches, the first
+    batch's gradients)."""
+    name, jm, jtd, jtr = js["name"], js["jm"], js["jtd"], js["jtr"]
+    grad_fn, update, idxs, keys, jstate = js["grad_fn"], js["update"], js["idxs"], js["keys"], jtr._state
+    n_inter = jtd.n_inter
+    alpha1, alpha2, beta = EPOCH_OVER["alpha1"], EPOCH_OVER["alpha2"], EPOCH_OVER["beta"]
+    p, o = js["params"], js["optimizer"].init(js["params"])
+    plan = {"draws": [], "draws2": [], "neg": []}
+    ref_losses, first = [], None
+    for b in range(n_batches):
+        k_neg, k_loss, k_loss2 = jax.random.split(keys[b], 3)
+        raw = idxs[b]
+        idx = raw % n_inter
+        users = jtd.users[idx]
+        if jtr.config["use_neg_sampling"]:
+            neg = js["negatives"](k_neg, users)
+        else:
+            neg = jnp.zeros_like(users)
+        batch = {"users": users, "pos": jtd.items[idx], "neg": neg, "weight": (raw < n_inter).astype(jnp.float32)}
+        (_, (parts, _)), grads = grad_fn(p, jstate, batch, k_loss)
+        first = grads if first is None else first
+        if mg and b % beta == 0:
+            upd, o = update(jax.tree_util.tree_map(lambda g: alpha1 * g, grads), o, p)
+            p = optax.apply_updates(p, upd)
+            _, g2 = grad_fn(p, jstate, batch, k_loss2)
+            grads = jax.tree_util.tree_map(lambda g: -alpha2 * g, g2)
+            plan["draws2"].append(_epoch_draws(name, jm, js["draws"](k_loss2)))
+        else:
+            plan["draws2"].append({})
+        upd, o = update(grads, o, p)
+        p = optax.apply_updates(p, upd)
+        ref_losses.append([float(v) for v in parts])
+        plan["neg"].append(_t(neg, torch.int64))
+        plan["draws"].append(_epoch_draws(name, jm, js["draws"](k_loss)))
+    plan["idx"] = _t(idxs[:n_batches], torch.int64)
+    return p, ref_losses, plan, first
+
+
+def _port_batches(js, mg, plan):
+    """The port's trainer on the plan from the same parameters: (the
+    trainer, the per-batch losses)."""
+    name = js["name"]
+    tc = TConfig(name, "tiny", dict(js["over"]))
+    ttd = t_train(TDataset(tc).split()[0], CPU)
+    tm = t_get_model(name)(tc, ttd)
+    from_jax_params(tm, _np_tree(js["params"]))
+    ttr = TTrainer(tc, tm, mg=mg)
+    ttr.state = tm.init_state()
+    ttr._build_train_step(ttd)
+    assert ttr._batch_steps == ["main", "rf"]
+    return ttr, ttr._train_epoch(plan=plan)
 
 
 @pytest.mark.parametrize("mg", [False, True], ids=["plain", "mg"])
@@ -138,54 +197,45 @@ def test_rf_epoch_matches_the_jax_trainer(jax_epoch, mg):
     ``batch_step`` does, at the tolerances of the repo's other epoch tests
     (rtol 1e-4, atol 1e-5: Adam normalizes a gradient's rounding into its
     step); the ``rf`` subtree moved."""
-    name, jm, jtd, jtr = jax_epoch["name"], jax_epoch["jm"], jax_epoch["jtd"], jax_epoch["jtr"]
-    params, grad_fn, update = jax_epoch["params"], jax_epoch["grad_fn"], jax_epoch["update"]
-    idxs, keys, jstate = jax_epoch["idxs"], jax_epoch["keys"], jtr._state
-    B, nb, n_inter = jtr.train_batch_size, jtr._num_batches, jtd.n_inter
-    alpha1, alpha2, beta = EPOCH_OVER["alpha1"], EPOCH_OVER["alpha2"], EPOCH_OVER["beta"]
-    p, o = params, jax_epoch["optimizer"].init(params)
-    plan = {"draws": [], "draws2": [], "neg": []}
-    ref_losses = []
-    for b in range(nb):
-        k_neg, k_loss, k_loss2 = jax.random.split(keys[b], 3)
-        raw = idxs[b]
-        idx = raw % n_inter
-        users = jtd.users[idx]
-        if jtr.config["use_neg_sampling"]:
-            neg = jax_epoch["negatives"](k_neg, users)
-        else:
-            neg = jnp.zeros_like(users)
-        batch = {"users": users, "pos": jtd.items[idx], "neg": neg, "weight": (raw < n_inter).astype(jnp.float32)}
-        (_, (parts, _)), grads = grad_fn(p, jstate, batch, k_loss)
-        if mg and b % beta == 0:
-            upd, o = update(jax.tree_util.tree_map(lambda g: alpha1 * g, grads), o, p)
-            p = optax.apply_updates(p, upd)
-            _, g2 = grad_fn(p, jstate, batch, k_loss2)
-            grads = jax.tree_util.tree_map(lambda g: -alpha2 * g, g2)
-            plan["draws2"].append(_epoch_draws(name, jm, jax_epoch["draws"](k_loss2)))
-        else:
-            plan["draws2"].append({})
-        upd, o = update(grads, o, p)
-        p = optax.apply_updates(p, upd)
-        ref_losses.append([float(v) for v in parts])
-        plan["neg"].append(_t(neg, torch.int64))
-        plan["draws"].append(_epoch_draws(name, jm, jax_epoch["draws"](k_loss)))
-    plan["idx"] = _t(idxs, torch.int64)
-
-    tc = TConfig(name, "tiny", dict(EPOCH_OVER))
-    ttd = t_train(TDataset(tc).split()[0], CPU)
-    tm = t_get_model(name)(tc, ttd)
-    from_jax_params(tm, _np_tree(params))
-    ttr = TTrainer(tc, tm, mg=mg)
-    ttr.state = tm.init_state()
-    ttr._build_train_step(ttd)
-    assert ttr._batch_steps == ["main", "rf"]
-    got = ttr._train_epoch(plan=plan)
+    nb, beta = jax_epoch["jtr"]._num_batches, EPOCH_OVER["beta"]
+    p, ref_losses, plan, _ = _jax_batches(jax_epoch, mg, nb)
+    ttr, got = _port_batches(jax_epoch, mg, plan)
     np.testing.assert_allclose(got.numpy(), ref_losses, rtol=1e-4)
     ref = jax_tree_by_name(_np_tree(p))
-    before = jax_tree_by_name(_np_tree(params))
-    for k, v in params_by_jax_name(tm).items():
+    before = jax_tree_by_name(_np_tree(jax_epoch["params"]))
+    for k, v in params_by_jax_name(ttr.model).items():
         np.testing.assert_allclose(v, ref[k], rtol=1e-4, atol=1e-5, err_msg=k)
     assert all(np.abs(ref[k] - before[k]).max() > 0 for k in ref if k.startswith("rf/"))
     steps = nb + (-(-nb // beta) if mg else 0)
     assert ttr.optimizers["rf"].count == ttr.optimizers["main"].count == steps
+
+
+@pytest.mark.parametrize("name", ["RFBM3", "RFGUME"])
+def test_one_step_at_the_searched_rf_learning_rate(name):
+    """One batch at ``rf_learning_rate`` 1e-3 (the staged search's third
+    value; the YAMLs' is 3e-4): the ``"rf"`` AdamW's step against the JAX
+    trainer's, every parameter after it (rtol 1e-4, atol 1e-5), the ``rf``
+    subtree moved by about the rate. Adam's first step is ``lr · g / (|g| +
+    1e-8)``: an entry whose gradient is rounding noise (below 1e-6 of its
+    tensor's largest, a cancellation in both packages) takes a step of an
+    arbitrary share of the rate, so such an entry is held to have moved by at
+    most the rate in both packages."""
+    js = _jax_side(name, {**EPOCH_OVER, "rf_learning_rate": 1e-3})
+    assert js["jm"].rf_cfg.learning_rate == 1e-3
+    p, ref_losses, plan, grads = _jax_batches(js, False, 1)
+    ttr, got = _port_batches(js, False, plan)
+    assert ttr.model.rf_cfg.learning_rate == float(ttr.config["learning_rate"]) == 1e-3
+    assert ttr.optimizers["rf"].count == 1
+    np.testing.assert_allclose(got.numpy(), ref_losses, rtol=1e-4)
+    ref = jax_tree_by_name(_np_tree(p))
+    before = jax_tree_by_name(_np_tree(js["params"]))
+    g = jax_tree_by_name(_np_tree(grads))
+    lr_step = 1e-3 * (1 + 1e-3)
+    for k, v in params_by_jax_name(ttr.model).items():
+        noise = np.abs(g[k]) <= 1e-6 * np.abs(g[k]).max()
+        np.testing.assert_allclose(v[~noise], ref[k][~noise], rtol=1e-4, atol=1e-5, err_msg=k)
+        # both optimizers' rate is 1e-3 here (the YAMLs' learning_rate)
+        assert max(np.abs(v - before[k])[noise].max(initial=0), np.abs(ref[k] - before[k])[noise].max(initial=0)) \
+            <= lr_step, k
+    moved = max(np.abs(ref[k] - before[k]).max() for k in ref if k.startswith("rf/"))
+    assert 5e-4 < moved <= lr_step

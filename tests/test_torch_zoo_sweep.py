@@ -431,9 +431,17 @@ def test_structured_generator_against_the_jax_script(tmp_path, monkeypatch):
 
 def test_scripts_import_neither_jax_nor_the_jax_package():
     pattern = re.compile(r"^\s*(?:import|from)\s+(jax|genmmrec_tpu)\b(?!_torch)", re.M)
-    for name in ("zoo_sweep_torch", "zoo_report_torch", "make_structured_dataset_torch", "prep_scale_torch"):
+    # nor a script of the JAX side (the experiment harnesses keep their own tables)
+    jax_scripts = re.compile(
+        r"^\s*(?:import|from)\s+(compare_models|compare_results|run_rf_models|run_rfgume|run_ablation_prior|"
+        r"run_rf_staged_search|visualize_landscape|zoo_sweep|zoo_report|main)\b(?!_torch)", re.M)
+    for name in ("zoo_sweep_torch", "zoo_report_torch", "make_structured_dataset_torch", "prep_scale_torch",
+                 "harness_torch", "compare_models_torch", "compare_results_torch", "run_rf_models_torch",
+                 "run_rfgume_torch", "run_ablation_prior_torch", "run_rf_staged_search_torch",
+                 "visualize_landscape_torch", "harness_report_torch"):
         with open(os.path.join(SCRIPTS, f"{name}.py")) as f:
             src = f.read()
         assert not pattern.search(src), name
+        assert not jax_scripts.search(src), name
         assert "genmmrec_tpu." not in src.replace("genmmrec_tpu_torch", ""), name
     assert sweep.ALL_MODELS == _script("zoo_sweep").ALL_MODELS and len(set(sweep.ALL_MODELS)) == 50
